@@ -5,12 +5,15 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written φ kernels from ``dist_svgd_torch/csrc/`` with
-``nvcc``, holds each against its plain PyTorch version at the main path's
-shapes and at a ragged shape, drives the north-star path (10,000-particle
-Bayesian logistic regression, 8 emulated shards, ``all_particles``) through
-``DistSampler.run_steps`` and checks that it went through the kernels, and
-prints one JSON object per phase.  A phase that fails raises, so the script
+It builds the six hand-written kernels from ``dist_svgd_torch/csrc/`` with
+``nvcc`` (the two φ kernels and the four Sinkhorn kernels), holds each
+against its plain PyTorch version at the main paths' shapes and at ragged
+shapes, drives the north-star path (10,000-particle Bayesian logistic
+regression, 8 emulated shards, ``all_particles``) through
+``DistSampler.run_steps`` without and with the Wasserstein term (Sinkhorn at
+10,000 particles on the fused route, at 100,000 on the streaming route),
+checks that each path went through its kernels, and prints one JSON object
+per phase.  A phase that fails raises, so the script
 exits non-zero; the last line, printed only when every phase passed, is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -29,6 +32,21 @@ TRAJECTORY_STEPS = 20
 BIG_D_STEPS = 50
 TIMED_LAUNCHES = 50
 PROFILE_STEPS = 20
+# The W2 rows of bench.py: the north star with include_wasserstein=True,
+# wasserstein_solver='sinkhorn' and the defaults (eps 0.05, iters 200, tol
+# 1e-2, warm start), run_steps(·, 3e-3, h=10.0); at n = 100,000 one shard's
+# solve is 12,500 × 100,000 pairs, past the streaming line.
+W2_NORTH_STAR = dict(n=10_000, warm_steps=10, steps=100, h=10.0)
+W2_STREAMING = dict(n=100_000, warm_steps=1, steps=5, h=10.0)
+W2_TRAJECTORY = dict(steps=20, iters=50)
+W2_PROFILE_STEPS = 10
+W2_SYNC_STEPS = 20
+# Timed launches of the Sinkhorn kernels' parity rows: the main rows at the
+# 100k shapes (~10 ms a call), the other rows; the plain versions take
+# 0.4–0.9 s a call at the 100k shapes, so fewer of those.
+MAIN_100K_LAUNCHES = 20
+OTHER_LAUNCHES = 10
+PLAIN_100K_REPS = 5
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -42,6 +60,23 @@ PEAK_HBM_BYTES = 3.35e12
 # y² + x² − 2·y·x, so ~1e-6 relative is expected; 1e-4 leaves room without
 # hiding a wrong index.
 KERNEL_RTOL = 1e-4
+# The Sinkhorn kernels (ops/cuda_ot.py).  kexp: elementwise |Δ| ≤ 1e-5·|plain|
+# — kernel and plain version build the same exponent with the same roundings
+# (per-dim differences, no FMA contraction) and both call the full-precision
+# float32 exp, so they differ by the exp's last-ulp error at most.  The
+# row reductions (kmat_vec, plan_grad, hard c-transform): max|Δ| ≤
+# 1e-4·max|plain|, as for φ — the kernel sums its m terms in chunked
+# sequential chains with a fixed-order split merge, the plain version
+# through cuBLAS or torch's reduction tree, ~1e-6 relative apart.  Soft
+# c-transform: max|Δ| ≤ 1e-4·(1 + max|plain|) — a log, so its error is
+# absolute (the relative error of the sum it takes the log of) and its value
+# can sit near 0.  plan_grad: max|Δ| ≤ 1e-4·max_i(max_c|y_ic|·Σ_j P_ij) — its
+# epilogue y·Σ_j P_ij − Σ_j P_ij·x_j cancels (the terms run to tens of times
+# the result at these inputs), so its rounding scales with the terms it
+# subtracts, not with the result.
+KEXP_RTOL = 1e-5
+REDUCE_RTOL = 1e-4
+SOFT_CT_TOL = 1e-4
 # Trajectory tolerance: max|θ_cuda − θ_torch| ≤ TRAJ_RTOL · max|θ| after 20
 # steps from the same init.  Per-step φ agreement is ~1e-6 of max|φ|, scaled
 # by the step size, so the two float32 trajectories agree far below this.
@@ -50,6 +85,11 @@ TRAJ_RTOL = 1e-4
 # against the port on the CPU (float64, phi_impl='torch'), 3 steps, all
 # three exchange modes — float32 rounding of O(1) particles.
 SMALL_RTOL = 1e-5
+# The same with the W2 term (Sinkhorn, sinkhorn_tol=None, 200 iterations):
+# the card's float32 fused route against the CPU's float64 torch route.
+# Both solve the same fixpoint; the float32 potentials after 200 scaling
+# iterations carry ~1e-5 relative error, which the update scales by ε·h.
+W2_SMALL_RTOL = 1e-4
 
 KERNELS = {
     "phi_small_d": {
@@ -65,6 +105,33 @@ KERNELS = {
         # per pair: d FMAs (distance dot), y²+x²−2·dot (3), clamp, 1/h scale,
         # row-sum add, d FMAs (drive); plus one exp
         "flops_per_pair": lambda d: 4 * d + 6,
+    },
+    # The Sinkhorn kernels count the distance as d subtractions, d products
+    # and d − 1 sums plus the clamp (3d), all without FMA contraction.
+    "ot_ctransform": {
+        "source": "dist_svgd_torch/csrc/ot_ctransform.cu",
+        "replaces": "dist_svgd_tpu/ops/pallas_ot.py:136",
+        # hard: distance, − p, min (3d+2); soft: distance, p −, ·inv_reg,
+        # compare, e − max, sum add (3d+5) plus one exp
+        "flops_per_pair": lambda d, soft=True: 3 * d + (5 if soft else 2),
+    },
+    "ot_kexp": {
+        "source": "dist_svgd_torch/csrc/ot_kexp.cu",
+        "replaces": "dist_svgd_tpu/ops/pallas_ot.py:242",
+        # distance, f + g, − d², ·inv_reg (3d+4) plus one exp
+        "flops_per_pair": lambda d: 3 * d + 4,
+    },
+    "ot_kmat_vec": {
+        "source": "dist_svgd_torch/csrc/ot_kmat_vec.cu",
+        "replaces": "dist_svgd_tpu/ops/pallas_ot.py:514",
+        # distance and exponent (3d+4), r FMAs (2r) plus one exp
+        "flops_per_pair": lambda d, r=1: 3 * d + 4 + 2 * r,
+    },
+    "ot_plan_grad": {
+        "source": "dist_svgd_torch/csrc/ot_plan_grad.cu",
+        "replaces": "dist_svgd_tpu/ops/pallas_ot.py:297",
+        # distance and exponent (3d+4), row-sum add, d FMAs (2d) plus one exp
+        "flops_per_pair": lambda d: 5 * d + 5,
     },
 }
 
@@ -98,14 +165,33 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(name, S, k, m, d, x_numel):
+def bound_ms(flops, nbytes):
     """Least time the card could take for one call: the larger of the bytes
-    it must move (y, x, s read once, φ written once; float32) over HBM
+    it must move (each input read once, each output written once) over HBM
     bandwidth and its float32 operations over the float32 peak."""
-    nbytes = 4 * (S * k * d + x_numel + S * m * d + S * k * d)
-    flops = S * k * m * KERNELS[name]["flops_per_pair"](d)
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def phi_work(name, S, k, m, d, x_numel):
+    """(flops, bytes) of one φ call: y, x, s read, φ written; float32."""
+    nbytes = 4 * (S * k * d + x_numel + S * m * d + S * k * d)
+    return S * k * m * KERNELS[name]["flops_per_pair"](d), nbytes
+
+
+def ot_work(name, S, k, m, d, r=1, soft=True):
+    """(flops, bytes) of one Sinkhorn-kernel call on lanes of k rows and m
+    columns: rows and columns read, the per-lane potentials and right-hand
+    sides read, the output written; float32."""
+    per_pair = KERNELS[name]["flops_per_pair"]
+    coords = S * (k + m) * d
+    if name == "ot_ctransform":
+        return S * k * m * per_pair(d, soft), 4 * (coords + S * m + S * k)
+    if name == "ot_kexp":
+        return S * k * m * per_pair(d), 4 * (coords + S * (k + m) + S * k * m)
+    if name == "ot_kmat_vec":
+        return S * k * m * per_pair(d, r), 4 * (coords + S * (k + m) + S * (m + k) * r)
+    return S * k * m * per_pair(d), 4 * (coords + S * (k + m) + S * k * d)
 
 
 def phi_inputs(S, k, m, d, seed, shared_x=True):
@@ -125,7 +211,42 @@ def phi_inputs(S, k, m, d, seed, shared_x=True):
     return [t.cuda().contiguous() for t in (y, x, s)]
 
 
-def profile_steps(ds, step_size, steps=PROFILE_STEPS):
+def ot_inputs(S, k, m, d, seed):
+    """Lanes of W2-like inputs in the solve's reg-rescaled units: points
+    spread so that mean C ≈ 1/eps = 20, and f, g the cold start's hard
+    c-transform pair (so exp(f + g − C) ≤ 1 with a 1 in every row and
+    column, as in a real solve), a positive right-hand side."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_ot
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    scale = (20.0 / (2 * d)) ** 0.5
+    rows = (scale * torch.randn(S, k, d, generator=g)).cuda()
+    cols = (scale * torch.randn(S, m, d, generator=g)).cuda()
+    f = cuda_ot.ctransform_reduce(rows, cols, torch.zeros(S, m, device="cuda"), soft=False)
+    gpot = cuda_ot.ctransform_reduce(cols, rows, f, soft=False)
+    p = (4.0 * torch.randn(S, m, generator=g)).cuda()
+    rhs = (0.5 + torch.rand(S, m, 8, generator=g)).cuda()
+    return rows, cols, f, gpot, p, rhs
+
+
+def ot_check(name, got, want, soft=False, terms=0.0):
+    """(ok, max|Δ|, the tolerance, max|plain|) under the tolerance rules
+    above; ``terms`` is plan_grad's term scale."""
+    import torch
+
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    finite = bool(torch.isfinite(got).all())
+    if name == "ot_kexp":
+        ok = bool(((got - want).abs() <= KEXP_RTOL * want.abs()).all())
+        return finite and ok, err, f"|d| <= {KEXP_RTOL}*|plain| elementwise", scale
+    tol = SOFT_CT_TOL * (1.0 + scale) if soft else REDUCE_RTOL * max(scale, terms)
+    return finite and err <= tol, err, tol, scale
+
+
+def profile_steps(ds, step_size, steps=PROFILE_STEPS, h=1.0, phase="profile"):
     """Device time by kernel over ``steps`` sampler steps, from the CUDA
     activities of a torch.profiler trace, and the device's busy share of the
     host wall time of those steps (one stream, so kernels do not overlap)."""
@@ -135,7 +256,7 @@ def profile_steps(ds, step_size, steps=PROFILE_STEPS):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ds.run_steps(steps, step_size)
+        ds.run_steps(steps, step_size, h=h)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name = {}
@@ -145,7 +266,7 @@ def profile_steps(ds, step_size, steps=PROFILE_STEPS):
             by_name[ev.name] = (us + ev.time_range.elapsed_us(), count + 1)
     device_us = sum(us for us, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"phase": "profile", "steps": steps,
+    return {"phase": phase, "steps": steps,
             "wall_ms_per_step": wall_us / 1e3 / steps,
             "device_ms_per_step": device_us / 1e3 / steps if device_us else "not measured",
             "device_busy_share": device_us / wall_us if device_us else "not measured",
@@ -164,7 +285,7 @@ def main():
 
     from dist_svgd_torch import DistSampler
     from dist_svgd_torch.models.logreg import ensemble_test_accuracy, logreg_logp
-    from dist_svgd_torch.ops import _build, cuda_svgd
+    from dist_svgd_torch.ops import _build, cuda_ot, cuda_svgd
     from dist_svgd_torch.utils.datasets import load_benchmark
     from dist_svgd_torch.utils.platform import resolve_device
     from dist_svgd_torch.utils.rng import init_particles_per_shard
@@ -227,13 +348,85 @@ def main():
         if role == "main":
             ms = cuda_ms(lambda: kern(y, x, s, h), TIMED_LAUNCHES)
             plain_ms = cuda_ms(lambda: plain(y, x, s, h), TIMED_LAUNCHES)
-            b_ms, b_by = bound_ms(name, S, k, m, d, x.numel())
+            b_ms, b_by = bound_ms(*phi_work(name, S, k, m, d, x.numel()))
             timing[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": b_ms, "bound_by": b_by}
             row.update(ms=ms, plain_ms=plain_ms, bound_us=1e3 * b_ms, bound_by=b_by)
         emit(row)
         if not ok:
             raise AssertionError(f"{name} {role}: max|Δ| {err} > {KERNEL_RTOL} × {scale}")
+
+    # ---- 3b. Sinkhorn kernels: parity and timing -------------------------
+    ot_fns = {
+        "ot_ctransform": (cuda_ot.ctransform_reduce_cuda, cuda_ot.ctransform_reduce_plain),
+        "ot_kexp": (cuda_ot.kexp_cuda, cuda_ot.kexp_plain),
+        "ot_kmat_vec": (cuda_ot.kmat_vec_cuda, cuda_ot.kmat_vec_plain),
+        "ot_plan_grad": (cuda_ot.plan_grad_cuda, cuda_ot.plan_grad_plain),
+    }
+    # (kernel, (S, k, m, d), options, role); every row is timed.  The "main"
+    # rows are the shapes the W2 paths give each kernel: the 10k fused
+    # route's c-transform and kexp (8 lanes of 1250 rows × 10,000
+    # particles), the 100k streaming route's kmat_vec and plan_grad (8 lanes
+    # of 12,500 rows × 100,000).  Then both directions of the 10k
+    # c-transforms, one lane of the 100k shapes, and ragged shapes at d = 1
+    # and d = 8.
+    ot_cases = [
+        ("ot_ctransform", (8, 1250, 10_000, 3), {"soft": True}, "main"),
+        ("ot_ctransform", (8, 1250, 10_000, 3), {"soft": False}, "10k hard"),
+        ("ot_ctransform", (8, 10_000, 1250, 3), {"soft": True}, "10k transposed soft"),
+        ("ot_ctransform", (8, 10_000, 1250, 3), {"soft": False}, "10k transposed hard"),
+        ("ot_kexp", (8, 1250, 10_000, 3), {}, "main"),
+        ("ot_kmat_vec", (8, 12_500, 100_000, 3), {"r": 1}, "main"),
+        ("ot_plan_grad", (8, 12_500, 100_000, 3), {}, "main"),
+        ("ot_kmat_vec", (1, 12_500, 100_000, 3), {"r": 1}, "100k lane"),
+        ("ot_kmat_vec", (1, 100_000, 12_500, 3), {"r": 1}, "100k lane transposed"),
+        ("ot_kmat_vec", (1, 12_500, 100_000, 3), {"r": 3}, "100k lane r=3"),
+        ("ot_plan_grad", (1, 12_500, 100_000, 3), {}, "100k lane"),
+        ("ot_ctransform", (1, 12_500, 100_000, 3), {"soft": True}, "100k lane soft"),
+    ]
+    ragged_opts = {"ot_ctransform": [{"soft": True}, {"soft": False}],
+                   "ot_kmat_vec": [{"r": 1}, {"r": 5}]}
+    for name in ot_fns:
+        for shape in ((3, 1001, 777, 1), (2, 333, 517, 8)):
+            for opt in ragged_opts.get(name, [{}]):
+                ot_cases.append((name, shape, opt, "ragged"))
+    for seed, (name, (S, k, m, d), opt, role) in enumerate(ot_cases):
+        kern, plain = ot_fns[name]
+        big = max(k, m) >= 100_000
+        reps = (OTHER_LAUNCHES if role != "main"
+                else MAIN_100K_LAUNCHES if big else TIMED_LAUNCHES)
+        rows, cols, f, gpot, p, rhs = ot_inputs(S, k, m, d, 100 + seed)
+        if name == "ot_ctransform":
+            args = (rows, cols, p, opt["soft"])
+        elif name == "ot_kmat_vec":
+            r = opt["r"]
+            args = (rows, cols, f, gpot, rhs[..., 0].contiguous() if r == 1
+                    else rhs[..., :r].contiguous())
+        else:
+            args = (rows, cols, f, gpot)
+        got = kern(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        terms = 0.0
+        if name == "ot_plan_grad":
+            rowsum = cuda_ot.kmat_vec_plain(rows, cols, f, gpot, torch.ones_like(gpot))
+            terms = float((rows.abs().amax(dim=-1) * rowsum).max())
+        ok, err, tol, scale = ot_check(name, got, want, soft=opt.get("soft", False),
+                                       terms=terms)
+        row = {"phase": "kernel_parity", "kernel": name, "role": role,
+               "shape": [S, k, m, d], **opt, "max_abs_err": err,
+               "max_abs_plain": scale, "tolerance": tol, "ok": ok}
+        del got, want
+        ms = cuda_ms(lambda: kern(*args), reps)
+        plain_ms = cuda_ms(lambda: plain(*args), min(reps, PLAIN_100K_REPS) if big else reps)
+        b_ms, b_by = bound_ms(*ot_work(name, S, k, m, d, **opt))
+        row.update(ms=ms, plain_ms=plain_ms, bound_us=1e3 * b_ms, bound_by=b_by)
+        if role == "main":
+            timing[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"{name} {role}: max|Δ| {err} over tolerance {tol}")
 
     # ---- 4. north star ---------------------------------------------------
     ns = NORTH_STAR
@@ -315,7 +508,115 @@ def main():
     if not finite or launches_big != {"phi_small_d": 0, "phi_big_d": BIG_D_STEPS}:
         raise AssertionError(f"big-d path: finite={finite} launches={launches_big}")
 
-    # ---- 7. small-input reference: card f32 vs CPU f64 --------------------
+    # ---- 7. W2 north star: Sinkhorn at 10k, the fused route --------------
+    def w2_sampler(particles, **kw):
+        return DistSampler(ns["shards"], logreg_logp, None, particles, data=data,
+                           exchange_particles=True, exchange_scores=False,
+                           include_wasserstein=True, wasserstein_solver="sinkhorn", **kw)
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        cuda_ot.reset_launch_counts()
+
+    def counts():
+        return {**cuda_svgd.launch_counts, **cuda_ot.launch_counts}
+
+    w2 = W2_NORTH_STAR
+    wds = w2_sampler(init)
+    wds.run_steps(w2["warm_steps"], ns["step_size"], h=w2["h"])
+    reset_counts()
+    t0 = time.perf_counter()
+    wds.run_steps(w2["steps"], ns["step_size"], h=w2["h"])
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches_w2 = counts()
+    finite = bool(torch.isfinite(wds.particles).all())
+    acc = float(ensemble_test_accuracy(wds.particles, x_test, t_test))
+    emit({"phase": "w2_north_star", "dataset": "banana", "fold": 42, "n": w2["n"],
+          "shards": ns["shards"], "d": d, "steps": w2["steps"], "h": w2["h"],
+          "route": "fused", "ms_per_step": 1e3 * host_s / w2["steps"],
+          "updates_per_s": w2["n"] * w2["steps"] / host_s, "launches": launches_w2,
+          "scaling_blocks_per_step": launches_w2["ot_kexp"] / w2["steps"],
+          "finite": finite, "test_accuracy": acc,
+          "clocks_sm,power_draw,power_limit,temp": smi(
+              "clocks.sm,power.draw,power.limit,temperature.gpu")})
+    if not (finite and launches_w2["ot_ctransform"] >= 2 * w2["steps"]
+            and launches_w2["ot_kexp"] >= w2["steps"]
+            and launches_w2["ot_kmat_vec"] == launches_w2["ot_plan_grad"] == 0
+            and launches_w2["phi_small_d"] == w2["steps"]):
+        raise AssertionError(f"w2 north star: finite={finite} launches={launches_w2}")
+
+    # ---- 7b. where a W2 step's time goes (torch.profiler) -----------------
+    emit(profile_steps(wds, ns["step_size"], steps=W2_PROFILE_STEPS, h=w2["h"],
+                       phase="w2_profile"))
+
+    # ---- 7c. what one host sync of the tol exit costs ---------------------
+    # sinkhorn_tol=None, iters=10: one scaling block a solve and no sync;
+    # tol=1e9, iters=20: the cold-start first block runs every lane without
+    # a sync, then one sync finds every lane within tol and the solve stops —
+    # the same work and one sync more.  Run in turns: A, B, B, A, twice.
+    sync_ms = {"no_sync": [], "one_sync": []}
+    blocks = {}
+    for label in ("no_sync", "one_sync", "one_sync", "no_sync") * 2:
+        kw = (dict(sinkhorn_tol=None, sinkhorn_iters=10) if label == "no_sync"
+              else dict(sinkhorn_tol=1e9, sinkhorn_iters=20))
+        yds = w2_sampler(init, **kw)
+        yds.run_steps(3, ns["step_size"], h=w2["h"])
+        reset_counts()
+        t0 = time.perf_counter()
+        yds.run_steps(W2_SYNC_STEPS, ns["step_size"], h=w2["h"])
+        torch.cuda.synchronize()
+        sync_ms[label].append(1e3 * (time.perf_counter() - t0) / W2_SYNC_STEPS)
+        blocks[label] = cuda_ot.launch_counts["ot_kexp"] / W2_SYNC_STEPS
+    emit({"phase": "w2_sync_cost", "steps": W2_SYNC_STEPS, "ms_per_step": sync_ms,
+          "kexp_per_step": blocks,
+          "ms_per_sync": (sum(sync_ms["one_sync"]) - sum(sync_ms["no_sync"])) / 4})
+    if blocks != {"no_sync": 1.0, "one_sync": 1.0}:
+        raise AssertionError(f"w2 sync cost: scaling blocks per step {blocks}")
+
+    # ---- 8. W2 at 100k: the streaming route --------------------------------
+    st = W2_STREAMING
+    sds = w2_sampler(init_particles_per_shard(0, st["n"], d, ns["shards"]))
+    sds.run_steps(st["warm_steps"], ns["step_size"], h=st["h"])  # no W2 yet
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sds.run_steps(st["steps"], ns["step_size"], h=st["h"])
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches_st = counts()
+    finite = bool(torch.isfinite(sds.particles).all())
+    emit({"phase": "w2_streaming", "dataset": "banana", "n": st["n"],
+          "shards": ns["shards"], "d": d, "steps": st["steps"], "h": st["h"],
+          "route": "streaming", "ms_per_step": 1e3 * host_s / st["steps"],
+          "updates_per_s": st["n"] * st["steps"] / host_s, "launches": launches_st,
+          "scaling_iterations_per_step": launches_st["ot_kmat_vec"] / 2 / st["steps"],
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "finite": finite,
+          "test_accuracy": float(ensemble_test_accuracy(sds.particles, x_test, t_test))})
+    if not (finite and launches_st["ot_kmat_vec"] > 0 and launches_st["ot_plan_grad"] > 0
+            and launches_st["ot_ctransform"] >= 2 * st["steps"]
+            and launches_st["ot_kexp"] == 0):
+        raise AssertionError(f"w2 streaming: finite={finite} launches={launches_st}")
+    del sds
+
+    # ---- 9. W2 trajectory: kernel route vs torch route on the card --------
+    tr = W2_TRAJECTORY
+    runs = {}
+    for impl in ("cuda", "torch"):
+        tds = w2_sampler(init, sinkhorn_tol=None, sinkhorn_iters=tr["iters"])
+        tds._sinkhorn_impl = impl  # the route the W2 step is built with
+        tds.run_steps(tr["steps"], ns["step_size"], h=w2["h"])
+        runs[impl] = tds.particles
+    dev = float((runs["cuda"] - runs["torch"]).abs().max())
+    rel = dev / float(runs["torch"].abs().max())
+    emit({"phase": "w2_trajectory", "steps": tr["steps"], "sinkhorn_iters": tr["iters"],
+          "max_abs_dev": dev, "rel_dev": rel, "bound": TRAJ_RTOL, "ok": rel <= TRAJ_RTOL})
+    if not rel <= TRAJ_RTOL:
+        raise AssertionError(f"w2 trajectory: {rel} > {TRAJ_RTOL}")
+
+    # ---- 10. small-input reference: card f32 vs CPU f64 --------------------
     import numpy as np
 
     rng = np.random.default_rng(7)
@@ -341,8 +642,39 @@ def main():
     if not worst <= SMALL_RTOL:
         raise AssertionError(f"small reference: {worst} > {SMALL_RTOL}")
 
+    # the same with the W2 term: every mode and pairing, the card's kernel
+    # route (float32) against the CPU's torch route (float64)
+    parts = rng.normal(size=(64, 3))
+    xr = rng.normal(size=(48, 2))
+    tr_ = np.where(rng.normal(size=48) > 0, 1.0, -1.0)
+    worst = 0.0
+    cases = 0
+    for exch_p, exch_s in ((True, False), (True, True), (False, False)):
+        for pairing in (("global", "block") if exch_p else ("block",)):
+            out = {}
+            for dev_name, impl, dtype in (("cuda", "cuda", np.float32),
+                                          ("cpu", "torch", np.float64)):
+                r = DistSampler(4, logreg_logp, None, parts.astype(dtype),
+                                data=(xr, tr_), exchange_particles=exch_p,
+                                exchange_scores=exch_s, include_wasserstein=True,
+                                wasserstein_solver="sinkhorn", sinkhorn_tol=None,
+                                w2_pairing=pairing, phi_impl=impl, device=dev_name)
+                r.run_steps(4, 0.05, h=1.0)
+                out[dev_name] = r.particles.double().cpu()
+            worst = max(worst, float((out["cuda"] - out["cpu"]).abs().max()
+                                     / out["cpu"].abs().max()))
+            cases += 1
+    emit({"phase": "small_reference_w2", "cases": cases, "d": 3, "steps": 4,
+          "max_rel_dev": worst, "bound": W2_SMALL_RTOL, "ok": worst <= W2_SMALL_RTOL})
+    if not worst <= W2_SMALL_RTOL:
+        raise AssertionError(f"small W2 reference: {worst} > {W2_SMALL_RTOL}")
+
     launches = {"phi_small_d": launches_small["phi_small_d"],
-                "phi_big_d": launches_big["phi_big_d"]}
+                "phi_big_d": launches_big["phi_big_d"],
+                "ot_ctransform": launches_w2["ot_ctransform"],
+                "ot_kexp": launches_w2["ot_kexp"],
+                "ot_kmat_vec": launches_st["ot_kmat_vec"],
+                "ot_plan_grad": launches_st["ot_plan_grad"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

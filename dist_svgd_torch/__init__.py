@@ -7,9 +7,11 @@ reference its tests hold it against.  Its entry points run on the card
 CPU.
 
 - ``DistSampler`` — sharded SVGD, the S shards emulated on one card, the
-  three exchange modes (gather implementation, Jacobi update);
-- ``ops``         — the RBF kernel, the plain φ, and the hand-written CUDA
-                    φ kernels (``csrc/``) with their plain versions;
+  three exchange modes (gather implementation, Jacobi update), with the
+  Wasserstein/JKO term (host LP or Sinkhorn);
+- ``ops``         — the RBF kernel, the plain φ, the W2 solvers, and the
+                    hand-written CUDA φ and Sinkhorn kernels (``csrc/``)
+                    with their plain versions;
 - ``models``      — Bayesian logistic regression;
 - ``utils``       — devices, datasets, RNG, checkpoint manifest, JAX interop.
 """

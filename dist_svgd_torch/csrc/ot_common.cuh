@@ -1,0 +1,109 @@
+// Shared pieces of the four Sinkhorn kernels (ot_ctransform.cu, ot_kexp.cu,
+// ot_kmat_vec.cu, ot_plan_grad.cu), the port of dist_svgd_tpu/ops/pallas_ot.py.
+//
+// Every kernel works on lanes — the emulated shards, each its own problem —
+// with rows (S, k, d) and columns (S, m, d), float32, contiguous, d ≤ 8.
+// A cost entry is rebuilt on chip as the per-dim differences of the TPU
+// kernels' _d2_tile, summed in order WITHOUT FMA contraction (the __f*_rn
+// intrinsics) and clamped at _D2_CAP, so that it is bitwise the plain
+// PyTorch version's Σ_c (y_c − x_c)² and a comparison of kernel and plain
+// version measures the kernel.  The ragged edge is a bounds check; the TPU's
+// _FAR padding sentinel and transposed lane-dense layouts are not used.
+#pragma once
+
+#include <cuda_runtime.h>
+
+constexpr int OT_THREADS = 128;      // output rows per block, one thread each
+constexpr int OT_TILE = 256;         // columns per shared-memory tile
+constexpr int OT_FIN_THREADS = 256;  // threads per block of a finalize kernel
+
+constexpr float OT_D2_CAP = 1e30f;     // pallas_svgd.py:_D2_CAP
+constexpr float OT_NEG_HUGE = -3.0e38f;  // pallas_ot.py:_NEG_HUGE, never −inf
+constexpr float OT_POS_HUGE = 3.0e38f;   // the hard min's start (pallas_ot.py:175)
+
+// Padded width of a staged coordinate row: 4 or 8 floats, read as float4s.
+template <int D>
+struct OtRow {
+  static constexpr int DP = D <= 4 ? 4 : 8;
+  static constexpr int DV = DP / 4;
+};
+
+// min(Σ_c (y_c − x_c)², _D2_CAP), rounded as the plain version rounds it.
+template <int D>
+__device__ __forceinline__ float ot_d2(const float* y, const float* x) {
+  float d2 = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    const float diff = __fsub_rn(y[c], x[c]);
+    const float sq = __fmul_rn(diff, diff);
+    d2 = c == 0 ? sq : __fadd_rn(d2, sq);
+  }
+  return fminf(d2, OT_D2_CAP);
+}
+
+// Row `row` of a (·, D) array into registers (zeros for an inactive thread).
+template <int D>
+__device__ __forceinline__ void ot_load_row(const float* __restrict__ a,
+                                            long long row, bool active,
+                                            float* y) {
+#pragma unroll
+  for (int c = 0; c < D; ++c) y[c] = active ? a[row * D + c] : 0.f;
+}
+
+// Stage columns [t0, t0 + n) of one lane's (m, D) coordinates in shared
+// memory, DP floats a row, zero padded.
+template <int D>
+__device__ __forceinline__ void ot_stage_cols(float* fx,
+                                              const float* __restrict__ xl,
+                                              int t0, int n) {
+  constexpr int DP = OtRow<D>::DP;
+  for (int e = threadIdx.x; e < n * DP; e += blockDim.x) {
+    const int j = e / DP;
+    const int c = e - j * DP;
+    fx[e] = c < D ? xl[(long long)(t0 + j) * D + c] : 0.f;
+  }
+}
+
+// Stage `n` per-column scalars from `src` (a lane's (m,) vector at t0).
+__device__ __forceinline__ void ot_stage_vec(float* dst,
+                                             const float* __restrict__ src,
+                                             int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+}
+
+// Staged column j into registers: every thread of the block reads the same
+// address, a shared-memory broadcast.
+template <int D>
+__device__ __forceinline__ void ot_read_col(const float4* sx, int j, float* xv) {
+  constexpr int DV = OtRow<D>::DV;
+#pragma unroll
+  for (int q = 0; q < DV; ++q) {
+    const float4 a = sx[j * DV + q];
+    xv[4 * q] = a.x;
+    xv[4 * q + 1] = a.y;
+    xv[4 * q + 2] = a.z;
+    xv[4 * q + 3] = a.w;
+  }
+}
+
+// (f_i + g_j − d2)·inv_reg, each step rounded as the plain version rounds it.
+__device__ __forceinline__ float ot_exponent(float fi, float gj, float d2,
+                                             float inv_reg) {
+  return __fmul_rn(__fsub_rn(__fadd_rn(fi, gj), d2), inv_reg);
+}
+
+static inline unsigned ot_fin_blocks(long long total) {
+  return (unsigned)((total + OT_FIN_THREADS - 1) / OT_FIN_THREADS);
+}
+
+// out[idx] = Σ_p part[p][idx] over the m-splits, in split order: no float
+// atomics, so a run is bitwise repeatable.
+static __global__ void __launch_bounds__(OT_FIN_THREADS)
+ot_sum_splits(const float* __restrict__ part, float* __restrict__ out,
+              int nsplit, long long total) {
+  const long long idx = (long long)blockIdx.x * OT_FIN_THREADS + threadIdx.x;
+  if (idx >= total) return;
+  float acc = part[idx];
+  for (int p = 1; p < nsplit; ++p) acc += part[(long long)p * total + idx];
+  out[idx] = acc;
+}

@@ -6,18 +6,28 @@ batched step moves every block (``parallel/exchange.py``), with the S shards
 emulated on one device as a leading batch axis — as the JAX package
 emulates them on one chip under ``vmap``.
 
-Ported in this slice: the constructor with the JAX signature and defaults,
-the drop-remainder policy (particles and data rows), the importance scale
+Ported: the constructor with the JAX signature and defaults, the
+drop-remainder policy (particles and data rows), the importance scale
 ``N_global / N_local``, the three exchange modes with the gather
-implementation and the Jacobi update, ``make_step``, monolithic
-``run_steps(record=False)``, and ``state_dict`` / ``load_state_dict`` for the
-particles, the step counter and the topology manifest.  Every other option
-raises ``NotImplementedError`` naming its ROADMAP item, so a call that runs
-here means what it means in JAX.
+implementation and the Jacobi update, the Wasserstein/JKO term (host LP
+through ``make_step``, Sinkhorn through ``make_step`` and ``run_steps``,
+both W2 pairings, the carried Sinkhorn dual), ``make_step``, monolithic
+``run_steps(record=False)``, and ``state_dict`` / ``load_state_dict`` for
+the particles, the step counter, the W2 snapshots and duals and the
+topology manifest.  Every other option raises ``NotImplementedError``
+naming its ROADMAP item, so a call that runs here means what it means in
+JAX.
+
+The W2 snapshot semantics are the reference's (warty) ones: in exchanged
+modes each shard's ``previous`` is the pre-update gathered set with only its
+own block post-update; under block pairing (``partitions``, or
+``w2_pairing='block'``) it is the shard's own post-update block, and block
+``b`` pairs with the snapshot of block ``(b + 1) mod S``.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -29,12 +39,24 @@ from dist_svgd_torch.parallel.exchange import (
     ALL_SCORES,
     PARTITIONS,
     make_shard_step,
+    make_shard_step_sinkhorn_w2,
     stack_shards,
     tree_map,
+    w2_block_pairing,
 )
 from dist_svgd_torch.parallel.mesh import merge, split
 from dist_svgd_torch.utils import checkpoint as _ckpt
 from dist_svgd_torch.utils.platform import resolve_device
+
+
+#: Above this global particle count, ``w2_pairing='auto'`` routes the
+#: exchanged-mode W2 term to the block pairing (the JAX package's measured
+#: memory cliff of the global pairing's per-shard ``(n, d)`` snapshots; kept
+#: so that both packages resolve the same pairing for the same run).
+W2_GLOBAL_PAIRING_MAX_N = 400_000
+
+#: ``state_dict`` encoding of the resolved ``w2_pairing`` (an index).
+W2_PAIRING_CODES = ("global", "block")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -67,21 +89,32 @@ class DistSampler:
         exchange_particles / exchange_scores: (True, True) = ``all_scores``,
             (True, False) = ``all_particles``, (False, False) =
             ``partitions``.
-        include_wasserstein: must be ``False`` here (the W2/JKO term is
-            ROADMAP A7); it defaults to ``True`` as in JAX, so a caller that
-            does not opt out is refused rather than silently given another
-            algorithm.
+        include_wasserstein: add the W2/JKO proximal term each step (the
+            JAX default ``True``); it waits for a previous snapshot, so the
+            first-ever step has none.
+        wasserstein_solver: ``'lp'`` (host LP, reference parity;
+            :meth:`make_step` only) or ``'sinkhorn'`` (entropic OT on the
+            device; ``sinkhorn_eps`` relative regulariser, ``sinkhorn_iters``
+            cap, ``sinkhorn_tol`` early exit or ``None`` for the fixed count,
+            ``sinkhorn_warm_start`` carries each shard's dual ``g``).  On the
+            card float32 d ≤ 8 solves run the hand kernels (``ops/cuda_ot.py``:
+            the fused route, or the streaming route from 2²⁸ pairs a shard);
+            everything else the torch route.
+        w2_pairing: ``'global'`` (each shard's block against its full mixed
+            snapshot), ``'block'`` (block ``b`` against the snapshot of block
+            ``(b+1) mod S``) or ``'auto'`` (global up to
+            :data:`W2_GLOBAL_PAIRING_MAX_N` particles, then block, with a
+            warning).  ``partitions`` is always block-paired (``'global'``
+            raises there); the value is inert with the W2 term off.
         phi_impl: ``'auto'`` (the hand CUDA kernel on the card, its plain
             version on the CPU), ``'torch'`` (the plain ``ops.svgd.phi``) or
             ``'cuda'`` (the kernel; refused on the CPU) — see
             :func:`dist_svgd_torch.ops.cuda_svgd.resolve_phi_fn`.
         device: ``None`` → the card (raises without CUDA); ``'cpu'`` for the
             plain path.
-        wasserstein_solver, sinkhorn_*, w2_pairing, seed, donate_carries:
-            accepted for signature parity and validated where JAX validates
-            them; they have no effect with the W2 term off and no minibatch
-            stream.  Every other option outside the slice raises
-            ``NotImplementedError``.
+        seed, donate_carries: accepted for signature parity; they have no
+            effect without a minibatch stream or a compiled scan.  Every
+            other option outside the slice raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -127,10 +160,6 @@ class DistSampler:
             raise ValueError(f"unknown update_rule {update_rule!r}")
         if w2_pairing not in ("auto", "global", "block"):
             raise ValueError(f"unknown w2_pairing {w2_pairing!r}")
-        if include_wasserstein:
-            raise _not_ported(
-                "the Wasserstein/JKO term (include_wasserstein=True, the JAX "
-                "default; pass include_wasserstein=False)", "A7")
         if update_rule == "gauss_seidel":
             raise _not_ported("update_rule='gauss_seidel'", "A10")
         if exchange_impl == "ring":
@@ -206,6 +235,53 @@ class DistSampler:
         )
         self._t = 0  # step counter (drives the partitions rotation)
 
+        self._include_wasserstein = bool(include_wasserstein)
+        self._wasserstein_solver = wasserstein_solver
+        self._sinkhorn = dict(sinkhorn_eps=sinkhorn_eps, sinkhorn_iters=sinkhorn_iters,
+                              sinkhorn_tol=sinkhorn_tol,
+                              sinkhorn_warm_start=bool(sinkhorn_warm_start))
+        self._w2_pairing = self._resolve_w2_pairing(w2_pairing)
+        self._block_w2 = w2_block_pairing(self._mode, self._w2_pairing, self._num_shards)
+        #: Sinkhorn route of the W2 step (``ops/ot.py:_resolve_sinkhorn_route``);
+        #: internal — a run may pin ``'torch'`` or ``'cuda'`` before its first
+        #: W2 step to compare the routes.
+        self._sinkhorn_impl = "auto"
+        self._w2_step = None  # built at the first W2 step
+        # The W2 "previous" snapshot stack (_prev_shape()) and the carried
+        # Sinkhorn dual per shard (_g_shape()); None until the first step /
+        # the first solve, as in the reference (dsvgd/distsampler.py:50).
+        self._previous = None
+        self._w2_g = None
+
+    def _resolve_w2_pairing(self, w2_pairing: str) -> str:
+        """The JAX constructor's pairing resolution (``'auto'`` routing,
+        the partitions rule, the large-n warnings)."""
+        if not self._include_wasserstein:  # inert: any valid value is accepted
+            return "block" if self._mode == PARTITIONS else "global"
+        if self._mode == PARTITIONS:
+            if w2_pairing == "global":
+                raise ValueError(
+                    "w2_pairing='global' is undefined in partitions mode — its W2 "
+                    "pairing is inherently block-level (the (b+1) ring roll)")
+            return "block"
+        n = self._num_particles
+        if w2_pairing == "auto":
+            if n > W2_GLOBAL_PAIRING_MAX_N and self._num_shards > 1:
+                warnings.warn(
+                    f"n={n} exceeds the exchanged-mode global-W2-pairing ceiling "
+                    f"({W2_GLOBAL_PAIRING_MAX_N}): routing the Wasserstein term to "
+                    "w2_pairing='block' (block snapshots; (n/S, n/S) solves).  Pass "
+                    "w2_pairing='global' to force the reference pairing",
+                    stacklevel=3)
+                return "block"
+            return "global"
+        if w2_pairing == "global" and n > W2_GLOBAL_PAIRING_MAX_N:
+            warnings.warn(
+                f"w2_pairing='global' forced at n={n} > {W2_GLOBAL_PAIRING_MAX_N}: "
+                "each shard carries an (n, d) snapshot and solves (n/S, n)",
+                stacklevel=3)
+        return w2_pairing
+
     # ------------------------------------------------------------------ #
     # State views
 
@@ -231,17 +307,48 @@ class DistSampler:
     def device(self) -> torch.device:
         return self._device
 
+    @property
+    def w2_pairing(self) -> str:
+        """The resolved Wasserstein pairing, ``'global'`` or ``'block'``."""
+        return self._w2_pairing
+
+    def _prev_shape(self) -> tuple:
+        """Shape of the ``previous`` snapshot stack: block-sized under block
+        pairing, global-sized under the mixed-snapshot pairing."""
+        if self._block_w2:
+            return (self._num_shards, self._particles_per_shard, self._d)
+        return (self._num_shards, self._num_particles, self._d)
+
+    def _g_shape(self) -> tuple:
+        """Shape of the carried Sinkhorn dual stack: one ``g`` per shard over
+        its ``previous`` measure."""
+        return self._prev_shape()[:2]
+
     # ------------------------------------------------------------------ #
     # Checkpoint / resume
 
     def state_dict(self) -> dict:
-        """Resume state: particles, the step counter and the topology
-        manifest, in the JAX ``state_dict``'s keys and numpy encoding."""
+        """Resume state: particles, the step counter, the resolved
+        ``w2_pairing``, the W2 ``previous`` snapshots and the carried
+        Sinkhorn duals (``None`` until they exist) and the topology manifest,
+        in the JAX ``state_dict``'s keys and numpy encoding."""
+
+        def host(t):
+            return None if t is None else t.detach().cpu().numpy()
+
         state = {
-            "particles": self._particles.detach().cpu().numpy(),
+            "particles": host(self._particles),
             "particles_start": np.asarray(0, dtype=np.int64),
             "t": np.asarray(self._t, dtype=np.int64),
+            "w2_pairing": np.asarray(W2_PAIRING_CODES.index(self._w2_pairing),
+                                     dtype=np.int8),
+            "previous": host(self._previous),
+            "w2_g": host(self._w2_g),
         }
+        if self._previous is not None:
+            state["previous_start"] = np.asarray(0, dtype=np.int64)
+        if self._w2_g is not None:
+            state["w2_g_start"] = np.asarray(0, dtype=np.int64)
         state.update(_ckpt.topology_manifest(
             self._num_shards, self._num_particles, self._d, self._rows_per_shard))
         return state
@@ -251,13 +358,13 @@ class DistSampler:
         :func:`dist_svgd_torch.utils.interop.state_from_jax`).  The manifest
         is checked first: a particle-count or dimension mismatch raises
         :class:`~dist_svgd_torch.utils.checkpoint.TopologyMismatch`.  A save
-        at another shard count restores as is (the particle array is
-        global, and the W2 snapshots that would need resharding are not
-        part of this slice)."""
+        at another shard count restores as is when it holds no W2 snapshot
+        (the particle array is global); a snapshot stack of another layout
+        would need JAX's reshard-on-restore (ROADMAP A8) and is refused.  A
+        dual that does not match its snapshot raises ``ValueError``; a save
+        under the other ``w2_pairing`` warns, as in JAX."""
         _ckpt.check_topology(
             state, {"n_particles": self._num_particles, "d": self._d})
-        if state.get("previous") is not None or state.get("w2_g") is not None:
-            raise _not_ported("restoring Wasserstein snapshots / Sinkhorn duals", "A7")
         if state.get("approx_method") is not None:
             raise ValueError(
                 "checkpoint was written with a kernel_approx but this sampler "
@@ -275,24 +382,70 @@ class DistSampler:
             raise ValueError(
                 f"checkpoint particles {tuple(particles.shape)} != sampler "
                 f"{(self._num_particles, self._d)}")
+        previous = self._restore_w2("previous", state)
+        w2_g = self._restore_w2("w2_g", state)
+        if previous is not None and previous.shape != self._prev_shape():
+            raise _not_ported(
+                f"restoring a W2 snapshot stack {tuple(previous.shape)} saved under "
+                f"another shard layout (this sampler's is {self._prev_shape()})", "A8")
+        if w2_g is not None and w2_g.shape != self._g_shape():
+            raise ValueError(
+                f"checkpoint 'w2_g' dual {tuple(w2_g.shape)} != expected "
+                f"{self._g_shape()} (corrupt or mismatched checkpoint?)")
+        code = state.get("w2_pairing")
+        if code is not None and self._include_wasserstein:
+            saved = W2_PAIRING_CODES[int(np.asarray(code))]
+            if saved != self._w2_pairing:
+                warnings.warn(
+                    f"checkpoint was written under w2_pairing='{saved}' but this "
+                    f"sampler resolved '{self._w2_pairing}': the trajectory before "
+                    "and after the restore optimises different W2 functionals",
+                    stacklevel=2)
         self._particles = particles.to(device=self._device,
                                        dtype=self._particles.dtype).clone()
+        self._previous, self._w2_g = previous, w2_g
         self._t = int(np.asarray(state["t"]))
+
+    def _restore_w2(self, name: str, state: dict):
+        """A W2 entry of ``state`` as a tensor of the run's dtype on its
+        device (``None`` when absent); one process's block is refused."""
+        value = state.get(name)
+        if value is None:
+            return None
+        if int(np.asarray(state.get(f"{name}_start", 0))) != 0:
+            raise ValueError(
+                f"checkpoint {name} is one process's block ({name}_start != 0); "
+                "assemble the full state first")
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.array(value))
+        return value.to(device=self._device, dtype=self._particles.dtype).clone()
 
     # ------------------------------------------------------------------ #
     # Stepping
 
-    def _advance(self, step_size: float) -> None:
+    def _advance(self, step_size: float, h: float) -> None:
         self._t += 1
         blocks = split(self._particles, self._num_shards)
         with torch.no_grad():
-            blocks = self._step(blocks, self._data_stacked, self._t, step_size)
+            if self._include_wasserstein:
+                if self._w2_step is None:
+                    self._w2_step = make_shard_step_sinkhorn_w2(
+                        logp=self._logp, kernel=self._kernel, mode=self._mode,
+                        num_shards=self._num_shards, score_scale=self._score_scale,
+                        phi_impl=self._phi_impl, w2_pairing=self._w2_pairing,
+                        wasserstein_solver=self._wasserstein_solver,
+                        sinkhorn_impl=self._sinkhorn_impl, **self._sinkhorn)
+                blocks, self._previous, self._w2_g = self._w2_step(
+                    blocks, self._previous, self._w2_g, self._data_stacked, self._t,
+                    step_size, h)
+            else:
+                blocks = self._step(blocks, self._data_stacked, self._t, step_size)
         self._particles = merge(blocks)
 
     def make_step(self, step_size: float, h: float = 1.0) -> torch.Tensor:
         """Perform one distributed SVGD step; returns the global particles.
-        ``h`` weights the W2 term, which is off in this slice."""
-        self._advance(step_size)
+        ``h`` weights the W2 term (reference ``δ += h·w_grad``)."""
+        self._advance(step_size, h)
         return self._particles
 
     def run_steps(
@@ -309,15 +462,22 @@ class DistSampler:
     ) -> torch.Tensor:
         """``num_steps`` distributed SVGD steps, monolithic — the same
         trajectory as ``num_steps`` calls of :meth:`make_step`.  Returns the
-        final particles.  ``record=True`` (history) and the chunking knobs
+        final particles.  With the W2 term on, this requires
+        ``wasserstein_solver='sinkhorn'`` (the host LP is ``make_step``-only,
+        as in JAX).  ``record=True`` (history) and the chunking knobs
         (``dispatch_budget`` / ``hops_per_dispatch`` /
         ``max_passes_per_dispatch``) are not ported; ``pairs_per_sec`` and
         ``time_dispatches`` only act together with them in JAX."""
+        if self._include_wasserstein and self._wasserstein_solver != "sinkhorn":
+            raise ValueError(
+                "run_steps with the Wasserstein term requires "
+                "wasserstein_solver='sinkhorn'; the host-LP snapshot path is "
+                "make_step-only")
         if record:
             raise _not_ported("run_steps(record=True) (history recording)", "A8")
         if (dispatch_budget is not None or hops_per_dispatch is not None
                 or max_passes_per_dispatch is not None):
             raise _not_ported("chunked run_steps (dispatch_budget / hops / passes)", "A10")
         for _ in range(num_steps):
-            self._advance(step_size)
+            self._advance(step_size, h)
         return self._particles

@@ -1,5 +1,7 @@
-"""SVGD primitives on tensors: the RBF kernel, the plain φ, and the hand
-CUDA φ kernels with their plain versions."""
+"""SVGD primitives on tensors: the RBF kernel, the plain φ, the hand CUDA φ
+kernels with their plain versions, and the W2/JKO term (``ot``: the host LP
+and the Sinkhorn solve, whose card routes run the hand kernels of
+``cuda_ot``)."""
 
 from dist_svgd_torch.ops.cuda_svgd import (
     BIG_D_MAX,
@@ -8,6 +10,11 @@ from dist_svgd_torch.ops.cuda_svgd import (
     resolve_phi_fn,
 )
 from dist_svgd_torch.ops.kernels import RBF, median_bandwidth, squared_distances
+from dist_svgd_torch.ops.ot import (
+    sinkhorn_plan,
+    wasserstein_grad_lp,
+    wasserstein_grad_sinkhorn,
+)
 from dist_svgd_torch.ops.svgd import phi, svgd_step
 
 __all__ = [
@@ -18,6 +25,9 @@ __all__ = [
     "phi",
     "phi_cuda",
     "resolve_phi_fn",
+    "sinkhorn_plan",
     "squared_distances",
     "svgd_step",
+    "wasserstein_grad_lp",
+    "wasserstein_grad_sinkhorn",
 ]

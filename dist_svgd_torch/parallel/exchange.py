@@ -17,15 +17,19 @@ implementation, Jacobi update).  Reference semantics:
 Data is replicated and sliced per shard in contiguous blocks of
 ``n_local_data`` rows (remainder dropped); :func:`stack_shards` lays the
 slices out along the shard axis once, at construction.
+
+:func:`make_shard_step_sinkhorn_w2` adds the Wasserstein/JKO term with the
+reference's snapshot semantics (``dist_svgd_tpu/parallel/exchange.py``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
+from dist_svgd_torch.ops.ot import wasserstein_grad_lp, wasserstein_grad_sinkhorn
 from dist_svgd_torch.parallel.mesh import all_gather, psum, split
 
 ALL_PARTICLES = "all_particles"
@@ -153,5 +157,97 @@ def make_shard_step(
 
     def step(blocks, data, t: int, step_size: float):
         return blocks + step_size * core(blocks, data, t)
+
+    return step
+
+
+def w2_block_pairing(mode: str, w2_pairing: str, num_shards: int) -> bool:
+    """Whether the W2 term uses block-sized snapshots and the ``(b+1) mod S``
+    pairing — ``partitions`` natively, the exchanged modes under
+    ``w2_pairing='block'`` — rather than the global mixed snapshots; with
+    one shard every pairing is the global one."""
+    return (mode == PARTITIONS or w2_pairing == "block") and num_shards > 1
+
+
+def make_shard_step_sinkhorn_w2(
+    logp: Callable,
+    kernel,
+    mode: str,
+    num_shards: int,
+    score_scale: float,
+    phi_impl: str = "auto",
+    sinkhorn_eps: float = 0.05,
+    sinkhorn_iters: int = 200,
+    sinkhorn_tol: Optional[float] = None,
+    sinkhorn_warm_start: bool = True,
+    w2_pairing: str = "global",
+    wasserstein_solver: str = "sinkhorn",
+    sinkhorn_impl: str = "auto",
+) -> Callable:
+    """The batched SVGD step with the Wasserstein/JKO term, solved inside the
+    step from carried snapshot state (Jacobi, gather implementation).
+
+    The W2 gradient pairs each shard's **pre-update** block with its
+    ``previous`` snapshot, and the update is ``new = block + ε·(δ +
+    h·w_grad)`` (reference dsvgd/distsampler.py:103-129,186-205).  The
+    snapshot rules (``dist_svgd_tpu/parallel/exchange.py:
+    make_shard_step_sinkhorn_w2``):
+
+    - global pairing (exchanged modes): shard ``r``'s next snapshot is the
+      pre-update gathered set with only its own block post-update — the
+      reference's warty mixed snapshot, ``(S, n, d)``;
+    - block pairing (``partitions``, or ``w2_pairing='block'`` in exchanged
+      modes; S > 1): the snapshot is the shard's own post-update block,
+      ``(S, n/S, d)``, and block ``b`` pairs with the snapshot of block
+      ``(b + 1) mod S`` — JAX's ``ppermute``, a roll over the lane axis.
+
+    ``wasserstein_solver='sinkhorn'`` solves all lanes at once
+    (:func:`~dist_svgd_torch.ops.ot.wasserstein_grad_sinkhorn`, route
+    ``sinkhorn_impl``) and returns the lanes' dual ``g``, which warm-starts
+    the next solve when ``sinkhorn_warm_start`` (a missing dual is zeros:
+    the soft start from zero potentials).  ``'lp'`` solves each lane with
+    the host LP (:func:`~dist_svgd_torch.ops.ot.wasserstein_grad_lp`) and
+    carries no dual.
+
+    Returns ``step(blocks, prev, g_dual, data, t, step_size, h) ->
+    (new_blocks, new_prev, new_g)``; ``prev=None`` is a first-ever step,
+    which has no W2 term (reference: the term waits for a snapshot) and
+    passes ``g_dual`` through.
+    """
+    if w2_pairing not in ("global", "block"):
+        raise ValueError(f"unknown w2_pairing {w2_pairing!r}")
+    if wasserstein_solver not in ("lp", "sinkhorn"):
+        raise ValueError(f"unknown wasserstein_solver {wasserstein_solver!r}")
+    core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl)
+    block_pair = w2_block_pairing(mode, w2_pairing, num_shards)
+
+    def solve(blocks, prev_for, g_dual):
+        if wasserstein_solver == "lp":
+            grads = [torch.from_numpy(wasserstein_grad_lp(b, p))
+                     for b, p in zip(blocks, prev_for)]
+            return torch.stack(grads).to(blocks), g_dual
+        g_init = None
+        if sinkhorn_warm_start:
+            g_init = (g_dual if g_dual is not None
+                      else blocks.new_zeros(prev_for.shape[:2]))
+        return wasserstein_grad_sinkhorn(
+            blocks, prev_for, eps=sinkhorn_eps, iters=sinkhorn_iters,
+            tol=sinkhorn_tol, g_init=g_init, return_g=True, impl=sinkhorn_impl)
+
+    def step(blocks, prev, g_dual, data, t: int, step_size: float, h: float):
+        delta = core(blocks, data, t)
+        g_out = g_dual
+        if prev is not None:
+            prev_for = torch.roll(prev, -1, dims=0) if block_pair else prev
+            w_grad, g_out = solve(blocks, prev_for, g_dual)
+            delta = delta + h * w_grad
+        new = blocks + step_size * delta
+        if block_pair:
+            return new, new, g_out
+        S, s, d = blocks.shape
+        new_prev = all_gather(blocks).repeat(S, 1, 1)  # (S, n, d)
+        lanes = torch.arange(S, device=blocks.device)
+        new_prev.view(S, S, s, d)[lanes, lanes] = new  # own block post-update
+        return new, new_prev, g_out
 
     return step

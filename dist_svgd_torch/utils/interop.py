@@ -1,7 +1,9 @@
 """Carrying a JAX run's state across to the port.
 
-For this system the "weights" are the particles plus the step counter ``t``;
-the data goes to both packages as the same numpy arrays.  A JAX
+For this system the "weights" are the particles plus the step counter ``t``,
+and with the Wasserstein term on, the ``previous`` snapshot stack, the
+carried Sinkhorn duals ``w2_g`` and the resolved ``w2_pairing``; the data goes
+to both packages as the same numpy arrays.  A JAX
 ``DistSampler.state_dict()`` (as numpy: ``{k: np.asarray(v)}``) converts
 with :func:`state_from_jax` into what the port's ``load_state_dict`` takes,
 and the port continues the trajectory.
@@ -20,22 +22,18 @@ from dist_svgd_torch.utils import checkpoint as _ckpt
 def state_from_jax(jax_state: Dict[str, Any], device, sampler=None) -> Dict[str, Any]:
     """Convert a JAX ``DistSampler.state_dict()`` to the port's layout.
 
-    The particles become a tensor on ``device``; ``t`` and the topology
-    manifest are kept as numpy.  The entries with no counterpart in a
-    W2-free, minibatch-free run are dropped: the inert resolved
-    ``w2_pairing`` and the minibatch stream's ``rng_batch_key``.  The manifest must describe the particle
-    array it travels with; with ``sampler`` given, it is also checked
-    against that port sampler's particle count and dimension
+    The particles, the W2 ``previous`` stack and the ``w2_g`` duals (where
+    present) become tensors on ``device``; ``t``, the ``w2_pairing`` code and
+    the topology manifest are kept as numpy.  The minibatch stream's
+    ``rng_batch_key`` has no counterpart in a minibatch-free run and is
+    dropped.  The manifest must describe the particle array it travels
+    with; with ``sampler`` given, it is also checked against that port
+    sampler's particle count and dimension
     (:class:`~dist_svgd_torch.utils.checkpoint.TopologyMismatch`).
 
-    Raises ``NotImplementedError`` for state this slice does not carry (W2
-    snapshots, Sinkhorn duals) and ``ValueError`` for a kernel-approximation
-    save or one process's block of a multi-process save.
+    Raises ``ValueError`` for a kernel-approximation save or one process's
+    block of a multi-process save.
     """
-    if jax_state.get("previous") is not None or jax_state.get("w2_g") is not None:
-        raise NotImplementedError(
-            "JAX state carries Wasserstein snapshots / Sinkhorn duals: the W2 "
-            "term is not ported yet (ROADMAP A7)")
     if jax_state.get("approx_method") is not None:
         raise ValueError("JAX state was written with a kernel_approx; the port runs "
                          "the exact kernel only")
@@ -43,7 +41,8 @@ def state_from_jax(jax_state: Dict[str, Any], device, sampler=None) -> Dict[str,
     man = _ckpt.read_manifest(jax_state)
     if man is None:
         raise ValueError("JAX state has no readable topology manifest")
-    if (int(np.asarray(jax_state.get("particles_start", 0))) != 0
+    if (any(int(np.asarray(jax_state.get(f"{k}_start", 0))) != 0
+            for k in ("particles", "previous", "w2_g"))
             or particles.shape != (man["n_particles"], man["d"])):
         raise ValueError(
             f"JAX particles {particles.shape} do not match the manifest's "
@@ -58,6 +57,11 @@ def state_from_jax(jax_state: Dict[str, Any], device, sampler=None) -> Dict[str,
         "particles_start": np.asarray(0, dtype=np.int64),
         "t": np.asarray(jax_state["t"], dtype=np.int64),
     }
+    for key in ("previous", "w2_g"):
+        if jax_state.get(key) is not None:
+            state[key] = torch.tensor(np.asarray(jax_state[key]), device=device)
+    if jax_state.get("w2_pairing") is not None:
+        state["w2_pairing"] = np.asarray(jax_state["w2_pairing"], dtype=np.int8)
     state.update({k: np.asarray(jax_state[k]) for k in _ckpt.MANIFEST_KEYS
                   if k in jax_state})
     return state

@@ -171,10 +171,16 @@ def test_port_state_dict_round_trip_and_topology_check():
 
 
 def test_state_from_jax_refuses_unported_state():
+    """W2 snapshots and duals now cross over (round-trip below); a
+    kernel-approximation save and one process's block are still refused."""
     particles, x, t = problem(3)
     state = port_sampler(4, particles, x, t, True, False, "auto").state_dict()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        state_from_jax({**state, "previous": np.zeros((4, 64, 3))}, "cpu")
+    prev = np.random.default_rng(0).normal(size=(4, 64, 3))
+    g = np.random.default_rng(1).normal(size=(4, 64))
+    carried = state_from_jax({**state, "previous": prev, "w2_g": g}, "cpu")
+    np.testing.assert_array_equal(carried["previous"].numpy(), prev)
+    np.testing.assert_array_equal(carried["w2_g"].numpy(), g)
+    assert int(carried["w2_pairing"]) == 0
     with pytest.raises(ValueError, match="kernel_approx"):
         state_from_jax({**state, "approx_method": np.asarray(0)}, "cpu")
     with pytest.raises(ValueError, match="block"):
@@ -194,7 +200,7 @@ def test_device_rules():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"include_wasserstein": True}, "A7"),
+    ({"include_wasserstein": True, "update_rule": "gauss_seidel"}, "A10"),
     ({"update_rule": "gauss_seidel"}, "A10"),
     ({"exchange_impl": "ring"}, "A10"),
     ({"exchange_every": 2}, "A10"),
@@ -227,3 +233,160 @@ def test_out_of_slice_run_options_raise():
         tdt.DistSampler(4, logreg_logp, None, particles, exchange_particles=False,
                         exchange_scores=True, include_wasserstein=False, device="cpu")
     assert jax.config.read("jax_enable_x64")
+
+
+# --------------------------------------------------------------------------
+# The Wasserstein/JKO term
+
+
+def w2_pair(S, particles, x, t, exch_p, exch_s, solver, **kw):
+    """The JAX and the port DistSampler with the W2 term, float64, on the
+    same inputs (JAX's 'xla' φ and, on the CPU, its 'xla' Sinkhorn route;
+    the port's 'torch' φ and torch route)."""
+    common = dict(exchange_particles=exch_p, exchange_scores=exch_s,
+                  include_wasserstein=True, wasserstein_solver=solver, **kw)
+    js = jdt.DistSampler(S, jlogreg_logp, None, jnp.asarray(particles),
+                         data=(jnp.asarray(x), jnp.asarray(t)), phi_impl="xla", **common)
+    ps = tdt.DistSampler(S, logreg_logp, None, particles, data=(x, t), phi_impl="torch",
+                         device="cpu", **common)
+    return js, ps
+
+
+def assert_w2_state_close(js, ps, rtol=1e-10, atol=1e-12):
+    np.testing.assert_allclose(ps.particles.numpy(), np.asarray(js.particles), rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(ps._previous.numpy(), np.asarray(js._previous), rtol=rtol,
+                               atol=atol)
+    if js._w2_g is None:
+        assert ps._w2_g is None
+    else:
+        np.testing.assert_allclose(ps._w2_g.numpy(), np.asarray(js._w2_g), rtol=rtol,
+                                   atol=1e-10)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("name,exch_p,exch_s", MODES)
+def test_w2_lp_make_step_matches_jax(name, exch_p, exch_s, S):
+    """The host-LP W2 term through make_step, with the reference's snapshot
+    warts per mode: three steps (the first has no W2 term) on both."""
+    particles, x, t = problem(2, n=8, rows=16, seed=21)
+    js, ps = w2_pair(S, particles, x, t, exch_p, exch_s, "lp")
+    assert ps.w2_pairing == js.w2_pairing
+    for _ in range(3):
+        np.testing.assert_allclose(ps.make_step(0.05, h=0.5).numpy(),
+                                   np.asarray(js.make_step(0.05, h=0.5)), rtol=1e-9,
+                                   atol=1e-11)
+    assert_w2_state_close(js, ps, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("entry", ["make_step", "run_steps"])
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("name,exch_p,exch_s", MODES)
+def test_w2_sinkhorn_matches_jax(name, exch_p, exch_s, S, entry):
+    """The Sinkhorn W2 term (tol exit, warm-started carried dual) through
+    make_step or run_steps on both packages: particles, snapshots and duals
+    after four steps."""
+    particles, x, t = problem(3, n=16, rows=24, seed=23)
+    js, ps = w2_pair(S, particles, x, t, exch_p, exch_s, "sinkhorn", sinkhorn_iters=50)
+    if entry == "make_step":
+        for _ in range(4):
+            js.make_step(0.05, h=0.5)
+            ps.make_step(0.05, h=0.5)
+    else:
+        js.run_steps(4, 0.05, h=0.5)
+        ps.run_steps(4, 0.05, h=0.5)
+    assert ps.t == js.t == 4
+    assert_w2_state_close(js, ps)
+
+
+@pytest.mark.parametrize("name,exch_p,exch_s", MODES[:2])
+def test_w2_block_pairing_matches_jax(name, exch_p, exch_s):
+    """w2_pairing='block' in the exchanged modes: block-sized snapshots,
+    block b paired with block (b+1) mod S, φ still global."""
+    particles, x, t = problem(3, n=16, rows=24, seed=27)
+    js, ps = w2_pair(4, particles, x, t, exch_p, exch_s, "sinkhorn", sinkhorn_iters=40,
+                     w2_pairing="block")
+    assert ps.w2_pairing == js.w2_pairing == "block"
+    js.run_steps(4, 0.05, h=0.5)
+    ps.run_steps(4, 0.05, h=0.5)
+    assert tuple(ps._previous.shape) == (4, 4, 3)
+    assert_w2_state_close(js, ps)
+
+
+@pytest.mark.parametrize("name,exch_p,exch_s", MODES)
+def test_w2_lp_matches_oracle(name, exch_p, exch_s):
+    """Three LP W2 steps of every mode equal the loopy float64 reference
+    oracle, snapshot warts included (tests/test_distsampler.py:
+    test_wasserstein_modes_match_oracle, on the logreg target)."""
+    S = 2
+    particles, x, t = problem(3, n=8, rows=16, seed=31)
+    per = x.shape[0] // S
+
+    def score_of(rank, theta):
+        sl = slice(rank * per, (rank + 1) * per)
+        return _numpy_logreg_score(theta, x[sl], t[sl])
+
+    oracle = RefDistOracle(S, score_of, particles, exchange_particles=exch_p,
+                           exchange_scores=exch_s, include_wasserstein=True,
+                           score_scale=1.0 if exch_s else S, update_rule="jacobi")
+    _, ps = w2_pair(S, particles, x, t, exch_p, exch_s, "lp")
+    for _ in range(3):
+        np.testing.assert_allclose(ps.make_step(0.05, h=0.5).numpy(),
+                                   oracle.make_step(0.05, h=0.5), rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("name,exch_p,exch_s", MODES)
+def test_w2_state_carried_from_jax(name, exch_p, exch_s):
+    """A JAX Sinkhorn-W2 run's state (particles, t, snapshots, duals, the
+    resolved pairing) crosses over with state_from_jax, and the port goes
+    on along JAX's trajectory."""
+    particles, x, t = problem(3, n=16, rows=24, seed=33)
+    js, ps = w2_pair(4, particles, x, t, exch_p, exch_s, "sinkhorn", sinkhorn_iters=50)
+    js.run_steps(3, 0.05, h=0.5)
+    jstate = {k: (None if v is None else np.asarray(v)) for k, v in js.state_dict().items()}
+    ps.load_state_dict(state_from_jax(jstate, "cpu", sampler=ps))
+    assert ps.t == 3
+    js.run_steps(3, 0.05, h=0.5)
+    ps.run_steps(3, 0.05, h=0.5)
+    assert_w2_state_close(js, ps)
+
+
+def test_w2_run_steps_refuses_lp_and_port_state_round_trips():
+    particles, x, t = problem(3, n=16, rows=24, seed=35)
+    js, ps = w2_pair(2, particles, x, t, True, False, "lp")
+    with pytest.raises(ValueError, match="sinkhorn"):
+        js.run_steps(2, 0.05)
+    with pytest.raises(ValueError, match="sinkhorn"):
+        ps.run_steps(2, 0.05)
+    _, a = w2_pair(2, particles, x, t, True, False, "sinkhorn", sinkhorn_iters=30)
+    a.run_steps(3, 0.05, h=0.5)
+    state = a.state_dict()
+    assert state["previous"].shape == (2, 16, 3) and state["w2_g"].shape == (2, 16)
+    _, b = w2_pair(2, np.zeros_like(particles), x, t, True, False, "sinkhorn",
+                   sinkhorn_iters=30)
+    b.load_state_dict(state)
+    torch.testing.assert_close(b.run_steps(2, 0.05, h=0.5), a.run_steps(2, 0.05, h=0.5),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="w2_g"):
+        b.load_state_dict({**state, "w2_g": state["w2_g"][:, :8]})
+    _, c = w2_pair(4, particles, x, t, True, False, "sinkhorn")  # another layout
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        c.load_state_dict(state)
+    _, blk = w2_pair(2, particles, x, t, True, False, "sinkhorn", w2_pairing="block")
+    with pytest.warns(UserWarning, match="w2_pairing='global'"):
+        blk.load_state_dict({k: v for k, v in state.items()
+                             if k not in ("previous", "w2_g")})
+
+
+def test_w2_pairing_resolution_matches_jax():
+    """'global' is undefined in partitions; 'auto' switches to block past
+    W2_GLOBAL_PAIRING_MAX_N particles, with a warning, in both packages."""
+    particles, x, t = problem(3)
+    with pytest.raises(ValueError, match="partitions"):
+        w2_pair(4, particles, x, t, False, False, "sinkhorn", w2_pairing="global")
+    big = np.zeros((tdt.distsampler.W2_GLOBAL_PAIRING_MAX_N + 2, 1))
+    with pytest.warns(UserWarning, match="block"):
+        ds = tdt.DistSampler(2, lambda th, _: -(th * th).sum(), None, big,
+                             exchange_particles=True, exchange_scores=False, device="cpu")
+    assert ds.w2_pairing == "block"
+    assert tdt.distsampler.W2_GLOBAL_PAIRING_MAX_N == jdt.distsampler.W2_GLOBAL_PAIRING_MAX_N

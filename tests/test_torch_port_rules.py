@@ -72,6 +72,45 @@ def test_sources_carry_their_notes_and_build_line():
     assert "arch=compute_90a,code=sm_90a" in flags and "fast_math" not in flags
 
 
+@pytest.mark.parametrize("name,tpu_kernel", [
+    ("ot_ctransform", "_ct_kernel"),
+    ("ot_kexp", "_kexp_kernel"),
+    ("ot_kmat_vec", "_kmat_vec_kernel"),
+    ("ot_plan_grad", "_plan_grad_kernel"),
+])
+def test_ot_sources_carry_their_notes(name, tpu_kernel):
+    """The Sinkhorn kernels carry the same note, name the Pallas kernel of
+    dist_svgd_tpu/ops/pallas_ot.py they replace, and are built sources."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    assert f"Replaces: dist_svgd_tpu/ops/pallas_ot.py, `{tpu_kernel}`" in text
+    assert "What bounds it on this card" in text
+    assert "What the design does about it" in text
+    assert f'extern "C" int {name}_launch(' in text
+    assert '#include "ot_common.cuh"' in text
+    assert name in _build.SOURCES
+
+
+def test_port_runs_w2_with_jax_blocked():
+    """A process where ``import jax`` fails runs the port's W2 term: two CPU
+    steps with the Sinkhorn solver (the first has no snapshot yet)."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "import numpy as np, dist_svgd_torch as dt\n"
+        "p = np.random.default_rng(0).normal(size=(32, 3))\n"
+        "x = np.random.default_rng(1).normal(size=(16, 2)); t = np.sign(x[:, 0])\n"
+        "ds = dt.DistSampler(4, dt.logreg_logp, None, p, data=(x, t),\n"
+        "                    wasserstein_solver='sinkhorn', device='cpu')\n"
+        "out = ds.run_steps(2, 1e-2, h=10.0)\n"
+        "assert bool(out.isfinite().all()) and ds.state_dict()['w2_g'].shape == (4, 32)\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_source_digest_names_each_library_by_content():
     digests = {n: _build.source_digest(n) for n in _build.SOURCES}
     assert len(set(digests.values())) == len(digests)
