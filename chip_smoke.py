@@ -5,15 +5,17 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the six hand-written kernels from ``dist_svgd_torch/csrc/`` with
-``nvcc`` (the two φ kernels and the four Sinkhorn kernels), holds each
-against its plain PyTorch version at the main paths' shapes and at ragged
-shapes, drives the north-star path (10,000-particle Bayesian logistic
-regression, 8 emulated shards, ``all_particles``) through
-``DistSampler.run_steps`` without and with the Wasserstein term (Sinkhorn at
-10,000 particles on the fused route, at 100,000 on the streaming route),
-checks that each path went through its kernels, and prints one JSON object
-per phase.  A phase that fails raises, so the script
+It builds the eight hand-written kernels from ``dist_svgd_torch/csrc/``
+with ``nvcc`` (the two φ kernels in their exact and bf16 tiers and the four
+Sinkhorn kernels), holds each against its plain PyTorch version at the main
+paths' shapes and at ragged shapes, drives the north-star path
+(10,000-particle Bayesian logistic regression, 8 emulated shards,
+``all_particles``) through ``DistSampler.run_steps`` without and with the
+Wasserstein term (Sinkhorn at 10,000 particles on the fused route, at
+100,000 on the streaming route), drives the minibatched Covertype config
+(BASELINE.json config 4) through its driver
+``dist_svgd_torch/experiments/covertype.py`` in both φ tiers, checks that
+each path went through its kernels, and prints one JSON object per phase.  A phase that fails raises, so the script
 exits non-zero; the last line, printed only when every phase passed, is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -39,6 +41,15 @@ PROFILE_STEPS = 20
 W2_NORTH_STAR = dict(n=10_000, warm_steps=10, steps=100, h=10.0)
 W2_STREAMING = dict(n=100_000, warm_steps=1, steps=5, h=10.0)
 W2_TRAJECTORY = dict(steps=20, iters=50)
+# The Covertype rows of bench.py (ct_bf16 against ct_f32): the driver's
+# full-width sampler, 10 warm and 100 timed steps of 1e-4 per tier, in turns
+# A, B, B, A; then a full 200-step run() of each tier for its accuracy.
+COVERTYPE = dict(warm_steps=10, steps=100, step_size=1e-4, profile_steps=10,
+                 trajectory_steps=20)
+# The two tiers must reach the same test accuracy within this (same seed,
+# so the same minibatch stream and init).
+CT_ACC_TOL = 0.01
+BANANA_BF16_STEPS = 50
 W2_PROFILE_STEPS = 10
 W2_SYNC_STEPS = 20
 # Timed launches of the Sinkhorn kernels' parity rows: the main rows at the
@@ -51,6 +62,7 @@ PLAIN_100K_REPS = 5
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Kernel parity tolerance: max|Δ| ≤ KERNEL_RTOL · max|φ_plain|.  Both sides
@@ -106,6 +118,23 @@ KERNELS = {
         # row-sum add, d FMAs (drive); plus one exp
         "flops_per_pair": lambda d: 4 * d + 6,
     },
+    "phi_small_d_bf16": {
+        "source": "dist_svgd_torch/csrc/phi_small_d.cu",
+        "replaces": "dist_svgd_tpu/ops/pallas_svgd.py:121 (bf16 tier)",
+        # as the exact tier (the bf16 rounding of the exponent not counted)
+        "flops_per_pair": lambda d: 5 * d + 2,
+    },
+    "phi_big_d_bf16x3": {
+        "source": "dist_svgd_torch/csrc/phi_big_d_bf16x3.cu",
+        "replaces": "dist_svgd_tpu/ops/pallas_svgd.py:80 (bf16x3 tier)",
+        # CUDA cores, per pair: y²+x²−2·dot (3), clamp, 1/h scale, row-sum
+        # add, the hi/lo split of K (2), and one f32 add of a Gram and of a
+        # drive partial per 16-deep k-step; plus one exp
+        "flops_per_pair": lambda d: 8 + 2 * -(-d // 16),
+        # tensor cores, per pair: three bf16 products of depth d for the
+        # distance and three for the drive, 2 flops each
+        "tc_flops_per_pair": lambda d: 12 * d,
+    },
     # The Sinkhorn kernels count the distance as d subtractions, d products
     # and d − 1 sums plus the clamp (3d), all without FMA contraction.
     "ot_ctransform": {
@@ -140,6 +169,14 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def phi_counts(**launched):
+    """The φ launch counts a run should show: ``launched``, and 0 for every
+    other φ kernel."""
+    from dist_svgd_torch.ops import cuda_svgd
+
+    return {name: launched.get(name, 0) for name in cuda_svgd.launch_counts}
+
+
 def smi(query):
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -165,18 +202,22 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops, nbytes):
-    """Least time the card could take for one call: the larger of the bytes
+def bound_ms(flops, nbytes, tc_flops=0.0):
+    """Least time the card could take for one call: the largest of the bytes
     it must move (each input read once, each output written once) over HBM
-    bandwidth and its float32 operations over the float32 peak."""
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_F32_FLOPS
+    bandwidth, its float32 operations over the float32 peak and its bf16
+    tensor-core operations over the bf16 peak."""
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = max(flops / PEAK_F32_FLOPS, tc_flops / PEAK_BF16_TC_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
 def phi_work(name, S, k, m, d, x_numel):
-    """(flops, bytes) of one φ call: y, x, s read, φ written; float32."""
+    """(flops, bytes, tensor-core flops) of one φ call: y, x, s read, φ
+    written; float32."""
     nbytes = 4 * (S * k * d + x_numel + S * m * d + S * k * d)
-    return S * k * m * KERNELS[name]["flops_per_pair"](d), nbytes
+    tc = KERNELS[name].get("tc_flops_per_pair", lambda d: 0)(d)
+    return S * k * m * KERNELS[name]["flops_per_pair"](d), nbytes, S * k * m * tc
 
 
 def ot_work(name, S, k, m, d, r=1, soft=True):
@@ -275,6 +316,135 @@ def profile_steps(ds, step_size, steps=PROFILE_STEPS, h=1.0, phase="profile"):
                                         for name, (us, _) in top}}
 
 
+def covertype_phases():
+    """The Covertype phases (BASELINE.json config 4, minibatched, through
+    ``dist_svgd_torch/experiments/covertype.py``): both φ tiers timed in
+    turns, a full run of each, the profile, the bf16 trajectory against
+    the plain versions, and a small minibatched reference.  Returns the
+    bf16 tier's launch counts of its first timed turn."""
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch import DistSampler
+    from dist_svgd_torch.ops import cuda_svgd
+
+    from dist_svgd_torch.experiments import covertype as cov
+    from dist_svgd_torch.utils.rng import minibatch_indices
+
+    ct = COVERTYPE
+    # the driver's 'auto' resolves to the bf16 tiers on the card; 'cuda' is
+    # the exact comparison
+    tiers = {"cuda_bf16": "auto", "cuda": "cuda"}
+    expect = {"cuda_bf16": phi_counts(phi_big_d_bf16x3=ct["steps"]),
+              "cuda": phi_counts(phi_big_d=ct["steps"])}
+    ct_rows = {tier: [] for tier in tiers}
+    for tier in ("cuda_bf16", "cuda", "cuda", "cuda_bf16"):
+        cds, _, info = cov.make_sampler(phi_impl=tiers[tier])
+        if info["phi_impl"] != tier:
+            raise AssertionError(f"covertype: phi_impl {tiers[tier]!r} resolved to "
+                                 f"{info['phi_impl']!r}, not {tier!r}")
+        cds.run_steps(ct["warm_steps"], ct["step_size"])
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cds.run_steps(ct["steps"], ct["step_size"])
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launched = dict(cuda_svgd.launch_counts)
+        finite = bool(torch.isfinite(cds.particles).all())
+        row = {"phase": "covertype", "phi_impl": tier, "turn": len(ct_rows[tier]) + 1,
+               "n": info["n_used"], "shards": cds._num_shards, "d": cds.particles.shape[1],
+               "batch_size": info["batch_size"], "steps": ct["steps"],
+               "ms_per_step": 1e3 * host_s / ct["steps"],
+               "updates_per_s": info["n_used"] * ct["steps"] / host_s,
+               "launches": launched,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "finite": finite}
+        ct_rows[tier].append(row)
+        emit(row)
+        if not finite or launched != expect[tier]:
+            raise AssertionError(f"covertype {tier}: finite={finite} launches={launched}")
+        del cds
+    launches_ct = ct_rows["cuda_bf16"][0]["launches"]
+
+    # a full run() of each tier: 200 steps, the ensemble test accuracy
+    accs = {}
+    for tier in tiers:
+        final, metrics = cov.run(phi_impl=tiers[tier])
+        accs[tier] = metrics["test_acc"]
+        emit({"phase": "covertype_run", **metrics,
+              "finite": bool(np.isfinite(final).all())})
+        if metrics["phi_impl"] != tier or not np.isfinite(final).all():
+            raise AssertionError(f"covertype run {tier}: {metrics}")
+    gap = abs(accs["cuda_bf16"] - accs["cuda"])
+    emit({"phase": "covertype_accuracy", "test_acc": accs, "gap": gap,
+          "bound": CT_ACC_TOL, "ok": gap <= CT_ACC_TOL,
+          "ms_per_step": {t: [r["ms_per_step"] for r in rows] for t, rows in ct_rows.items()}})
+    if not gap <= CT_ACC_TOL:
+        raise AssertionError(f"covertype accuracy: tiers {accs} differ by more than "
+                             f"{CT_ACC_TOL}")
+
+    # ---- 11b. where a Covertype step's time goes (torch.profiler) -----------
+    pds, _, _ = cov.make_sampler()
+    pds.run_steps(ct["warm_steps"], ct["step_size"])
+    emit(profile_steps(pds, ct["step_size"], steps=ct["profile_steps"],
+                       phase="covertype_profile"))
+    del pds
+
+    # ---- 11c. Covertype trajectory: bf16 kernels vs their plain versions ---
+    runs = {}
+    indices = {}
+    for impl in ("cuda_bf16", "torch_bf16"):
+        tds, _, info = cov.make_sampler(phi_impl=impl)
+        if not indices:  # the same minibatch indices for both, through the seam
+            indices = {t: minibatch_indices(1234, t, tds._num_shards, tds._rows_per_shard,
+                                            info["batch_size"], "cuda")
+                       for t in range(1, ct["trajectory_steps"] + 1)}
+        tds._batch_index_seam = indices.__getitem__
+        tds.run_steps(ct["trajectory_steps"], ct["step_size"])
+        runs[impl] = tds.particles
+        del tds
+    dev = float((runs["cuda_bf16"] - runs["torch_bf16"]).abs().max())
+    rel = dev / float(runs["torch_bf16"].abs().max())
+    emit({"phase": "covertype_trajectory", "steps": ct["trajectory_steps"],
+          "max_abs_dev": dev, "rel_dev": rel, "bound": TRAJ_RTOL, "ok": rel <= TRAJ_RTOL})
+    if not rel <= TRAJ_RTOL:
+        raise AssertionError(f"covertype trajectory: {rel} > {TRAJ_RTOL}")
+    del runs
+
+    # ---- 11d. small-input reference with minibatches: card f32 vs CPU f64 --
+    from dist_svgd_torch.models.logreg import logreg_likelihood, logreg_prior
+
+    rng = np.random.default_rng(9)
+    worst = 0.0
+    for dd in (3, 12):
+        parts = rng.normal(size=(64, dd))
+        xr = rng.normal(size=(48, dd - 1))
+        tr_ = np.where(rng.normal(size=48) > 0, 1.0, -1.0)
+        idx = {t: np.stack([rng.permutation(12)[:5] for _ in range(4)]) for t in (1, 2, 3)}
+        for exch_p, exch_s in ((True, False), (True, True), (False, False)):
+            out = {}
+            for dev_name, impl, dtype in (("cuda", "cuda", np.float32),
+                                          ("cpu", "torch", np.float64)):
+                r = DistSampler(4, logreg_likelihood, None, parts.astype(dtype),
+                                data=(xr, tr_), exchange_particles=exch_p,
+                                exchange_scores=exch_s, include_wasserstein=False,
+                                batch_size=5, log_prior=logreg_prior,
+                                phi_impl=impl, device=dev_name)
+                r._batch_index_seam = idx.__getitem__
+                r.run_steps(3, 0.05)
+                out[dev_name] = r.particles.double().cpu()
+            rel = float((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max())
+            worst = max(worst, rel)
+    emit({"phase": "small_reference_minibatch", "modes": 3, "dims": [3, 12],
+          "batch_size": 5, "max_rel_dev": worst, "bound": SMALL_RTOL,
+          "ok": worst <= SMALL_RTOL})
+    if not worst <= SMALL_RTOL:
+        raise AssertionError(f"small minibatch reference: {worst} > {SMALL_RTOL}")
+    return launches_ct
+
+
 def main():
     import torch
 
@@ -317,20 +487,38 @@ def main():
                       for name, r in built.items()}})
 
     # ---- 3. kernel parity and timing -------------------------------------
-    kernel_fns = {"phi_small_d": (cuda_svgd.phi_small_d_cuda, cuda_svgd.phi_small_d_plain),
-                  "phi_big_d": (cuda_svgd.phi_big_d_cuda, cuda_svgd.phi_big_d_plain)}
+    kernel_fns = {
+        "phi_small_d": (cuda_svgd.phi_small_d_cuda, cuda_svgd.phi_small_d_plain),
+        "phi_big_d": (cuda_svgd.phi_big_d_cuda, cuda_svgd.phi_big_d_plain),
+        "phi_small_d_bf16": (cuda_svgd.phi_small_d_bf16_cuda,
+                             cuda_svgd.phi_small_d_bf16_plain),
+        "phi_big_d_bf16x3": (cuda_svgd.phi_big_d_bf16x3_cuda,
+                             cuda_svgd.phi_big_d_bf16x3_plain),
+    }
     # (kernel, (S, k, m, d), bandwidth, shared x, role).  The main shapes are
-    # the north star's: 8 lanes × 1250 rows against 10,000 particles, at
-    # banana's d=3 and splice's d=61.  Big-d checks use h = 2d so the Gram
-    # stays O(1) and the check exercises exp and drive (at h=1 and d=61
-    # nearly every off-diagonal K underflows to 0).
+    # the paths': 8 lanes × 1250 rows against 10,000 particles, at banana's
+    # d=3, splice's d=61 and Covertype's d=55.  Big-d checks use h = 2d so
+    # the Gram stays O(1) and the check exercises exp and drive (at h=1 and
+    # d=55 nearly every off-diagonal K underflows to 0); the bf16x3 tier is
+    # also held at the Covertype path's own h = 1, where φ rides the Gram
+    # diagonal's cancellation.  Every row is timed.
     cases = [
         ("phi_small_d", (8, 1250, 10_000, 3), 1.0, True, "main"),
         ("phi_small_d", (3, 1000, 777, 5), 1.0, True, "ragged"),
         ("phi_small_d", (8, 1250, 1250, 3), 1.0, False, "partitions"),
         ("phi_big_d", (8, 1250, 10_000, 61), 122.0, True, "main"),
+        ("phi_big_d", (8, 1250, 10_000, 55), 110.0, True, "covertype d=55"),
         ("phi_big_d", (1, 300, 517, 9), 18.0, True, "ragged"),
         ("phi_big_d", (2, 200, 333, 128), 256.0, False, "widest"),
+        ("phi_big_d_bf16x3", (8, 1250, 10_000, 55), 1.0, True, "main"),
+        ("phi_big_d_bf16x3", (8, 1250, 10_000, 55), 110.0, True, "main h=2d"),
+        ("phi_big_d_bf16x3", (1, 300, 517, 9), 18.0, True, "ragged"),
+        ("phi_big_d_bf16x3", (3, 1000, 777, 13), 26.0, False, "ragged per-lane x"),
+        ("phi_big_d_bf16x3", (2, 200, 333, 128), 256.0, False, "widest"),
+        ("phi_big_d_bf16x3", (2, 200, 333, 128), 256.0, True, "widest shared x"),
+        ("phi_small_d_bf16", (8, 1250, 10_000, 3), 1.0, True, "main"),
+        ("phi_small_d_bf16", (3, 1000, 777, 5), 1.0, True, "ragged"),
+        ("phi_small_d_bf16", (8, 1250, 1250, 3), 1.0, False, "partitions"),
     ]
     timing = {}
     for seed, (name, (S, k, m, d), h, shared, role) in enumerate(cases):
@@ -342,16 +530,22 @@ def main():
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+        del got, want
+        reps = TIMED_LAUNCHES if role.startswith("main") else OTHER_LAUNCHES
+        ms = cuda_ms(lambda: kern(y, x, s, h), reps)
+        plain_ms = cuda_ms(lambda: plain(y, x, s, h), reps)
+        b_ms, b_by = bound_ms(*phi_work(name, S, k, m, d, x.numel()))
         row = {"phase": "kernel_parity", "kernel": name, "role": role,
                "shape": [S, k, m, d], "bandwidth": h, "max_abs_err": err,
-               "max_abs_plain": scale, "tolerance": KERNEL_RTOL * scale, "ok": ok}
+               "max_abs_plain": scale, "tolerance": KERNEL_RTOL * scale, "ok": ok,
+               "ms": ms, "plain_ms": plain_ms, "bound_us": 1e3 * b_ms, "bound_by": b_by}
+        if name == "phi_big_d_bf16x3" and role.startswith("main"):
+            # the exact tier on the same inputs, beside it
+            row["exact_phi_big_d_ms"] = cuda_ms(
+                lambda: cuda_svgd.phi_big_d_cuda(y, x, s, h), reps)
         if role == "main":
-            ms = cuda_ms(lambda: kern(y, x, s, h), TIMED_LAUNCHES)
-            plain_ms = cuda_ms(lambda: plain(y, x, s, h), TIMED_LAUNCHES)
-            b_ms, b_by = bound_ms(*phi_work(name, S, k, m, d, x.numel()))
             timing[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": b_ms, "bound_by": b_by}
-            row.update(ms=ms, plain_ms=plain_ms, bound_us=1e3 * b_ms, bound_by=b_by)
         emit(row)
         if not ok:
             raise AssertionError(f"{name} {role}: max|Δ| {err} > {KERNEL_RTOL} × {scale}")
@@ -466,7 +660,7 @@ def main():
           "event_ms_per_step": dev_ms / ns["steps"],
           "launches": launches_small, "finite": finite, "test_accuracy": acc,
           "clocks_sm,power_draw,power_limit,temp": clocks})
-    if not finite or launches_small != {"phi_small_d": ns["steps"], "phi_big_d": 0}:
+    if not finite or launches_small != phi_counts(phi_small_d=ns["steps"]):
         raise AssertionError(f"north star: finite={finite} launches={launches_small}")
 
     # ---- 4b. where a north-star step's time goes (torch.profiler) ---------
@@ -505,8 +699,27 @@ def main():
           "steps": BIG_D_STEPS, "ms_per_step": 1e3 * host_s / BIG_D_STEPS,
           "updates_per_s": ns["n"] * BIG_D_STEPS / host_s,
           "launches": launches_big, "finite": finite, "test_accuracy": sacc})
-    if not finite or launches_big != {"phi_small_d": 0, "phi_big_d": BIG_D_STEPS}:
+    if not finite or launches_big != phi_counts(phi_big_d=BIG_D_STEPS):
         raise AssertionError(f"big-d path: finite={finite} launches={launches_big}")
+
+    # ---- 6b. the small-d bf16 tier: a short banana run ---------------------
+    bds = sampler(init, data, phi_impl="cuda_bf16")
+    torch.cuda.synchronize()
+    cuda_svgd.reset_launch_counts()
+    t0 = time.perf_counter()
+    bds.run_steps(BANANA_BF16_STEPS, ns["step_size"])
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches_sbf = dict(cuda_svgd.launch_counts)
+    finite = bool(torch.isfinite(bds.particles).all())
+    emit({"phase": "banana_bf16", "dataset": "banana", "fold": 42, "n": ns["n"], "d": d,
+          "phi_impl": "cuda_bf16", "steps": BANANA_BF16_STEPS,
+          "ms_per_step": 1e3 * host_s / BANANA_BF16_STEPS, "launches": launches_sbf,
+          "finite": finite,
+          "test_accuracy": float(ensemble_test_accuracy(bds.particles, x_test, t_test))})
+    if not finite or launches_sbf != phi_counts(phi_small_d_bf16=BANANA_BF16_STEPS):
+        raise AssertionError(f"banana bf16: finite={finite} launches={launches_sbf}")
+    del bds
 
     # ---- 7. W2 north star: Sinkhorn at 10k, the fused route --------------
     def w2_sampler(particles, **kw):
@@ -669,12 +882,17 @@ def main():
     if not worst <= W2_SMALL_RTOL:
         raise AssertionError(f"small W2 reference: {worst} > {W2_SMALL_RTOL}")
 
+    # ---- 11. Covertype (BASELINE config 4) through its driver --------------
+    launches_ct = covertype_phases()
+
     launches = {"phi_small_d": launches_small["phi_small_d"],
                 "phi_big_d": launches_big["phi_big_d"],
                 "ot_ctransform": launches_w2["ot_ctransform"],
                 "ot_kexp": launches_w2["ot_kexp"],
                 "ot_kmat_vec": launches_st["ot_kmat_vec"],
-                "ot_plan_grad": launches_st["ot_plan_grad"]}
+                "ot_plan_grad": launches_st["ot_plan_grad"],
+                "phi_small_d_bf16": launches_sbf["phi_small_d_bf16"],
+                "phi_big_d_bf16x3": launches_ct["phi_big_d_bf16x3"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

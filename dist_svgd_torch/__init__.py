@@ -23,6 +23,7 @@ from dist_svgd_torch.models.logreg import (
     logreg_logp,
     logreg_prior,
     make_logreg_logp,
+    make_logreg_split,
     posterior_predictive_prob,
 )
 from dist_svgd_torch.ops.kernels import RBF, median_bandwidth
@@ -38,6 +39,7 @@ __all__ = [
     "logreg_logp",
     "logreg_prior",
     "make_logreg_logp",
+    "make_logreg_split",
     "posterior_predictive_prob",
     "__version__",
 ]

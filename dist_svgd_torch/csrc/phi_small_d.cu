@@ -1,14 +1,25 @@
-// Fused SVGD φ for small feature dims (d ≤ 8), exact f32 — hand-written
-// for Hopper (sm_90a).
+// Fused SVGD φ for small feature dims (d ≤ 8), exact f32 and bf16-exp tiers
+// — hand-written for Hopper (sm_90a).
 //
 // Replaces: dist_svgd_tpu/ops/pallas_svgd.py, `_phi_kernel_small_d` (reached
-// through `phi_pallas`), together with its `_phi_tail` epilogue.
+// through `phi_pallas`), together with its `_phi_tail` epilogue, in both of
+// its tiers: exact f32 (phi_small_d_launch) and bf16_gram
+// (phi_impl='pallas_bf16', here phi_small_d_bf16_launch).
 //
 // Computes, for every lane l of S and output row i of k:
 //
 //     K_ij   = exp(−Σ_c (y_ic − x_jc)² / h)               (direct differences)
 //     φ(y_i) = (Σ_j K_ij · xs_j + (2/h) · y_i · Σ_j K_ij) / m,
 //     xs     = s − (2/h)·x     (formed once by the wrapper in torch)
+//
+// The bf16 tier (template flag BF16) rounds the exponent −d²/h to bf16 and
+// takes its f32 exp, as the TPU kernel's `jnp.exp(neg.astype(bfloat16))`
+// computes in the JAX program (XLA's excess precision keeps the exp's
+// result in f32: see phi_small_d_bf16_plain); the drive and the row-sum
+// take that K.  Its distance is summed without FMA contraction
+// (__fmul_rn/__fadd_rn), the order of the plain version, so that an
+// exponent near a bf16 rounding boundary rounds the same way on both
+// sides.
 //
 // What bounds it on this card: arithmetic, not memory.  A north-star call
 // (S=8, k=1250, m=10000, d=3) is 1e8 pairs at ~5d+2 f32 operations and one
@@ -28,7 +39,10 @@
 // - the ragged edge is a bounds check (inactive rows, short last tile), not
 //   the TPU kernel's _FAR padding sentinel;
 // - exp is the full-precision expf: no --use_fast_math, no __expf, so
-//   denormals and the f32 tolerance survive.
+//   denormals and the f32 tolerance survive.  In the bf16 tier the SFU
+//   work is the same and one bf16 rounding is added: it is a precision
+//   option, not a faster kernel.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "phi_common.cuh"
@@ -36,7 +50,7 @@
 constexpr int SD_THREADS = 128;  // output rows per block, one thread each
 constexpr int SD_TILE = 256;     // interaction columns per shared-memory tile
 
-template <int D>
+template <int D, bool BF16>
 __global__ void __launch_bounds__(SD_THREADS)
 phi_small_d_partial(const float* __restrict__ y, const float* __restrict__ x,
                     const float* __restrict__ xs, float* __restrict__ part,
@@ -89,12 +103,23 @@ phi_small_d_partial(const float* __restrict__ y, const float* __restrict__ x,
           sv[4 * q] = b.x; sv[4 * q + 1] = b.y; sv[4 * q + 2] = b.z; sv[4 * q + 3] = b.w;
         }
         float d2 = 0.f;
+        float kv;
+        if constexpr (BF16) {
 #pragma unroll
-        for (int c = 0; c < D; ++c) {
-          const float diff = yi[c] - xv[c];
-          d2 = fmaf(diff, diff, d2);
+          for (int c = 0; c < D; ++c) {
+            const float diff = __fsub_rn(yi[c], xv[c]);
+            d2 = __fadd_rn(d2, __fmul_rn(diff, diff));
+          }
+          const float e = __bfloat162float(__float2bfloat16_rn(__fmul_rn(-d2, inv_h)));
+          kv = expf(e);
+        } else {
+#pragma unroll
+          for (int c = 0; c < D; ++c) {
+            const float diff = yi[c] - xv[c];
+            d2 = fmaf(diff, diff, d2);
+          }
+          kv = expf(-d2 * inv_h);
         }
-        const float kv = expf(-d2 * inv_h);
         ksum += kv;
 #pragma unroll
         for (int c = 0; c < D; ++c) acc[c] = fmaf(kv, sv[c], acc[c]);
@@ -109,28 +134,23 @@ phi_small_d_partial(const float* __restrict__ y, const float* __restrict__ x,
   }
 }
 
-template <int D>
+template <int D, bool BF16>
 static cudaError_t launch(const float* y, const float* x, const float* xs,
                           float* part, float* out, int S, int k, int m,
                           int x_lane_stride, int chunk, int nsplit, float inv_h,
                           cudaStream_t stream) {
   const dim3 grid((k + SD_THREADS - 1) / SD_THREADS, S, nsplit);
-  phi_small_d_partial<D><<<grid, SD_THREADS, 0, stream>>>(
+  phi_small_d_partial<D, BF16><<<grid, SD_THREADS, 0, stream>>>(
       y, x, xs, part, S, k, m, x_lane_stride, chunk, inv_h);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_phi_finalize(part, y, out, nsplit, S, k, D, m, inv_h, stream);
 }
 
-// y (S, k, d); x (m, d) with x_lane_stride 0, or (S, m, d) with stride m·d;
-// xs (S, m, d); part (nsplit, S, k, d + 1) scratch; out (S, k, d).  All f32,
-// contiguous, on `device`.  Launches on `stream`, allocates nothing, does
-// not synchronise; returns the cudaGetLastError() code of the launches.
-extern "C" int phi_small_d_launch(const void* y, const void* x, const void* xs,
-                                  void* part, void* out, int S, int k, int m,
-                                  int d, int x_lane_stride, int chunk,
-                                  int nsplit, float inv_h, int device,
-                                  void* stream) {
+template <bool BF16>
+static int dispatch(const void* y, const void* x, const void* xs, void* part,
+                    void* out, int S, int k, int m, int d, int x_lane_stride,
+                    int chunk, int nsplit, float inv_h, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const float* fy = static_cast<const float*>(y);
@@ -139,10 +159,10 @@ extern "C" int phi_small_d_launch(const void* y, const void* x, const void* xs,
   float* fpart = static_cast<float*>(part);
   float* fout = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PHI_SMALL_D_CASE(DIM)                                                  \
-  case DIM:                                                                    \
-    return (int)launch<DIM>(fy, fx, fxs, fpart, fout, S, k, m, x_lane_stride, \
-                            chunk, nsplit, inv_h, st);
+#define PHI_SMALL_D_CASE(DIM)                                                 \
+  case DIM:                                                                   \
+    return (int)launch<DIM, BF16>(fy, fx, fxs, fpart, fout, S, k, m,         \
+                                  x_lane_stride, chunk, nsplit, inv_h, st);
   switch (d) {
     PHI_SMALL_D_CASE(1)
     PHI_SMALL_D_CASE(2)
@@ -156,4 +176,27 @@ extern "C" int phi_small_d_launch(const void* y, const void* x, const void* xs,
       return (int)cudaErrorInvalidValue;
   }
 #undef PHI_SMALL_D_CASE
+}
+
+// y (S, k, d); x (m, d) with x_lane_stride 0, or (S, m, d) with stride m·d;
+// xs (S, m, d); part (nsplit, S, k, d + 1) scratch; out (S, k, d).  All f32,
+// contiguous, on `device`.  Launches on `stream`, allocates nothing, does
+// not synchronise; returns the cudaGetLastError() code of the launches.
+extern "C" int phi_small_d_launch(const void* y, const void* x, const void* xs,
+                                  void* part, void* out, int S, int k, int m,
+                                  int d, int x_lane_stride, int chunk,
+                                  int nsplit, float inv_h, int device,
+                                  void* stream) {
+  return dispatch<false>(y, x, xs, part, out, S, k, m, d, x_lane_stride, chunk,
+                         nsplit, inv_h, device, stream);
+}
+
+// The bf16 tier: the same arguments and contract.
+extern "C" int phi_small_d_bf16_launch(const void* y, const void* x,
+                                       const void* xs, void* part, void* out,
+                                       int S, int k, int m, int d,
+                                       int x_lane_stride, int chunk, int nsplit,
+                                       float inv_h, int device, void* stream) {
+  return dispatch<true>(y, x, xs, part, out, S, k, m, d, x_lane_stride, chunk,
+                        nsplit, inv_h, device, stream);
 }

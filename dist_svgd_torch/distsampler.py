@@ -9,12 +9,15 @@ emulates them on one chip under ``vmap``.
 Ported: the constructor with the JAX signature and defaults, the
 drop-remainder policy (particles and data rows), the importance scale
 ``N_global / N_local``, the three exchange modes with the gather
-implementation and the Jacobi update, the Wasserstein/JKO term (host LP
-through ``make_step``, Sinkhorn through ``make_step`` and ``run_steps``,
-both W2 pairings, the carried Sinkhorn dual), ``make_step``, monolithic
-``run_steps(record=False)``, and ``state_dict`` / ``load_state_dict`` for
-the particles, the step counter, the W2 snapshots and duals and the
-topology manifest.  Every other option raises ``NotImplementedError``
+implementation and the Jacobi update, per-shard per-step minibatches
+(``batch_size``, drawn from a stream keyed by ``(seed, t)``), a separate
+unscaled prior (``log_prior``), sharded data (``shard_data``), the
+Wasserstein/JKO term (host LP through ``make_step``, Sinkhorn through
+``make_step`` and ``run_steps``, both W2 pairings, the carried Sinkhorn
+dual), ``make_step``, monolithic ``run_steps(record=False)``, and
+``state_dict`` / ``load_state_dict`` for the particles, the step counter,
+the minibatch stream's seed, the W2 snapshots and duals and the topology
+manifest.  Every other option raises ``NotImplementedError``
 naming its ROADMAP item, so a call that runs here means what it means in
 JAX.
 
@@ -47,6 +50,7 @@ from dist_svgd_torch.parallel.exchange import (
 from dist_svgd_torch.parallel.mesh import merge, split
 from dist_svgd_torch.utils import checkpoint as _ckpt
 from dist_svgd_torch.utils.platform import resolve_device
+from dist_svgd_torch.utils.rng import minibatch_indices
 
 
 #: Above this global particle count, ``w2_pairing='auto'`` routes the
@@ -106,15 +110,30 @@ class DistSampler:
             :data:`W2_GLOBAL_PAIRING_MAX_N` particles, then block, with a
             warning).  ``partitions`` is always block-paired (``'global'``
             raises there); the value is inert with the W2 term off.
-        phi_impl: ``'auto'`` (the hand CUDA kernel on the card, its plain
-            version on the CPU), ``'torch'`` (the plain ``ops.svgd.phi``) or
-            ``'cuda'`` (the kernel; refused on the CPU) — see
+        shard_data: shard the data rows instead of replicating them
+            (``all_*`` modes only; ``partitions`` raises ``ValueError``).
+            Rows are truncated to ``S · (rows // S)`` either way; under the
+            emulation every shard already holds only its own slice.
+        batch_size: per-step per-shard minibatch size B: each shard scores
+            B of its ``rows // S`` rows, drawn without replacement for the
+            step, scaled ``(rows // S) / B`` (unbiased).  BASELINE.json
+            config 4.
+        log_prior: optional separate prior ``log_prior(theta)``; ``logp`` is
+            then the likelihood alone and the prior gradient is added once,
+            unscaled.
+        phi_impl: ``'auto'`` (the exact hand CUDA kernel on the card, its
+            plain version on the CPU), ``'torch'`` (the plain
+            ``ops.svgd.phi``), ``'cuda'`` (the exact kernel; refused on the
+            CPU), ``'cuda_bf16'`` (the bf16 tiers — JAX's ``'pallas_bf16'``)
+            or ``'torch_bf16'`` (their plain versions) — see
             :func:`dist_svgd_torch.ops.cuda_svgd.resolve_phi_fn`.
+        seed: an int, the root of the minibatch stream: step ``t`` draws
+            from ``(seed, t)`` alone, so a resume continues it.
         device: ``None`` → the card (raises without CUDA); ``'cpu'`` for the
             plain path.
-        seed, donate_carries: accepted for signature parity; they have no
-            effect without a minibatch stream or a compiled scan.  Every
-            other option outside the slice raises ``NotImplementedError``.
+        donate_carries: accepted for signature parity; it has no effect
+            without a compiled scan.  Every other option outside the slice
+            raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -166,12 +185,10 @@ class DistSampler:
             raise _not_ported("exchange_impl='ring'", "A10")
         if exchange_every > 1:
             raise _not_ported("exchange_every > 1 (the lagged exchange)", "A10")
-        if shard_data:
-            raise _not_ported("shard_data=True", "A6")
-        if batch_size is not None:
-            raise _not_ported("batch_size (per-shard minibatches)", "A6")
-        if log_prior is not None:
-            raise _not_ported("log_prior (a separate prior)", "A6")
+        if shard_data and not exchange_particles:
+            raise ValueError("shard_data is unsupported in partitions mode")
+        if isinstance(seed, bool) or not isinstance(seed, (int, np.integer)):
+            raise ValueError(f"seed must be an int (the minibatch stream's root), got {seed!r}")
         if kernel_approx is not None:
             raise _not_ported("kernel_approx", "A11")
         if isinstance(kernel, str) and kernel == "median_step":
@@ -190,6 +207,14 @@ class DistSampler:
         self._num_shards = int(num_shards)
         self._logp = logp
         self._phi_impl = phi_impl
+        self._shard_data = bool(shard_data)
+        self._batch_size = None if batch_size is None else int(batch_size)
+        self._log_prior = log_prior
+        self._seed = int(seed)
+        #: Private seam: ``fn(t) -> (S, B)`` minibatch indices for step
+        #: ``t``, used instead of the sampler's own stream when set (tests
+        #: inject the JAX stream's indices through it).
+        self._batch_index_seam = None
 
         particles = torch.as_tensor(particles, device=self._device)
         if not particles.is_floating_point() or particles.dim() != 2:
@@ -232,6 +257,7 @@ class DistSampler:
             num_shards=self._num_shards,
             score_scale=self._score_scale,
             phi_impl=phi_impl,
+            **self._data_kwargs(),
         )
         self._t = 0  # step counter (drives the partitions rotation)
 
@@ -252,6 +278,23 @@ class DistSampler:
         # the first solve, as in the reference (dsvgd/distsampler.py:50).
         self._previous = None
         self._w2_g = None
+
+    def _data_kwargs(self) -> dict:
+        """The minibatch, prior and data-layout arguments of both step
+        builders."""
+        return dict(shard_data=self._shard_data, batch_size=self._batch_size,
+                    log_prior=self._log_prior, n_local_data=self._rows_per_shard)
+
+    def _batch_indices(self, t: int):
+        """Step ``t``'s ``(S, B)`` minibatch indices, or ``None`` for a
+        full-batch run."""
+        if self._batch_size is None:
+            return None
+        if self._batch_index_seam is not None:
+            return torch.as_tensor(self._batch_index_seam(t), dtype=torch.int64,
+                                   device=self._device)
+        return minibatch_indices(self._seed, t, self._num_shards, self._rows_per_shard,
+                                 self._batch_size, self._device)
 
     def _resolve_w2_pairing(self, w2_pairing: str) -> str:
         """The JAX constructor's pairing resolution (``'auto'`` routing,
@@ -328,10 +371,11 @@ class DistSampler:
     # Checkpoint / resume
 
     def state_dict(self) -> dict:
-        """Resume state: particles, the step counter, the resolved
-        ``w2_pairing``, the W2 ``previous`` snapshots and the carried
-        Sinkhorn duals (``None`` until they exist) and the topology manifest,
-        in the JAX ``state_dict``'s keys and numpy encoding."""
+        """Resume state: particles, the step counter, the minibatch stream's
+        seed (``rng_batch_seed``; JAX saves its key as ``rng_batch_key``),
+        the resolved ``w2_pairing``, the W2 ``previous`` snapshots and the
+        carried Sinkhorn duals (``None`` until they exist) and the topology
+        manifest, in the JAX ``state_dict``'s keys and numpy encoding."""
 
         def host(t):
             return None if t is None else t.detach().cpu().numpy()
@@ -340,6 +384,7 @@ class DistSampler:
             "particles": host(self._particles),
             "particles_start": np.asarray(0, dtype=np.int64),
             "t": np.asarray(self._t, dtype=np.int64),
+            "rng_batch_seed": np.asarray(self._seed, dtype=np.int64),
             "w2_pairing": np.asarray(W2_PAIRING_CODES.index(self._w2_pairing),
                                      dtype=np.int8),
             "previous": host(self._previous),
@@ -362,7 +407,10 @@ class DistSampler:
         (the particle array is global); a snapshot stack of another layout
         would need JAX's reshard-on-restore (ROADMAP A8) and is refused.  A
         dual that does not match its snapshot raises ``ValueError``; a save
-        under the other ``w2_pairing`` warns, as in JAX."""
+        under the other ``w2_pairing`` warns, as in JAX.  A saved
+        ``rng_batch_seed`` replaces the constructed seed, so a minibatched
+        resume continues the saved run's draws; a state without one (a JAX
+        save) goes on from this sampler's own seed."""
         _ckpt.check_topology(
             state, {"n_particles": self._num_particles, "d": self._d})
         if state.get("approx_method") is not None:
@@ -405,6 +453,8 @@ class DistSampler:
                                        dtype=self._particles.dtype).clone()
         self._previous, self._w2_g = previous, w2_g
         self._t = int(np.asarray(state["t"]))
+        if state.get("rng_batch_seed") is not None:
+            self._seed = int(np.asarray(state["rng_batch_seed"]))
 
     def _restore_w2(self, name: str, state: dict):
         """A W2 entry of ``state`` as a tensor of the run's dtype on its
@@ -426,6 +476,7 @@ class DistSampler:
     def _advance(self, step_size: float, h: float) -> None:
         self._t += 1
         blocks = split(self._particles, self._num_shards)
+        idx = self._batch_indices(self._t)
         with torch.no_grad():
             if self._include_wasserstein:
                 if self._w2_step is None:
@@ -434,12 +485,13 @@ class DistSampler:
                         num_shards=self._num_shards, score_scale=self._score_scale,
                         phi_impl=self._phi_impl, w2_pairing=self._w2_pairing,
                         wasserstein_solver=self._wasserstein_solver,
-                        sinkhorn_impl=self._sinkhorn_impl, **self._sinkhorn)
+                        sinkhorn_impl=self._sinkhorn_impl, **self._sinkhorn,
+                        **self._data_kwargs())
                 blocks, self._previous, self._w2_g = self._w2_step(
                     blocks, self._previous, self._w2_g, self._data_stacked, self._t,
-                    step_size, h)
+                    step_size, h, idx)
             else:
-                blocks = self._step(blocks, self._data_stacked, self._t, step_size)
+                blocks = self._step(blocks, self._data_stacked, self._t, step_size, idx)
         self._particles = merge(blocks)
 
     def make_step(self, step_size: float, h: float = 1.0) -> torch.Tensor:

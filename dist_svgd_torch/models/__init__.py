@@ -6,6 +6,7 @@ from dist_svgd_torch.models.logreg import (
     logreg_logp,
     logreg_prior,
     make_logreg_logp,
+    make_logreg_split,
     posterior_predictive_prob,
 )
 
@@ -15,5 +16,6 @@ __all__ = [
     "logreg_logp",
     "logreg_prior",
     "make_logreg_logp",
+    "make_logreg_split",
     "posterior_predictive_prob",
 ]

@@ -68,6 +68,13 @@ def logreg_prior(theta: torch.Tensor) -> torch.Tensor:
     return -alpha + 0.5 * k * theta[0] - 0.5 * k * _LOG_2PI - 0.5 * alpha * torch.dot(w, w)
 
 
+def make_logreg_split():
+    """``(likelihood, prior)`` for the samplers' ``log_prior=`` path, so the
+    minibatch and importance scales touch only the data term;
+    ``likelihood + prior == logreg_logp``."""
+    return logreg_likelihood, logreg_prior
+
+
 def posterior_predictive_prob(particles: torch.Tensor, x_test: torch.Tensor) -> torch.Tensor:
     """Per-particle predictive probabilities ``σ(x_test · w)``, shape
     ``(n_particles, n_test)``.  As in the reference, the α component is

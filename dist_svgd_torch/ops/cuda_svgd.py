@@ -7,17 +7,26 @@ kernels' (reference Algorithm 1 with the closed-form repulsive term):
     K_ij   = exp(−‖y_i − x_j‖² / h)
     φ(y_i) = (1/m) [ Σ_j K_ij·(s_j − (2/h)·x_j)  +  (2/h)·y_i·Σ_j K_ij ]
 
-Two kernels, chosen on the feature dim d:
+Two kernels, chosen on the feature dim d, each in two precision tiers:
 
 - ``csrc/phi_small_d.cu`` (d ≤ :data:`SMALL_D`), replacing
-  ``_phi_kernel_small_d``: distances as direct per-dim differences;
+  ``_phi_kernel_small_d``: distances as direct per-dim differences; the
+  bf16 tier (``phi_small_d_bf16``, a template flag of the same kernel)
+  rounds the exponent to bf16 and takes its f32 exp;
 - ``csrc/phi_big_d.cu`` (:data:`SMALL_D` < d ≤ :data:`BIG_D_MAX`),
   replacing ``_phi_kernel`` in its exact f32 tier: distances as
-  ``y² + x² − 2·y·xᵀ`` clamped at 0.
+  ``y² + x² − 2·y·xᵀ`` clamped at 0, on the FP32 CUDA cores;
+- ``csrc/phi_big_d_bf16x3.cu``, the same kernel's bf16x3 tier
+  (``_dot3``): both contractions as three bf16 tensor-core products
+  ``hi·hi + hi·lo + lo·hi`` of the split operands, the exp in f32.
 
-Each has a plain PyTorch version here with the same distance form and the
-same ``xs = s − (2/h)·x`` drive operand, so that holding a kernel against
-its plain version on the card measures the kernel, not the form.
+The bf16 tiers are JAX's ``phi_impl='pallas_bf16'`` (here
+``'cuda_bf16'``): opt-in, never chosen by ``'auto'``.
+
+Each kernel has a plain PyTorch version here with the same distance form,
+the same splits and the same ``xs = s − (2/h)·x`` drive operand, so that
+holding a kernel against its plain version on the card measures the
+kernel, not the form.
 
 Batched interface: ``y`` is ``(S, k, d)`` — S lanes, the emulated shards —
 ``x`` is ``(m, d)`` shared by every lane or ``(S, m, d)``, ``s`` is
@@ -52,7 +61,8 @@ BIG_D_MAX = 128
 #: per wrapper call that launched it (a call is a partial-sum kernel plus
 #: the finalize kernel of the same source), so a run can show that its φ
 #: went through the hand kernels.
-launch_counts: Dict[str, int] = {"phi_small_d": 0, "phi_big_d": 0}
+launch_counts: Dict[str, int] = {"phi_small_d": 0, "phi_big_d": 0,
+                                 "phi_small_d_bf16": 0, "phi_big_d_bf16x3": 0}
 
 
 def reset_launch_counts() -> None:
@@ -84,20 +94,44 @@ def _epilogue(y, acc, ksum, inv_h: float, m: int) -> torch.Tensor:
     return (acc + (2.0 * inv_h) * y * ksum) / m
 
 
-def phi_small_d_plain(y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
-                      bandwidth: float = 1.0) -> torch.Tensor:
-    """Plain version of the small-d kernel: distances as direct per-dim
-    differences ``Σ_c (y_c − x_c)²`` (exact, no clamp), in the dtype given."""
-    _check_shapes(y, x, s)
-    inv_h = 1.0 / float(bandwidth)
-    xs = _drive_operand(x, s, inv_h)
+def _direct_d2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``Σ_c (y_c − x_c)²`` as per-dim differences (exact, no clamp),
+    ``(S, k, m)``."""
     d2 = None
     for c in range(y.shape[-1]):
         diff = y[..., :, c, None] - x[..., None, :, c]
         d2 = diff * diff if d2 is None else d2 + diff * diff
-    K = torch.exp(-d2 * inv_h)  # (S, k, m)
+    return d2
+
+
+def _small_d_plain(y, x, s, bandwidth, gram) -> torch.Tensor:
+    """Both small-d plain versions; ``gram(neg)`` turns the exponent
+    ``−d²/h`` into K."""
+    _check_shapes(y, x, s)
+    inv_h = 1.0 / float(bandwidth)
+    xs = _drive_operand(x, s, inv_h)
+    K = gram(-_direct_d2(y, x) * inv_h)  # (S, k, m)
     return _epilogue(y, torch.matmul(K, xs), K.sum(-1, keepdim=True), inv_h,
                      x.shape[-2])
+
+
+def _big_d_plain(y, x, s, bandwidth, dot) -> torch.Tensor:
+    """Both big-d plain versions; ``dot`` forms the two contractions."""
+    _check_shapes(y, x, s)
+    inv_h = 1.0 / float(bandwidth)
+    xs = _drive_operand(x, s, inv_h)
+    y2 = torch.sum(y * y, dim=-1, keepdim=True)  # (S, k, 1)
+    x2 = torch.sum(x * x, dim=-1)[..., None, :]  # (1, m) or (S, 1, m)
+    yx = dot(y, x.transpose(-1, -2))  # (S, k, m)
+    K = torch.exp(-torch.clamp(y2 + x2 - 2.0 * yx, min=0.0) * inv_h)
+    return _epilogue(y, dot(K, xs), K.sum(-1, keepdim=True), inv_h, x.shape[-2])
+
+
+def phi_small_d_plain(y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
+                      bandwidth: float = 1.0) -> torch.Tensor:
+    """Plain version of the small-d kernel: distances as direct per-dim
+    differences ``Σ_c (y_c − x_c)²`` (exact, no clamp), in the dtype given."""
+    return _small_d_plain(y, x, s, bandwidth, torch.exp)
 
 
 def phi_big_d_plain(y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
@@ -105,15 +139,50 @@ def phi_big_d_plain(y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
     """Plain version of the big-d kernel: distances as ``y² + x² − 2·y·xᵀ``
     clamped at 0, in the dtype given (TF32 must be off on the card:
     :func:`dist_svgd_torch.utils.platform.resolve_device` pins it)."""
-    _check_shapes(y, x, s)
-    inv_h = 1.0 / float(bandwidth)
-    xs = _drive_operand(x, s, inv_h)
-    y2 = torch.sum(y * y, dim=-1, keepdim=True)  # (S, k, 1)
-    x2 = torch.sum(x * x, dim=-1)[..., None, :]  # (1, m) or (S, 1, m)
-    yx = torch.matmul(y, x.transpose(-1, -2))  # (S, k, m)
-    K = torch.exp(-torch.clamp(y2 + x2 - 2.0 * yx, min=0.0) * inv_h)
-    return _epilogue(y, torch.matmul(K, xs), K.sum(-1, keepdim=True), inv_h,
-                     x.shape[-2])
+    return _big_d_plain(y, x, s, bandwidth, torch.matmul)
+
+
+def _bf16_split(a: torch.Tensor):
+    """``_dot3``'s split of an f32 tensor into bf16 ``hi`` and the bf16
+    residual ``lo = bf16(a − hi)``, both returned as f32 values."""
+    hi = a.to(torch.bfloat16)
+    lo = (a - hi.float()).to(torch.bfloat16)
+    return hi.float(), lo.float()
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as ``_dot3`` forms it: ``hi·hi + hi·lo + lo·hi`` of the
+    bf16 splits, each an f32 matmul of bf16-valued operands (their
+    products are exact in f32; TF32 is off)."""
+    a_hi, a_lo = _bf16_split(a)
+    b_hi, b_lo = _bf16_split(b)
+    return (torch.matmul(a_hi, b_hi) + torch.matmul(a_hi, b_lo)
+            + torch.matmul(a_lo, b_hi))
+
+
+def phi_small_d_bf16_plain(y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
+                           bandwidth: float = 1.0) -> torch.Tensor:
+    """Plain version of the small-d kernel's bf16 tier, float32: per-dim
+    distances in f32, the exponent ``−d²/h`` rounded to bf16 and its exp in
+    f32; the drive and the row-sum take that K.
+
+    The TPU kernel writes ``exp(neg.astype(bfloat16))``, a bf16 K, but the
+    JAX program it runs in keeps that K in f32: XLA's default excess
+    precision drops the rounding of an exp whose every consumer is f32
+    (measured: K rounded to bf16 moves φ 1.6e-3 of max|φ| away from
+    ``phi_pallas(gram_dtype=bfloat16)`` at (50, 37, 3), the exponent-only
+    rounding 4e-8).  The port follows the program as it runs."""
+    return _small_d_plain(y, x, s, bandwidth,
+                          lambda neg: torch.exp(neg.to(torch.bfloat16).float()))
+
+
+def phi_big_d_bf16x3_plain(y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
+                           bandwidth: float = 1.0) -> torch.Tensor:
+    """Plain version of the big-d kernel's bf16x3 tier, float32:
+    ``y·xᵀ`` and ``K·xs`` through :func:`_dot3`, ``y²`` and ``x²`` as plain
+    f32 sums, ``K = exp(−max(y² + x² − 2·y·xᵀ, 0)/h)`` in f32 and the
+    row-sum over that unsplit K."""
+    return _big_d_plain(y, x, s, bandwidth, _dot3)
 
 
 _SM_COUNTS: Dict[int, int] = {}
@@ -135,10 +204,13 @@ def _split_m(m: int, tile: int, row_blocks: int, device: torch.device) -> Tuple[
     return -(-tiles // per), per * tile
 
 
-# name → (C symbol, output rows per block, interaction columns per tile)
+# name → (library, C symbol, output rows per block, interaction columns per
+# tile, takes the row norms ‖y‖², ‖x‖²); a library is csrc/<library>.cu
 _KERNELS = {
-    "phi_small_d": ("phi_small_d_launch", 128, 256),
-    "phi_big_d": ("phi_big_d_launch", 64, 64),
+    "phi_small_d": ("phi_small_d", "phi_small_d_launch", 128, 256, False),
+    "phi_big_d": ("phi_big_d", "phi_big_d_launch", 64, 64, False),
+    "phi_small_d_bf16": ("phi_small_d", "phi_small_d_bf16_launch", 128, 256, False),
+    "phi_big_d_bf16x3": ("phi_big_d_bf16x3", "phi_big_d_bf16x3_launch", 64, 64, True),
 }
 _FUNCS: Dict[str, Callable] = {}
 
@@ -146,9 +218,9 @@ _FUNCS: Dict[str, Callable] = {}
 def _kernel_fn(name: str):
     fn = _FUNCS.get(name)
     if fn is None:
-        symbol = _KERNELS[name][0]
-        fn = getattr(_build.library(name), symbol)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        library, symbol, _, _, norms = _KERNELS[name]
+        fn = getattr(_build.library(library), symbol)
+        fn.argtypes = [ctypes.c_void_p] * (7 if norms else 5) + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FUNCS[name] = fn
@@ -172,12 +244,15 @@ def _launch(name: str, y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"{name}: shape {(S, k, m, d)} overflows the kernel's int indexing")
     inv_h = 1.0 / float(bandwidth)
     xs = _drive_operand(x, s, inv_h)
-    _, rows, tile = _KERNELS[name]
+    rows, tile, norms = _KERNELS[name][2:]
     nsplit, chunk = _split_m(m, tile, S * -(-k // rows), y.device)
     part = torch.empty((nsplit, S, k, d + 1), dtype=torch.float32, device=y.device)
     out = torch.empty((S, k, d), dtype=torch.float32, device=y.device)
+    inputs = [y, x, xs]
+    if norms:  # summed as the plain version sums them
+        inputs += [torch.sum(y * y, dim=-1), torch.sum(x * x, dim=-1)]
     err = _kernel_fn(name)(
-        y.data_ptr(), x.data_ptr(), xs.data_ptr(), part.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() for t in inputs), part.data_ptr(), out.data_ptr(),
         S, k, m, d, m * d if x.dim() == 3 else 0, chunk, nsplit,
         inv_h, y.device.index if y.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(y.device).cuda_stream,
@@ -197,19 +272,50 @@ def phi_small_d_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
 
 def phi_big_d_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
     """The big-d kernel (``csrc/phi_big_d.cu``) on CUDA f32 tensors."""
-    if not SMALL_D < y.shape[-1] <= BIG_D_MAX:
-        raise ValueError(
-            f"phi_big_d takes {SMALL_D} < d <= {BIG_D_MAX}, got {y.shape[-1]}")
+    _check_big_d("phi_big_d", y)
     return _launch("phi_big_d", y, x, s, bandwidth)
 
 
+def phi_small_d_bf16_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
+    """The small-d kernel's bf16 tier (``csrc/phi_small_d.cu``) on CUDA f32
+    tensors."""
+    if y.shape[-1] > SMALL_D:
+        raise ValueError(f"phi_small_d_bf16 takes d <= {SMALL_D}, got {y.shape[-1]}")
+    return _launch("phi_small_d_bf16", y, x, s, bandwidth)
+
+
+def phi_big_d_bf16x3_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
+    """The big-d kernel's bf16x3 tier (``csrc/phi_big_d_bf16x3.cu``, tensor
+    cores) on CUDA f32 tensors."""
+    _check_big_d("phi_big_d_bf16x3", y)
+    return _launch("phi_big_d_bf16x3", y, x, s, bandwidth)
+
+
+def _check_big_d(name: str, y: torch.Tensor) -> None:
+    if not SMALL_D < y.shape[-1] <= BIG_D_MAX:
+        raise ValueError(f"{name} takes {SMALL_D} < d <= {BIG_D_MAX}, got {y.shape[-1]}")
+
+
+# (small d, big d) → (kernel wrapper, plain version), by tier
+_TIERS = {
+    "f32": ((phi_small_d_cuda, phi_small_d_plain), (phi_big_d_cuda, phi_big_d_plain)),
+    "bf16": ((phi_small_d_bf16_cuda, phi_small_d_bf16_plain),
+             (phi_big_d_bf16x3_cuda, phi_big_d_bf16x3_plain)),
+}
+
+
 def phi_cuda(updated: torch.Tensor, interacting: torch.Tensor,
-             scores: torch.Tensor, bandwidth: float = 1.0) -> torch.Tensor:
+             scores: torch.Tensor, bandwidth: float = 1.0,
+             tier: str = "f32", plain: bool = False) -> torch.Tensor:
     """Fused-kernel φ̂* — drop-in for ``ops.svgd.phi(..., RBF(bandwidth))``
     on batched lanes (module docstring).  CUDA tensors launch the hand
-    kernel for their d; CPU tensors take that kernel's plain version.
+    kernel for their d and ``tier`` (``'f32'``, exact, or ``'bf16'``); CPU
+    tensors take that kernel's plain version, as any tensor does with
+    ``plain=True`` (the reference a kernel is held against on the card).
     Raises ``ValueError`` for d > :data:`BIG_D_MAX` (ROADMAP: φ beyond
     d = 128)."""
+    if tier not in _TIERS:
+        raise ValueError(f"unknown tier {tier!r}; have {tuple(_TIERS)}")
     _check_shapes(updated, interacting, scores)
     d = updated.shape[-1]
     if d > BIG_D_MAX:
@@ -217,19 +323,18 @@ def phi_cuda(updated: torch.Tensor, interacting: torch.Tensor,
             f"phi_cuda: d={d} is above the big-d kernel's cap of {BIG_D_MAX}; "
             "use phi_impl='torch' for this shape"
         )
-    small = d <= SMALL_D
-    in_dtype = updated.dtype
+    kern, plain_fn = _TIERS[tier][0 if d <= SMALL_D else 1]
+    if plain or updated.device.type == "cpu":
+        kern = plain_fn
     y, x, s = (t.to(torch.float32).contiguous() for t in (updated, interacting, scores))
-    if y.device.type == "cpu":
-        plain = phi_small_d_plain if small else phi_big_d_plain
-        out = plain(y, x, s, bandwidth)
-    else:
-        kern = phi_small_d_cuda if small else phi_big_d_cuda
-        out = kern(y, x, s, bandwidth)
-    return out.to(in_dtype)
+    return kern(y, x, s, bandwidth).to(updated.dtype)
 
 
-PHI_IMPLS = ("auto", "torch", "cuda")
+PHI_IMPLS = ("auto", "torch", "cuda", "cuda_bf16", "torch_bf16")
+
+
+#: JAX's φ-backend names → the port's.
+_JAX_NAMES = {"xla": "torch", "pallas": "cuda", "pallas_bf16": "cuda_bf16"}
 
 
 def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
@@ -243,12 +348,19 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
     - ``'torch'`` — the plain ``ops.svgd.phi`` (the JAX ``'xla'`` program's
       arithmetic) on any device.
     - ``'cuda'``  — force the hand kernel; raises on CPU tensors.
+    - ``'cuda_bf16'`` — the bf16 tiers (JAX's ``'pallas_bf16'``): the bf16
+      kernel for the tensors' d on CUDA tensors, its plain version on CPU
+      tensors.  Never chosen by ``'auto'``; meant for runs whose score is
+      already stochastic (minibatches).
+    - ``'torch_bf16'`` — the bf16 tiers' plain versions on any device.
+
+    JAX's names ``'xla'``, ``'pallas'`` and ``'pallas_bf16'`` raise
+    ``ValueError`` naming the port's.
     """
-    if phi_impl == "pallas_bf16":
-        raise NotImplementedError(
-            "phi_impl='pallas_bf16' (the bf16 tiers of both φ kernels) is not "
-            "ported yet: ROADMAP B1/B2 bf16 tiers"
-        )
+    if phi_impl in _JAX_NAMES:
+        raise ValueError(
+            f"unknown phi_impl {phi_impl!r}: that is the JAX package's name; "
+            f"the port's is {_JAX_NAMES[phi_impl]!r}")
     if phi_impl not in PHI_IMPLS:
         raise ValueError(f"unknown phi_impl {phi_impl!r}; the port has {PHI_IMPLS}")
     if not isinstance(kernel, RBF):
@@ -261,6 +373,10 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
         return lambda y, x, s: phi(y, x, s, kernel)
     if phi_impl == "auto":
         return lambda y, x, s: phi_cuda(y, x, s, bw)
+    if phi_impl == "cuda_bf16":
+        return lambda y, x, s: phi_cuda(y, x, s, bw, tier="bf16")
+    if phi_impl == "torch_bf16":
+        return lambda y, x, s: phi_cuda(y, x, s, bw, tier="bf16", plain=True)
 
     def cuda_fn(y, x, s):
         if y.device.type != "cuda":

@@ -16,7 +16,10 @@ implementation, Jacobi update).  Reference semantics:
 
 Data is replicated and sliced per shard in contiguous blocks of
 ``n_local_data`` rows (remainder dropped); :func:`stack_shards` lays the
-slices out along the shard axis once, at construction.
+slices out along the shard axis once, at construction.  A minibatched step
+scores, on each shard, ``B`` rows of that shard's slice drawn for the step
+(:func:`~dist_svgd_torch.utils.rng.minibatch_indices`), scaled by
+``n_local_data / B``; a separate prior is added once, unscaled.
 
 :func:`make_shard_step_sinkhorn_w2` adds the Wasserstein/JKO term with the
 reference's snapshot semantics (``dist_svgd_tpu/parallel/exchange.py``).
@@ -59,10 +62,18 @@ def stack_shards(data, num_shards: int, n_local_data: int):
     return tree_map(lambda a: split(a[:keep], num_shards), data)
 
 
-def _shard_data_resolver(mode: str, num_shards: int):
+def _shard_data_resolver(mode: str, num_shards: int, shard_data: bool = False):
     """``resolve(stacked, t) -> per-shard data``: the identity, except in
     ``partitions`` mode where shard ``r`` takes data slice ``(r + t) mod S``
-    — the one place the rotation lives."""
+    — the one place the rotation lives.
+
+    Under the emulation the stacked per-shard layout already is what
+    ``shard_data=True`` means (each shard holds only its own slice), so the
+    flag changes nothing here; ``partitions`` refuses it, as in JAX, because
+    its rotating data rank needs every slice."""
+    if shard_data and mode == PARTITIONS:
+        raise ValueError("shard_data is unsupported in partitions mode")
+
     def resolve(stacked, t: int):
         if mode != PARTITIONS or stacked is None:
             return stacked
@@ -74,19 +85,34 @@ def _shard_data_resolver(mode: str, num_shards: int):
     return resolve
 
 
-def _builder_prelude(logp, kernel, phi_impl: str, num_shards: int):
-    """``(phi_fn, shared_scores, own_scores)``:
+def take_minibatch(data, idx: torch.Tensor):
+    """Shard ``r``'s rows ``idx[r]`` of every ``(S, n_local, ...)`` leaf →
+    ``(S, B, ...)`` (``draw_minibatch``'s gather, all shards at once)."""
+    lanes = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return tree_map(lambda a: a[lanes, idx], data)
+
+
+def _builder_prelude(logp, kernel, phi_impl: str, num_shards: int, log_prior=None,
+                     batch_size: Optional[int] = None, n_local_data: int = 0):
+    """``(phi_fn, shared_scores, own_scores, prior_scores)``:
 
     - ``shared_scores(thetas (n, d), data) -> (S, n, d)`` — every shard
       scores the same set on its own slice (the gather modes);
     - ``own_scores(blocks (S, s, d), data) -> (S, s, d)`` — each shard
-      scores its own block (``partitions``).
+      scores its own block (``partitions``);
+    - ``prior_scores(thetas)`` — the gradient of ``log_prior`` row by row,
+      ``None`` without a separate prior.
 
-    Data-free targets (``data is None``) score once and broadcast."""
+    Data-free targets (``data is None``) score once and broadcast.  A
+    ``batch_size`` outside ``(0, n_local_data]`` raises ``ValueError``."""
+    if batch_size is not None and not 0 < batch_size <= n_local_data:
+        raise ValueError(f"batch_size {batch_size} not in (0, {n_local_data}] local rows")
     phi_fn = resolve_phi_fn(kernel, phi_impl)
     score = torch.func.vmap(torch.func.grad(logp), in_dims=(0, None))
     per_shard_shared = torch.func.vmap(score, in_dims=(None, 0))
     per_shard_own = torch.func.vmap(score, in_dims=(0, 0))
+    prior_scores = (torch.func.vmap(torch.func.grad(log_prior))
+                    if log_prior is not None else None)
 
     def shared_scores(thetas, data):
         if data is None:
@@ -98,30 +124,52 @@ def _builder_prelude(logp, kernel, phi_impl: str, num_shards: int):
             return score(blocks.reshape(-1, blocks.shape[-1]), None).reshape(blocks.shape)
         return per_shard_own(blocks, data)
 
-    return phi_fn, shared_scores, own_scores
+    return phi_fn, shared_scores, own_scores, prior_scores
 
 
 def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
-                phi_impl: str):
-    """``core(blocks, data, t) -> delta``: exchange, scores and φ for all
-    shards at once (``blocks`` is ``(S, s, d)``, ``data`` the
-    :func:`stack_shards` layout)."""
+                phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
+                log_prior=None, n_local_data: int = 0):
+    """``core(blocks, data, t, idx) -> delta``: exchange, scores and φ for
+    all shards at once (``blocks`` is ``(S, s, d)``, ``data`` the
+    :func:`stack_shards` layout, ``idx`` the step's ``(S, B)`` minibatch
+    indices or ``None``).
+
+    With a minibatch, each shard scores the rows ``idx[r]`` of its own data
+    (after the ``partitions`` rotation — the draw is keyed by the shard, not
+    by the data rank) scaled by ``n_local_data / B``; the prior gradient is
+    added once, after that scale and after the psum or the importance
+    scale, in every mode (JAX ``parallel/exchange.py:_build_core``)."""
     if mode not in MODES:
         raise ValueError(f"unknown exchange mode {mode!r}")
-    phi_fn, shared_scores, own_scores = _builder_prelude(logp, kernel, phi_impl, num_shards)
-    resolve_data = _shard_data_resolver(mode, num_shards)
+    phi_fn, shared_scores, own_scores, prior_scores = _builder_prelude(
+        logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data)
+    resolve_data = _shard_data_resolver(mode, num_shards, shard_data)
+    mb_scale = n_local_data / batch_size if batch_size is not None else None
 
-    def core(blocks, data, t: int):
+    def lik(scores):
+        return scores if mb_scale is None else mb_scale * scores
+
+    def with_prior(scores, thetas):
+        if prior_scores is None:
+            return scores
+        return scores + prior_scores(thetas.reshape(-1, thetas.shape[-1])).reshape(thetas.shape)
+
+    def core(blocks, data, t: int, idx: Optional[torch.Tensor] = None):
         data_local = resolve_data(data, t)
+        if mb_scale is not None:
+            if idx is None:
+                raise ValueError("a minibatched step needs the step's (S, B) indices")
+            data_local = take_minibatch(data_local, idx)
         if mode == PARTITIONS:
-            scores = score_scale * own_scores(blocks, data_local)
+            scores = with_prior(score_scale * lik(own_scores(blocks, data_local)), blocks)
             return phi_fn(blocks, blocks, scores)
         interacting = all_gather(blocks)
-        local_scores = shared_scores(interacting, data_local)  # (S, n, d)
+        local_scores = lik(shared_scores(interacting, data_local))  # (S, n, d)
         if mode == ALL_SCORES:
-            scores = psum(local_scores).expand_as(local_scores)
+            scores = with_prior(psum(local_scores), interacting).expand_as(local_scores)
         else:
-            scores = score_scale * local_scores
+            scores = with_prior(score_scale * local_scores, interacting)
         return phi_fn(blocks, interacting, scores)
 
     return core
@@ -134,29 +182,41 @@ def make_shard_step(
     num_shards: int,
     score_scale: float,
     phi_impl: str = "auto",
+    shard_data: bool = False,
+    batch_size: Optional[int] = None,
+    log_prior: Optional[Callable] = None,
+    n_local_data: int = 0,
 ) -> Callable:
     """Build the batched SVGD step for one exchange strategy.
 
     Args:
         logp: ``logp(theta, data_local)`` scalar log-density; ``data_local``
             is one shard's data slice (or ``None`` for data-free targets).
+            With ``log_prior`` it is the likelihood alone.
         kernel: an :class:`~dist_svgd_torch.ops.kernels.RBF`.
         mode: one of :data:`MODES`.
         num_shards: shard count S.
         score_scale: ``N_global / N_local``, applied to scores that were not
             summed across shards; 1.0 for data-free targets.
-        phi_impl: ``'auto'`` / ``'torch'`` / ``'cuda'`` — see
-            :func:`dist_svgd_torch.ops.cuda_svgd.resolve_phi_fn`.
+        phi_impl: see :func:`dist_svgd_torch.ops.cuda_svgd.resolve_phi_fn`.
+        shard_data: the data is sharded, not replicated (``ValueError`` in
+            ``partitions``; the emulated layout is the same either way).
+        batch_size: per-step per-shard minibatch size B of the
+            ``n_local_data`` local rows, scaled by ``n_local_data / B``.
+        log_prior: optional ``log_prior(theta)``, added once and unscaled.
+        n_local_data: data rows per shard.
 
-    Returns ``step(blocks, data, t, step_size) -> new_blocks``: one Jacobi
-    update of all ``(S, s, d)`` blocks (every shard moves its block against
-    pre-update values); ``t`` is the 1-based step counter that drives the
-    ``partitions`` rotation.
+    Returns ``step(blocks, data, t, step_size, idx=None) -> new_blocks``:
+    one Jacobi update of all ``(S, s, d)`` blocks (every shard moves its
+    block against pre-update values); ``t`` is the 1-based step counter that
+    drives the ``partitions`` rotation; ``idx`` the step's ``(S, B)``
+    minibatch indices.
     """
-    core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl)
+    core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
+                       shard_data, batch_size, log_prior, n_local_data)
 
-    def step(blocks, data, t: int, step_size: float):
-        return blocks + step_size * core(blocks, data, t)
+    def step(blocks, data, t: int, step_size: float, idx=None):
+        return blocks + step_size * core(blocks, data, t, idx)
 
     return step
 
@@ -183,6 +243,10 @@ def make_shard_step_sinkhorn_w2(
     w2_pairing: str = "global",
     wasserstein_solver: str = "sinkhorn",
     sinkhorn_impl: str = "auto",
+    shard_data: bool = False,
+    batch_size: Optional[int] = None,
+    log_prior: Optional[Callable] = None,
+    n_local_data: int = 0,
 ) -> Callable:
     """The batched SVGD step with the Wasserstein/JKO term, solved inside the
     step from carried snapshot state (Jacobi, gather implementation).
@@ -207,9 +271,11 @@ def make_shard_step_sinkhorn_w2(
     the next solve when ``sinkhorn_warm_start`` (a missing dual is zeros:
     the soft start from zero potentials).  ``'lp'`` solves each lane with
     the host LP (:func:`~dist_svgd_torch.ops.ot.wasserstein_grad_lp`) and
-    carries no dual.
+    carries no dual.  ``shard_data``, ``batch_size``, ``log_prior`` and
+    ``n_local_data`` act as in :func:`make_shard_step`, so the W2 term
+    composes with minibatches.
 
-    Returns ``step(blocks, prev, g_dual, data, t, step_size, h) ->
+    Returns ``step(blocks, prev, g_dual, data, t, step_size, h, idx=None) ->
     (new_blocks, new_prev, new_g)``; ``prev=None`` is a first-ever step,
     which has no W2 term (reference: the term waits for a snapshot) and
     passes ``g_dual`` through.
@@ -218,7 +284,8 @@ def make_shard_step_sinkhorn_w2(
         raise ValueError(f"unknown w2_pairing {w2_pairing!r}")
     if wasserstein_solver not in ("lp", "sinkhorn"):
         raise ValueError(f"unknown wasserstein_solver {wasserstein_solver!r}")
-    core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl)
+    core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
+                       shard_data, batch_size, log_prior, n_local_data)
     block_pair = w2_block_pairing(mode, w2_pairing, num_shards)
 
     def solve(blocks, prev_for, g_dual):
@@ -234,8 +301,8 @@ def make_shard_step_sinkhorn_w2(
             blocks, prev_for, eps=sinkhorn_eps, iters=sinkhorn_iters,
             tol=sinkhorn_tol, g_init=g_init, return_g=True, impl=sinkhorn_impl)
 
-    def step(blocks, prev, g_dual, data, t: int, step_size: float, h: float):
-        delta = core(blocks, data, t)
+    def step(blocks, prev, g_dual, data, t: int, step_size: float, h: float, idx=None):
+        delta = core(blocks, data, t, idx)
         g_out = g_dual
         if prev is not None:
             prev_for = torch.roll(prev, -1, dims=0) if block_pair else prev

@@ -141,3 +141,15 @@ def load_benchmark(
     x_test = np.asarray(x[test - 1][fold], dtype=np.float32)
     t_test = np.asarray(t[test - 1][fold], dtype=np.float64)
     return Fold(x_train, t_train, x_test, t_test)
+
+
+def load_covertype(n_rows: int = 50_000, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Covertype-style binary task (BASELINE.json config 4): a deterministic
+    synthetic stand-in for UCI Covertype with its shape — 54 features,
+    labels in {-1, +1}, ``n_rows`` rows (``x`` float32, ``t`` float64).
+
+    Labels are drawn before the features, so ``load_covertype(k)`` is not a
+    prefix of ``load_covertype(n)``: held-out rows come from one load."""
+    rng = np.random.default_rng(seed)
+    x, t = _blob_points(rng, n_rows, _DATASET_DIMS["covertype"])
+    return x.astype(np.float32), t.astype(np.float64)

@@ -24,11 +24,15 @@ def state_from_jax(jax_state: Dict[str, Any], device, sampler=None) -> Dict[str,
 
     The particles, the W2 ``previous`` stack and the ``w2_g`` duals (where
     present) become tensors on ``device``; ``t``, the ``w2_pairing`` code and
-    the topology manifest are kept as numpy.  The minibatch stream's
-    ``rng_batch_key`` has no counterpart in a minibatch-free run and is
-    dropped.  The manifest must describe the particle array it travels
-    with; with ``sampler`` given, it is also checked against that port
-    sampler's particle count and dimension
+    the topology manifest are kept as numpy.  JAX's minibatch-stream key
+    ``rng_batch_key`` is dropped: threefry draws cannot be reproduced in
+    torch.  In a minibatch-free run it has no counterpart at all; a
+    minibatched JAX state converts all the same, and the port then goes on
+    from step ``t`` on its own stream, seeded by the port sampler's
+    ``seed`` (the state carries no ``rng_batch_seed``, so
+    ``load_state_dict`` keeps the sampler's).  The manifest must describe
+    the particle array it travels with; with ``sampler`` given, it is also
+    checked against that port sampler's particle count and dimension
     (:class:`~dist_svgd_torch.utils.checkpoint.TopologyMismatch`).
 
     Raises ``ValueError`` for a kernel-approximation save or one process's

@@ -1,12 +1,17 @@
-"""Initial particles on explicit ``torch.Generator`` streams.
+"""Initial particles and the minibatch stream on explicit
+``torch.Generator`` streams.
 
-Counterpart of ``dist_svgd_tpu/utils/rng.py:init_particles*``.  JAX's
-threefry streams cannot be reproduced in PyTorch, so the two packages draw
-different numbers from the same seed; tests that compare them make their
-inputs with numpy and hand them to both.
+Counterpart of ``dist_svgd_tpu/utils/rng.py`` (``init_particles*``,
+``minibatch_key`` and ``draw_minibatch``).  JAX's threefry streams cannot be
+reproduced in PyTorch, so the two packages draw different numbers from the
+same seed; tests that compare them make their inputs with numpy and hand
+them to both (a sampler takes its minibatch indices through a seam).
 
-Every draw happens on a CPU generator and is then moved to the device, so a
-seed gives the same particles on the CPU and on the card.
+Initial particles are drawn on a CPU generator and then moved to the
+device, so a seed gives the same particles on the CPU and on the card.  The
+minibatch stream is drawn on the device it is used on, keyed by
+``(seed, t)`` alone, so a run resumed at step ``t`` draws what the
+uninterrupted run drew there.
 """
 
 from __future__ import annotations
@@ -23,6 +28,31 @@ def _generator(seed: int, *stream: int) -> torch.Generator:
     shards never share a state."""
     state = np.random.SeedSequence([int(seed), *map(int, stream)]).generate_state(1, np.uint64)
     return torch.Generator(device="cpu").manual_seed(int(state[0]) & ((1 << 63) - 1))
+
+
+#: Fixed stream tag of the minibatch draws (JAX folds the same number into
+#: its seed), so they never share a stream with the particle init.
+MINIBATCH_STREAM = 7919
+
+
+def minibatch_indices(seed: int, t: int, num_shards: int, n_rows: int, batch_size: int,
+                      device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """Step ``t``'s minibatch of every shard: an ``(S, B)`` int64 tensor on
+    ``device`` whose row ``r`` is ``B`` distinct indices into shard ``r``'s
+    ``n_rows`` local rows, drawn uniformly without replacement.
+
+    One batched draw for all S shards (a random key per row, then the ``B``
+    smallest keys' positions), from a generator seeded by ``(seed, t)`` on
+    ``device`` — no per-shard loop and no host sync.  The importance scale
+    that goes with it is ``n_rows / batch_size``."""
+    if not 0 < batch_size <= n_rows:
+        raise ValueError(f"batch_size {batch_size} not in (0, {n_rows}] local rows")
+    device = torch.device(device)
+    state = np.random.SeedSequence([int(seed), MINIBATCH_STREAM, int(t)]).generate_state(
+        1, np.uint64)
+    g = torch.Generator(device=device).manual_seed(int(state[0]) & ((1 << 63) - 1))
+    keys = torch.rand((num_shards, n_rows), generator=g, device=device)
+    return keys.argsort(dim=-1)[:, :batch_size]
 
 
 def init_particles(

@@ -204,21 +204,27 @@ def test_device_rules():
     ({"update_rule": "gauss_seidel"}, "A10"),
     ({"exchange_impl": "ring"}, "A10"),
     ({"exchange_every": 2}, "A10"),
-    ({"shard_data": True}, "A6"),
-    ({"batch_size": 4}, "A6"),
-    ({"log_prior": lambda th: -(th * th).sum()}, "A6"),
+    ({"shard_data": True, "exchange_particles": False}, "partitions mode"),
+    ({"batch_size": 13}, "local rows"),
+    ({"log_prior": lambda th: -(th * th).sum(), "seed": 1.5}, "seed must be an int"),
     ({"kernel_approx": "rff"}, "A11"),
     ({"kernel": "median_step"}, "A2"),
-    ({"phi_impl": "pallas_bf16"}, "B1/B2"),
+    ({"phi_impl": "pallas_bf16"}, "the port's is 'cuda_bf16'"),
     ({"mesh": object()}, "A6"),
 ])
 def test_out_of_slice_options_raise(kw, item):
+    """Options outside the port raise NotImplementedError naming their
+    ROADMAP item; the ported minibatch, prior, shard_data and bf16 options
+    raise JAX's ValueErrors on bad values (48 rows / 4 shards = 12 a
+    shard)."""
     particles, x, t = problem(3)
     args = dict(exchange_particles=True, exchange_scores=False,
                 include_wasserstein=False, device="cpu")
     args.update(kw)
     kernel = args.pop("kernel", None)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    roadmap = item[0] in "AB" and item[1:2].isdigit()
+    with pytest.raises(NotImplementedError if roadmap else ValueError,
+                       match=f"ROADMAP {item}" if roadmap else item):
         tdt.DistSampler(4, logreg_logp, kernel, particles, data=(x, t), **args)
 
 

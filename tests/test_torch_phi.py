@@ -121,7 +121,9 @@ def test_svgd_step_matches_jax():
 
 def test_resolve_phi_fn_policy():
     """'auto' → phi_cuda (plain version on the CPU), 'torch' → plain phi,
-    'cuda' → the kernel, refused on CPU tensors; unported tiers raise."""
+    'cuda' → the kernel, refused on CPU tensors; 'cuda_bf16' → the bf16
+    tiers (their plain versions on the CPU); JAX's names raise naming the
+    port's."""
     y, x, s = (_t(a, torch.float32) for a in _inputs(2, 6, 9, 3))
     auto = resolve_phi_fn(RBF(1.0), "auto")(y, x, s)
     torch.testing.assert_close(auto, phi_cuda(y, x, s, 1.0), rtol=0, atol=0)
@@ -129,7 +131,10 @@ def test_resolve_phi_fn_policy():
                                phi(y, x, s, RBF(1.0)), rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         resolve_phi_fn(RBF(1.0), "cuda")(y, x, s)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    torch.testing.assert_close(resolve_phi_fn(RBF(1.0), "cuda_bf16")(y, x, s),
+                               cuda_svgd.phi_small_d_bf16_plain(y, x, s, 1.0),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="'cuda_bf16'"):
         resolve_phi_fn(RBF(1.0), "pallas_bf16")
     with pytest.raises(ValueError, match="unknown phi_impl"):
         resolve_phi_fn(RBF(1.0), "xla")
@@ -146,9 +151,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     y, x, s = (_t(a, torch.float32) for a in _inputs(1, 4, 5, 20))
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_svgd.phi_big_d_cuda(y, x, s)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_svgd.phi_big_d_bf16x3_cuda(y, x, s)
     with pytest.raises(ValueError, match="phi_small_d takes"):
         cuda_svgd.phi_small_d_cuda(y, x, s)
-    assert cuda_svgd.launch_counts == {"phi_small_d": 0, "phi_big_d": 0}
+    with pytest.raises(ValueError, match="phi_small_d_bf16 takes"):
+        cuda_svgd.phi_small_d_bf16_cuda(y, x, s)
+    assert cuda_svgd.launch_counts == {"phi_small_d": 0, "phi_big_d": 0,
+                                       "phi_small_d_bf16": 0, "phi_big_d_bf16x3": 0}
 
 
 def test_phi_cuda_refuses_d_above_cap_and_bad_shapes():

@@ -128,3 +128,36 @@ def test_build_refuses_unknown_sources_and_missing_nvcc(monkeypatch, tmp_path):
         pytest.skip("a system nvcc exists; the missing-compiler path cannot be shown")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+def test_bf16x3_source_uses_the_tensor_cores():
+    """The bf16x3 tier carries the same note, names the Pallas kernel it
+    replaces, and computes its products with bf16 mma.sync on the tensor
+    cores (no library GEMM)."""
+    text = (_build.CSRC / "phi_big_d_bf16x3.cu").read_text()
+    assert "Replaces: dist_svgd_tpu/ops/pallas_svgd.py, `_phi_kernel`" in text
+    assert "What bounds it on this card" in text
+    assert "What the design does about it" in text
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    assert 'extern "C" int phi_big_d_bf16x3_launch(' in text
+    assert "cublas" not in text.lower() and "phi_big_d_bf16x3" in _build.SOURCES
+    small = (_build.CSRC / "phi_small_d.cu").read_text()
+    assert 'extern "C" int phi_small_d_bf16_launch(' in small
+
+
+def test_port_runs_the_covertype_driver_with_jax_blocked():
+    """A process where ``import jax`` fails runs the Covertype driver (a
+    minibatched, prior-separated, sharded-data run) on the CPU."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "from dist_svgd_torch.experiments.covertype import run\n"
+        "final, m = run(nrows=800, nproc=4, nparticles=16, niter=2, batch_size=32,\n"
+        "               device='cpu')\n"
+        "assert final.shape == (16, 55) and m['batch_size'] == 32\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
