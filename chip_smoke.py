@@ -5,17 +5,22 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the eight hand-written kernels from ``dist_svgd_torch/csrc/``
-with ``nvcc`` (the two φ kernels in their exact and bf16 tiers and the four
-Sinkhorn kernels), holds each against its plain PyTorch version at the main
-paths' shapes and at ragged shapes, drives the north-star path
+It builds the ten hand-written kernels from ``dist_svgd_torch/csrc/``
+with ``nvcc`` (the φ kernels for small, big and wide feature dims in their
+exact and bf16 tiers, and the four Sinkhorn kernels), holds each against
+its plain PyTorch version at the main paths' shapes and at ragged shapes,
+drives the north-star path
 (10,000-particle Bayesian logistic regression, 8 emulated shards,
 ``all_particles``) through ``DistSampler.run_steps`` without and with the
 Wasserstein term (Sinkhorn at 10,000 particles on the fused route, at
 100,000 on the streaming route), drives the minibatched Covertype config
 (BASELINE.json config 4) through its driver
-``dist_svgd_torch/experiments/covertype.py`` in both φ tiers, checks that
-each path went through its kernels, and prints one JSON object per phase.  A phase that fails raises, so the script
+``dist_svgd_torch/experiments/covertype.py`` in both φ tiers and through
+the single-device ``Sampler``, drives the Bayesian neural network (BASELINE.json
+config 5, d = 753) through its driver ``dist_svgd_torch/experiments/bnn.py``
+at full width in both φ tiers, with the per-step median bandwidth and over
+8 shards, checks that each path went through its kernels, and prints one
+JSON object per phase.  A phase that fails raises, so the script
 exits non-zero; the last line, printed only when every phase passed, is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -50,6 +55,18 @@ COVERTYPE = dict(warm_steps=10, steps=100, step_size=1e-4, profile_steps=10,
 # so the same minibatch stream and init).
 CT_ACC_TOL = 0.01
 BANANA_BF16_STEPS = 50
+# The BNN rows (BASELINE.json config 5, experiments/bnn.py defaults: boston,
+# 500 particles, 50 hidden units — d = 753 — 1000 steps of 1e-3, B = 100
+# rows, h = 1): the full run, the same with the per-step median bandwidth,
+# short runs of the bf16x3 tier and of 8 shards (496 particles), a profile,
+# 20-step trajectories of both tiers against their plain versions, and a
+# small card-f32 / CPU-f64 reference (n_hidden 10 → d = 153, 16 particles).
+BNN = dict(steps=1000, bf16_steps=50, dist_steps=50, dist_shards=8, dist_particles=496,
+           profile_steps=20, trajectory_steps=20, small_hidden=10, small_n=16,
+           small_steps=3, small_batch=32)
+# Covertype through the single-device Sampler (--nproc 1): warm and timed
+# steps of the driver's sampler.
+COVERTYPE_NPROC1 = dict(warm_steps=3, steps=20)
 W2_PROFILE_STEPS = 10
 W2_SYNC_STEPS = 20
 # Timed launches of the Sinkhorn kernels' parity rows: the main rows at the
@@ -123,6 +140,19 @@ KERNELS = {
         "replaces": "dist_svgd_tpu/ops/pallas_svgd.py:121 (bf16 tier)",
         # as the exact tier (the bf16 rounding of the exponent not counted)
         "flops_per_pair": lambda d: 5 * d + 2,
+    },
+    "phi_wide_d": {
+        "source": "dist_svgd_torch/csrc/phi_wide_d.cu",
+        "replaces": "dist_svgd_tpu/ops/pallas_svgd.py:80 (d > 128)",
+        # as the big-d kernel
+        "flops_per_pair": lambda d: 4 * d + 6,
+    },
+    "phi_wide_d_bf16x3": {
+        "source": "dist_svgd_torch/csrc/phi_wide_d_bf16x3.cu",
+        "replaces": "dist_svgd_tpu/ops/pallas_svgd.py:80 (bf16x3 tier, d > 128)",
+        # as the big-d bf16x3 kernel
+        "flops_per_pair": lambda d: 8 + 2 * -(-d // 16),
+        "tc_flops_per_pair": lambda d: 12 * d,
     },
     "phi_big_d_bf16x3": {
         "source": "dist_svgd_torch/csrc/phi_big_d_bf16x3.cu",
@@ -287,17 +317,18 @@ def ot_check(name, got, want, soft=False, terms=0.0):
     return finite and err <= tol, err, tol, scale
 
 
-def profile_steps(ds, step_size, steps=PROFILE_STEPS, h=1.0, phase="profile"):
-    """Device time by kernel over ``steps`` sampler steps, from the CUDA
-    activities of a torch.profiler trace, and the device's busy share of the
-    host wall time of those steps (one stream, so kernels do not overlap)."""
+def profile_steps(run, steps, phase="profile"):
+    """Device time by kernel over ``steps`` sampler steps (``run()`` takes
+    them), from the CUDA activities of a torch.profiler trace, and the
+    device's busy share of the host wall time of those steps (one stream,
+    so kernels do not overlap)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ds.run_steps(steps, step_size, h=h)
+        run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name = {}
@@ -388,8 +419,8 @@ def covertype_phases():
     # ---- 11b. where a Covertype step's time goes (torch.profiler) -----------
     pds, _, _ = cov.make_sampler()
     pds.run_steps(ct["warm_steps"], ct["step_size"])
-    emit(profile_steps(pds, ct["step_size"], steps=ct["profile_steps"],
-                       phase="covertype_profile"))
+    emit(profile_steps(lambda: pds.run_steps(ct["profile_steps"], ct["step_size"]),
+                       ct["profile_steps"], phase="covertype_profile"))
     del pds
 
     # ---- 11c. Covertype trajectory: bf16 kernels vs their plain versions ---
@@ -445,6 +476,183 @@ def covertype_phases():
     return launches_ct
 
 
+def covertype_nproc1_phase():
+    """Covertype (BASELINE.json config 4) through the single-device
+    ``Sampler`` (``--nproc 1``): the driver's sampler, 10,000 particles
+    against each other on one lane, B = 256 rows a step; the driver's
+    ``'auto'`` is the bf16 tier on the card."""
+    import torch
+
+    from dist_svgd_torch.experiments import covertype as cov
+    from dist_svgd_torch.models.logreg import ensemble_test_accuracy
+    from dist_svgd_torch.ops import cuda_svgd
+
+    c = COVERTYPE_NPROC1
+    step = COVERTYPE["step_size"]
+    sampler, (x_test, t_test), info = cov.make_sampler(nproc=1)
+    n = info["n_used"]
+    warm, _ = sampler.run(n, c["warm_steps"], step, record=False,
+                          initial_particles=info["init"])
+    torch.cuda.synchronize()
+    cuda_svgd.reset_launch_counts()
+    t0 = time.perf_counter()
+    final, _ = sampler.run(n, c["steps"], step, record=False, initial_particles=warm,
+                           step_offset=c["warm_steps"])
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launched = dict(cuda_svgd.launch_counts)
+    finite = bool(torch.isfinite(final).all())
+    ok = (finite and info["phi_impl"] == "cuda_bf16"
+          and launched == phi_counts(phi_big_d_bf16x3=c["steps"]))
+    emit({"phase": "covertype_nproc1", "n": n, "d": final.shape[1],
+          "batch_size": info["batch_size"], "phi_impl": info["phi_impl"],
+          "steps": c["steps"], "ms_per_step": 1e3 * host_s / c["steps"],
+          "updates_per_s": n * c["steps"] / host_s, "launches": launched,
+          "test_accuracy": float(ensemble_test_accuracy(final, x_test, t_test)),
+          "finite": finite, "ok": ok})
+    if not ok:
+        raise AssertionError(f"covertype nproc1: finite={finite} phi_impl="
+                             f"{info['phi_impl']} launches={launched}")
+
+
+def bnn_phases():
+    """The BNN phases (BASELINE.json config 5, d = 753, through
+    ``dist_svgd_torch/experiments/bnn.py``).  Returns the launch counts of
+    the full default run (``phi_wide_d``) and of the bf16 run
+    (``phi_wide_d_bf16x3``)."""
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch.experiments import bnn as drv
+    from dist_svgd_torch.models import bnn
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.sampler import Sampler
+    from dist_svgd_torch.utils.datasets import load_uci_regression
+    from dist_svgd_torch.utils.rng import minibatch_indices
+
+    b = BNN
+    sp = load_uci_regression("boston", 0)
+    n_features = sp.x_train.shape[1]
+    baseline = float(np.sqrt(np.mean((sp.y_test - sp.y_mean) ** 2)))
+
+    def driven(phase, expect, **kw):
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        final, m = drv.run(**kw)
+        torch.cuda.synchronize()
+        launched = dict(cuda_svgd.launch_counts)
+        finite = bool(np.isfinite(final).all() and np.isfinite(m["test_rmse"])
+                      and np.isfinite(m["test_loglik"]))
+        niter = m["niter"]
+        row = {"phase": phase, **m,
+               "ms_per_step": 1e3 * m["wall_s"] / niter if niter else None,
+               "launches": launched, "finite": finite}
+        ok = finite and (expect is None or launched == expect)
+        return row, ok
+
+    # ---- the driver at its full defaults (h = 1, the exact tier) -----------
+    row, ok = driven("bnn", phi_counts(phi_wide_d=b["steps"]))
+    launches_bnn = row["launches"]
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"bnn: {row}")
+
+    # ---- the per-step median bandwidth, against the baselines --------------
+    untrained, ok0 = driven("bnn_untrained", None, niter=0)
+    row, ok = driven("bnn_median_step", phi_counts(phi_wide_d=b["steps"]),
+                     bandwidth="median_step")
+    # the ungated linear yardstick: least squares with an intercept
+    xt = np.hstack([sp.x_train, np.ones((sp.x_train.shape[0], 1))]).astype(np.float64)
+    coef = np.linalg.lstsq(xt, sp.y_train.astype(np.float64), rcond=None)[0]
+    pred = np.hstack([sp.x_test, np.ones((sp.x_test.shape[0], 1))]) @ coef
+    linear = float(np.sqrt(np.mean((pred * sp.y_std + sp.y_mean - sp.y_test) ** 2)))
+    beats = row["test_rmse"] < baseline and row["test_rmse"] < untrained["test_rmse"]
+    ok = ok and ok0 and beats
+    emit({**row, "mean_baseline_rmse": baseline, "untrained_rmse": untrained["test_rmse"],
+          "linear_fit_rmse": linear, "beats_baselines": beats, "ok": ok})
+    if not ok:
+        raise AssertionError(f"bnn median_step: {row} baseline {baseline} "
+                             f"untrained {untrained['test_rmse']}")
+
+    # ---- the bf16x3 tier and the 8-shard DistSampler ------------------------
+    row, ok = driven("bnn_bf16", phi_counts(phi_wide_d_bf16x3=b["bf16_steps"]),
+                     phi_impl="cuda_bf16", niter=b["bf16_steps"])
+    launches_bf16 = row["launches"]
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"bnn bf16: {row}")
+    row, ok = driven("bnn_dist", phi_counts(phi_wide_d=b["dist_steps"]),
+                     nproc=b["dist_shards"], nparticles=b["dist_particles"],
+                     niter=b["dist_steps"])
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"bnn dist: {row}")
+
+    # ---- where a BNN step's time goes (torch.profiler) ----------------------
+    likelihood, prior = bnn.make_bnn_split(n_features)
+    d = bnn.num_params(n_features)
+    data = (torch.as_tensor(sp.x_train).cuda(), torch.as_tensor(sp.y_train).cuda())
+    init = bnn.init_particles(0, 500, n_features, device="cuda")
+
+    def sampler(**kw):
+        return Sampler(d, likelihood, data=data, batch_size=100, log_prior=prior, **kw)
+
+    ps = sampler()
+    ps.run(500, 3, 1e-3, record=False, initial_particles=init)
+    emit(profile_steps(
+        lambda: ps.run(500, b["profile_steps"], 1e-3, record=False, initial_particles=init),
+        b["profile_steps"], phase="bnn_profile"))
+
+    # ---- 20-step trajectories: the hand kernels vs their plain versions -----
+    idx = {t: minibatch_indices(5, t, 1, sp.x_train.shape[0], 100, "cuda")[0]
+           for t in range(b["trajectory_steps"])}
+    devs = {}
+    for kern_impl, plain_impl in (("cuda", "torch"), ("cuda_bf16", "torch_bf16")):
+        runs = {}
+        for impl in (kern_impl, plain_impl):
+            ts = sampler(kernel="median_step", phi_impl=impl)
+            ts._batch_index_seam = idx.__getitem__
+            runs[impl], _ = ts.run(500, b["trajectory_steps"], 1e-3, record=False,
+                                   initial_particles=init)
+        dev = float((runs[kern_impl] - runs[plain_impl]).abs().max())
+        devs[kern_impl] = dev / float(runs[plain_impl].abs().max())
+    ok = all(v <= TRAJ_RTOL for v in devs.values())
+    emit({"phase": "bnn_trajectory", "steps": b["trajectory_steps"], "kernel": "median_step",
+          "rel_dev": devs, "bound": TRAJ_RTOL, "ok": ok})
+    if not ok:
+        raise AssertionError(f"bnn trajectory: {devs} > {TRAJ_RTOL}")
+
+    # ---- small reference: the card (f32, 'cuda') vs the CPU (f64, 'torch') --
+    slik, sprior = bnn.make_bnn_split(n_features, b["small_hidden"])
+    sd = bnn.num_params(n_features, b["small_hidden"])
+    sparts = bnn.init_particles(3, b["small_n"], n_features, b["small_hidden"],
+                                dtype=torch.float64)
+    rows_n = sp.x_train.shape[0]
+    rng = np.random.default_rng(11)
+    sidx = {t: rng.permutation(rows_n)[:b["small_batch"]] for t in range(b["small_steps"])}
+    worst = {}
+    for label, kw in (("full", {}), ("minibatch", {"batch_size": b["small_batch"]}),
+                      ("median_step", {"kernel": "median_step"}),
+                      ("minibatch median_step", {"batch_size": b["small_batch"],
+                                                 "kernel": "median_step"})):
+        out = {}
+        for dev_name, impl, dtype in (("cuda", "cuda", torch.float32),
+                                      ("cpu", "torch", torch.float64)):
+            r = Sampler(sd, slik, data=(sp.x_train, sp.y_train), log_prior=sprior,
+                        phi_impl=impl, device=dev_name, **kw)
+            r._batch_index_seam = sidx.__getitem__
+            out[dev_name], _ = r.run(b["small_n"], b["small_steps"], 1e-3, record=False,
+                                     initial_particles=sparts.to(dtype))
+        c, h = out["cuda"].double().cpu(), out["cpu"]
+        worst[label] = float((c - h).abs().max() / h.abs().max())
+    ok = all(v <= SMALL_RTOL for v in worst.values())
+    emit({"phase": "small_reference_sampler", "d": sd, "n": b["small_n"],
+          "steps": b["small_steps"], "max_rel_dev": worst, "bound": SMALL_RTOL, "ok": ok})
+    if not ok:
+        raise AssertionError(f"small sampler reference: {worst} > {SMALL_RTOL}")
+    return launches_bnn, launches_bf16
+
+
 def main():
     import torch
 
@@ -454,9 +662,11 @@ def main():
         return 1
 
     from dist_svgd_torch import DistSampler
+    from dist_svgd_torch.models import bnn
     from dist_svgd_torch.models.logreg import ensemble_test_accuracy, logreg_logp
     from dist_svgd_torch.ops import _build, cuda_ot, cuda_svgd
-    from dist_svgd_torch.utils.datasets import load_benchmark
+    from dist_svgd_torch.ops.kernels import median_bandwidth
+    from dist_svgd_torch.utils.datasets import UCI_REGRESSION_DIMS, load_benchmark
     from dist_svgd_torch.utils.platform import resolve_device
     from dist_svgd_torch.utils.rng import init_particles_per_shard
 
@@ -494,6 +704,9 @@ def main():
                              cuda_svgd.phi_small_d_bf16_plain),
         "phi_big_d_bf16x3": (cuda_svgd.phi_big_d_bf16x3_cuda,
                              cuda_svgd.phi_big_d_bf16x3_plain),
+        "phi_wide_d": (cuda_svgd.phi_wide_d_cuda, cuda_svgd.phi_big_d_plain),
+        "phi_wide_d_bf16x3": (cuda_svgd.phi_wide_d_bf16x3_cuda,
+                              cuda_svgd.phi_big_d_bf16x3_plain),
     }
     # (kernel, (S, k, m, d), bandwidth, shared x, role).  The main shapes are
     # the paths': 8 lanes × 1250 rows against 10,000 particles, at banana's
@@ -501,7 +714,16 @@ def main():
     # the Gram stays O(1) and the check exercises exp and drive (at h=1 and
     # d=55 nearly every off-diagonal K underflows to 0); the bf16x3 tier is
     # also held at the Covertype path's own h = 1, where φ rides the Gram
-    # diagonal's cancellation.  Every row is timed.
+    # diagonal's cancellation.  The wide-d kernels (d > 128) are held at the
+    # BNN's one lane (1 × 500 × 500, d = 753) at the inputs' median-heuristic
+    # h (K of order 1), with y = x at the driver's h = 1, and at h = 2d; at
+    # the 8-shard BNN lanes; at a ragged d = 129; at the widest d = 2432 with
+    # per-lane x; and at the north-star lane shape at d = 753.  "median" is
+    # the inputs' median-heuristic h.  "self" is the Sampler's one lane at
+    # h = 1: y = x = the BNN driver's initial particles, where every
+    # off-diagonal K underflows and φ rides the Gram diagonal's cancellation
+    # ‖y‖² + ‖y‖² − 2·y·y; that row also prints both versions' distance
+    # from the float64 φ.  Every row is timed.
     cases = [
         ("phi_small_d", (8, 1250, 10_000, 3), 1.0, True, "main"),
         ("phi_small_d", (3, 1000, 777, 5), 1.0, True, "ragged"),
@@ -520,16 +742,39 @@ def main():
         ("phi_small_d_bf16", (3, 1000, 777, 5), 1.0, True, "ragged"),
         ("phi_small_d_bf16", (8, 1250, 1250, 3), 1.0, False, "partitions"),
     ]
+    for name in ("phi_wide_d", "phi_wide_d_bf16x3"):
+        cases += [
+            (name, (1, 500, 500, 753), "median", True, "main"),
+            (name, (1, 500, 500, 753), 1.0, "self", "self h=1"),
+            (name, (1, 500, 500, 753), 1506.0, True, "h=2d"),
+            (name, (8, 62, 496, 753), "median", True, "dist lanes"),
+            (name, (1, 300, 517, 129), 258.0, True, "ragged"),
+            (name, (2, 200, 333, 2432), 4864.0, False, "widest"),
+            (name, (8, 1250, 10_000, 753), 1506.0, True, "throughput"),
+        ]
+    exact_of = {"phi_big_d_bf16x3": "phi_big_d", "phi_wide_d_bf16x3": "phi_wide_d"}
     timing = {}
     for seed, (name, (S, k, m, d), h, shared, role) in enumerate(cases):
         kern, plain = kernel_fns[name]
-        y, x, s = phi_inputs(S, k, m, d, seed, shared)
+        y, x, s = phi_inputs(S, k, m, d, seed, shared is not False)
+        if shared == "self":  # the Sampler's one lane: y is x, the BNN's init
+            x = bnn.init_particles(seed, m, UCI_REGRESSION_DIMS["boston"], device="cuda")
+            y = x[None].clone()
+        if h == "median":
+            h = float(median_bandwidth(x))
         got = kern(y, x, s, h)
         torch.cuda.synchronize()
         want = plain(y, x, s, h)
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
-        ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+        tol = KERNEL_RTOL * scale
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        extra = {}
+        if shared == "self":
+            exact = cuda_svgd.phi_big_d_plain(y.double(), x.double(), s.double(), h)
+            extra = {"max_abs_err_vs_f64": float((got.double() - exact).abs().max()),
+                     "plain_max_abs_err_vs_f64": float((want.double() - exact).abs().max())}
+            del exact
         del got, want
         reps = TIMED_LAUNCHES if role.startswith("main") else OTHER_LAUNCHES
         ms = cuda_ms(lambda: kern(y, x, s, h), reps)
@@ -537,12 +782,12 @@ def main():
         b_ms, b_by = bound_ms(*phi_work(name, S, k, m, d, x.numel()))
         row = {"phase": "kernel_parity", "kernel": name, "role": role,
                "shape": [S, k, m, d], "bandwidth": h, "max_abs_err": err,
-               "max_abs_plain": scale, "tolerance": KERNEL_RTOL * scale, "ok": ok,
+               "max_abs_plain": scale, **extra, "tolerance": tol, "ok": ok,
                "ms": ms, "plain_ms": plain_ms, "bound_us": 1e3 * b_ms, "bound_by": b_by}
-        if name == "phi_big_d_bf16x3" and role.startswith("main"):
+        if name in exact_of and role.startswith("main"):
             # the exact tier on the same inputs, beside it
-            row["exact_phi_big_d_ms"] = cuda_ms(
-                lambda: cuda_svgd.phi_big_d_cuda(y, x, s, h), reps)
+            exact_kern = kernel_fns[exact_of[name]][0]
+            row[f"exact_{exact_of[name]}_ms"] = cuda_ms(lambda: exact_kern(y, x, s, h), reps)
         if role == "main":
             timing[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": b_ms, "bound_by": b_by}
@@ -664,7 +909,7 @@ def main():
         raise AssertionError(f"north star: finite={finite} launches={launches_small}")
 
     # ---- 4b. where a north-star step's time goes (torch.profiler) ---------
-    emit(profile_steps(ds, ns["step_size"]))
+    emit(profile_steps(lambda: ds.run_steps(PROFILE_STEPS, ns["step_size"]), PROFILE_STEPS))
 
     # ---- 5. trajectory: hand kernel vs plain φ on the card ----------------
     runs = {}
@@ -761,8 +1006,8 @@ def main():
         raise AssertionError(f"w2 north star: finite={finite} launches={launches_w2}")
 
     # ---- 7b. where a W2 step's time goes (torch.profiler) -----------------
-    emit(profile_steps(wds, ns["step_size"], steps=W2_PROFILE_STEPS, h=w2["h"],
-                       phase="w2_profile"))
+    emit(profile_steps(lambda: wds.run_steps(W2_PROFILE_STEPS, ns["step_size"], h=w2["h"]),
+                       W2_PROFILE_STEPS, phase="w2_profile"))
 
     # ---- 7c. what one host sync of the tol exit costs ---------------------
     # sinkhorn_tol=None, iters=10: one scaling block a solve and no sync;
@@ -884,6 +1129,10 @@ def main():
 
     # ---- 11. Covertype (BASELINE config 4) through its driver --------------
     launches_ct = covertype_phases()
+    covertype_nproc1_phase()
+
+    # ---- 12. the BNN (BASELINE config 5, d = 753) through its driver -------
+    launches_bnn, launches_bnn_bf16 = bnn_phases()
 
     launches = {"phi_small_d": launches_small["phi_small_d"],
                 "phi_big_d": launches_big["phi_big_d"],
@@ -892,7 +1141,9 @@ def main():
                 "ot_kmat_vec": launches_st["ot_kmat_vec"],
                 "ot_plan_grad": launches_st["ot_plan_grad"],
                 "phi_small_d_bf16": launches_sbf["phi_small_d_bf16"],
-                "phi_big_d_bf16x3": launches_ct["phi_big_d_bf16x3"]}
+                "phi_big_d_bf16x3": launches_ct["phi_big_d_bf16x3"],
+                "phi_wide_d": launches_bnn["phi_wide_d"],
+                "phi_wide_d_bf16x3": launches_bnn_bf16["phi_wide_d_bf16x3"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

@@ -6,17 +6,28 @@ reference its tests hold it against.  Its entry points run on the card
 (``device=None`` → CUDA, raising without it) unless the caller asks for the
 CPU.
 
+- ``Sampler``     — single-device SVGD (Jacobi; full data or minibatches;
+  the fixed, per-run and per-step median bandwidths);
 - ``DistSampler`` — sharded SVGD, the S shards emulated on one card, the
   three exchange modes (gather implementation, Jacobi update), with the
   Wasserstein/JKO term (host LP or Sinkhorn);
 - ``ops``         — the RBF kernel, the plain φ, the W2 solvers, and the
                     hand-written CUDA φ and Sinkhorn kernels (``csrc/``)
                     with their plain versions;
-- ``models``      — Bayesian logistic regression;
+- ``models``      — Bayesian logistic regression, the two-layer Bayesian
+                    neural network (regression), the 1-D Gaussian mixture;
 - ``utils``       — devices, datasets, RNG, checkpoint manifest, JAX interop.
 """
 
 from dist_svgd_torch.distsampler import DistSampler
+from dist_svgd_torch.models.bnn import (
+    bnn_logp,
+    ensemble_rmse,
+    ensemble_test_loglik,
+    make_bnn_logp,
+    make_bnn_split,
+    num_params,
+)
 from dist_svgd_torch.models.logreg import (
     ensemble_test_accuracy,
     logreg_likelihood,
@@ -26,14 +37,24 @@ from dist_svgd_torch.models.logreg import (
     make_logreg_split,
     posterior_predictive_prob,
 )
-from dist_svgd_torch.ops.kernels import RBF, median_bandwidth
+from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth, median_bandwidth_approx
+from dist_svgd_torch.sampler import Sampler
 
 __version__ = "0.0.1"
 
 __all__ = [
+    "Sampler",
     "DistSampler",
     "RBF",
+    "AdaptiveRBF",
     "median_bandwidth",
+    "median_bandwidth_approx",
+    "bnn_logp",
+    "ensemble_rmse",
+    "ensemble_test_loglik",
+    "make_bnn_logp",
+    "make_bnn_split",
+    "num_params",
     "ensemble_test_accuracy",
     "logreg_likelihood",
     "logreg_logp",

@@ -12,6 +12,7 @@ drop-remainder policy (particles and data rows), the importance scale
 implementation and the Jacobi update, per-shard per-step minibatches
 (``batch_size``, drawn from a stream keyed by ``(seed, t)``), a separate
 unscaled prior (``log_prior``), sharded data (``shard_data``), the
+per-step median bandwidth (``kernel='median_step'``), the
 Wasserstein/JKO term (host LP through ``make_step``, Sinkhorn through
 ``make_step`` and ``run_steps``, both W2 pairings, the carried Sinkhorn
 dual), ``make_step``, monolithic ``run_steps(record=False)``, and
@@ -36,7 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from dist_svgd_torch.ops.kernels import RBF, median_bandwidth
+from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth
 from dist_svgd_torch.parallel.exchange import (
     ALL_PARTICLES,
     ALL_SCORES,
@@ -80,9 +81,12 @@ class DistSampler:
     Args:
         num_shards: shard count S.
         logp: ``logp(theta, data_local)`` scalar log-density in torch.
-        kernel: ``None`` (the reference's ``RBF(1)``), an :class:`RBF`, or
+        kernel: ``None`` (the reference's ``RBF(1)``), an :class:`RBF`,
             ``'median'`` — an RBF at the median-heuristic bandwidth of the
-            initial particles, resolved once here.
+            initial particles, resolved once here — or ``'median_step'`` /
+            an :class:`AdaptiveRBF`: the bandwidth re-estimated every step
+            from each shard's interaction set (the gathered set in the
+            exchanged modes, the shard's own block in ``partitions``).
         particles: ``(n, d)`` initial particles (tensor or array); truncated
             to ``S · (n // S)`` rows.  Their dtype is the run's dtype.
         data: optional tensor / tuple / list / dict of arrays with a common
@@ -191,8 +195,6 @@ class DistSampler:
             raise ValueError(f"seed must be an int (the minibatch stream's root), got {seed!r}")
         if kernel_approx is not None:
             raise _not_ported("kernel_approx", "A11")
-        if isinstance(kernel, str) and kernel == "median_step":
-            raise _not_ported("kernel='median_step'", "A2")
         if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
             raise _not_ported(
                 "an explicit mesh (the torch.distributed backend; the port "
@@ -223,6 +225,8 @@ class DistSampler:
                 f"{particles.dtype} {tuple(particles.shape)}")
         if isinstance(kernel, str) and kernel == "median":
             kernel = RBF(float(median_bandwidth(particles)))
+        elif isinstance(kernel, str) and kernel == "median_step":
+            kernel = AdaptiveRBF()
         self._kernel = kernel if kernel is not None else RBF(1.0)
 
         n, self._d = particles.shape
@@ -345,6 +349,11 @@ class DistSampler:
     @property
     def mode(self) -> str:
         return self._mode
+
+    @property
+    def kernel(self):
+        """The kernel the steps use (``'median'`` resolved at construction)."""
+        return self._kernel
 
     @property
     def device(self) -> torch.device:

@@ -17,10 +17,10 @@ It prints the metrics as one JSON line and writes ``metrics.json`` and
 a directory named by every run-changing option.  The particle layout is the
 reference's ``(log α, w)``, d = 55.
 
+``--nproc 1`` runs the single-device ``Sampler`` on all the training rows.
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: ``--nproc 1`` (the single-device ``Sampler``, A5), the
-checkpoint, log and profile cadences (A8), ``--exchange-every > 1`` (A10)
-and ``--bandwidth median_step`` (A2).
+ROADMAP item: the checkpoint, log and profile cadences (A8) and
+``--exchange-every > 1`` (A10).
 """
 
 from __future__ import annotations
@@ -36,7 +36,9 @@ import torch
 
 from dist_svgd_torch.distsampler import DistSampler
 from dist_svgd_torch.models.logreg import ensemble_test_accuracy, make_logreg_split
-from dist_svgd_torch.ops.kernels import RBF
+from dist_svgd_torch.ops import cuda_svgd
+from dist_svgd_torch.ops.kernels import resolve_bandwidth_kernel
+from dist_svgd_torch.sampler import Sampler
 from dist_svgd_torch.utils.datasets import load_covertype
 from dist_svgd_torch.utils.platform import resolve_device
 from dist_svgd_torch.utils.rng import init_particles_per_shard
@@ -60,20 +62,6 @@ def resolve_phi_impl(phi_impl: str, batch_size: Optional[int], device: torch.dev
     return "cuda_bf16" if device.type == "cuda" else phi_impl
 
 
-def resolve_kernel(bandwidth: str):
-    """``--bandwidth`` → the sampler's kernel argument: ``'median'`` (the
-    heuristic, resolved from the initial particles), a float, or the
-    reference's 1.0 → ``None``."""
-    if bandwidth == "median_step":
-        raise NotImplementedError(
-            "--bandwidth median_step (the per-step median) is not ported to "
-            "PyTorch yet (ROADMAP A2)")
-    if bandwidth == "median":
-        return "median"
-    h = float(bandwidth)
-    return None if h == 1.0 else RBF(h)
-
-
 def get_results_dir(root, nrows, nproc, nparticles, niter, stepsize, batch_size, exchange,
                     shard_data, seed, phi_impl="auto", bandwidth="1.0") -> Path:
     """``root/<name>``, the name carrying every run-changing option (the
@@ -82,7 +70,7 @@ def get_results_dir(root, nrows, nproc, nparticles, niter, stepsize, batch_size,
             f"{exchange}-{'shard' if shard_data else 'repl'}-{seed}")
     if phi_impl != "auto":
         name += f"-phi={phi_impl}"
-    if bandwidth == "median" or float(bandwidth) != 1.0:
+    if bandwidth in ("median", "median_step") or float(bandwidth) != 1.0:
         name += f"-h={bandwidth}"
     path = Path(root) / name
     path.mkdir(parents=True, exist_ok=True)
@@ -95,15 +83,14 @@ def make_sampler(nrows=50_000, nproc=8, nparticles=10_000, batch_size=256,
     """The configured sampler and what :func:`run` reports with it:
     ``(sampler, (x_test, t_test), info)``, the test data on the sampler's
     device and ``info`` holding ``n_used``, ``batch_size`` (clamped to the
-    per-shard rows; ``None`` when 0) and the resolved ``phi_impl``."""
-    if nproc == 1:
-        raise NotImplementedError(
-            "--nproc 1 (the single-device Sampler) is not ported to PyTorch yet "
-            "(ROADMAP A5)")
+    per-shard rows; ``None`` when 0), the resolved ``phi_impl`` and the
+    initial particles ``init``.  ``nproc == 1`` builds a :class:`Sampler`
+    (which takes ``init`` through ``run(initial_particles=...)``), more
+    shards a :class:`DistSampler`."""
     if exchange not in ("all_particles", "all_scores"):
         raise ValueError(f"unknown exchange {exchange!r}")
     dev = resolve_device(device)
-    kernel = resolve_kernel(bandwidth)
+    kernel = resolve_bandwidth_kernel(bandwidth)
     x, t = load_covertype(nrows, seed=0)
     n_test = max(nrows // 10, 1)
     x_train, t_train = x[:-n_test], t[:-n_test]
@@ -115,14 +102,19 @@ def make_sampler(nrows=50_000, nproc=8, nparticles=10_000, batch_size=256,
     batch = min(batch_size, rows_per_shard) if batch_size else None
     phi_impl = resolve_phi_impl(phi_impl, batch, dev)
     likelihood, prior = make_logreg_split()
-    sampler = DistSampler(
-        nproc, likelihood, kernel, init_particles_per_shard(seed, n_used, d, nproc),
-        data=(x_train, t_train),
-        exchange_particles=True, exchange_scores=exchange == "all_scores",
-        include_wasserstein=False, shard_data=shard_data, batch_size=batch,
-        log_prior=prior, phi_impl=phi_impl, seed=seed, device=dev)
+    init = init_particles_per_shard(seed, n_used, d, nproc, device=dev)
+    if nproc == 1:
+        sampler = Sampler(d, likelihood, kernel=kernel, data=(x_train, t_train),
+                          batch_size=batch, log_prior=prior, phi_impl=phi_impl,
+                          device=dev, seed=seed)
+    else:
+        sampler = DistSampler(
+            nproc, likelihood, kernel, init, data=(x_train, t_train),
+            exchange_particles=True, exchange_scores=exchange == "all_scores",
+            include_wasserstein=False, shard_data=shard_data, batch_size=batch,
+            log_prior=prior, phi_impl=phi_impl, seed=seed, device=dev)
     return sampler, (x_test, t_test), {"n_used": n_used, "batch_size": batch,
-                                       "phi_impl": phi_impl}
+                                       "phi_impl": phi_impl, "init": init}
 
 
 def _sync(device: torch.device) -> None:
@@ -137,9 +129,9 @@ def run(nrows=50_000, nproc=8, nparticles=10_000, niter=200, stepsize=1e-4, batc
     """Train; returns ``(final particles as numpy, metrics dict)``.
 
     The metrics carry the JAX driver's keys plus ``device`` (the card's name,
-    or ``'cpu'``).  One step is taken and undone before the clock starts, so
-    ``wall_s`` excludes the kernels' first-use build (the minibatch stream is
-    keyed by the step, so the undone step changes nothing)."""
+    or ``'cpu'``).  The φ kernel of the run's d and tier is built and loaded
+    before the clock starts (without a launch), so ``wall_s`` excludes its
+    first-use build, as the BNN driver's does."""
     if checkpoint_every or resume or log_every or profile_dir or checkpoint_dir or metrics_path:
         raise NotImplementedError(
             "checkpoint / log / profile cadences are not ported to PyTorch yet "
@@ -152,15 +144,17 @@ def run(nrows=50_000, nproc=8, nparticles=10_000, niter=200, stepsize=1e-4, batc
         nrows, nproc, nparticles, batch_size, exchange, shard_data, seed, phi_impl,
         bandwidth, device)
     dev = sampler.device
-    state0 = sampler.state_dict()
-    sampler.make_step(stepsize)  # builds the kernels; undone below
-    sampler.load_state_dict(state0)
+    if dev.type == "cuda":
+        cuda_svgd.load_kernel(info["init"].shape[1], info["phi_impl"])
     _sync(dev)
     t0 = time.perf_counter()
-    sampler.run_steps(niter, stepsize)
+    if nproc == 1:
+        final, _ = sampler.run(info["n_used"], niter, stepsize, record=False,
+                               initial_particles=info["init"])
+    else:
+        final = sampler.run_steps(niter, stepsize)
     _sync(dev)
     wall = time.perf_counter() - t0
-    final = sampler.particles
     n_used = info["n_used"]
     metrics = {
         "dataset": "covertype",
@@ -192,7 +186,8 @@ def main(argv=None) -> int:
         description="Minibatched Bayesian logistic regression on Covertype "
                     "(BASELINE.json config 4) with the PyTorch/CUDA port.")
     p.add_argument("--nrows", type=int, default=50_000)
-    p.add_argument("--nproc", type=int, default=8, help="number of shards")
+    p.add_argument("--nproc", type=int, default=8,
+                   help="number of shards (1: the single-device Sampler)")
     p.add_argument("--nparticles", type=int, default=10_000)
     p.add_argument("--niter", type=int, default=200)
     p.add_argument("--stepsize", type=float, default=1e-4)
@@ -211,7 +206,8 @@ def main(argv=None) -> int:
                    help="φ backend; this driver's 'auto' is 'cuda_bf16' on the card "
                         "when minibatching (resolve_phi_impl)")
     p.add_argument("--bandwidth", default="1.0",
-                   help="RBF bandwidth: a float (reference 1.0) or 'median'")
+                   help="RBF bandwidth: a float (reference 1.0), 'median' (per-run "
+                        "heuristic) or 'median_step' (re-estimated every step)")
     p.add_argument("--exchange-every", type=int, default=1)
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="default: the card (fails without CUDA)")

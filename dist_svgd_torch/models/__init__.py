@@ -1,4 +1,6 @@
-"""Model log-densities in torch."""
+"""Model log-densities in torch: Bayesian logistic regression, the
+two-layer Bayesian neural network (``models.bnn``) and the 1-D Gaussian
+mixture (``models.gmm``)."""
 
 from dist_svgd_torch.models.logreg import (
     ensemble_test_accuracy,

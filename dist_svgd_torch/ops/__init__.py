@@ -6,10 +6,17 @@ and the Sinkhorn solve, whose card routes run the hand kernels of
 from dist_svgd_torch.ops.cuda_svgd import (
     BIG_D_MAX,
     SMALL_D,
+    WIDE_D_MAX,
     phi_cuda,
     resolve_phi_fn,
 )
-from dist_svgd_torch.ops.kernels import RBF, median_bandwidth, squared_distances
+from dist_svgd_torch.ops.kernels import (
+    RBF,
+    AdaptiveRBF,
+    median_bandwidth,
+    median_bandwidth_approx,
+    squared_distances,
+)
 from dist_svgd_torch.ops.ot import (
     sinkhorn_plan,
     wasserstein_grad_lp,
@@ -20,8 +27,11 @@ from dist_svgd_torch.ops.svgd import phi, svgd_step
 __all__ = [
     "BIG_D_MAX",
     "SMALL_D",
+    "WIDE_D_MAX",
     "RBF",
+    "AdaptiveRBF",
     "median_bandwidth",
+    "median_bandwidth_approx",
     "phi",
     "phi_cuda",
     "resolve_phi_fn",

@@ -29,8 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dist_svgd_torch"
 
 #: The kernels, by library name: each is ``csrc/<name>.cu``.
-SOURCES = ("phi_small_d", "phi_big_d", "phi_big_d_bf16x3", "ot_ctransform", "ot_kexp",
-           "ot_kmat_vec", "ot_plan_grad")
+SOURCES = ("phi_small_d", "phi_big_d", "phi_big_d_bf16x3", "phi_wide_d",
+           "phi_wide_d_bf16x3", "ot_ctransform", "ot_kexp", "ot_kmat_vec", "ot_plan_grad")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

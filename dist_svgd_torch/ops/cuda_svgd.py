@@ -7,7 +7,7 @@ kernels' (reference Algorithm 1 with the closed-form repulsive term):
     K_ij   = exp(−‖y_i − x_j‖² / h)
     φ(y_i) = (1/m) [ Σ_j K_ij·(s_j − (2/h)·x_j)  +  (2/h)·y_i·Σ_j K_ij ]
 
-Two kernels, chosen on the feature dim d, each in two precision tiers:
+Kernels chosen on the feature dim d, each in two precision tiers:
 
 - ``csrc/phi_small_d.cu`` (d ≤ :data:`SMALL_D`), replacing
   ``_phi_kernel_small_d``: distances as direct per-dim differences; the
@@ -18,7 +18,13 @@ Two kernels, chosen on the feature dim d, each in two precision tiers:
   ``y² + x² − 2·y·xᵀ`` clamped at 0, on the FP32 CUDA cores;
 - ``csrc/phi_big_d_bf16x3.cu``, the same kernel's bf16x3 tier
   (``_dot3``): both contractions as three bf16 tensor-core products
-  ``hi·hi + hi·lo + lo·hi`` of the split operands, the exp in f32.
+  ``hi·hi + hi·lo + lo·hi`` of the split operands, the exp in f32;
+- ``csrc/phi_wide_d.cu`` and ``csrc/phi_wide_d_bf16x3.cu``
+  (:data:`BIG_D_MAX` < d ≤ :data:`WIDE_D_MAX`), the same ``_phi_kernel``
+  in both tiers with the feature axis tiled and the drive accumulated in
+  shared memory — the d range of the BNN's weight vectors (d = 753).
+  Their plain versions are the big-d ones: one function at every d, as
+  ``_phi_kernel`` is.
 
 The bf16 tiers are JAX's ``phi_impl='pallas_bf16'`` (here
 ``'cuda_bf16'``): opt-in, never chosen by ``'auto'``.
@@ -47,22 +53,29 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from dist_svgd_torch.ops import _build
-from dist_svgd_torch.ops.kernels import RBF
+from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth_approx
 from dist_svgd_torch.ops.svgd import phi
 
 #: Feature dims up to this use the direct-difference kernel.
 SMALL_D = 8
 
-#: Largest feature dim the big-d kernel takes (its register tiles hold
-#: ⌈d/4⌉ ≤ 32 drive accumulators a thread); larger d raises ``ValueError``.
+#: Largest feature dim the big-d kernels take (their register tiles hold a
+#: row's drive accumulators); larger d goes to the wide-d kernels.
 BIG_D_MAX = 128
+
+#: Largest feature dim the wide-d kernels take: the d ≤ 2432 that the TPU
+#: kernel admits (``fits_vmem_big_d``: the 128×256 floor tile in 14 MB of
+#: VMEM).  Beyond it ``'auto'`` takes the plain φ, as JAX's ``'auto'`` takes
+#: the XLA φ, and the kernels raise ``ValueError``.
+WIDE_D_MAX = 2432
 
 #: Launches of each kernel since the last :func:`reset_launch_counts` — one
 #: per wrapper call that launched it (a call is a partial-sum kernel plus
 #: the finalize kernel of the same source), so a run can show that its φ
 #: went through the hand kernels.
 launch_counts: Dict[str, int] = {"phi_small_d": 0, "phi_big_d": 0,
-                                 "phi_small_d_bf16": 0, "phi_big_d_bf16x3": 0}
+                                 "phi_small_d_bf16": 0, "phi_big_d_bf16x3": 0,
+                                 "phi_wide_d": 0, "phi_wide_d_bf16x3": 0}
 
 
 def reset_launch_counts() -> None:
@@ -211,6 +224,8 @@ _KERNELS = {
     "phi_big_d": ("phi_big_d", "phi_big_d_launch", 64, 64, False),
     "phi_small_d_bf16": ("phi_small_d", "phi_small_d_bf16_launch", 128, 256, False),
     "phi_big_d_bf16x3": ("phi_big_d_bf16x3", "phi_big_d_bf16x3_launch", 64, 64, True),
+    "phi_wide_d": ("phi_wide_d", "phi_wide_d_launch", 32, 64, True),
+    "phi_wide_d_bf16x3": ("phi_wide_d_bf16x3", "phi_wide_d_bf16x3_launch", 16, 64, True),
 }
 _FUNCS: Dict[str, Callable] = {}
 
@@ -272,7 +287,7 @@ def phi_small_d_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
 
 def phi_big_d_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
     """The big-d kernel (``csrc/phi_big_d.cu``) on CUDA f32 tensors."""
-    _check_big_d("phi_big_d", y)
+    _check_d("phi_big_d", y, SMALL_D, BIG_D_MAX)
     return _launch("phi_big_d", y, x, s, bandwidth)
 
 
@@ -287,21 +302,57 @@ def phi_small_d_bf16_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
 def phi_big_d_bf16x3_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
     """The big-d kernel's bf16x3 tier (``csrc/phi_big_d_bf16x3.cu``, tensor
     cores) on CUDA f32 tensors."""
-    _check_big_d("phi_big_d_bf16x3", y)
+    _check_d("phi_big_d_bf16x3", y, SMALL_D, BIG_D_MAX)
     return _launch("phi_big_d_bf16x3", y, x, s, bandwidth)
 
 
-def _check_big_d(name: str, y: torch.Tensor) -> None:
-    if not SMALL_D < y.shape[-1] <= BIG_D_MAX:
-        raise ValueError(f"{name} takes {SMALL_D} < d <= {BIG_D_MAX}, got {y.shape[-1]}")
+def phi_wide_d_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
+    """The wide-d kernel (``csrc/phi_wide_d.cu``) on CUDA f32 tensors; its
+    plain version is :func:`phi_big_d_plain`."""
+    _check_d("phi_wide_d", y, BIG_D_MAX, WIDE_D_MAX)
+    return _launch("phi_wide_d", y, x, s, bandwidth)
 
 
-# (small d, big d) → (kernel wrapper, plain version), by tier
+def phi_wide_d_bf16x3_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
+    """The wide-d kernel's bf16x3 tier (``csrc/phi_wide_d_bf16x3.cu``, tensor
+    cores) on CUDA f32 tensors; its plain version is
+    :func:`phi_big_d_bf16x3_plain`."""
+    _check_d("phi_wide_d_bf16x3", y, BIG_D_MAX, WIDE_D_MAX)
+    return _launch("phi_wide_d_bf16x3", y, x, s, bandwidth)
+
+
+def _check_d(name: str, y: torch.Tensor, lo: int, hi: int) -> None:
+    if not lo < y.shape[-1] <= hi:
+        raise ValueError(f"{name} takes {lo} < d <= {hi}, got {y.shape[-1]}")
+
+
+# (small d, big d, wide d) → (kernel name, kernel wrapper, plain version), by tier
 _TIERS = {
-    "f32": ((phi_small_d_cuda, phi_small_d_plain), (phi_big_d_cuda, phi_big_d_plain)),
-    "bf16": ((phi_small_d_bf16_cuda, phi_small_d_bf16_plain),
-             (phi_big_d_bf16x3_cuda, phi_big_d_bf16x3_plain)),
+    "f32": (("phi_small_d", phi_small_d_cuda, phi_small_d_plain),
+            ("phi_big_d", phi_big_d_cuda, phi_big_d_plain),
+            ("phi_wide_d", phi_wide_d_cuda, phi_big_d_plain)),
+    "bf16": (("phi_small_d_bf16", phi_small_d_bf16_cuda, phi_small_d_bf16_plain),
+             ("phi_big_d_bf16x3", phi_big_d_bf16x3_cuda, phi_big_d_bf16x3_plain),
+             ("phi_wide_d_bf16x3", phi_wide_d_bf16x3_cuda, phi_big_d_bf16x3_plain)),
 }
+
+
+def _band(d: int) -> int:
+    """Index of the kernel that takes feature dim ``d``: small, big, wide."""
+    return 0 if d <= SMALL_D else 1 if d <= BIG_D_MAX else 2
+
+
+def load_kernel(d: int, phi_impl: str = "auto") -> None:
+    """Build (at first use) and load the hand kernel that the ``phi_impl``
+    backend of :func:`resolve_phi_fn` launches for feature dim ``d`` on
+    CUDA tensors, without launching it, so that a timed run can leave the
+    build out.  Nothing for ``'torch'`` and ``'torch_bf16'``, which launch
+    none, nor for d above :data:`WIDE_D_MAX`, where ``'auto'`` takes the
+    plain φ."""
+    if phi_impl not in PHI_IMPLS:
+        raise ValueError(f"unknown phi_impl {phi_impl!r}; the port has {PHI_IMPLS}")
+    if phi_impl in ("auto", "cuda", "cuda_bf16") and d <= WIDE_D_MAX:
+        _kernel_fn(_TIERS["bf16" if phi_impl == "cuda_bf16" else "f32"][_band(d)][0])
 
 
 def phi_cuda(updated: torch.Tensor, interacting: torch.Tensor,
@@ -312,18 +363,17 @@ def phi_cuda(updated: torch.Tensor, interacting: torch.Tensor,
     kernel for their d and ``tier`` (``'f32'``, exact, or ``'bf16'``); CPU
     tensors take that kernel's plain version, as any tensor does with
     ``plain=True`` (the reference a kernel is held against on the card).
-    Raises ``ValueError`` for d > :data:`BIG_D_MAX` (ROADMAP: φ beyond
-    d = 128)."""
+    Raises ``ValueError`` for d > :data:`WIDE_D_MAX`."""
     if tier not in _TIERS:
         raise ValueError(f"unknown tier {tier!r}; have {tuple(_TIERS)}")
     _check_shapes(updated, interacting, scores)
     d = updated.shape[-1]
-    if d > BIG_D_MAX:
+    if d > WIDE_D_MAX:
         raise ValueError(
-            f"phi_cuda: d={d} is above the big-d kernel's cap of {BIG_D_MAX}; "
-            "use phi_impl='torch' for this shape"
+            f"phi_cuda: d={d} is above the wide-d kernels' cap of {WIDE_D_MAX}; "
+            "use phi_impl='auto' or 'torch' for this shape"
         )
-    kern, plain_fn = _TIERS[tier][0 if d <= SMALL_D else 1]
+    _, kern, plain_fn = _TIERS[tier][_band(d)]
     if plain or updated.device.type == "cpu":
         kern = plain_fn
     y, x, s = (t.to(torch.float32).contiguous() for t in (updated, interacting, scores))
@@ -342,17 +392,28 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
     scores)`` on batched lanes.
 
     - ``'auto'``  — :func:`phi_cuda`: the hand kernel for the tensors' d on
-      CUDA tensors, that kernel's plain version on CPU tensors.  The TPU's
+      CUDA tensors, that kernel's plain version on CPU tensors.  Beyond
+      :data:`WIDE_D_MAX` it takes the plain ``ops.svgd.phi``, as JAX's
+      ``'auto'`` takes the XLA φ beyond ``fits_vmem_big_d``.  The TPU's
       pair-count thresholds (``PALLAS_MIN_PAIRS*``) do not carry over;
       re-deriving them for the H100 is ROADMAP work.
     - ``'torch'`` — the plain ``ops.svgd.phi`` (the JAX ``'xla'`` program's
       arithmetic) on any device.
-    - ``'cuda'``  — force the hand kernel; raises on CPU tensors.
+    - ``'cuda'``  — force the hand kernel; raises on CPU tensors and beyond
+      :data:`WIDE_D_MAX`.
     - ``'cuda_bf16'`` — the bf16 tiers (JAX's ``'pallas_bf16'``): the bf16
       kernel for the tensors' d on CUDA tensors, its plain version on CPU
       tensors.  Never chosen by ``'auto'``; meant for runs whose score is
       already stochastic (minibatches).
     - ``'torch_bf16'`` — the bf16 tiers' plain versions on any device.
+
+    ``kernel`` is an :class:`~dist_svgd_torch.ops.kernels.RBF` or an
+    :class:`~dist_svgd_torch.ops.kernels.AdaptiveRBF`.  For the latter the
+    returned function estimates the median bandwidth h from the interaction
+    set on every call (:func:`~dist_svgd_torch.ops.kernels.
+    median_bandwidth_approx`; a lane with its own ``(S, m, d)`` set takes its
+    own h) and runs the bandwidth-1 backend through the rescaling identity
+    ``φ_h(y; x, s) = φ₁(y/√h; x/√h, √h·s)/√h``.
 
     JAX's names ``'xla'``, ``'pallas'`` and ``'pallas_bf16'`` raise
     ``ValueError`` naming the port's.
@@ -363,16 +424,28 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
             f"the port's is {_JAX_NAMES[phi_impl]!r}")
     if phi_impl not in PHI_IMPLS:
         raise ValueError(f"unknown phi_impl {phi_impl!r}; the port has {PHI_IMPLS}")
+    if isinstance(kernel, AdaptiveRBF):
+        base = resolve_phi_fn(RBF(1.0), phi_impl)
+        max_points = kernel.max_points
+
+        def adaptive_fn(y, x, s):
+            h = median_bandwidth_approx(x, max_points)  # () or (S,)
+            sh = torch.sqrt(h.to(y.dtype))[..., None, None]
+            sx = sh if x.dim() == 3 else sh[..., 0, 0]
+            return base(y / sh, x / sx, s * sh) / sh
+
+        return adaptive_fn
     if not isinstance(kernel, RBF):
         raise NotImplementedError(
-            f"kernel {kernel!r} is not ported: the port's φ takes an RBF "
-            "(kernel='median_step' / AdaptiveRBF is ROADMAP A2)"
+            f"kernel {kernel!r} is not ported: the port's φ takes an RBF or an "
+            "AdaptiveRBF (arbitrary kernel callables are ROADMAP A2)"
         )
     bw = kernel.bandwidth
     if phi_impl == "torch":
         return lambda y, x, s: phi(y, x, s, kernel)
     if phi_impl == "auto":
-        return lambda y, x, s: phi_cuda(y, x, s, bw)
+        return lambda y, x, s: (phi(y, x, s, kernel) if y.shape[-1] > WIDE_D_MAX
+                                else phi_cuda(y, x, s, bw))
     if phi_impl == "cuda_bf16":
         return lambda y, x, s: phi_cuda(y, x, s, bw, tier="bf16")
     if phi_impl == "torch_bf16":

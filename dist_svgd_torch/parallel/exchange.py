@@ -193,7 +193,9 @@ def make_shard_step(
         logp: ``logp(theta, data_local)`` scalar log-density; ``data_local``
             is one shard's data slice (or ``None`` for data-free targets).
             With ``log_prior`` it is the likelihood alone.
-        kernel: an :class:`~dist_svgd_torch.ops.kernels.RBF`.
+        kernel: an :class:`~dist_svgd_torch.ops.kernels.RBF` or an
+            :class:`~dist_svgd_torch.ops.kernels.AdaptiveRBF` (the bandwidth
+            re-estimated from each lane's interaction set every step).
         mode: one of :data:`MODES`.
         num_shards: shard count S.
         score_scale: ``N_global / N_local``, applied to scores that were not

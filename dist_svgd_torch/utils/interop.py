@@ -6,12 +6,14 @@ carried Sinkhorn duals ``w2_g`` and the resolved ``w2_pairing``; the data goes
 to both packages as the same numpy arrays.  A JAX
 ``DistSampler.state_dict()`` (as numpy: ``{k: np.asarray(v)}``) converts
 with :func:`state_from_jax` into what the port's ``load_state_dict`` takes,
-and the port continues the trajectory.
+and the port continues the trajectory.  A Bayesian neural network's weights
+are its particles: :func:`particles_from_jax` carries a JAX-trained
+ensemble across, so that it predicts in the port what it predicts in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -69,3 +71,28 @@ def state_from_jax(jax_state: Dict[str, Any], device, sampler=None) -> Dict[str,
     state.update({k: np.asarray(jax_state[k]) for k in _ckpt.MANIFEST_KEYS
                   if k in jax_state})
     return state
+
+
+def particles_from_jax(particles, device, n_features: Optional[int] = None,
+                       n_hidden: Optional[int] = None) -> torch.Tensor:
+    """The JAX package's ``(n, d)`` particles (a numpy array, or anything
+    ``np.asarray`` takes) as a tensor of the same dtype on ``device``.
+
+    With ``n_features`` given, the particles are checked against the BNN's
+    flat layout ``[vec(W1) | b1 | w2 | b2 | log γ | log λ]``:
+    ``d == num_params(n_features, n_hidden)`` (``n_hidden`` defaults to 50,
+    the model's default), else ``ValueError``."""
+    arr = np.asarray(particles)
+    if arr.ndim != 2 or not np.issubdtype(arr.dtype, np.floating):
+        raise ValueError(f"particles must be a floating (n, d) array, got "
+                         f"{arr.dtype} {arr.shape}")
+    if n_features is not None:
+        from dist_svgd_torch.models.bnn import num_params
+
+        hidden = 50 if n_hidden is None else n_hidden
+        want = num_params(n_features, hidden)
+        if arr.shape[1] != want:
+            raise ValueError(
+                f"particles have d={arr.shape[1]}, but a BNN with {n_features} "
+                f"features and {hidden} hidden units has d={want}")
+    return torch.tensor(arr, device=device)

@@ -208,7 +208,7 @@ def test_device_rules():
     ({"batch_size": 13}, "local rows"),
     ({"log_prior": lambda th: -(th * th).sum(), "seed": 1.5}, "seed must be an int"),
     ({"kernel_approx": "rff"}, "A11"),
-    ({"kernel": "median_step"}, "A2"),
+    ({"kernel": lambda a, b: (a - b).abs().sum()}, "A2"),
     ({"phi_impl": "pallas_bf16"}, "the port's is 'cuda_bf16'"),
     ({"mesh": object()}, "A6"),
 ])

@@ -18,8 +18,8 @@ from dist_svgd_tpu.ops.svgd import phi as jphi
 
 from dist_svgd_torch.ops import cuda_svgd
 from dist_svgd_torch.ops.cuda_svgd import (
-    BIG_D_MAX,
     SMALL_D,
+    WIDE_D_MAX,
     phi_big_d_plain,
     phi_cuda,
     phi_small_d_plain,
@@ -158,11 +158,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="phi_small_d_bf16 takes"):
         cuda_svgd.phi_small_d_bf16_cuda(y, x, s)
     assert cuda_svgd.launch_counts == {"phi_small_d": 0, "phi_big_d": 0,
-                                       "phi_small_d_bf16": 0, "phi_big_d_bf16x3": 0}
+                                       "phi_small_d_bf16": 0, "phi_big_d_bf16x3": 0,
+                                       "phi_wide_d": 0, "phi_wide_d_bf16x3": 0}
 
 
 def test_phi_cuda_refuses_d_above_cap_and_bad_shapes():
-    y, x, s = (_t(a, torch.float32) for a in _inputs(1, 4, 5, BIG_D_MAX + 1))
+    y, x, s = (_t(a, torch.float32) for a in _inputs(1, 4, 5, WIDE_D_MAX + 1))
     with pytest.raises(ValueError, match="cap"):
         phi_cuda(y, x, s)
     y, x, s = (_t(a, torch.float32) for a in _inputs(2, 4, 5, 3))

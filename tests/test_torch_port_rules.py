@@ -161,3 +161,41 @@ def test_port_runs_the_covertype_driver_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("name,marker", [
+    ("phi_wide_d", "fmaf("),
+    ("phi_wide_d_bf16x3", "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"),
+])
+def test_wide_d_sources_carry_their_notes(name, marker):
+    """The two wide-d φ kernels carry the note, name the Pallas kernel they
+    replace, are built sources, compute their products by hand (FP32 FMAs,
+    bf16 mma.sync) and call no library GEMM."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    assert "Replaces: dist_svgd_tpu/ops/pallas_svgd.py, `_phi_kernel`" in text
+    assert "What bounds it on this card" in text
+    assert "What the design does about it" in text
+    assert f'extern "C" int {name}_launch(' in text
+    assert marker in text and '#include "phi_common.cuh"' in text
+    assert "cublas" not in text.lower() and "cudnn" not in text.lower()
+    assert name in _build.SOURCES
+
+
+def test_port_runs_the_bnn_driver_and_sampler_with_jax_blocked():
+    """A process where ``import jax`` fails runs the BNN driver through the
+    single-device Sampler with the per-step median bandwidth, and through
+    two shards, on the CPU."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "from dist_svgd_torch.experiments.bnn import run\n"
+        "for nproc in (1, 2):\n"
+        "    final, m = run(dataset='yacht', nproc=nproc, nparticles=8, n_hidden=4,\n"
+        "                   niter=2, batch_size=16, bandwidth='median_step', device='cpu')\n"
+        "    assert final.shape == (8, 35) and m['nproc'] == nproc\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
