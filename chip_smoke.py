@@ -5,11 +5,11 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the ten hand-written kernels from ``dist_svgd_torch/csrc/``
+It builds the eleven hand-written kernels from ``dist_svgd_torch/csrc/``
 with ``nvcc`` (the φ kernels for small, big and wide feature dims in their
-exact and bf16 tiers, and the four Sinkhorn kernels), holds each against
-its plain PyTorch version at the main paths' shapes and at ragged shapes,
-drives the north-star path
+exact and bf16 tiers, the small-d kernel's no-exp timing probe, and the four
+Sinkhorn kernels), holds each against its plain PyTorch version at the main
+paths' shapes and at ragged shapes, drives the north-star path
 (10,000-particle Bayesian logistic regression, 8 emulated shards,
 ``all_particles``) through ``DistSampler.run_steps`` without and with the
 Wasserstein term (Sinkhorn at 10,000 particles on the fused route, at
@@ -19,9 +19,12 @@ Wasserstein term (Sinkhorn at 10,000 particles on the fused route, at
 the single-device ``Sampler``, drives the Bayesian neural network (BASELINE.json
 config 5, d = 753) through its driver ``dist_svgd_torch/experiments/bnn.py``
 at full width in both φ tiers, with the per-step median bandwidth and over
-8 shards, checks that each path went through its kernels, and prints one
-JSON object per phase.  A phase that fails raises, so the script
-exits non-zero; the last line, printed only when every phase passed, is
+8 shards, runs the autotune tool ``dist_svgd_torch/tools/cuda_autotune.py``
+(its default and ``--big-d`` modes, short chains), checks the φ policy's
+pair-count lines on either side of their committed values, checks that each
+path went through its kernels, and prints one JSON object per phase.  A
+phase that fails raises, so the script exits non-zero; the last line,
+printed only when every phase passed, is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
 
@@ -68,6 +71,22 @@ BNN = dict(steps=1000, bf16_steps=50, dist_steps=50, dist_shards=8, dist_particl
 # steps of the driver's sampler.
 COVERTYPE_NPROC1 = dict(warm_steps=3, steps=20)
 W2_PROFILE_STEPS = 10
+# Chain length of the autotune tool's rows in the smoke run (its own default
+# is 50; the harvest is run through the tool, not here).
+AUTOTUNE_ITERS = 5
+# The φ lanes of the W2 streaming path (8 shards of 12,500 rows against
+# 100,000 particles) and the rows of each lane held against a one-shot
+# reference there (its whole Gram would be 40 GB in float32).
+W2_STREAMING_PHI = (8, 12_500, 100_000, 3)
+LANE_ROWS = 256
+# 'torch' past the blockwise line, (case, (S, k, m, d), line or None for the
+# committed TORCH_BLOCKWISE_MIN_PAIRS): the 100k streaming lanes, 1e10 pairs,
+# and the 10k lanes past a line patched down to 2^20.
+BLOCKWISE_CASES = [("committed line", W2_STREAMING_PHI, None),
+                   ("patched line", (8, 1250, 10_000, 3), 1 << 20)]
+# A value each 'auto' gate is patched to in the auto_gates phase, so that a
+# shape on either side of it runs on the card.
+PATCHED_GATE = 1 << 12
 W2_SYNC_STEPS = 20
 # Timed launches of the Sinkhorn kernels' parity rows: the main rows at the
 # 100k shapes (~10 ms a call), the other rows; the plain versions take
@@ -153,6 +172,13 @@ KERNELS = {
         # as the big-d bf16x3 kernel
         "flops_per_pair": lambda d: 8 + 2 * -(-d // 16),
         "tc_flops_per_pair": lambda d: 12 * d,
+    },
+    "phi_small_d_noexp": {
+        "source": "dist_svgd_torch/csrc/phi_small_d.cu",
+        "replaces": "tools/pallas_autotune.py:129 (_noexp_kernel)",
+        # per pair: d subtractions + d FMAs (distance), min, negation, the
+        # row-sum add, d FMAs (drive); no exp
+        "flops_per_pair": lambda d: 5 * d + 3,
     },
     "phi_big_d_bf16x3": {
         "source": "dist_svgd_torch/csrc/phi_big_d_bf16x3.cu",
@@ -653,6 +679,143 @@ def bnn_phases():
     return launches_bnn, launches_bf16
 
 
+def autotune_phase():
+    """The autotune tool (``python -m dist_svgd_torch.tools.cuda_autotune``)
+    in-process on short chains: its default mode must launch the no-exp
+    probe and the exact small-d kernel and print a finite exp share, its
+    ``--big-d`` mode both big-d tiers.  Returns the default mode's launch
+    counts (the probe's main path)."""
+    import math
+
+    import torch
+
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.tools import cuda_autotune
+
+    rows = {}
+    for mode, want in (("default", ("phi_small_d_noexp", "phi_small_d", "phi_small_d_bf16")),
+                       ("--big-d", ("phi_big_d", "phi_big_d_bf16x3"))):
+        argv = ["--iters", str(AUTOTUNE_ITERS)] + ([mode] if mode != "default" else [])
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = cuda_autotune.main(argv)
+        torch.cuda.synchronize()
+        launched = dict(cuda_svgd.launch_counts)
+        errs = [v for key, v in out.items() if key.endswith("_err")]
+        ok = (all(launched[name] > 0 for name in want)
+              and all(math.isfinite(v) for v in errs)
+              and (mode != "default" or (math.isfinite(out["exp_share"])
+                                         and math.isfinite(out["exp_share_device"]))))
+        rows[mode] = launched
+        emit({"phase": "autotune", "mode": mode, "iters": AUTOTUNE_ITERS,
+              "seconds": time.perf_counter() - t0, "launches": launched, **out, "ok": ok})
+        if not ok:
+            raise AssertionError(f"autotune {mode}: launches={launched} out={out}")
+    return rows["default"]
+
+
+def auto_gates_phase():
+    """The φ policy's lines.  Each ``'auto'`` gate at its committed value:
+    one rung below it the plain φ runs (no launch; it is ``ops.svgd.phi``),
+    at it the kernel — at a committed 0 (no gate) one pair launches the
+    kernel; then the same gate patched to PATCHED_GATE, so that both sides
+    run on the card whatever the committed value.  Past
+    ``TORCH_BLOCKWISE_MIN_PAIRS`` (the 100k lanes) and past a line patched
+    low (the 10k lanes) ``'torch'`` runs ``phi_blockwise``: at the 10k lanes
+    it is held against the one-shot ``phi``; at the 100k lanes, where the
+    one-shot Gram is 40 GB, against the one-shot ``phi`` in float64 on the
+    first LANE_ROWS rows of a lane (rows are independent)."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.ops.kernels import RBF
+    from dist_svgd_torch.ops.svgd import phi
+
+    def lane_shape(pairs):
+        m = 1 << ((pairs.bit_length()) // 2)
+        return pairs // m, m
+
+    for gate, d in (("CUDA_MIN_PAIRS", 3), ("CUDA_MIN_PAIRS_BIG_D", 55),
+                    ("CUDA_MIN_PAIRS_BIG_D", 753)):
+        committed = getattr(cuda_svgd, gate)
+        h = 1.0 if d <= cuda_svgd.SMALL_D else 2.0 * d
+        name = cuda_svgd.kernel_for(d)
+        for case, line in (("committed", committed), ("patched", PATCHED_GATE)):
+            sides = {}
+            setattr(cuda_svgd, gate, line)
+            try:
+                for side, pairs in (("below", line // 2), ("at", max(line, 1))):
+                    if pairs == 0:  # no gate: nothing lies below it
+                        continue
+                    k, m = lane_shape(pairs)
+                    y, x, s = phi_inputs(1, k, m, d, 7)
+                    fn = cuda_svgd.resolve_phi_fn(RBF(h), "auto")
+                    torch.cuda.synchronize()
+                    cuda_svgd.reset_launch_counts()
+                    got = fn(y, x, s)
+                    torch.cuda.synchronize()
+                    launched = dict(cuda_svgd.launch_counts)
+                    want = phi(y, x, s, RBF(h))
+                    err = float((got - want).abs().max())
+                    tol = KERNEL_RTOL * float(want.abs().max())
+                    sides[side] = {"shape": [1, k, m, d], "pairs": k * m,
+                                   "launches": launched[name],
+                                   "max_abs_err_vs_torch_phi": err}
+                    expect = phi_counts() if side == "below" else phi_counts(**{name: 1})
+                    if launched != expect or not err <= tol:
+                        raise AssertionError(
+                            f"auto gate {gate}={line} d={d} {side}: {sides[side]}")
+            finally:
+                setattr(cuda_svgd, gate, committed)
+            emit({"phase": "auto_gates", "gate": gate, "case": case, "line": line, "d": d,
+                  "kernel": name, **sides, "ok": True})
+
+    # 'torch' past the blockwise line (BLOCKWISE_CASES); the spy counts the
+    # policy's calls of phi_blockwise
+    calls = []
+    orig_blockwise = cuda_svgd.phi_blockwise
+    orig_line = cuda_svgd.TORCH_BLOCKWISE_MIN_PAIRS
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return orig_blockwise(*args, **kw)
+
+    cuda_svgd.phi_blockwise = spy
+    try:
+        for label, (S, k, m, d), line in BLOCKWISE_CASES:
+            line = orig_line if line is None else line
+            cuda_svgd.TORCH_BLOCKWISE_MIN_PAIRS = line
+            y, x, s = phi_inputs(S, k, m, d, 8)
+            calls.clear()
+            t0 = time.perf_counter()
+            got = cuda_svgd.resolve_phi_fn(RBF(1.0), "torch")(y, x, s)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            extra = {}
+            if label == "committed line":
+                rows = slice(0, LANE_ROWS)
+                want = phi(y[:1, rows].double(), x.double(), s[:1].double(), RBF(1.0))
+                got = got[:1, rows].double()
+                extra = {"rows": LANE_ROWS}
+            else:
+                want = phi(y, x, s, RBF(1.0))
+            err = float((got - want).abs().max())
+            tol = KERNEL_RTOL * float(want.abs().max())
+            ok = calls == [1] and bool(torch.isfinite(got).all()) and err <= tol
+            emit({"phase": "auto_gates", "gate": "TORCH_BLOCKWISE_MIN_PAIRS", "case": label,
+                  "line": line, "shape": [S, k, m, d], "pairs": S * k * m,
+                  "blockwise_calls": len(calls), "seconds": seconds,
+                  "reference": "phi f64" if extra else "phi", "max_abs_err": err,
+                  "tolerance": tol, **extra, "ok": ok})
+            if not ok:
+                raise AssertionError(f"blockwise {label}: calls={calls} err={err} > {tol}")
+            del y, x, s, got, want
+    finally:
+        cuda_svgd.phi_blockwise = orig_blockwise
+        cuda_svgd.TORCH_BLOCKWISE_MIN_PAIRS = orig_line
+
+
 def main():
     import torch
 
@@ -665,7 +828,8 @@ def main():
     from dist_svgd_torch.models import bnn
     from dist_svgd_torch.models.logreg import ensemble_test_accuracy, logreg_logp
     from dist_svgd_torch.ops import _build, cuda_ot, cuda_svgd
-    from dist_svgd_torch.ops.kernels import median_bandwidth
+    from dist_svgd_torch.ops.kernels import RBF, median_bandwidth
+    from dist_svgd_torch.ops.svgd import phi
     from dist_svgd_torch.utils.datasets import UCI_REGRESSION_DIMS, load_benchmark
     from dist_svgd_torch.utils.platform import resolve_device
     from dist_svgd_torch.utils.rng import init_particles_per_shard
@@ -707,6 +871,9 @@ def main():
         "phi_wide_d": (cuda_svgd.phi_wide_d_cuda, cuda_svgd.phi_big_d_plain),
         "phi_wide_d_bf16x3": (cuda_svgd.phi_wide_d_bf16x3_cuda,
                               cuda_svgd.phi_big_d_bf16x3_plain),
+        # the probe takes no bandwidth (h = 1)
+        "phi_small_d_noexp": (lambda y, x, s, h: cuda_svgd.phi_small_d_noexp_cuda(y, x, s),
+                              lambda y, x, s, h: cuda_svgd.phi_small_d_noexp_plain(y, x, s)),
     }
     # (kernel, (S, k, m, d), bandwidth, shared x, role).  The main shapes are
     # the paths': 8 lanes × 1250 rows against 10,000 particles, at banana's
@@ -741,6 +908,13 @@ def main():
         ("phi_small_d_bf16", (8, 1250, 10_000, 3), 1.0, True, "main"),
         ("phi_small_d_bf16", (3, 1000, 777, 5), 1.0, True, "ragged"),
         ("phi_small_d_bf16", (8, 1250, 1250, 3), 1.0, False, "partitions"),
+        # the no-exp probe: the autotune tool's shape, the north-star lanes,
+        # a ragged shape, d = 1 and d = 8
+        ("phi_small_d_noexp", (1, 10_000, 10_000, 3), 1.0, True, "main"),
+        ("phi_small_d_noexp", (8, 1250, 10_000, 3), 1.0, True, "north-star lanes"),
+        ("phi_small_d_noexp", (3, 1000, 777, 5), 1.0, True, "ragged"),
+        ("phi_small_d_noexp", (2, 300, 517, 1), 1.0, False, "d=1"),
+        ("phi_small_d_noexp", (2, 300, 517, 8), 1.0, False, "d=8"),
     ]
     for name in ("phi_wide_d", "phi_wide_d_bf16x3"):
         cases += [
@@ -794,6 +968,47 @@ def main():
         emit(row)
         if not ok:
             raise AssertionError(f"{name} {role}: max|Δ| {err} > {KERNEL_RTOL} × {scale}")
+
+    # The small-d kernel at the W2 streaming route's φ lanes (DistSampler at
+    # n = 100,000: 8 × 12,500 × 100,000, d = 3), at that path's h and at
+    # h = 1.  The kernel runs at the full shape, whose k sets its m-split (2
+    # chunks of 50,000 columns); its first LANE_ROWS rows of every lane are
+    # held against the torch φ in float64 on those rows (rows are
+    # independent; the whole Gram would be 40 GB in float32), within
+    # KERNEL_RTOL · max|φ|.  The float32 plain version is no reference at
+    # this m: its matmul sums 100,000 columns in long chains, and on an H100
+    # it lies ~1e-4 of max|φ| from the float64 φ at h = 1; its distances
+    # from both are printed.
+    S, k, m, d = W2_STREAMING_PHI
+    for seed, h in ((len(cases), W2_STREAMING["h"]), (len(cases) + 1, 1.0)):
+        y, x, s = phi_inputs(S, k, m, d, seed)
+        got = cuda_svgd.phi_small_d_cuda(y, x, s, h)[:, :LANE_ROWS]
+        torch.cuda.synchronize()
+        ys = y[:, :LANE_ROWS].contiguous()
+        exact = phi(ys.double(), x.double(), s.double(), RBF(h))
+        plain = cuda_svgd.phi_small_d_plain(ys, x, s, h)
+        err = float((got.double() - exact).abs().max())
+        scale = float(exact.abs().max())
+        tol = KERNEL_RTOL * scale
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        row = {"phase": "kernel_parity", "kernel": "phi_small_d",
+               "role": f"w2 streaming lanes h={h:g}", "shape": [S, k, m, d], "bandwidth": h,
+               "rows": LANE_ROWS, "reference": "phi f64", "max_abs_err": err,
+               "max_abs_ref": scale, "tolerance": tol, "ok": ok,
+               "max_abs_err_vs_plain": float((got - plain).abs().max()),
+               "plain_max_abs_err_vs_f64": float((plain.double() - exact).abs().max())}
+        del got, plain, exact
+        b_ms, b_by = bound_ms(*phi_work("phi_small_d", S, k, m, d, x.numel()))
+        row.update(ms=cuda_ms(lambda: cuda_svgd.phi_small_d_cuda(y, x, s, h),
+                              MAIN_100K_LAUNCHES),
+                   plain_ms_on_rows=cuda_ms(
+                       lambda: cuda_svgd.phi_small_d_plain(ys, x, s, h), OTHER_LAUNCHES),
+                   bound_us=1e3 * b_ms, bound_by=b_by)
+        emit(row)
+        if not ok:
+            raise AssertionError(f"phi_small_d {row['role']}: max|Δ| {err} vs the f64 φ "
+                                 f"> {tol}")
+        del y, x, s, ys
 
     # ---- 3b. Sinkhorn kernels: parity and timing -------------------------
     ot_fns = {
@@ -1134,6 +1349,10 @@ def main():
     # ---- 12. the BNN (BASELINE config 5, d = 753) through its driver -------
     launches_bnn, launches_bnn_bf16 = bnn_phases()
 
+    # ---- 13. the autotune tool and the φ policy's gates ---------------------
+    launches_tool = autotune_phase()
+    auto_gates_phase()
+
     launches = {"phi_small_d": launches_small["phi_small_d"],
                 "phi_big_d": launches_big["phi_big_d"],
                 "ot_ctransform": launches_w2["ot_ctransform"],
@@ -1143,7 +1362,8 @@ def main():
                 "phi_small_d_bf16": launches_sbf["phi_small_d_bf16"],
                 "phi_big_d_bf16x3": launches_ct["phi_big_d_bf16x3"],
                 "phi_wide_d": launches_bnn["phi_wide_d"],
-                "phi_wide_d_bf16x3": launches_bnn_bf16["phi_wide_d_bf16x3"]}
+                "phi_wide_d_bf16x3": launches_bnn_bf16["phi_wide_d_bf16x3"],
+                "phi_small_d_noexp": launches_tool["phi_small_d_noexp"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

@@ -49,17 +49,28 @@ DEFAULT_RESULTS_DIR = Path(__file__).resolve().parents[2] / "build" / "results"
 PHI_CHOICES = ("auto", "torch", "cuda", "cuda_bf16")
 
 
-def resolve_phi_impl(phi_impl: str, batch_size: Optional[int], device: torch.device) -> str:
+def resolve_phi_impl(phi_impl: str, batch_size: Optional[int], nparticles: int, nproc: int,
+                     device: torch.device) -> str:
     """The driver's φ policy: ``'auto'`` resolves to the bf16 tiers
-    (``'cuda_bf16'``) when, and only when, the run is minibatched and runs
-    on the card — the stochastic score's sampling noise (~6% an entry at
-    B = 256 of 5,625 rows a shard) is far above the bf16x3 tier's φ error.
-    JAX's further gate on the per-shard pair count (its TPU-measured
-    ``PALLAS_MIN_PAIRS_BIG_D``) is not carried over (ROADMAP B8).  Full-batch
-    runs, the CPU and the library-level ``'auto'`` stay exact f32."""
+    (``'cuda_bf16'``) when, and only when, all three hold (JAX's gates):
+
+    (a) the run is minibatched: the stochastic score's sampling noise (~6%
+        an entry at B = 256 of 5,625 rows a shard) is far above the bf16x3
+        tier's φ error;
+    (b) it runs on the card;
+    (c) a shard's φ clears the library's big-d line,
+        ``(n // nproc) · n >= CUDA_MIN_PAIRS_BIG_D`` with
+        ``n = (nparticles // nproc) · nproc`` (JAX's formula) — Covertype's
+        d = 55 is a big-d shape.
+
+    Full-batch runs, the CPU and the library-level ``'auto'`` stay exact
+    f32."""
     if phi_impl != "auto" or not batch_size:
         return phi_impl
-    return "cuda_bf16" if device.type == "cuda" else phi_impl
+    n = (nparticles // nproc) * nproc
+    if device.type == "cuda" and (n // nproc) * n >= cuda_svgd.CUDA_MIN_PAIRS_BIG_D:
+        return "cuda_bf16"
+    return phi_impl
 
 
 def get_results_dir(root, nrows, nproc, nparticles, niter, stepsize, batch_size, exchange,
@@ -100,7 +111,7 @@ def make_sampler(nrows=50_000, nproc=8, nparticles=10_000, batch_size=256,
     n_used = (nparticles // nproc) * nproc
     rows_per_shard = x_train.shape[0] // nproc
     batch = min(batch_size, rows_per_shard) if batch_size else None
-    phi_impl = resolve_phi_impl(phi_impl, batch, dev)
+    phi_impl = resolve_phi_impl(phi_impl, batch, nparticles, nproc, dev)
     likelihood, prior = make_logreg_split()
     init = init_particles_per_shard(seed, n_used, d, nproc, device=dev)
     if nproc == 1:

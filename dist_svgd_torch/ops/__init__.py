@@ -22,7 +22,7 @@ from dist_svgd_torch.ops.ot import (
     wasserstein_grad_lp,
     wasserstein_grad_sinkhorn,
 )
-from dist_svgd_torch.ops.svgd import phi, svgd_step
+from dist_svgd_torch.ops.svgd import phi, phi_blockwise, phi_chunked, svgd_step
 
 __all__ = [
     "BIG_D_MAX",
@@ -33,6 +33,8 @@ __all__ = [
     "median_bandwidth",
     "median_bandwidth_approx",
     "phi",
+    "phi_blockwise",
+    "phi_chunked",
     "phi_cuda",
     "resolve_phi_fn",
     "sinkhorn_plan",

@@ -29,6 +29,12 @@ Kernels chosen on the feature dim d, each in two precision tiers:
 The bf16 tiers are JAX's ``phi_impl='pallas_bf16'`` (here
 ``'cuda_bf16'``): opt-in, never chosen by ``'auto'``.
 
+A third mode of ``csrc/phi_small_d.cu``, ``phi_small_d_noexp``, replaces
+the timing probe ``_noexp_kernel`` of ``tools/pallas_autotune.py``: the
+small-d φ with K replaced by ``−min(d², 1e30)``, no exp, at h = 1.  Only
+``dist_svgd_torch.tools.cuda_autotune`` launches it, to isolate the exp's
+share of the exact kernel's time; no ``phi_impl`` reaches it.
+
 Each kernel has a plain PyTorch version here with the same distance form,
 the same splits and the same ``xs = s − (2/h)·x`` drive operand, so that
 holding a kernel against its plain version on the card measures the
@@ -48,13 +54,13 @@ kernel or raises.  Nothing catches a failed build or launch.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from dist_svgd_torch.ops import _build
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth_approx
-from dist_svgd_torch.ops.svgd import phi
+from dist_svgd_torch.ops.svgd import phi, phi_blockwise
 
 #: Feature dims up to this use the direct-difference kernel.
 SMALL_D = 8
@@ -69,13 +75,17 @@ BIG_D_MAX = 128
 #: the XLA φ, and the kernels raise ``ValueError``.
 WIDE_D_MAX = 2432
 
+#: The no-exp probe's clamp of d² (``pallas_svgd.py:_D2_CAP``, copied).
+_D2_CAP = 1e30
+
 #: Launches of each kernel since the last :func:`reset_launch_counts` — one
 #: per wrapper call that launched it (a call is a partial-sum kernel plus
 #: the finalize kernel of the same source), so a run can show that its φ
 #: went through the hand kernels.
 launch_counts: Dict[str, int] = {"phi_small_d": 0, "phi_big_d": 0,
                                  "phi_small_d_bf16": 0, "phi_big_d_bf16x3": 0,
-                                 "phi_wide_d": 0, "phi_wide_d_bf16x3": 0}
+                                 "phi_wide_d": 0, "phi_wide_d_bf16x3": 0,
+                                 "phi_small_d_noexp": 0}
 
 
 def reset_launch_counts() -> None:
@@ -189,6 +199,16 @@ def phi_small_d_bf16_plain(y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
                           lambda neg: torch.exp(neg.to(torch.bfloat16).float()))
 
 
+def phi_small_d_noexp_plain(y: torch.Tensor, x: torch.Tensor,
+                            s: torch.Tensor) -> torch.Tensor:
+    """Plain version of the no-exp probe: the small-d φ at h = 1 with
+    ``K' = −min(d², _D2_CAP)`` in place of the exp — JAX's ``phi_noexp``,
+    ``(Σ_j K'_ij·(s_j − 2·x_j) + 2·y_i·Σ_j K'_ij) / m``, on every shape
+    (JAX's probe sums its ``_FAR`` padding columns where m is not a multiple
+    of its column tile)."""
+    return _small_d_plain(y, x, s, 1.0, lambda neg: -torch.clamp(-neg, max=_D2_CAP))
+
+
 def phi_big_d_bf16x3_plain(y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
                            bandwidth: float = 1.0) -> torch.Tensor:
     """Plain version of the big-d kernel's bf16x3 tier, float32:
@@ -201,18 +221,26 @@ def phi_big_d_bf16x3_plain(y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
 _SM_COUNTS: Dict[int, int] = {}
 
 
-def _split_m(m: int, tile: int, row_blocks: int, device: torch.device) -> Tuple[int, int]:
+#: The m-split's target of blocks per SM (:func:`_split_m`).
+SPLIT_BLOCKS_PER_SM = 8
+
+
+def _split_m(m: int, tile: int, row_blocks: int, device: torch.device,
+             blocks_per_sm: Optional[int] = None) -> Tuple[int, int]:
     """``(nsplit, chunk)``: split the m axis into ``nsplit`` chunks of
     ``chunk`` columns (a multiple of ``tile``) so that the grid holds about
-    eight blocks per SM — the output alone (``row_blocks`` blocks) is too
-    few rows to fill the card at the north-star shapes."""
+    ``blocks_per_sm`` (default :data:`SPLIT_BLOCKS_PER_SM`) blocks per SM —
+    the output alone (``row_blocks`` blocks) is too few rows to fill the
+    card at the north-star shapes."""
+    if blocks_per_sm is None:
+        blocks_per_sm = SPLIT_BLOCKS_PER_SM
     index = device.index if device.index is not None else torch.cuda.current_device()
     sms = _SM_COUNTS.get(index)
     if sms is None:
         sms = torch.cuda.get_device_properties(index).multi_processor_count
         _SM_COUNTS[index] = sms
     tiles = -(-m // tile)
-    want = max(1, min(tiles, -(-8 * sms // max(row_blocks, 1))))
+    want = max(1, min(tiles, -(-blocks_per_sm * sms // max(row_blocks, 1))))
     per = -(-tiles // want)
     return -(-tiles // per), per * tile
 
@@ -226,6 +254,7 @@ _KERNELS = {
     "phi_big_d_bf16x3": ("phi_big_d_bf16x3", "phi_big_d_bf16x3_launch", 64, 64, True),
     "phi_wide_d": ("phi_wide_d", "phi_wide_d_launch", 32, 64, True),
     "phi_wide_d_bf16x3": ("phi_wide_d_bf16x3", "phi_wide_d_bf16x3_launch", 16, 64, True),
+    "phi_small_d_noexp": ("phi_small_d", "phi_small_d_noexp_launch", 128, 256, False),
 }
 _FUNCS: Dict[str, Callable] = {}
 
@@ -243,8 +272,12 @@ def _kernel_fn(name: str):
 
 
 def _launch(name: str, y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
-            bandwidth: float) -> torch.Tensor:
-    """Launch one φ kernel on the current stream (no synchronise)."""
+            bandwidth: float, *, _blocks_per_sm: Optional[int] = None) -> torch.Tensor:
+    """Launch one φ kernel on the current stream (no synchronise).
+    ``_blocks_per_sm`` overrides the m-split's target of
+    :data:`SPLIT_BLOCKS_PER_SM` blocks per SM (:func:`_split_m`) — the
+    autotune tool's split sweep, the counterpart of ``phi_pallas``'s
+    ``block_k``/``block_m``; no sampler path passes it."""
     _check_shapes(y, x, s)
     for t, label in ((y, "updated"), (x, "interacting"), (s, "scores")):
         if t.device.type != "cuda":
@@ -260,7 +293,7 @@ def _launch(name: str, y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
     inv_h = 1.0 / float(bandwidth)
     xs = _drive_operand(x, s, inv_h)
     rows, tile, norms = _KERNELS[name][2:]
-    nsplit, chunk = _split_m(m, tile, S * -(-k // rows), y.device)
+    nsplit, chunk = _split_m(m, tile, S * -(-k // rows), y.device, _blocks_per_sm)
     part = torch.empty((nsplit, S, k, d + 1), dtype=torch.float32, device=y.device)
     out = torch.empty((S, k, d), dtype=torch.float32, device=y.device)
     inputs = [y, x, xs]
@@ -297,6 +330,17 @@ def phi_small_d_bf16_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
     if y.shape[-1] > SMALL_D:
         raise ValueError(f"phi_small_d_bf16 takes d <= {SMALL_D}, got {y.shape[-1]}")
     return _launch("phi_small_d_bf16", y, x, s, bandwidth)
+
+
+def phi_small_d_noexp_cuda(y, x, s) -> torch.Tensor:
+    """The no-exp probe (``csrc/phi_small_d.cu``, its third mode) on CUDA
+    f32 tensors, at h = 1; its plain version on CPU tensors.  Launched only
+    by the autotune tool."""
+    if y.shape[-1] > SMALL_D:
+        raise ValueError(f"phi_small_d_noexp takes d <= {SMALL_D}, got {y.shape[-1]}")
+    if y.device.type == "cpu":
+        return phi_small_d_noexp_plain(y, x, s)
+    return _launch("phi_small_d_noexp", y, x, s, 1.0)
 
 
 def phi_big_d_bf16x3_cuda(y, x, s, bandwidth: float = 1.0) -> torch.Tensor:
@@ -337,9 +381,46 @@ _TIERS = {
 }
 
 
+# kernel name → its plain version, ``plain(y, x, s, bandwidth)``; the probe
+# runs at h = 1 whatever bandwidth it is given
+_PLAINS: Dict[str, Callable] = {
+    name: plain for tier in _TIERS.values() for name, _, plain in tier}
+_PLAINS["phi_small_d_noexp"] = lambda y, x, s, bandwidth=1.0: phi_small_d_noexp_plain(y, x, s)
+
+
 def _band(d: int) -> int:
     """Index of the kernel that takes feature dim ``d``: small, big, wide."""
     return 0 if d <= SMALL_D else 1 if d <= BIG_D_MAX else 2
+
+
+def kernel_for(d: int, tier: str = "f32") -> str:
+    """Name of the φ kernel that takes feature dim ``d`` in ``tier``."""
+    return _TIERS[tier][_band(d)][0]
+
+
+def plain_of(name: str) -> Callable:
+    """Kernel ``name``'s plain version, ``plain(y, x, s, bandwidth)``."""
+    return _PLAINS[name]
+
+
+def launch(name: str, y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
+           bandwidth: float = 1.0, blocks_per_sm: Optional[int] = None) -> torch.Tensor:
+    """Kernel ``name`` (a key of :data:`launch_counts`) on CUDA f32 tensors
+    at an m-split target of ``blocks_per_sm`` blocks per SM (``None``:
+    :data:`SPLIT_BLOCKS_PER_SM`), its plain version on CPU tensors.  The
+    autotune tool's entry to every φ kernel; no sampler path calls it."""
+    if y.device.type == "cpu":
+        return plain_of(name)(y, x, s, bandwidth)
+    return _launch(name, y, x, s, 1.0 if name == "phi_small_d_noexp" else bandwidth,
+                   _blocks_per_sm=blocks_per_sm)
+
+
+def split_count(name: str, S: int, k: int, m: int, device: torch.device,
+                blocks_per_sm: Optional[int] = None) -> int:
+    """The number of m-splits :func:`launch` takes for kernel ``name`` on
+    ``S`` lanes of ``k`` rows against ``m`` columns on a card."""
+    rows, tile = _KERNELS[name][2:4]
+    return _split_m(m, tile, S * -(-k // rows), device, blocks_per_sm)[0]
 
 
 def load_kernel(d: int, phi_impl: str = "auto") -> None:
@@ -382,6 +463,52 @@ def phi_cuda(updated: torch.Tensor, interacting: torch.Tensor,
 
 PHI_IMPLS = ("auto", "torch", "cuda", "cuda_bf16", "torch_bf16")
 
+#: ``'auto'`` with d ≤ :data:`SMALL_D` launches the kernel at or above this
+#: many pairs S·k·m, and takes the plain ``ops.svgd.phi`` below it (JAX's
+#: ``PALLAS_MIN_PAIRS``).  Measured on an NVIDIA H100 80GB HBM3 at a 700 W
+#: power limit by ``python -m dist_svgd_torch.tools.cuda_autotune --harvest``
+#: (S = 1, n² pairs for n = 1, 2, 4, …, 4096, d = 3): the kernel is faster
+#: than the torch φ at every rung — 0.0602 against 0.1938 ms at one pair,
+#: 0.1038 against 0.5889 ms at 4096² (both dispatch-bound below ~2048²) —
+#: so there is no line: 0.
+CUDA_MIN_PAIRS = 0
+
+#: ``'auto'``'s line for d > :data:`SMALL_D` (JAX's
+#: ``PALLAS_MIN_PAIRS_BIG_D``): the larger of the lines at d = 55 and
+#: d = 753, measured as :data:`CUDA_MIN_PAIRS`.  At d = 55 the kernel is
+#: faster at every rung (0.0601 against 0.1763 ms at one pair, 0.3245
+#: against 0.6124 at 4096²).  At d = 753 it is faster from one pair (0.0912
+#: against 0.1643 ms) to 512² (0.1661 against 0.3468) and slower from 1024²
+#: (0.5875 against 0.2412 ms; 7.332 against 2.072 at 4096²): no lower line,
+#: and no upper one, as JAX has none — the wide-d kernel's loss at large
+#: shapes is kernel work (ROADMAP, rule 2), not routing.
+CUDA_MIN_PAIRS_BIG_D = 0
+
+#: ``'torch'``, and ``'auto'`` where it takes the plain φ, switch from the
+#: one-shot ``phi`` (the whole ``(S, m, k)`` Gram in memory) to
+#: ``phi_blockwise`` at or above this many pairs S·k·m: 2³¹ pairs is an
+#: 8.6 GB f32 Gram.  A memory rule, not a timing, so JAX's
+#: ``XLA_BLOCKWISE_MIN_PAIRS`` carries over as it is.
+TORCH_BLOCKWISE_MIN_PAIRS = 1 << 31
+
+
+def _pairs(y: torch.Tensor, x: torch.Tensor) -> int:
+    """The call's pair count S·k·m: JAX's ``k·m·batch_hint``, with the
+    lanes read from the batched shapes."""
+    return y.numel() // y.shape[-1] * x.shape[-2]
+
+
+def _plain_phi_fn(kernel: RBF) -> Callable:
+    """The plain φ of ``'torch'``: ``phi``, or ``phi_blockwise`` at or
+    above :data:`TORCH_BLOCKWISE_MIN_PAIRS`."""
+
+    def torch_fn(y, x, s):
+        if _pairs(y, x) >= TORCH_BLOCKWISE_MIN_PAIRS:
+            return phi_blockwise(y, x, s, kernel)
+        return phi(y, x, s, kernel)
+
+    return torch_fn
+
 
 #: JAX's φ-backend names → the port's.
 _JAX_NAMES = {"xla": "torch", "pallas": "cuda", "pallas_bf16": "cuda_bf16"}
@@ -391,14 +518,19 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
     """The φ-backend policy: returns ``phi_fn(updated, interacting,
     scores)`` on batched lanes.
 
-    - ``'auto'``  — :func:`phi_cuda`: the hand kernel for the tensors' d on
-      CUDA tensors, that kernel's plain version on CPU tensors.  Beyond
-      :data:`WIDE_D_MAX` it takes the plain ``ops.svgd.phi``, as JAX's
-      ``'auto'`` takes the XLA φ beyond ``fits_vmem_big_d``.  The TPU's
-      pair-count thresholds (``PALLAS_MIN_PAIRS*``) do not carry over;
-      re-deriving them for the H100 is ROADMAP work.
+    - ``'auto'``  — :func:`phi_cuda` at or above a pair-count line:
+      the hand kernel for the tensors' d on CUDA tensors, that kernel's
+      plain version on CPU tensors.  The line is :data:`CUDA_MIN_PAIRS`
+      for d ≤ :data:`SMALL_D` and :data:`CUDA_MIN_PAIRS_BIG_D` above,
+      compared with the call's S·k·m, as JAX's ``PALLAS_MIN_PAIRS*`` with
+      ``k·m·batch_hint``; their values were measured on the H100 by
+      ``python -m dist_svgd_torch.tools.cuda_autotune --harvest``, and
+      both are 0 there: the kernels win from one pair.  Below the line,
+      and beyond :data:`WIDE_D_MAX` (as JAX's ``'auto'`` beyond
+      ``fits_vmem_big_d``), it takes the plain φ of ``'torch'``.
     - ``'torch'`` — the plain ``ops.svgd.phi`` (the JAX ``'xla'`` program's
-      arithmetic) on any device.
+      arithmetic) on any device; ``ops.svgd.phi_blockwise`` at or above
+      :data:`TORCH_BLOCKWISE_MIN_PAIRS`.
     - ``'cuda'``  — force the hand kernel; raises on CPU tensors and beyond
       :data:`WIDE_D_MAX`.
     - ``'cuda_bf16'`` — the bf16 tiers (JAX's ``'pallas_bf16'``): the bf16
@@ -442,10 +574,18 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
         )
     bw = kernel.bandwidth
     if phi_impl == "torch":
-        return lambda y, x, s: phi(y, x, s, kernel)
+        return _plain_phi_fn(kernel)
     if phi_impl == "auto":
-        return lambda y, x, s: (phi(y, x, s, kernel) if y.shape[-1] > WIDE_D_MAX
-                                else phi_cuda(y, x, s, bw))
+        plain_fn = _plain_phi_fn(kernel)
+
+        def auto_fn(y, x, s):
+            d = y.shape[-1]
+            gate = CUDA_MIN_PAIRS if d <= SMALL_D else CUDA_MIN_PAIRS_BIG_D
+            if d <= WIDE_D_MAX and _pairs(y, x) >= gate:
+                return phi_cuda(y, x, s, bw)
+            return plain_fn(y, x, s)
+
+        return auto_fn
     if phi_impl == "cuda_bf16":
         return lambda y, x, s: phi_cuda(y, x, s, bw, tier="bf16")
     if phi_impl == "torch_bf16":

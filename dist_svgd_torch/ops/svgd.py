@@ -10,8 +10,10 @@ For the RBF kernel the repulsive term takes the closed form
 ``Σ_j ∇_{x_j} k(x_j, y) = (2/h) (y·Σ_j K_j − Kᵀ x)``, so no ``(m, k, d)``
 tensor is built.  This is ``phi_impl='torch'``: the same arithmetic as the
 JAX ``phi`` (Gram from ``squared_distances``, two matmuls), batched over any
-leading dimensions.  The hand CUDA kernels and their own plain versions live
-in :mod:`dist_svgd_torch.ops.cuda_svgd`.
+leading dimensions.  :func:`phi_chunked` and :func:`phi_blockwise` compute
+the same φ with a bounded Gram block, for interaction sets whose whole Gram
+would not fit in memory.  The hand CUDA kernels and their own plain versions
+live in :mod:`dist_svgd_torch.ops.cuda_svgd`.
 """
 
 from __future__ import annotations
@@ -56,6 +58,49 @@ def phi(
         updated * ksum[..., None] - torch.matmul(Kt, interacting)
     )
     return (drive + repulse) / m
+
+
+def phi_chunked(
+    updated: torch.Tensor,
+    interacting: torch.Tensor,
+    scores: torch.Tensor,
+    kernel: Optional[RBF] = None,
+    chunk_size: int = 1024,
+) -> torch.Tensor:
+    """:func:`phi` accumulated over chunks of ``chunk_size`` interaction rows,
+    so that no Gram block is larger than ``(..., chunk_size, k)``.
+
+    Counterpart of JAX's ``phi_chunked``: chunk ``c`` contributes
+    ``(len(c)/m)·phi(y, x_c, s_c)`` (``phi`` averages over its own chunk),
+    summed in order, the ragged tail last.  Leading dimensions broadcast
+    as in :func:`phi`."""
+    m = interacting.shape[-2]
+    acc = None
+    for j in range(0, m, chunk_size):
+        n = min(chunk_size, m - j)
+        part = (n / m) * phi(updated, interacting[..., j:j + n, :],
+                             scores[..., j:j + n, :], kernel)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def phi_blockwise(
+    updated: torch.Tensor,
+    interacting: torch.Tensor,
+    scores: torch.Tensor,
+    kernel: Optional[RBF] = None,
+    chunk_k: int = 4096,
+    chunk_m: int = 1024,
+) -> torch.Tensor:
+    """:func:`phi` over chunks of both axes: :func:`phi_chunked` on each
+    block of ``chunk_k`` updated rows, so that the peak Gram block is
+    ``(..., chunk_m, chunk_k)`` at any k and m (JAX's ``phi_blockwise``, a
+    Python loop in place of ``lax.map``)."""
+    k = updated.shape[-2]
+    parts = [phi_chunked(updated[..., i:i + chunk_k, :], interacting, scores, kernel,
+                         chunk_m)
+             for i in range(0, k, chunk_k)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
 
 
 def svgd_step(

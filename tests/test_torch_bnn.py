@@ -24,6 +24,8 @@ from dist_svgd_tpu.utils.rng import as_key
 from dist_svgd_torch.models import bnn as tbnn
 from dist_svgd_torch.utils import datasets as tds
 from dist_svgd_torch.utils.interop import particles_from_jax
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 RTOL = 1e-10
 

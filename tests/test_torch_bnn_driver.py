@@ -19,6 +19,8 @@ from dist_svgd_torch.experiments import covertype as tcov
 from dist_svgd_torch.ops.kernels import RBF, resolve_bandwidth_kernel
 from dist_svgd_torch.sampler import Sampler
 from dist_svgd_torch.utils.datasets import load_uci_regression
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(dataset="yacht", nparticles=64, n_hidden=16, device="cpu")

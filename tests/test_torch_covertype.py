@@ -18,6 +18,8 @@ from dist_svgd_tpu.utils import datasets as jds
 from dist_svgd_torch.experiments import covertype as tcov
 from dist_svgd_torch.models.logreg import logreg_logp, make_logreg_split
 from dist_svgd_torch.utils import datasets as tds
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(nrows=1200, nproc=4, nparticles=32, niter=2, batch_size=64)
@@ -53,16 +55,24 @@ def test_make_logreg_split_matches_jax_and_sums_to_logp():
                                rtol=1e-12)
 
 
-def test_resolve_phi_impl_policy():
-    """'auto' → 'cuda_bf16' on the card when minibatched, else unchanged;
-    the TPU pair-count gate is gone."""
+def test_resolve_phi_impl_policy(monkeypatch):
+    """'auto' → 'cuda_bf16' on the card when minibatched and a shard's φ
+    clears CUDA_MIN_PAIRS_BIG_D (JAX's gate (c)), else unchanged."""
+    from dist_svgd_torch.ops import cuda_svgd
+
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert tcov.resolve_phi_impl("auto", 256, cuda) == "cuda_bf16"
-    assert tcov.resolve_phi_impl("auto", 1, cuda) == "cuda_bf16"
-    assert tcov.resolve_phi_impl("auto", None, cuda) == "auto"
-    assert tcov.resolve_phi_impl("auto", 0, cuda) == "auto"
-    assert tcov.resolve_phi_impl("auto", 256, cpu) == "auto"
-    assert tcov.resolve_phi_impl("cuda", 256, cuda) == "cuda"
+    assert tcov.resolve_phi_impl("auto", 256, 10_000, 8, cuda) == "cuda_bf16"
+    assert tcov.resolve_phi_impl("auto", 1, 10_000, 8, cuda) == "cuda_bf16"
+    assert tcov.resolve_phi_impl("auto", None, 10_000, 8, cuda) == "auto"
+    assert tcov.resolve_phi_impl("auto", 0, 10_000, 8, cuda) == "auto"
+    assert tcov.resolve_phi_impl("auto", 256, 10_000, 8, cpu) == "auto"
+    assert tcov.resolve_phi_impl("cuda", 256, 10_000, 8, cuda) == "cuda"
+    # a shard's φ below a line (the committed one is 0, no gate): (n //
+    # nproc) · n pairs with n = 16
+    assert tcov.resolve_phi_impl("auto", 256, 16, 8, cuda) == "cuda_bf16"
+    monkeypatch.setattr(cuda_svgd, "CUDA_MIN_PAIRS_BIG_D", (16 // 8) * 16 + 1)
+    assert tcov.resolve_phi_impl("auto", 256, 16, 8, cuda) == "auto"
+    assert tcov.resolve_phi_impl("auto", 256, 23, 8, cuda) == "auto"  # n drops to 16
 
 
 @pytest.mark.parametrize("kw,item", [

@@ -19,6 +19,7 @@ from dist_svgd_tpu.ops import ot as jot
 from dist_svgd_tpu.ops import pallas_ot as jpo
 
 from dist_svgd_torch.ops import cuda_ot
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

@@ -9,6 +9,7 @@ from dist_svgd_tpu.utils import datasets as jds
 
 from dist_svgd_torch.utils import datasets as tds
 from dist_svgd_torch.utils.rng import init_particles, init_particles_per_shard
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", jds.DATASET_NAMES)

@@ -21,6 +21,7 @@ from dist_svgd_torch.utils.checkpoint import TopologyMismatch
 from dist_svgd_torch.utils.interop import state_from_jax
 
 from _oracle import RefDistOracle
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODES = [
     ("all_particles", True, False),

@@ -27,6 +27,8 @@ import dist_svgd_torch as tdt
 from dist_svgd_torch.models.logreg import logreg_likelihood, logreg_logp, logreg_prior
 from dist_svgd_torch.utils.interop import state_from_jax
 from dist_svgd_torch.utils.rng import minibatch_indices
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 MODES = [
     ("all_particles", True, False),

@@ -13,6 +13,7 @@ from dist_svgd_tpu.utils.datasets import load_benchmark
 
 from dist_svgd_torch.models import logreg as tlr
 from dist_svgd_torch.ops import kernels as tk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

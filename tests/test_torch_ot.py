@@ -18,6 +18,7 @@ from dist_svgd_torch.ops import ot
 from dist_svgd_torch.ops.kernels import squared_distances
 
 from _oracle import wasserstein_grad as oracle_wgrad
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

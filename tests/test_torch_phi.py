@@ -27,6 +27,8 @@ from dist_svgd_torch.ops.cuda_svgd import (
 )
 from dist_svgd_torch.ops.kernels import RBF
 from dist_svgd_torch.ops.svgd import phi, svgd_step
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 # (S, k, m, d): the shapes of tests/test_pallas.py, both sides of the
 # SMALL_D boundary, and a batched lane case.
@@ -159,7 +161,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cuda_svgd.phi_small_d_bf16_cuda(y, x, s)
     assert cuda_svgd.launch_counts == {"phi_small_d": 0, "phi_big_d": 0,
                                        "phi_small_d_bf16": 0, "phi_big_d_bf16x3": 0,
-                                       "phi_wide_d": 0, "phi_wide_d_bf16x3": 0}
+                                       "phi_wide_d": 0, "phi_wide_d_bf16x3": 0,
+                                       "phi_small_d_noexp": 0}
 
 
 def test_phi_cuda_refuses_d_above_cap_and_bad_shapes():

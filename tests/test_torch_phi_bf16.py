@@ -22,6 +22,8 @@ from dist_svgd_tpu.ops.svgd import phi as jphi
 
 from dist_svgd_torch.ops import cuda_svgd
 from dist_svgd_torch.ops.cuda_svgd import SMALL_D, phi_cuda
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 BF16_RTOL = 1e-4
 ORACLE_RTOL = 2e-2

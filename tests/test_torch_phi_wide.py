@@ -31,6 +31,8 @@ from dist_svgd_torch.ops.cuda_svgd import (
 )
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth_approx
 from dist_svgd_torch.ops.svgd import phi
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 BF16_RTOL = 1e-4
 

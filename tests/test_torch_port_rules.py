@@ -25,11 +25,23 @@ def _imported_modules(path):
             yield node.module
 
 
+def _run_with_jax_blocked(code):
+    """Run ``code`` in a fresh interpreter where ``import jax`` fails; it
+    must print ``ok`` last.  One torch thread, as the in-process tests."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_no_jax_or_reference_imports():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert PORT / "tools" / "cuda_autotune.py" in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "dist_svgd_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "dist_svgd_tpu", "tools")]
     assert bad == []
 
 
@@ -50,11 +62,7 @@ def test_port_runs_with_jax_blocked():
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip().endswith("ok")
+    _run_with_jax_blocked(code)
 
 
 def test_sources_carry_their_notes_and_build_line():
@@ -104,11 +112,7 @@ def test_port_runs_w2_with_jax_blocked():
         "assert bool(out.isfinite().all()) and ds.state_dict()['w2_g'].shape == (4, 32)\n"
         "print('ok')\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip().endswith("ok")
+    _run_with_jax_blocked(code)
 
 
 def test_source_digest_names_each_library_by_content():
@@ -156,11 +160,7 @@ def test_port_runs_the_covertype_driver_with_jax_blocked():
         "assert final.shape == (16, 55) and m['batch_size'] == 32\n"
         "print('ok')\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip().endswith("ok")
+    _run_with_jax_blocked(code)
 
 
 @pytest.mark.parametrize("name,marker", [
@@ -194,8 +194,35 @@ def test_port_runs_the_bnn_driver_and_sampler_with_jax_blocked():
         "    assert final.shape == (8, 35) and m['nproc'] == nproc\n"
         "print('ok')\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip().endswith("ok")
+    _run_with_jax_blocked(code)
+
+
+def test_port_runs_the_autotune_tool_with_jax_blocked():
+    """A process where ``import jax`` (and the JAX tool's package) fails runs
+    the port's autotune tool on the CPU at a shrunk size, every mode."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "sys.modules['tools'] = None\n"
+        "from dist_svgd_torch.tools import cuda_autotune as ct\n"
+        "ct.K = ct.M = 64; ct.BIG_K, ct.BIG_M, ct.BIG_D = 16, 48, 10; ct.EXP_N = 32\n"
+        "ct.HARVEST_SHAPES = [(1, 16, 40, 3)]; ct.GATE_RUNGS = (8, 16)\n"
+        "ct.GATE_DIMS = {'CUDA_MIN_PAIRS': (3,), 'CUDA_MIN_PAIRS_BIG_D': (10,)}\n"
+        "out = ct.main(['--device', 'cpu', '--iters', '2'])\n"
+        "assert out['exp_share'] == out['exp_share']\n"
+        "ct.main(['--device', 'cpu', '--iters', '2', '--big-d'])\n"
+        "assert set(ct.main(['--device', 'cpu', '--harvest'])['gates']) == \\\n"
+        "    {'CUDA_MIN_PAIRS', 'CUDA_MIN_PAIRS_BIG_D'}\n"
+        "print('ok')\n"
+    )
+    _run_with_jax_blocked(code)
+
+
+def test_small_d_source_carries_the_noexp_mode_and_its_note():
+    """The no-exp probe is a mode of the small-d source, whose note names
+    the JAX tool's kernel it replaces and why the ragged edge differs."""
+    text = (_build.CSRC / "phi_small_d.cu").read_text()
+    assert "Replaces: tools/pallas_autotune.py, `_noexp_kernel`" in text
+    assert "kv = -fminf(d2, D2_CAP);" in text and "constexpr float D2_CAP = 1e30f;" in text
+    assert "_FAR" in text and "defined function on every shape" in text
+    assert 'extern "C" int phi_small_d_noexp_launch(' in text
+    assert "The no-exp probe does ~5d+3 f32 operations a pair" in text

@@ -34,6 +34,8 @@ from dist_svgd_torch.models.gmm import gmm_logp, make_gmm_logp
 from dist_svgd_torch.models.logreg import logreg_likelihood, logreg_logp, logreg_prior
 from dist_svgd_torch.ops import cuda_svgd
 from dist_svgd_torch.utils import history
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 RTOL, ATOL = 1e-10, 1e-12
 
