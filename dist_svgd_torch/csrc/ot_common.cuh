@@ -9,13 +9,27 @@
 // PyTorch version's Σ_c (y_c − x_c)² and a comparison of kernel and plain
 // version measures the kernel.  The ragged edge is a bounds check; the TPU's
 // _FAR padding sentinel and transposed lane-dense layouts are not used.
+//
+// ot_kmat_vec.cu and ot_plan_grad.cu, which sum 1e10 absorbed-kernel terms a
+// call on the 100k streaming route, trade that bitwise match for issue
+// slots: they build the exponent in base 2 with FMA contraction and take
+// one ex2.approx a pair (ot_exponent2, ot_ex2 below), and each thread keeps
+// several output rows.  They are held against the plain version in float64
+// (chip_smoke.py).
 #pragma once
 
 #include <cuda_runtime.h>
 
-constexpr int OT_THREADS = 128;      // output rows per block, one thread each
+constexpr int OT_THREADS = 128;      // threads per block of a row kernel
 constexpr int OT_TILE = 256;         // columns per shared-memory tile
 constexpr int OT_FIN_THREADS = 256;  // threads per block of a finalize kernel
+
+// Output rows a thread of ot_kmat_vec / ot_plan_grad keeps: each staged
+// column serves this many pairs (ops/cuda_ot.py:_KMV_ROWS_PER_THREAD,
+// _PG_ROWS_PER_THREAD), the fastest of 2, 4 and 8 at the 100k lanes on an
+// H100, none of them spilling.
+constexpr int OT_KMV_ROWS_PER_THREAD = 8;
+constexpr int OT_PG_ROWS_PER_THREAD = 4;
 
 constexpr float OT_D2_CAP = 1e30f;     // pallas_svgd.py:_D2_CAP
 constexpr float OT_NEG_HUGE = -3.0e38f;  // pallas_ot.py:_NEG_HUGE, never −inf
@@ -90,6 +104,79 @@ __device__ __forceinline__ void ot_read_col(const float4* sx, int j, float* xv) 
 __device__ __forceinline__ float ot_exponent(float fi, float gj, float d2,
                                              float inv_reg) {
   return __fmul_rn(__fsub_rn(__fadd_rn(fi, gj), d2), inv_reg);
+}
+
+// Width of a packed staged column of ot_kmat_vec / ot_plan_grad: the D
+// coordinates, then the column potential g_j, zero padded to whole float4s
+// (one float4 for D ≤ 3: x0, x1, x2, g).
+template <int D>
+struct OtPack {
+  static constexpr int W = (D + 1 + 3) / 4 * 4;
+  static constexpr int V = W / 4;
+};
+
+// Stage columns [t0, t0 + n) of one lane's coordinates and potentials as
+// packed columns, W floats each.
+template <int D>
+__device__ __forceinline__ void ot_stage_packed(float* sp,
+                                                const float* __restrict__ xl,
+                                                const float* __restrict__ gl,
+                                                int t0, int n) {
+  constexpr int W = OtPack<D>::W;
+  for (int e = threadIdx.x; e < n * W; e += blockDim.x) {
+    const int j = e / W;
+    const int c = e - j * W;
+    sp[e] = c < D ? xl[(long long)(t0 + j) * D + c]
+                  : (c == D ? gl[t0 + j] : 0.f);
+  }
+}
+
+// Packed column j into registers (a shared-memory broadcast).
+template <int D>
+__device__ __forceinline__ void ot_read_packed(const float4* sp, int j,
+                                               float* xv) {
+  constexpr int V = OtPack<D>::V;
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const float4 a = sp[j * V + q];
+    xv[4 * q] = a.x;
+    xv[4 * q + 1] = a.y;
+    xv[4 * q + 2] = a.z;
+    xv[4 * q + 3] = a.w;
+  }
+}
+
+// log2(e): the kernels' base-2 scale is s = inv_reg·log2(e).
+constexpr float OT_LOG2E = 1.4426950408889634f;
+
+// The absorbed kernel's exponent in base 2, (f_i + g_j − C_ij)·s, from a
+// packed column xv (g_j at xv[D]) and sf = s·f_i: t = g_j − Σ_c (y_c − x_c)²
+// in an FMA chain (the direct differences, never ‖y‖² + ‖x‖² − 2y·x, whose
+// cancellation far from the origin would cost more than the tolerance),
+// then fma(t, s, sf).  3d + 1 instructions; the differences y_c − x_c are
+// left in `diff`.  The _D2_CAP clamp is left out: it acts only beyond
+// C = 1e30, where the exponent is below −1e29·s while f_i + g_j is finite
+// and below 1e29, and a C that overflows to +inf gives −inf; ex2 reads 0 in
+// every such case, as the clamped version's exp does.
+template <int D>
+__device__ __forceinline__ float ot_exponent2(const float* y, const float* xv,
+                                              float sf, float s, float* diff) {
+  float t = xv[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    diff[c] = y[c] - xv[c];
+    t = fmaf(-diff[c], diff[c], t);
+  }
+  return fmaf(t, s, sf);
+}
+
+// 2^z on the MUFU pipe: one instruction, within 2 ulp; flushes results below
+// 2^-126 to 0 (a row of a real solve holds a term near 1, so a dropped
+// subnormal is below 2^-126 of its sum).
+__device__ __forceinline__ float ot_ex2(float z) {
+  float p;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(z));
+  return p;
 }
 
 static inline unsigned ot_fin_blocks(long long total) {

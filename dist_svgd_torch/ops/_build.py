@@ -67,23 +67,25 @@ def find_nvcc() -> str:
     )
 
 
-def source_digest(name: str) -> str:
+def source_digest(name: str, csrc: Path = CSRC) -> str:
     """Hash of what a library is built from: flags, source, headers."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_digest(name, csrc)}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildResult]:
+def build(names: Optional[Iterable[str]] = None, csrc: Path = CSRC) -> Dict[str, BuildResult]:
     """Compile every named source whose library is missing, all in
     parallel; return a :class:`BuildResult` per name.  Raises
-    ``RuntimeError`` with the compiler output when any compile fails."""
+    ``RuntimeError`` with the compiler output when any compile fails.
+    ``csrc`` is the directory of the sources (another version of them, for
+    an old-against-new timing: ``tools/ot_ab.py``)."""
     names = list(SOURCES if names is None else names)
     unknown = set(names) - set(SOURCES)
     if unknown:
@@ -91,7 +93,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildResult]:
     results: Dict[str, BuildResult] = {}
     todo = []
     for name in names:
-        target = library_path(name)
+        target = library_path(name, csrc)
         if target.is_file():
             results[name] = BuildResult(name, target, 0.0, True, "")
         else:
@@ -103,7 +105,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildResult]:
     running = {}
     for name, target in todo:
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, target, time.perf_counter())

@@ -18,10 +18,14 @@ so the passes of the solve rebuild cost tiles on chip instead of reading a
 
 Every kernel works on lanes: rows ``(S, k, d)``, columns ``(S, m, d)`` and
 per-lane potentials, the S emulated shards in one launch.  Distances are
-per-dim differences summed without FMA contraction and clamped at
-:data:`_D2_CAP`, in the kernels and in their plain versions alike, so that
-holding a kernel against its plain version measures the kernel.  Compute is
-float32 (inputs are cast, as the Pallas wrappers cast).
+per-dim differences; the c-transform and kexp kernels sum them without FMA
+contraction and clamp at :data:`_D2_CAP`, as their plain versions do, so
+that holding such a kernel against its plain version measures the kernel.
+``ot_kmat_vec`` and ``ot_plan_grad``, the 1e10-pair passes of the 100k
+streaming route, build the exponent in base 2 with FMAs and take one
+``ex2.approx`` a pair (``csrc/ot_common.cuh``); ``chip_smoke.py`` holds
+them against float64 at that route's shapes.  Compute is float32 (inputs
+are cast, as the Pallas wrappers cast).
 
 Device rule: a wrapper uses its kernel's plain version only because the
 tensors it was given lie on the CPU; on CUDA tensors it launches the kernel
@@ -173,9 +177,17 @@ _ARGTYPES = {
 }
 _FUNCS: Dict[str, Callable] = {}
 
-#: Output rows per block and columns per shared-memory tile of the three
-#: row-reduction kernels (``OT_THREADS`` / ``OT_TILE`` in ot_common.cuh).
+#: Threads per block and columns per shared-memory tile of the three
+#: row-reduction kernels (``OT_THREADS`` / ``OT_TILE`` in ot_common.cuh); a
+#: thread of ``ot_ctransform`` keeps one output row, a thread of
+#: ``ot_kmat_vec`` / ``ot_plan_grad`` several (``OT_KMV_ROWS_PER_THREAD`` /
+#: ``OT_PG_ROWS_PER_THREAD``).
 _ROWS, _TILE = 128, 256
+_KMV_ROWS_PER_THREAD, _PG_ROWS_PER_THREAD = 8, 4
+#: The m-split's blocks an SM for ``ot_kmat_vec`` and ``ot_plan_grad``
+#: (:func:`_split_m`): at 32, against the φ's 8, the last wave of blocks is
+#: a smaller share of a 1e10-pair call.
+_STREAMING_BLOCKS_PER_SM = 32
 
 
 def _kernel_fn(name: str):
@@ -211,9 +223,11 @@ def _launch(name: str, tensors, *args) -> None:
     launch_counts[name] += 1
 
 
-def _split(rows, cols):
-    S, k, _ = rows.shape
-    return _split_m(cols.shape[1], _TILE, S * -(-k // _ROWS), rows.device)
+def _split(S: int, k: int, m: int, device: torch.device, rows_per_block: int = _ROWS,
+           blocks_per_sm=None):
+    """``(nsplit, chunk)`` of the m axis for lanes of ``k`` rows in blocks of
+    ``rows_per_block`` (:func:`_split_m`)."""
+    return _split_m(m, _TILE, S * -(-k // rows_per_block), device, blocks_per_sm)
 
 
 def ctransform_reduce_cuda(rows, cols, col_pot, soft: bool, inv_reg: float = 1.0):
@@ -221,7 +235,7 @@ def ctransform_reduce_cuda(rows, cols, col_pot, soft: bool, inv_reg: float = 1.0
     _check("ctransform_reduce", rows, cols, col_vecs=(col_pot,))
     _require("ot_ctransform", rows, cols, col_pot)
     S, k, d = rows.shape
-    nsplit, chunk = _split(rows, cols)
+    nsplit, chunk = _split(S, k, cols.shape[1], rows.device)
     part = torch.empty((nsplit, S, k, 2), dtype=torch.float32, device=rows.device)
     out = torch.empty((S, k), dtype=torch.float32, device=rows.device)
     _launch("ot_ctransform", (rows, cols, col_pot, part, out),
@@ -251,7 +265,8 @@ def kmat_vec_cuda(rows, cols, f, g, rhs, inv_reg: float = 1.0):
     r = 1 if vec else rhs.shape[-1]
     if not 1 <= r <= SMALL_D:
         raise ValueError(f"kmat_vec takes 1 <= r <= {SMALL_D} right-hand sides, got {r}")
-    nsplit, chunk = _split(rows, cols)
+    nsplit, chunk = _split(S, k, cols.shape[1], rows.device, _ROWS * _KMV_ROWS_PER_THREAD,
+                           _STREAMING_BLOCKS_PER_SM)
     part = torch.empty((nsplit, S, k, r), dtype=torch.float32, device=rows.device)
     out = torch.empty((S, k, r), dtype=torch.float32, device=rows.device)
     _launch("ot_kmat_vec", (rows, cols, f, g, rhs, part, out),
@@ -264,8 +279,9 @@ def plan_grad_cuda(rows, cols, f, g, inv_reg: float = 1.0):
     _check("plan_grad", rows, cols, row_vecs=(f,), col_vecs=(g,))
     _require("ot_plan_grad", rows, cols, f, g)
     S, k, d = rows.shape
-    nsplit, chunk = _split(rows, cols)
-    part = torch.empty((nsplit, S, k, d + 1), dtype=torch.float32, device=rows.device)
+    nsplit, chunk = _split(S, k, cols.shape[1], rows.device, _ROWS * _PG_ROWS_PER_THREAD,
+                           _STREAMING_BLOCKS_PER_SM)
+    part = torch.empty((nsplit, S, k, d), dtype=torch.float32, device=rows.device)
     out = torch.empty((S, k, d), dtype=torch.float32, device=rows.device)
     _launch("ot_plan_grad", (rows, cols, f, g, part, out),
             S, k, cols.shape[1], d, chunk, nsplit, float(inv_reg))
