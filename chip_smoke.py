@@ -10,12 +10,14 @@ with ``nvcc`` (the φ kernels for small, big and wide feature dims in their
 exact and bf16 tiers, the small-d kernel's no-exp timing probe, and the four
 Sinkhorn kernels), holds each against its plain PyTorch version at the main
 paths' shapes and at ragged shapes (at the 100k streaming route's shapes the
-small-d φ, kmat_vec and plan_grad against the plain version in float64 on a
-subset of rows: there the card's float32 plain version is the far one),
+small-d φ, kmat_vec, plan_grad and the soft c-transform against the plain
+version in float64 on a subset of rows: there the card's float32 plain
+version can be the far one; the soft c-transform also on rows built to move
+its lazy reference),
 drives the north-star path (10,000-particle Bayesian logistic regression,
 8 emulated shards, ``all_particles``) through ``DistSampler.run_steps``
 without and with the Wasserstein term (Sinkhorn at 10,000 particles on the fused route, at
-100,000 on the streaming route), drives the minibatched Covertype config
+100,000 on the streaming route, with a profile of two streaming steps), drives the minibatched Covertype config
 (BASELINE.json config 4) through its driver
 ``dist_svgd_torch/experiments/covertype.py`` in both φ tiers and through
 the single-device ``Sampler``, drives the Bayesian neural network (BASELINE.json
@@ -73,6 +75,12 @@ BNN = dict(steps=1000, bf16_steps=50, dist_steps=50, dist_shards=8, dist_particl
 # steps of the driver's sampler.
 COVERTYPE_NPROC1 = dict(warm_steps=3, steps=20)
 W2_PROFILE_STEPS = 10
+# Steps of the W2 streaming phase under the profiler (~150 ms each).
+W2_STREAMING_PROFILE_STEPS = 2
+# The soft c-transform's adversarial rows (ct_rescale_rows): a lane shape
+# whose m-chunks are several tiles long, and the ragged shapes of the
+# Sinkhorn parity table.
+CT_RESCALE_SHAPES = [(8, 5000, 60_000, 3), (3, 1001, 777, 1), (2, 333, 517, 8)]
 # Chain length of the autotune tool's rows in the smoke run (its own default
 # is 50; the harvest is run through the tool, not here).
 AUTOTUNE_ITERS = 5
@@ -81,14 +89,19 @@ AUTOTUNE_ITERS = 5
 # reference there (its whole Gram would be 40 GB in float32).
 W2_STREAMING_PHI = (8, 12_500, 100_000, 3)
 LANE_ROWS = 256
-# The streaming route's two kernels, and their rows at that route's shapes,
-# (kernel, (S, k, m, d), role, seed), held against float64 on LANE_ROWS rows
-# a lane; the "main" rows' seeds are those of their place in the Sinkhorn
-# parity table (ot_cases in main()).
-STREAMING_OT = ("ot_kmat_vec", "ot_plan_grad")
+# The streaming route's three 1e10-pair kernels (whose rows print their exp
+# floor), and their rows at that route's shapes, (kernel, (S, k, m, d), role,
+# seed), held against float64 on LANE_ROWS rows a lane; the kmat_vec and
+# plan_grad "main" rows' seeds are those of their place in the Sinkhorn
+# parity table (ot_cases in main()).  The c-transform rows are the soft form
+# at the solve's warm start, both directions: ctransform(xs, ys, g) over the
+# 100,000 previous particles, and ctransform(ys, xs, f) over a lane's 12,500.
+STREAMING_OT = ("ot_kmat_vec", "ot_plan_grad", "ot_ctransform")
 W2_STREAMING_OT = [("ot_kmat_vec", (8, 12_500, 100_000, 3), "main", 105),
                    ("ot_kmat_vec", (8, 100_000, 12_500, 3), "100k lanes transposed", 107),
-                   ("ot_plan_grad", (8, 12_500, 100_000, 3), "main", 106)]
+                   ("ot_plan_grad", (8, 12_500, 100_000, 3), "main", 106),
+                   ("ot_ctransform", (8, 12_500, 100_000, 3), "main", 124),
+                   ("ot_ctransform", (8, 100_000, 12_500, 3), "100k lanes transposed", 125)]
 # 'torch' past the blockwise line, (case, (S, k, m, d), line or None for the
 # committed TORCH_BLOCKWISE_MIN_PAIRS): the 100k streaming lanes, 1e10 pairs,
 # and the 10k lanes past a line patched down to 2^20.
@@ -375,11 +388,11 @@ def plan_grad_terms(rows, cols, f, g):
 
 
 def ot_lanes_f64_rows(timing):
-    """The streaming route's two row-reduction kernels at that route's own
-    shapes (8 lanes of 12,500 rows against 100,000 particles, and Pᵀu the
-    other way round), against float64.  The kernel runs at the full shape,
-    so it keeps its real m-split; the first LANE_ROWS rows of every lane are
-    held against the plain version run in float64 on those rows (rows are
+    """The streaming route's row-reduction kernels at that route's own
+    shapes (8 lanes of 12,500 rows against 100,000 particles, and the other
+    way round), against float64.  The kernel runs at the full shape, so it
+    keeps its real m-split; the first LANE_ROWS rows of every lane are held
+    against the plain version run in float64 on those rows (rows are
     independent), within the tolerance rules above, scaled by the float64
     value.  Each row also prints the card's float32 plain version's distance
     from the float64 value on the same rows, and the kernel's from it; the
@@ -392,14 +405,23 @@ def ot_lanes_f64_rows(timing):
 
     for name, (S, k, m, d), role, seed in W2_STREAMING_OT:
         rows, cols, f, gpot, _, rhs = ot_inputs(S, k, m, d, seed)
-        args = (rows, cols, f, gpot)
+        soft = name == "ot_ctransform"
+        opts = {}
         if name == "ot_kmat_vec":
             kern, plain = cuda_ot.kmat_vec_cuda, cuda_ot.kmat_vec_plain
-            args += (rhs[..., 0].contiguous(),)
-        else:
+            args = (rows, cols, f, gpot, rhs[..., 0].contiguous())
+            opts = {"r": 1}
+        elif name == "ot_plan_grad":
             kern, plain = cuda_ot.plan_grad_cuda, cuda_ot.plan_grad_plain
+            args = (rows, cols, f, gpot)
+        else:  # the soft c-transform against the column potential g
+            kern = lambda *a: cuda_ot.ctransform_reduce_cuda(*a, soft=True)  # noqa: E731
+            plain = lambda *a: cuda_ot.ctransform_reduce_plain(*a, soft=True)  # noqa: E731
+            args = (rows, cols, gpot)
+            opts = {"soft": True}
         # the first LANE_ROWS rows (and their row potentials) of every lane
-        sub32 = [t[:, :LANE_ROWS].contiguous() if i in (0, 2) else t
+        row_args = (0, 2) if name != "ot_ctransform" else (0,)
+        sub32 = [t[:, :LANE_ROWS].contiguous() if i in row_args else t
                  for i, t in enumerate(args)]
         got = kern(*args)[:, :LANE_ROWS]
         torch.cuda.synchronize()
@@ -409,10 +431,10 @@ def ot_lanes_f64_rows(timing):
         terms = plan_grad_terms(*sub64) if name == "ot_plan_grad" else 0.0
         err = float((got.double() - exact).abs().max())
         scale = float(exact.abs().max())
-        tol = REDUCE_RTOL * max(scale, terms)
+        tol = SOFT_CT_TOL * (1.0 + scale) if soft else REDUCE_RTOL * max(scale, terms)
         ok = bool(torch.isfinite(got).all()) and err <= tol
         row = {"phase": "kernel_parity", "kernel": name, "role": role,
-               "shape": [S, k, m, d], **({"r": 1} if name == "ot_kmat_vec" else {}),
+               "shape": [S, k, m, d], **opts,
                "rows": LANE_ROWS, "reference": "plain f64", "max_abs_err": err,
                "max_abs_ref": scale, "terms": terms, "tolerance": tol, "ok": ok,
                "plain_max_abs_err_vs_f64": float((plain32.double() - exact).abs().max()),
@@ -420,7 +442,7 @@ def ot_lanes_f64_rows(timing):
         del got, exact, plain32, sub64
         ms = cuda_ms(lambda: kern(*args), MAIN_100K_LAUNCHES)
         plain_ms = cuda_ms(lambda: plain(*args), PLAIN_100K_REPS)
-        b_ms, b_by = bound_ms(*ot_work(name, S, k, m, d))
+        b_ms, b_by = bound_ms(*ot_work(name, S, k, m, d, **opts))
         row.update(ms=ms, plain_ms=plain_ms, bound_us=1e3 * b_ms, bound_by=b_by)
         row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
         if role == "main":
@@ -432,11 +454,60 @@ def ot_lanes_f64_rows(timing):
         del rows, cols, f, gpot, rhs, args
 
 
-def profile_steps(run, steps, phase="profile"):
+def ct_rescale_rows():
+    """The soft c-transform's lazily moved reference (csrc/ot_ctransform.cu)
+    on adversarial rows, against the plain version on the card within
+    SOFT_CT_TOL·(1 + max|plain|), at CT_RESCALE_SHAPES:
+    - "max last in chunk": the potential of the last column of each of the
+      kernel's m-chunks is raised 1000 above the lane's largest, so every
+      row's maximum comes last in its chunk, > 1000 (base 2) above the
+      reference the row carried to it;
+    - "span > 300": potentials rising linearly by 250 along the columns
+      (360 in base 2), so the reference climbs through every chunk;
+    - "far": every column 1000 away from the rows in each coordinate (C ≈
+      3e6), so every term of a naive exp would underflow.
+    Emits one row per case and raises on a failed one."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_ot
+
+    for si, (S, k, m, d) in enumerate(CT_RESCALE_SHAPES):
+        nsplit, chunk = cuda_ot._split(S, k, m, torch.device("cuda", 0),
+                                       cuda_ot._ROWS * cuda_ot._CT_ROWS_PER_THREAD,
+                                       cuda_ot._CT_BLOCKS_PER_SM)
+        for ci, case in enumerate(("max last in chunk", "span > 300", "far")):
+            g = torch.Generator(device="cpu").manual_seed(300 + 3 * si + ci)
+            scale = (20.0 / (2 * d)) ** 0.5
+            rows = scale * torch.randn(S, k, d, generator=g)
+            cols = scale * torch.randn(S, m, d, generator=g)
+            p = 4.0 * torch.randn(S, m, generator=g)
+            if case == "max last in chunk":
+                last = [min(m, (c + 1) * chunk) - 1 for c in range(nsplit)]
+                p[:, last] = p.amax() + 1000.0 + torch.rand(S, len(last), generator=g)
+            elif case == "span > 300":
+                p = torch.linspace(-250.0, 0.0, m).expand(S, m).contiguous()
+            else:
+                cols = cols + 1000.0
+            rows, cols, p = rows.cuda(), cols.cuda(), p.cuda()
+            got = cuda_ot.ctransform_reduce_cuda(rows, cols, p, True)
+            torch.cuda.synchronize()
+            want = cuda_ot.ctransform_reduce_plain(rows, cols, p, True)
+            ok, err, tol, scale = ot_check("ot_ctransform", got, want, soft=True)
+            emit({"phase": "kernel_parity", "kernel": "ot_ctransform",
+                  "role": f"rescale: {case}", "shape": [S, k, m, d], "soft": True,
+                  "nsplit": nsplit, "chunk": chunk, "max_abs_err": err,
+                  "max_abs_plain": scale, "tolerance": tol, "ok": ok})
+            if not ok:
+                raise AssertionError(f"ot_ctransform rescale {case} {(S, k, m, d)}: "
+                                     f"max|Δ| {err} over tolerance {tol}")
+
+
+def profile_steps(run, steps, phase="profile", top=8):
     """Device time by kernel over ``steps`` sampler steps (``run()`` takes
-    them), from the CUDA activities of a torch.profiler trace, and the
-    device's busy share of the host wall time of those steps (one stream,
-    so kernels do not overlap)."""
+    them), from the CUDA activities of a torch.profiler trace, the device's
+    busy share of the host wall time of those steps (one stream, so kernels
+    do not overlap), the wall time the device idles, and the ``top`` host
+    operations by their own CPU time (where that idle time goes)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -446,20 +517,28 @@ def profile_steps(run, steps, phase="profile"):
         run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name = {}
+    by_name = {}  # by the first 80 characters of the kernel's name
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us, count = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (us + ev.time_range.elapsed_us(), count + 1)
+            us, count = by_name.get(ev.name[:80], (0.0, 0))
+            by_name[ev.name[:80]] = (us + ev.time_range.elapsed_us(), count + 1)
     device_us = sum(us for us, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    host = sorted(((ev.key, ev.self_cpu_time_total, ev.count) for ev in prof.key_averages()
+                   if ev.self_cpu_time_total > 0), key=lambda kv: -kv[1])[:top]
     return {"phase": phase, "steps": steps,
             "wall_ms_per_step": wall_us / 1e3 / steps,
             "device_ms_per_step": device_us / 1e3 / steps if device_us else "not measured",
             "device_busy_share": device_us / wall_us if device_us else "not measured",
+            "device_idle_ms_per_step": ((wall_us - device_us) / 1e3 / steps if device_us
+                                        else "not measured"),
             "device_ops_per_step": sum(c for _, c in by_name.values()) / steps,
-            "top_kernels_ms_per_step": {name[:80]: us / 1e3 / steps
-                                        for name, (us, _) in top}}
+            "top_kernels_ms_per_step": {name: us / 1e3 / steps
+                                        for name, (us, _) in kernels},
+            "top_kernel_launches_per_step": {name: c / steps
+                                             for name, (_, c) in kernels},
+            "top_host_ops_self_ms_per_step": {name[:80]: [us / 1e3 / steps, c / steps]
+                                              for name, us, c in host}}
 
 
 def covertype_phases():
@@ -1107,20 +1186,21 @@ def main():
         "ot_plan_grad": (cuda_ot.plan_grad_cuda, cuda_ot.plan_grad_plain),
     }
     # (kernel, (S, k, m, d), options, role); every row is timed.  The "main"
-    # rows are the shapes the W2 paths give each kernel: the 10k fused
-    # route's c-transform and kexp (8 lanes of 1250 rows × 10,000
-    # particles), the 100k streaming route's kmat_vec and plan_grad (8 lanes
-    # of 12,500 rows × 100,000).  Then both directions of the 10k
-    # c-transforms, one lane of the 100k shapes, and ragged shapes at d = 1
-    # and d = 8.  The main rows of kmat_vec and plan_grad are held against
-    # float64 on LANE_ROWS rows a lane (ot_lanes_f64_rows, same seeds and
-    # tolerance rules): at these shapes the card's float32 plain plan_grad
-    # is 0.148 from the float64 value on those rows, the kernel 0.0039 when
-    # the plain version was its reference — the plain version was the far
-    # one.  Their rows below stay in the list so that every other row keeps
-    # its seed.
+    # rows are the shapes the W2 paths give each kernel: kexp's on the 10k
+    # fused route (8 lanes of 1250 rows × 10,000 particles), the 100k
+    # streaming route's kmat_vec and plan_grad (8 lanes of 12,500 rows ×
+    # 100,000); the c-transform's "10k main" is the fused route's, its
+    # "main" the streaming route's (ot_lanes_f64_rows).  Then both
+    # directions of the 10k c-transforms, one lane of the 100k shapes, and
+    # ragged shapes at d = 1 and d = 8.  The main rows of kmat_vec and
+    # plan_grad are held against float64 on LANE_ROWS rows a lane
+    # (ot_lanes_f64_rows, same seeds and tolerance rules): at these shapes
+    # the card's float32 plain plan_grad is 0.148 from the float64 value on
+    # those rows, the kernel 0.0039 when the plain version was its
+    # reference — the plain version was the far one.  Their rows below stay
+    # in the list so that every other row keeps its seed.
     ot_cases = [
-        ("ot_ctransform", (8, 1250, 10_000, 3), {"soft": True}, "main"),
+        ("ot_ctransform", (8, 1250, 10_000, 3), {"soft": True}, "10k main"),
         ("ot_ctransform", (8, 1250, 10_000, 3), {"soft": False}, "10k hard"),
         ("ot_ctransform", (8, 10_000, 1250, 3), {"soft": True}, "10k transposed soft"),
         ("ot_ctransform", (8, 10_000, 1250, 3), {"soft": False}, "10k transposed hard"),
@@ -1139,12 +1219,13 @@ def main():
         for shape in ((3, 1001, 777, 1), (2, 333, 517, 8)):
             for opt in ragged_opts.get(name, [{}]):
                 ot_cases.append((name, shape, opt, "ragged"))
+    f64_rows = {(name, role) for name, _, role, _ in W2_STREAMING_OT}
     for seed, (name, (S, k, m, d), opt, role) in enumerate(ot_cases):
-        if role == "main" and name in STREAMING_OT:
+        if (name, role) in f64_rows:
             continue  # against float64 in ot_lanes_f64_rows
         kern, plain = ot_fns[name]
         big = max(k, m) >= 100_000
-        reps = (OTHER_LAUNCHES if role != "main"
+        reps = (OTHER_LAUNCHES if role not in ("main", "10k main")
                 else MAIN_100K_LAUNCHES if big else TIMED_LAUNCHES)
         rows, cols, f, gpot, p, rhs = ot_inputs(S, k, m, d, 100 + seed)
         if name == "ot_ctransform":
@@ -1169,7 +1250,7 @@ def main():
         plain_ms = cuda_ms(lambda: plain(*args), min(reps, PLAIN_100K_REPS) if big else reps)
         b_ms, b_by = bound_ms(*ot_work(name, S, k, m, d, **opt))
         row.update(ms=ms, plain_ms=plain_ms, bound_us=1e3 * b_ms, bound_by=b_by)
-        if name in STREAMING_OT:
+        if name in STREAMING_OT and opt.get("soft", True):
             row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
         if role == "main":
             timing[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1178,6 +1259,7 @@ def main():
         if not ok:
             raise AssertionError(f"{name} {role}: max|Δ| {err} over tolerance {tol}")
     ot_lanes_f64_rows(timing)
+    ct_rescale_rows()
 
     # ---- 4. north star ---------------------------------------------------
     ns = NORTH_STAR
@@ -1369,6 +1451,11 @@ def main():
             and launches_st["ot_ctransform"] >= 2 * st["steps"]
             and launches_st["ot_kexp"] == 0):
         raise AssertionError(f"w2 streaming: finite={finite} launches={launches_st}")
+
+    # ---- 8b. where a W2 streaming step's time goes (torch.profiler) --------
+    emit(profile_steps(
+        lambda: sds.run_steps(W2_STREAMING_PROFILE_STEPS, ns["step_size"], h=st["h"]),
+        W2_STREAMING_PROFILE_STEPS, phase="w2_streaming_profile", top=12))
     del sds
 
     # ---- 9. W2 trajectory: kernel route vs torch route on the card --------
@@ -1450,9 +1537,12 @@ def main():
     launches_tool = autotune_phase()
     auto_gates_phase()
 
+    # each kernel's launches on the path whose shape its timed row has (the
+    # c-transform's is the streaming route's; the W2 north star launches it
+    # 200 times too, checked above)
     launches = {"phi_small_d": launches_small["phi_small_d"],
                 "phi_big_d": launches_big["phi_big_d"],
-                "ot_ctransform": launches_w2["ot_ctransform"],
+                "ot_ctransform": launches_st["ot_ctransform"],
                 "ot_kexp": launches_w2["ot_kexp"],
                 "ot_kmat_vec": launches_st["ot_kmat_vec"],
                 "ot_plan_grad": launches_st["ot_plan_grad"],

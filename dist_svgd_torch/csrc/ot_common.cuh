@@ -1,5 +1,6 @@
 // Shared pieces of the four Sinkhorn kernels (ot_ctransform.cu, ot_kexp.cu,
-// ot_kmat_vec.cu, ot_plan_grad.cu), the port of dist_svgd_tpu/ops/pallas_ot.py.
+// ot_kmat_vec.cu, ot_plan_grad.cu), the port of dist_svgd_tpu/ops/pallas_ot.py;
+// phi_small_d.cu takes its base-2 exp (ot_ex2, OT_LOG2E) from here too.
 //
 // Every kernel works on lanes — the emulated shards, each its own problem —
 // with rows (S, k, d) and columns (S, m, d), float32, contiguous, d ≤ 8.
@@ -10,12 +11,15 @@
 // version measures the kernel.  The ragged edge is a bounds check; the TPU's
 // _FAR padding sentinel and transposed lane-dense layouts are not used.
 //
-// ot_kmat_vec.cu and ot_plan_grad.cu, which sum 1e10 absorbed-kernel terms a
-// call on the 100k streaming route, trade that bitwise match for issue
-// slots: they build the exponent in base 2 with FMA contraction and take
-// one ex2.approx a pair (ot_exponent2, ot_ex2 below), and each thread keeps
-// several output rows.  They are held against the plain version in float64
-// (chip_smoke.py).
+// Which kernels still match their plain version bitwise: ot_kexp (the
+// absorbed kernel, one full-precision expf of the plain version's exponent)
+// and the hard form of ot_ctransform (a min of the plain version's
+// C_ij − p_j).  ot_kmat_vec, ot_plan_grad and the soft ot_ctransform, which
+// take 1e10 pairs a call on the 100k streaming route, trade that bitwise
+// match for issue slots: they build the exponent in base 2 with FMA
+// contraction and take one ex2.approx a pair (ot_exponent2, ot_ex2 below),
+// and each thread keeps several output rows.  They are held against the
+// plain version in float64 (chip_smoke.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,23 +28,26 @@ constexpr int OT_THREADS = 128;      // threads per block of a row kernel
 constexpr int OT_TILE = 256;         // columns per shared-memory tile
 constexpr int OT_FIN_THREADS = 256;  // threads per block of a finalize kernel
 
-// Output rows a thread of ot_kmat_vec / ot_plan_grad keeps: each staged
-// column serves this many pairs (ops/cuda_ot.py:_KMV_ROWS_PER_THREAD,
-// _PG_ROWS_PER_THREAD), the fastest of 2, 4 and 8 at the 100k lanes on an
-// H100, none of them spilling.
+// Output rows a thread of ot_kmat_vec / ot_plan_grad / ot_ctransform keeps:
+// each staged column serves this many pairs (ops/cuda_ot.py:
+// _KMV_ROWS_PER_THREAD, _PG_ROWS_PER_THREAD, _CT_ROWS_PER_THREAD), the
+// fastest of 2, 4 and 8 at the 100k lanes on an H100 (the soft form for
+// ot_ctransform), none of them spilling.
 constexpr int OT_KMV_ROWS_PER_THREAD = 8;
 constexpr int OT_PG_ROWS_PER_THREAD = 4;
+constexpr int OT_CT_ROWS_PER_THREAD = 4;
+
+// The m-split's target of blocks an SM that the wrapper gives these three
+// kernels (ops/cuda_ot.py:_STREAMING_BLOCKS_PER_SM, _CT_BLOCKS_PER_SM; the
+// wrapper computes the split, the kernels take it as `chunk`, `nsplit`):
+// recorded here beside the rows a block it was measured with, so that an
+// old-against-new timing (tools/ot_ab.py) runs each version at its own.
+constexpr int OT_STREAMING_BLOCKS_PER_SM = 32;
+constexpr int OT_CT_BLOCKS_PER_SM = 32;
 
 constexpr float OT_D2_CAP = 1e30f;     // pallas_svgd.py:_D2_CAP
 constexpr float OT_NEG_HUGE = -3.0e38f;  // pallas_ot.py:_NEG_HUGE, never −inf
 constexpr float OT_POS_HUGE = 3.0e38f;   // the hard min's start (pallas_ot.py:175)
-
-// Padded width of a staged coordinate row: 4 or 8 floats, read as float4s.
-template <int D>
-struct OtRow {
-  static constexpr int DP = D <= 4 ? 4 : 8;
-  static constexpr int DV = DP / 4;
-};
 
 // min(Σ_c (y_c − x_c)², _D2_CAP), rounded as the plain version rounds it.
 template <int D>
@@ -62,42 +69,6 @@ __device__ __forceinline__ void ot_load_row(const float* __restrict__ a,
                                             float* y) {
 #pragma unroll
   for (int c = 0; c < D; ++c) y[c] = active ? a[row * D + c] : 0.f;
-}
-
-// Stage columns [t0, t0 + n) of one lane's (m, D) coordinates in shared
-// memory, DP floats a row, zero padded.
-template <int D>
-__device__ __forceinline__ void ot_stage_cols(float* fx,
-                                              const float* __restrict__ xl,
-                                              int t0, int n) {
-  constexpr int DP = OtRow<D>::DP;
-  for (int e = threadIdx.x; e < n * DP; e += blockDim.x) {
-    const int j = e / DP;
-    const int c = e - j * DP;
-    fx[e] = c < D ? xl[(long long)(t0 + j) * D + c] : 0.f;
-  }
-}
-
-// Stage `n` per-column scalars from `src` (a lane's (m,) vector at t0).
-__device__ __forceinline__ void ot_stage_vec(float* dst,
-                                             const float* __restrict__ src,
-                                             int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
-}
-
-// Staged column j into registers: every thread of the block reads the same
-// address, a shared-memory broadcast.
-template <int D>
-__device__ __forceinline__ void ot_read_col(const float4* sx, int j, float* xv) {
-  constexpr int DV = OtRow<D>::DV;
-#pragma unroll
-  for (int q = 0; q < DV; ++q) {
-    const float4 a = sx[j * DV + q];
-    xv[4 * q] = a.x;
-    xv[4 * q + 1] = a.y;
-    xv[4 * q + 2] = a.z;
-    xv[4 * q + 3] = a.w;
-  }
 }
 
 // (f_i + g_j − d2)·inv_reg, each step rounded as the plain version rounds it.

@@ -32,46 +32,72 @@
 // take that K.  Its distance is summed without FMA contraction
 // (__fmul_rn/__fadd_rn), the order of the plain version, so that an
 // exponent near a bf16 rounding boundary rounds the same way on both
-// sides.
+// sides; the exp of the rounded exponent e is ex2.approx(e·log2(e)), within
+// ~|e|·2^-23 + 2 ulp of the plain version's expf.
 //
-// What bounds it on this card: arithmetic, not memory.  A north-star call
-// (S=8, k=1250, m=10000, d=3) is 1e8 pairs at ~5d+2 f32 operations and one
-// exp each, on under 1 MB of inputs — the FP32 and SFU (exp) pipes set the
-// floor, not HBM.  At d ≤ 8 there is no matrix product worth a tensor core.
-// The no-exp probe does ~5d+3 f32 operations a pair and no exp: at the
-// autotune tool's (1, 10000, 10000, 3) that is 1.8e9 operations, 0.027 ms
-// at 67 TFLOP/s, on under 1 MB of inputs.
+// What bounds it on this card: instruction issue and the exp, not memory.
+// A north-star call (S=8, k=1250, m=10000, d=3) is 1e8 pairs, the W2
+// streaming route's (S=8, k=12,500, m=100,000) 1e10, at ~5d+2 f32 operations
+// and one exp each, on under 10 MB of inputs.  At d ≤ 8 there is no matrix
+// product worth a tensor core.
+// The no-exp probe does ~5d+3 f32 operations a pair and no exp.
 //
 // What the design does about it:
-// - one thread per output row keeps its D drive accumulators, its row-sum
-//   and its y row in registers (the kernel is templated on D);
-// - the interaction rows x and xs stream through shared memory in tiles of
-//   SD_TILE columns, padded to 4 or 8 floats a row so that each thread reads
-//   a column with one or two float4 broadcasts;
-// - the output has only S·k rows (10,000 at the north star: 79 blocks of
-//   128 for 132 SMs), so the m axis is split across `nsplit` blocks per row
-//   tile; each block writes partial sums and phi_finalize (phi_common.cuh)
-//   reduces them in a fixed order — deterministic, no float atomics;
+// - each thread keeps SD_ROWS_PER_THREAD rows (strided by 128 so loads
+//   and stores stay coalesced) with their D drive accumulators, row-sum and
+//   coordinates in registers; every staged column serves all of them;
+// - a column is staged packed, x then xs (SdPack: one float4 at d ≤ 2, two
+//   at d = 3 and 4), in tiles of SD_TILE columns;
+// - exact tier: the exponent is built in base 2 with the bandwidth folded
+//   into the coordinates: the thread's y rows and each staged x tile are
+//   scaled once by a = √(log2(e)/h), so K = 2^(−Σ_c (a·y_c − a·x_c)²) is d
+//   differences, an FMA chain and one ex2.approx.ftz a pair (2 ulp; K below
+//   2^-126 reads 0).  The scaled differences round a·y and a·x apart, an
+//   exponent error of ~2·|a(y − x)|·|a·y|·2^-24, which is 1e-5 of the
+//   exponent only for |a·y| ≳ 100 with a K of order 1;
 // - each thread sums a tile's SD_TILE columns on their own and adds the
 //   tile's sums to its running ones, as the TPU kernel sums per column
 //   tile: one long chain of f32 adds over a 50,000-column chunk (the
 //   100k-particle lanes) drifted 1.2e-4 of max|φ| from the float64 φ on
 //   an H100;
-// - the ragged edge is a bounds check (inactive rows, short last tile), not
-//   the TPU kernel's _FAR padding sentinel;
-// - exp is the full-precision expf: no --use_fast_math, no __expf, so
-//   denormals and the f32 tolerance survive.  In the bf16 tier the SFU
-//   work is the same and one bf16 rounding is added: it is a precision
-//   option, not a faster kernel;
-// - the no-exp probe is a template mode of the same kernel, not a copy, so
-//   that it times the same loop without the exp.
+// - the output has only S·k rows, so the m axis is split across `nsplit`
+//   blocks per row tile (the wrapper's split, SD_BLOCKS_PER_SM); each block
+//   writes partial sums and phi_finalize (phi_common.cuh) reduces them in a
+//   fixed order — deterministic, no float atomics;
+// - the ragged edge is a bounds check (rows outside k are computed and not
+//   stored; a short last tile), not the TPU kernel's _FAR padding sentinel;
+// - the no-exp probe is a template mode of the same loop, not a copy, with
+//   K' = −min(d², D2_CAP) in place of the ex2 (at h = 1, a = 1), so that
+//   it times the same loop without the exp.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
+
+#include "ot_common.cuh"  // ot_ex2, OT_LOG2E
 #include "phi_common.cuh"
 
-constexpr int SD_THREADS = 128;  // output rows per block, one thread each
+constexpr int SD_THREADS = 128;  // threads per block
 constexpr int SD_TILE = 256;     // interaction columns per shared-memory tile
+
+// Output rows a thread keeps (ops/cuda_svgd.py:_SD_ROWS_PER_THREAD): of 2, 4
+// and 8, 4 and 8 were within 1% at the W2 streaming lanes on an H100 (2 was
+// 11% slower), and at 4 a lane of 1250 rows fills 81% of its three blocks
+// (61% of two at 8) and d = 8 keeps its 3d + 2 sums a row without spilling.
+constexpr int SD_ROWS_PER_THREAD = 4;
+
+// The m-split's target of blocks an SM that the wrapper gives this kernel
+// (ops/cuda_svgd.py:_KERNELS; the kernel takes the split as `chunk`,
+// `nsplit`), recorded beside the rows a block it was measured with.
+constexpr int SD_BLOCKS_PER_SM = 32;
+
+// Width of a packed staged column: the D coordinates of x, then the D of
+// xs, zero padded to whole float4s.
+template <int D>
+struct SdPack {
+  static constexpr int W = (2 * D + 3) / 4 * 4;
+  static constexpr int V = W / 4;
+};
 
 // What K is made of: the exact exp, the exp of a bf16-rounded exponent, or
 // the no-exp probe's −min(d², D2_CAP).
@@ -80,101 +106,114 @@ constexpr int MODE_BF16 = 1;
 constexpr int MODE_NOEXP = 2;
 constexpr float D2_CAP = 1e30f;  // pallas_svgd.py:_D2_CAP
 
+// `sc` scales the coordinates of the distance (a = √(log2(e)/h) in the exact
+// tier, 1 in the others, where the multiply is exact).
 template <int D, int MODE>
 __global__ void __launch_bounds__(SD_THREADS)
 phi_small_d_partial(const float* __restrict__ y, const float* __restrict__ x,
                     const float* __restrict__ xs, float* __restrict__ part,
                     int S, int k, int m, int x_lane_stride, int chunk,
-                    float inv_h) {
-  constexpr int DP = D <= 4 ? 4 : 8;  // padded shared row width (float4 reads)
-  constexpr int DV = DP / 4;
-  __shared__ float4 sx[SD_TILE * DV];
-  __shared__ float4 sxs[SD_TILE * DV];
-  float* fx = reinterpret_cast<float*>(sx);
-  float* fxs = reinterpret_cast<float*>(sxs);
+                    float inv_h, float sc) {
+  constexpr int W = SdPack<D>::W;
+  constexpr int RB = SD_ROWS_PER_THREAD;
+  __shared__ float4 sp[SD_TILE * SdPack<D>::V];
+  float* fsp = reinterpret_cast<float*>(sp);
 
   const int lane = blockIdx.y;
   const int split = blockIdx.z;
-  const int i = blockIdx.x * SD_THREADS + threadIdx.x;
-  const bool active = i < k;
+  const int i0 = blockIdx.x * SD_THREADS * RB + threadIdx.x;
   const float* xl = x + (long long)lane * x_lane_stride;
   const float* xsl = xs + (long long)lane * m * D;
 
-  float yi[D], acc[D];
-  float ksum = 0.f;
+  float yv[RB][D], acc[RB][D], ksum[RB];
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-    yi[c] = active ? y[((long long)lane * k + i) * D + c] : 0.f;
-    acc[c] = 0.f;
+  for (int q = 0; q < RB; ++q) {
+    const int i = i0 + q * SD_THREADS;
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      yv[q][c] = i < k ? y[((long long)lane * k + i) * D + c] * sc : 0.f;
+      acc[q][c] = 0.f;
+    }
+    ksum[q] = 0.f;
   }
+  const bool any = i0 < k;  // row q = 0 is this thread's first
 
   const int j0 = split * chunk;
   const int j1 = min(m, j0 + chunk);
   for (int t0 = j0; t0 < j1; t0 += SD_TILE) {
     const int n = min(SD_TILE, j1 - t0);
     __syncthreads();  // the previous tile's readers are done
-    for (int e = threadIdx.x; e < n * DP; e += SD_THREADS) {
-      const int j = e / DP;
-      const int c = e - j * DP;
-      const long long off = (long long)(t0 + j) * D + c;
-      fx[e] = c < D ? xl[off] : 0.f;
-      fxs[e] = c < D ? xsl[off] : 0.f;
+    for (int e = threadIdx.x; e < n * W; e += SD_THREADS) {
+      const int j = e / W;
+      const int c = e - j * W;
+      const long long row = (long long)(t0 + j) * D;
+      fsp[e] = c < D ? xl[row + c] * sc : (c < 2 * D ? xsl[row + c - D] : 0.f);
     }
     __syncthreads();
-    if (active) {
-      // the tile's own sums, added to the running ones once per tile: a
-      // thread's chain is at most SD_TILE terms long plus one term a tile,
-      // not `chunk` terms (50,000 at the 100k-particle lanes)
-      float tacc[D];
-      float tks = 0.f;
+    if (!any) continue;
+    // the tile's own sums, added to the running ones once per tile: a
+    // thread's chain is at most SD_TILE terms long plus one term a tile,
+    // not `chunk` terms (50,000 at the 100k-particle lanes)
+    float tacc[RB][D], tks[RB];
 #pragma unroll
-      for (int c = 0; c < D; ++c) tacc[c] = 0.f;
+    for (int q = 0; q < RB; ++q) {
+      tks[q] = 0.f;
+#pragma unroll
+      for (int c = 0; c < D; ++c) tacc[q][c] = 0.f;
+    }
 #pragma unroll 2
-      for (int j = 0; j < n; ++j) {
-        float xv[DP], sv[DP];
+    for (int j = 0; j < n; ++j) {
+      float xv[W];
 #pragma unroll
-        for (int q = 0; q < DV; ++q) {
-          const float4 a = sx[j * DV + q];
-          const float4 b = sxs[j * DV + q];
-          xv[4 * q] = a.x; xv[4 * q + 1] = a.y; xv[4 * q + 2] = a.z; xv[4 * q + 3] = a.w;
-          sv[4 * q] = b.x; sv[4 * q + 1] = b.y; sv[4 * q + 2] = b.z; sv[4 * q + 3] = b.w;
-        }
-        float d2 = 0.f;
+      for (int v = 0; v < SdPack<D>::V; ++v) {
+        const float4 a = sp[j * SdPack<D>::V + v];
+        xv[4 * v] = a.x;
+        xv[4 * v + 1] = a.y;
+        xv[4 * v + 2] = a.z;
+        xv[4 * v + 3] = a.w;
+      }
+#pragma unroll
+      for (int q = 0; q < RB; ++q) {
         float kv;
         if constexpr (MODE == MODE_BF16) {
+          float d2 = 0.f;
 #pragma unroll
           for (int c = 0; c < D; ++c) {
-            const float diff = __fsub_rn(yi[c], xv[c]);
+            const float diff = __fsub_rn(yv[q][c], xv[c]);
             d2 = __fadd_rn(d2, __fmul_rn(diff, diff));
           }
           const float e = __bfloat162float(__float2bfloat16_rn(__fmul_rn(-d2, inv_h)));
-          kv = expf(e);
+          kv = ot_ex2(__fmul_rn(e, OT_LOG2E));
         } else {
+          float t = 0.f;  // −Σ_c diff², in the scaled coordinates (exact tier)
 #pragma unroll
           for (int c = 0; c < D; ++c) {
-            const float diff = yi[c] - xv[c];
-            d2 = fmaf(diff, diff, d2);
+            const float diff = yv[q][c] - xv[c];
+            t = fmaf(-diff, diff, t);
           }
-          if constexpr (MODE == MODE_NOEXP) {
-            kv = -fminf(d2, D2_CAP);
-          } else {
-            kv = expf(-d2 * inv_h);
-          }
+          kv = MODE == MODE_NOEXP ? fmaxf(t, -D2_CAP) : ot_ex2(t);
         }
-        tks += kv;
+        tks[q] += kv;
 #pragma unroll
-        for (int c = 0; c < D; ++c) tacc[c] = fmaf(kv, sv[c], tacc[c]);
+        for (int c = 0; c < D; ++c) tacc[q][c] = fmaf(kv, xv[D + c], tacc[q][c]);
       }
-      ksum += tks;
+    }
 #pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] += tacc[c];
+    for (int q = 0; q < RB; ++q) {
+      ksum[q] += tks[q];
+#pragma unroll
+      for (int c = 0; c < D; ++c) acc[q][c] += tacc[q][c];
     }
   }
-  if (active) {
-    float* pr = part + (((long long)split * S + lane) * k + i) * (D + 1);
 #pragma unroll
-    for (int c = 0; c < D; ++c) pr[c] = acc[c];
-    pr[D] = ksum;
+  for (int q = 0; q < RB; ++q) {
+    const int i = i0 + q * SD_THREADS;
+    if (i < k) {
+      float* pr = part + (((long long)split * S + lane) * k + i) * (D + 1);
+#pragma unroll
+      for (int c = 0; c < D; ++c) pr[c] = acc[q][c];
+      pr[D] = ksum[q];
+    }
   }
 }
 
@@ -183,9 +222,11 @@ static cudaError_t launch(const float* y, const float* x, const float* xs,
                           float* part, float* out, int S, int k, int m,
                           int x_lane_stride, int chunk, int nsplit, float inv_h,
                           cudaStream_t stream) {
-  const dim3 grid((k + SD_THREADS - 1) / SD_THREADS, S, nsplit);
+  constexpr int rows_per_block = SD_THREADS * SD_ROWS_PER_THREAD;
+  const dim3 grid((k + rows_per_block - 1) / rows_per_block, S, nsplit);
+  const float sc = MODE == MODE_EXACT ? sqrtf(OT_LOG2E * inv_h) : 1.f;
   phi_small_d_partial<D, MODE><<<grid, SD_THREADS, 0, stream>>>(
-      y, x, xs, part, S, k, m, x_lane_stride, chunk, inv_h);
+      y, x, xs, part, S, k, m, x_lane_stride, chunk, inv_h, sc);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_phi_finalize(part, y, out, nsplit, S, k, D, m, inv_h, stream);

@@ -18,14 +18,17 @@ so the passes of the solve rebuild cost tiles on chip instead of reading a
 
 Every kernel works on lanes: rows ``(S, k, d)``, columns ``(S, m, d)`` and
 per-lane potentials, the S emulated shards in one launch.  Distances are
-per-dim differences; the c-transform and kexp kernels sum them without FMA
-contraction and clamp at :data:`_D2_CAP`, as their plain versions do, so
-that holding such a kernel against its plain version measures the kernel.
-``ot_kmat_vec`` and ``ot_plan_grad``, the 1e10-pair passes of the 100k
-streaming route, build the exponent in base 2 with FMAs and take one
-``ex2.approx`` a pair (``csrc/ot_common.cuh``); ``chip_smoke.py`` holds
-them against float64 at that route's shapes.  Compute is float32 (inputs
-are cast, as the Pallas wrappers cast).
+per-dim differences.  Two kernels still match their plain version bitwise:
+``ot_kexp`` and the hard c-transform sum the differences without FMA
+contraction and clamp at :data:`_D2_CAP`, as their plain versions do.
+``ot_kmat_vec``, ``ot_plan_grad`` and the soft c-transform, the 1e10-pair
+passes of the 100k streaming route, build the exponent in base 2 with FMAs
+and take one ``ex2.approx`` a pair (``csrc/ot_common.cuh``), each thread
+keeping several rows; the soft c-transform's running logsumexp keeps a
+lazily moved reference per row (``csrc/ot_ctransform.cu``).
+``chip_smoke.py`` holds these three against float64 at that route's
+shapes.  Compute is float32 (inputs are cast, as the Pallas wrappers
+cast).
 
 Device rule: a wrapper uses its kernel's plain version only because the
 tensors it was given lie on the CPU; on CUDA tensors it launches the kernel
@@ -178,16 +181,17 @@ _ARGTYPES = {
 _FUNCS: Dict[str, Callable] = {}
 
 #: Threads per block and columns per shared-memory tile of the three
-#: row-reduction kernels (``OT_THREADS`` / ``OT_TILE`` in ot_common.cuh); a
-#: thread of ``ot_ctransform`` keeps one output row, a thread of
-#: ``ot_kmat_vec`` / ``ot_plan_grad`` several (``OT_KMV_ROWS_PER_THREAD`` /
-#: ``OT_PG_ROWS_PER_THREAD``).
+#: row-reduction kernels (``OT_THREADS`` / ``OT_TILE`` in ot_common.cuh);
+#: a thread of each keeps several output rows (``OT_KMV_ROWS_PER_THREAD``,
+#: ``OT_PG_ROWS_PER_THREAD``, ``OT_CT_ROWS_PER_THREAD``).
 _ROWS, _TILE = 128, 256
-_KMV_ROWS_PER_THREAD, _PG_ROWS_PER_THREAD = 8, 4
-#: The m-split's blocks an SM for ``ot_kmat_vec`` and ``ot_plan_grad``
-#: (:func:`_split_m`): at 32, against the φ's 8, the last wave of blocks is
-#: a smaller share of a 1e10-pair call.
+_KMV_ROWS_PER_THREAD, _PG_ROWS_PER_THREAD, _CT_ROWS_PER_THREAD = 8, 4, 4
+#: The m-split's blocks an SM (:func:`_split_m`) for ``ot_kmat_vec`` and
+#: ``ot_plan_grad`` (``OT_STREAMING_BLOCKS_PER_SM``) and for
+#: ``ot_ctransform`` (``OT_CT_BLOCKS_PER_SM``): at 32, against the φ's 8,
+#: the last wave of blocks is a smaller share of a 1e10-pair call.
 _STREAMING_BLOCKS_PER_SM = 32
+_CT_BLOCKS_PER_SM = 32
 
 
 def _kernel_fn(name: str):
@@ -223,10 +227,11 @@ def _launch(name: str, tensors, *args) -> None:
     launch_counts[name] += 1
 
 
-def _split(S: int, k: int, m: int, device: torch.device, rows_per_block: int = _ROWS,
-           blocks_per_sm=None):
+def _split(S: int, k: int, m: int, device: torch.device, rows_per_block: int,
+           blocks_per_sm):
     """``(nsplit, chunk)`` of the m axis for lanes of ``k`` rows in blocks of
-    ``rows_per_block`` (:func:`_split_m`)."""
+    ``rows_per_block`` at ``blocks_per_sm`` blocks an SM (:func:`_split_m`;
+    ``None``: the φ's default)."""
     return _split_m(m, _TILE, S * -(-k // rows_per_block), device, blocks_per_sm)
 
 
@@ -235,7 +240,8 @@ def ctransform_reduce_cuda(rows, cols, col_pot, soft: bool, inv_reg: float = 1.0
     _check("ctransform_reduce", rows, cols, col_vecs=(col_pot,))
     _require("ot_ctransform", rows, cols, col_pot)
     S, k, d = rows.shape
-    nsplit, chunk = _split(S, k, cols.shape[1], rows.device)
+    nsplit, chunk = _split(S, k, cols.shape[1], rows.device, _ROWS * _CT_ROWS_PER_THREAD,
+                           _CT_BLOCKS_PER_SM)
     part = torch.empty((nsplit, S, k, 2), dtype=torch.float32, device=rows.device)
     out = torch.empty((S, k), dtype=torch.float32, device=rows.device)
     _launch("ot_ctransform", (rows, cols, col_pot, part, out),

@@ -245,24 +245,52 @@ def _split_m(m: int, tile: int, row_blocks: int, device: torch.device,
     return -(-tiles // per), per * tile
 
 
+#: The small-d kernel's output rows a block (``SD_THREADS`` ×
+#: ``SD_ROWS_PER_THREAD`` in csrc/phi_small_d.cu) and the m-split's blocks an
+#: SM (``SD_BLOCKS_PER_SM``), the same in its three modes.
+_SD_THREADS, _SD_ROWS_PER_THREAD = 128, 4
+_SD_ROWS = _SD_THREADS * _SD_ROWS_PER_THREAD
+_SD_BLOCKS_PER_SM = 32
+
 # name → (library, C symbol, output rows per block, interaction columns per
-# tile, takes the row norms ‖y‖², ‖x‖²); a library is csrc/<library>.cu
+# tile, takes the row norms ‖y‖², ‖x‖², the m-split's blocks an SM (None:
+# SPLIT_BLOCKS_PER_SM)); a library is csrc/<library>.cu
 _KERNELS = {
-    "phi_small_d": ("phi_small_d", "phi_small_d_launch", 128, 256, False),
-    "phi_big_d": ("phi_big_d", "phi_big_d_launch", 64, 64, False),
-    "phi_small_d_bf16": ("phi_small_d", "phi_small_d_bf16_launch", 128, 256, False),
-    "phi_big_d_bf16x3": ("phi_big_d_bf16x3", "phi_big_d_bf16x3_launch", 64, 64, True),
-    "phi_wide_d": ("phi_wide_d", "phi_wide_d_launch", 32, 64, True),
-    "phi_wide_d_bf16x3": ("phi_wide_d_bf16x3", "phi_wide_d_bf16x3_launch", 16, 64, True),
-    "phi_small_d_noexp": ("phi_small_d", "phi_small_d_noexp_launch", 128, 256, False),
+    "phi_small_d": ("phi_small_d", "phi_small_d_launch", _SD_ROWS, 256, False,
+                    _SD_BLOCKS_PER_SM),
+    "phi_big_d": ("phi_big_d", "phi_big_d_launch", 64, 64, False, None),
+    "phi_small_d_bf16": ("phi_small_d", "phi_small_d_bf16_launch", _SD_ROWS, 256, False,
+                         _SD_BLOCKS_PER_SM),
+    "phi_big_d_bf16x3": ("phi_big_d_bf16x3", "phi_big_d_bf16x3_launch", 64, 64, True, None),
+    "phi_wide_d": ("phi_wide_d", "phi_wide_d_launch", 32, 64, True, None),
+    "phi_wide_d_bf16x3": ("phi_wide_d_bf16x3", "phi_wide_d_bf16x3_launch", 16, 64, True, None),
+    "phi_small_d_noexp": ("phi_small_d", "phi_small_d_noexp_launch", _SD_ROWS, 256, False,
+                          _SD_BLOCKS_PER_SM),
 }
+
+
+def blocks_per_sm(name: str) -> int:
+    """Kernel ``name``'s own m-split target of blocks per SM."""
+    own = _KERNELS[name][5]
+    return SPLIT_BLOCKS_PER_SM if own is None else own
+
+
+def _split_of(name: str, S: int, k: int, m: int, device: torch.device,
+              target: Optional[int] = None) -> Tuple[int, int]:
+    """``(nsplit, chunk)`` of kernel ``name``'s m axis at ``target`` blocks
+    an SM (``None``: the kernel's own, :func:`blocks_per_sm`)."""
+    rows, tile = _KERNELS[name][2:4]
+    return _split_m(m, tile, S * -(-k // rows), device,
+                    blocks_per_sm(name) if target is None else target)
+
+
 _FUNCS: Dict[str, Callable] = {}
 
 
 def _kernel_fn(name: str):
     fn = _FUNCS.get(name)
     if fn is None:
-        library, symbol, _, _, norms = _KERNELS[name]
+        library, symbol, _, _, norms, _ = _KERNELS[name]
         fn = getattr(_build.library(library), symbol)
         fn.argtypes = [ctypes.c_void_p] * (7 if norms else 5) + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -274,10 +302,10 @@ def _kernel_fn(name: str):
 def _launch(name: str, y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
             bandwidth: float, *, _blocks_per_sm: Optional[int] = None) -> torch.Tensor:
     """Launch one φ kernel on the current stream (no synchronise).
-    ``_blocks_per_sm`` overrides the m-split's target of
-    :data:`SPLIT_BLOCKS_PER_SM` blocks per SM (:func:`_split_m`) — the
-    autotune tool's split sweep, the counterpart of ``phi_pallas``'s
-    ``block_k``/``block_m``; no sampler path passes it."""
+    ``_blocks_per_sm`` overrides the kernel's m-split target of blocks per
+    SM (:data:`_KERNELS`, :func:`_split_m`) — the autotune tool's split
+    sweep, the counterpart of ``phi_pallas``'s ``block_k``/``block_m``; no
+    sampler path passes it."""
     _check_shapes(y, x, s)
     for t, label in ((y, "updated"), (x, "interacting"), (s, "scores")):
         if t.device.type != "cuda":
@@ -292,8 +320,8 @@ def _launch(name: str, y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"{name}: shape {(S, k, m, d)} overflows the kernel's int indexing")
     inv_h = 1.0 / float(bandwidth)
     xs = _drive_operand(x, s, inv_h)
-    rows, tile, norms = _KERNELS[name][2:]
-    nsplit, chunk = _split_m(m, tile, S * -(-k // rows), y.device, _blocks_per_sm)
+    norms = _KERNELS[name][4]
+    nsplit, chunk = _split_of(name, S, k, m, y.device, _blocks_per_sm)
     part = torch.empty((nsplit, S, k, d + 1), dtype=torch.float32, device=y.device)
     out = torch.empty((S, k, d), dtype=torch.float32, device=y.device)
     inputs = [y, x, xs]
@@ -406,8 +434,8 @@ def plain_of(name: str) -> Callable:
 def launch(name: str, y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
            bandwidth: float = 1.0, blocks_per_sm: Optional[int] = None) -> torch.Tensor:
     """Kernel ``name`` (a key of :data:`launch_counts`) on CUDA f32 tensors
-    at an m-split target of ``blocks_per_sm`` blocks per SM (``None``:
-    :data:`SPLIT_BLOCKS_PER_SM`), its plain version on CPU tensors.  The
+    at an m-split target of ``blocks_per_sm`` blocks per SM (``None``: the
+    kernel's own, :data:`_KERNELS`), its plain version on CPU tensors.  The
     autotune tool's entry to every φ kernel; no sampler path calls it."""
     if y.device.type == "cpu":
         return plain_of(name)(y, x, s, bandwidth)
@@ -419,8 +447,7 @@ def split_count(name: str, S: int, k: int, m: int, device: torch.device,
                 blocks_per_sm: Optional[int] = None) -> int:
     """The number of m-splits :func:`launch` takes for kernel ``name`` on
     ``S`` lanes of ``k`` rows against ``m`` columns on a card."""
-    rows, tile = _KERNELS[name][2:4]
-    return _split_m(m, tile, S * -(-k // rows), device, blocks_per_sm)[0]
+    return _split_of(name, S, k, m, device, blocks_per_sm)[0]
 
 
 def load_kernel(d: int, phi_impl: str = "auto") -> None:

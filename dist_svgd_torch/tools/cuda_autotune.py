@@ -37,10 +37,10 @@ counterpart, for the same reason as the sweep's grid.
 
 ``--harvest``: (a) the split ladder at each shape of :data:`HARVEST_SHAPES`
 (JAX's five, the BNN lane and the 8-lane north-star lane), its winner beside
-today's default of ``SPLIT_BLOCKS_PER_SM`` (8) blocks per SM — the port's reading of JAX's
-``_MEASURED_BLOCKS``, printed and not applied (``_split_m`` changes only on
-step-level evidence); (b) for each ``'auto'`` gate, the kernel against the
-torch φ over the n² ladder :data:`GATE_RUNGS` at S = 1 and the dims of
+the kernel's own target (``cuda_svgd.blocks_per_sm``: 32 blocks per SM for
+the small-d kernel, ``SPLIT_BLOCKS_PER_SM`` = 8 for the others) — the port's
+reading of JAX's ``_MEASURED_BLOCKS``, printed and not applied; (b) for each
+``'auto'`` gate, the kernel against the torch φ over the n² ladder :data:`GATE_RUNGS` at S = 1 and the dims of
 :data:`GATE_DIMS`, ending with the two lines to paste into
 ``dist_svgd_torch/ops/cuda_svgd.py``.  A gate is the rung from which the
 kernel is no slower (:func:`crossover`), and 0 — no gate — where the
@@ -78,7 +78,6 @@ EXP_N = 4096
 
 #: The m-split targets of the sweep, in blocks per SM.
 SPLIT_LADDER = (1, 2, 4, 8, 16, 32)
-DEFAULT_SPLIT = cuda_svgd.SPLIT_BLOCKS_PER_SM
 
 #: --harvest (a), (S, k, m, d): JAX's five shapes (one lane each), the BNN's
 #: lane and the north-star's 8 lanes.
@@ -412,17 +411,18 @@ def harvest(device: torch.device) -> Dict:
                   f"(nsplit {_nsplit(name, S, k, m, device, int(key))}): "
                   f"{_rate(S * k * m, best[key])}", flush=True)
         win = min(best, key=best.get)
-        default = best[str(DEFAULT_SPLIT)]
-        winners[(S, k, m, d)] = {"kernel": name, "best": int(win),
+        own = cuda_svgd.blocks_per_sm(name)
+        default = best[str(own)]
+        winners[(S, k, m, d)] = {"kernel": name, "best": int(win), "own": own,
                                  "best_ms": best[win] * 1e3, "default_ms": default * 1e3}
         print(f"shape ({S},{k},{m},{d}): best {win}/SM {best[win] * 1e3:.4f} ms, "
-              f"default {DEFAULT_SPLIT}/SM {default * 1e3:.4f} ms "
+              f"the kernel's own {own}/SM {default * 1e3:.4f} ms "
               f"({default / best[win]:.3f}x)", flush=True)
-    print("\n== table: the split ladder's winners (not applied: _split_m keeps "
-          f"{DEFAULT_SPLIT}/SM) ==")
+    print("\n== table: the split ladder's winners (not applied: each kernel keeps "
+          "its own target) ==")
     for (S, k, m, d), w in winners.items():
         print(f"    ({S}, {k}, {m}, {d}): {w['best']:2d}/SM  "
-              f"# {w['best_ms']:.4f} ms vs {w['default_ms']:.4f} ms at {DEFAULT_SPLIT}/SM")
+              f"# {w['best_ms']:.4f} ms vs {w['default_ms']:.4f} ms at {w['own']}/SM")
 
     print("\n== (b) 'auto' gates: kernel vs torch φ, S = 1, n² pairs ==", flush=True)
     gates, ladders = {}, {}

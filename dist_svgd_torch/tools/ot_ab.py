@@ -1,28 +1,36 @@
-"""Old against new on the card: the streaming route's two Sinkhorn kernels
-(``ot_kmat_vec``, ``ot_plan_grad``) of this tree against the same kernels
-built from another version of their sources, timed in turns in one process.
+"""Old against new on the card: the streaming route's row kernels
+(``ot_kmat_vec``, ``ot_plan_grad``, ``ot_ctransform``) and the small-d φ
+(``phi_small_d``) of this tree against the same kernels built from another
+version of their sources, timed in turns in one process.
 
     mkdir -p build/base && git archive <commit> dist_svgd_torch/csrc | tar -x -C build/base
-    python -m dist_svgd_torch.tools.ot_ab build/base/dist_svgd_torch/csrc [DIR ...] [--reps 20]
+    python -m dist_svgd_torch.tools.ot_ab build/base/dist_svgd_torch/csrc [DIR ...] \\
+        [--kernels ot_ctransform phi_small_d] [--reps 20]
 
-Each ``DIR`` holds ``ot_common.cuh``, ``ot_kmat_vec.cu`` and
-``ot_plan_grad.cu`` (their C interfaces as this tree's); they are compiled
-with this tree's flags (``ops/_build.py``).  A version's rows a block is read
-from its ``ot_common.cuh`` (``OT_THREADS`` × ``OT_KMV_ROWS_PER_THREAD`` or
-``OT_PG_ROWS_PER_THREAD``, the latter 1 where the header has none), and it
-runs at ``--base-blocks-per-sm`` blocks an SM (by default the φ's
-``SPLIT_BLOCKS_PER_SM``, the split every Sinkhorn kernel took before the
-streaming ones had their own), so a parent runs at the m-split its own
-wrapper made.  At each shape of :data:`SHAPES` the versions run in turns —
-base, tree, tree, base for each ``DIR`` — each turn the mean of ``reps``
-launches timed with CUDA events; one JSON row a shape gives every turn, the
-largest ``|Δ|`` between the tree's output and each base's, the SM clock and
-the card's name and power limit.  Needs a CUDA card; raises without one.
+Each ``DIR`` holds the sources of the kernels it is timed for
+(``ot_common.cuh`` with ``ot_kmat_vec.cu``, ``ot_plan_grad.cu``,
+``ot_ctransform.cu``; ``phi_common.cuh`` with ``phi_small_d.cu``), their C
+interfaces as this tree's; they are compiled with this tree's flags
+(``ops/_build.py``).  A version's launch geometry is read from its own
+sources (:data:`GEOMETRY`): its threads and rows a thread make its rows a
+block (one row a thread where the source defines no count), and its
+blocks an SM the m-split's target, so a variant is a copy of the sources
+with one constant edited.  A version whose source defines no blocks an SM
+runs at ``--base-blocks-per-sm`` (by default the φ's
+``SPLIT_BLOCKS_PER_SM``, 8: the split every kernel took before the
+streaming ones recorded their own; a version that gave ``ot_kmat_vec`` /
+``ot_plan_grad`` 32 without recording it needs ``--base-blocks-per-sm 32``).
+At each shape of :data:`SHAPES` the versions run in turns — base, tree,
+tree, base for each ``DIR`` — each turn the mean of ``reps`` launches timed
+with CUDA events; one JSON row a shape gives every turn, the largest
+``|Δ|`` between the tree's output and each base's, the SM clock and the
+card's name and power limit.  Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import subprocess
@@ -31,84 +39,153 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from dist_svgd_torch.ops import _build, cuda_ot
-from dist_svgd_torch.ops.cuda_svgd import _split_m
+from dist_svgd_torch.ops import _build, cuda_ot, cuda_svgd
+from dist_svgd_torch.ops.cuda_svgd import SPLIT_BLOCKS_PER_SM, _split_m
 
-#: (kernel, (S, k, m, d), role): the 100k streaming route's shapes — its 8
-#: lanes, one lane and one lane of Pᵀu — at r = 1.
-SHAPES = [("ot_kmat_vec", (8, 12_500, 100_000, 3), "main"),
-          ("ot_kmat_vec", (1, 12_500, 100_000, 3), "100k lane"),
-          ("ot_kmat_vec", (1, 100_000, 12_500, 3), "100k lane transposed"),
-          ("ot_plan_grad", (8, 12_500, 100_000, 3), "main"),
-          ("ot_plan_grad", (1, 12_500, 100_000, 3), "100k lane")]
-NAMES = ("ot_kmat_vec", "ot_plan_grad")
+#: (kernel, (S, k, m, d), role, options): the 100k streaming route's shapes
+#: — its 8 lanes, one lane and one lane the other way round — for
+#: kmat_vec (r = 1) and plan_grad; both directions of the soft c-transform
+#: at the 8 lanes (the solve's warm start), its fused-route 10k shape, and
+#: the hard form (a cold start) at the 8 lanes; the small-d φ at the
+#: streaming lanes (h = 10, that path's) and at the north star's.
+SHAPES = [("ot_kmat_vec", (8, 12_500, 100_000, 3), "main", {}),
+          ("ot_kmat_vec", (1, 12_500, 100_000, 3), "100k lane", {}),
+          ("ot_kmat_vec", (1, 100_000, 12_500, 3), "100k lane transposed", {}),
+          ("ot_plan_grad", (8, 12_500, 100_000, 3), "main", {}),
+          ("ot_plan_grad", (1, 12_500, 100_000, 3), "100k lane", {}),
+          ("ot_ctransform", (8, 12_500, 100_000, 3), "main", {"soft": True}),
+          ("ot_ctransform", (8, 100_000, 12_500, 3), "100k lanes transposed", {"soft": True}),
+          ("ot_ctransform", (8, 1250, 10_000, 3), "10k main", {"soft": True}),
+          ("ot_ctransform", (8, 12_500, 100_000, 3), "hard", {"soft": False}),
+          ("ot_ctransform", (8, 100_000, 12_500, 3), "hard transposed", {"soft": False}),
+          ("phi_small_d", (8, 12_500, 100_000, 3), "w2 streaming lanes h=10", {"h": 10.0}),
+          ("phi_small_d", (8, 1250, 10_000, 3), "north-star lanes", {"h": 1.0})]
+NAMES = ("ot_kmat_vec", "ot_plan_grad", "ot_ctransform", "phi_small_d")
+
+#: Each kernel's geometry in its sources: (file, threads a block, rows a
+#: thread, blocks an SM, columns a tile) — the constants' names.
+GEOMETRY = {
+    "ot_kmat_vec": ("ot_common.cuh", "OT_THREADS", "OT_KMV_ROWS_PER_THREAD",
+                    "OT_STREAMING_BLOCKS_PER_SM", "OT_TILE"),
+    "ot_plan_grad": ("ot_common.cuh", "OT_THREADS", "OT_PG_ROWS_PER_THREAD",
+                     "OT_STREAMING_BLOCKS_PER_SM", "OT_TILE"),
+    "ot_ctransform": ("ot_common.cuh", "OT_THREADS", "OT_CT_ROWS_PER_THREAD",
+                      "OT_CT_BLOCKS_PER_SM", "OT_TILE"),
+    "phi_small_d": ("phi_small_d.cu", "SD_THREADS", "SD_ROWS_PER_THREAD",
+                    "SD_BLOCKS_PER_SM", "SD_TILE"),
+}
 
 
-#: Each kernel's rows-a-thread constant in ``ot_common.cuh``.
-ROWS_PER_THREAD = {"ot_kmat_vec": "OT_KMV_ROWS_PER_THREAD",
-                   "ot_plan_grad": "OT_PG_ROWS_PER_THREAD"}
-
-
-def header_const(csrc: Path, name: str, default: Optional[int] = None) -> int:
-    """``constexpr int <name>`` of a version's ``ot_common.cuh``."""
-    found = re.search(rf"constexpr int {name} = (\d+);", (csrc / "ot_common.cuh").read_text())
+def source_const(csrc: Path, name: str, constant: str,
+                 default: Optional[int] = None) -> int:
+    """``constexpr int <constant>`` of kernel ``name``'s geometry file in a
+    version's sources; ``default`` where it defines none."""
+    path = csrc / GEOMETRY[name][0]
+    found = re.search(rf"constexpr int {constant} = (\d+);", path.read_text())
     if found is None and default is None:
-        raise ValueError(f"{csrc / 'ot_common.cuh'} defines no {name}")
+        raise ValueError(f"{path} defines no {constant}")
     return int(found.group(1)) if found else default
 
 
 def rows_per_block(csrc: Path, name: str) -> int:
     """A version's output rows a block of kernel ``name``."""
-    return header_const(csrc, "OT_THREADS") * header_const(csrc, ROWS_PER_THREAD[name], 1)
+    _, threads, rows, _, _ = GEOMETRY[name]
+    return source_const(csrc, name, threads) * source_const(csrc, name, rows, 1)
 
 
-def base_kernel(csrc: Path, name: str, blocks_per_sm: Optional[int] = None):
-    """A callable with ``kmat_vec_cuda`` / ``plan_grad_cuda``'s arguments
+def blocks_per_sm(csrc: Path, name: str, default: Optional[int] = None) -> int:
+    """A version's m-split target of kernel ``name``, ``default`` (the φ's
+    ``SPLIT_BLOCKS_PER_SM`` when None) where its sources record none."""
+    return source_const(csrc, name, GEOMETRY[name][3],
+                        SPLIT_BLOCKS_PER_SM if default is None else default)
+
+
+_PHI_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def base_kernel(csrc: Path, name: str, default_blocks_per_sm: Optional[int] = None):
+    """A callable with the tree's wrapper's arguments (``kmat_vec_cuda``,
+    ``plan_grad_cuda``, ``ctransform_reduce_cuda``, ``phi_small_d_cuda``)
     that launches the kernel built from ``csrc`` at that version's rows a
-    block and ``blocks_per_sm`` (:func:`_split_m`)."""
-    import ctypes
-
+    block and blocks an SM (:func:`_split_m`)."""
     fn = getattr(ctypes.CDLL(str(_build.build([name], csrc=csrc)[name].path)),
                  f"{name}_launch")
-    fn.argtypes = cuda_ot._ARGTYPES[name]
+    fn.argtypes = _PHI_ARGTYPES if name == "phi_small_d" else cuda_ot._ARGTYPES[name]
     fn.restype = ctypes.c_int
     block = rows_per_block(csrc, name)
+    target = blocks_per_sm(csrc, name, default_blocks_per_sm)
+    tile = source_const(csrc, name, GEOMETRY[name][4])
 
-    def call(rows, cols, f, g, rhs=None):
-        S, k, d = rows.shape
-        m = cols.shape[1]
-        nsplit, chunk = _split_m(m, cuda_ot._TILE, S * -(-k // block), rows.device,
-                                 blocks_per_sm)
-        # partials of r = 1 sums a row, or of plan_grad's d (d + 1 before it
-        # summed P·(y − x) directly; the larger serves both)
-        width = 1 if name == "ot_kmat_vec" else d + 1
-        part = torch.empty((nsplit, S, k, width), device=rows.device)
-        out = torch.empty((S, k) if name == "ot_kmat_vec" else (S, k, d), device=rows.device)
-        ptrs = [t.data_ptr() for t in (rows, cols, f, g)]
-        ints = [S, k, m, d] + ([1] if name == "ot_kmat_vec" else []) + [chunk, nsplit]
-        if name == "ot_kmat_vec":
-            ptrs.append(rhs.data_ptr())
-        err = fn(*ptrs, part.data_ptr(), out.data_ptr(), *ints, 1.0,
-                 rows.device.index or 0, torch.cuda.current_stream().cuda_stream)
+    def launch(tensors, *ints, scale):
+        dev = tensors[0].device
+        err = fn(*[t.data_ptr() for t in tensors], *ints, scale, dev.index or 0,
+                 torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} from {csrc} failed with CUDA error {err}")
+
+    def call(rows, cols, *rest):
+        S, k, d = rows.shape
+        m = cols.shape[-2]
+        nsplit, chunk = _split_m(m, tile, S * -(-k // block), rows.device, target)
+        if name == "phi_small_d":  # rest: the scores and h
+            s, h = rest
+            inv_h = 1.0 / float(h)
+            xs = (s - (2.0 * inv_h) * cols).contiguous()
+            part = torch.empty((nsplit, S, k, d + 1), device=rows.device)
+            out = torch.empty((S, k, d), device=rows.device)
+            launch((rows, cols, xs, part, out), S, k, m, d,
+                   m * d if cols.dim() == 3 else 0, chunk, nsplit, scale=inv_h)
+        elif name == "ot_ctransform":  # rest: the potential and soft
+            pot, soft = rest
+            part = torch.empty((nsplit, S, k, 2), device=rows.device)
+            out = torch.empty((S, k), device=rows.device)
+            launch((rows, cols, pot, part, out), S, k, m, d, chunk, nsplit, int(soft),
+                   scale=1.0)
+        elif name == "ot_kmat_vec":  # rest: f, g and an (S, m) right-hand side
+            f, g, rhs = rest
+            part = torch.empty((nsplit, S, k, 1), device=rows.device)
+            out = torch.empty((S, k), device=rows.device)
+            launch((rows, cols, f, g, rhs, part, out), S, k, m, d, 1, chunk, nsplit,
+                   scale=1.0)
+        else:  # ot_plan_grad: f, g; partials of d sums a row (d + 1 before
+            # it summed P·(y − x) directly; the larger serves both)
+            f, g = rest
+            part = torch.empty((nsplit, S, k, d + 1), device=rows.device)
+            out = torch.empty((S, k, d), device=rows.device)
+            launch((rows, cols, f, g, part, out), S, k, m, d, chunk, nsplit, scale=1.0)
         return out
 
     return call
 
 
-def inputs(S: int, k: int, m: int, d: int, seed: int):
-    """Lanes in the solve's reg-rescaled units (mean C ≈ 20), f and g the
-    cold start's hard c-transform pair, a positive right-hand side — the
-    inputs of ``chip_smoke.py``'s Sinkhorn parity rows."""
+TREE = {"ot_kmat_vec": cuda_ot.kmat_vec_cuda, "ot_plan_grad": cuda_ot.plan_grad_cuda,
+        "ot_ctransform": cuda_ot.ctransform_reduce_cuda,
+        "phi_small_d": cuda_svgd.phi_small_d_cuda}
+
+
+def inputs(name: str, S: int, k: int, m: int, d: int, opts: Dict, seed: int):
+    """The operands of one call.  Sinkhorn kernels: lanes in the solve's
+    reg-rescaled units (mean C ≈ 20), f and g the cold start's hard
+    c-transform pair, a positive right-hand side, the c-transform taking g —
+    the inputs of ``chip_smoke.py``'s Sinkhorn parity rows.  φ: particle-like
+    lanes, y the lanes' blocks of the shared x, s score-like."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
+    if name == "phi_small_d":
+        x = torch.randn(m, d, generator=gen)
+        y = x[torch.randint(0, m, (S, k), generator=gen)]
+        s = torch.randn(S, m, d, generator=gen)
+        return (y.cuda(), x.cuda(), s.cuda(), opts["h"])
     scale = (20.0 / (2 * d)) ** 0.5
     rows = (scale * torch.randn(S, k, d, generator=gen)).cuda()
     cols = (scale * torch.randn(S, m, d, generator=gen)).cuda()
     f = cuda_ot.ctransform_reduce(rows, cols, torch.zeros(S, m, device="cuda"), soft=False)
     g = cuda_ot.ctransform_reduce(cols, rows, f, soft=False)
-    rhs = (0.5 + torch.rand(S, m, generator=gen)).cuda()
-    return rows, cols, f, g, rhs
+    if name == "ot_ctransform":
+        return (rows, cols, g, opts["soft"])
+    if name == "ot_plan_grad":
+        return (rows, cols, f, g)
+    return (rows, cols, f, g, (0.5 + torch.rand(S, m, generator=gen)).cuda())
 
 
 def event_ms(fn, reps: int) -> float:
@@ -135,42 +212,49 @@ def smi(query: str) -> str:
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("bases", nargs="+", type=Path,
-                    help="directories with another version's ot_common.cuh, "
-                         "ot_kmat_vec.cu and ot_plan_grad.cu")
+                    help="directories with another version of the kernels' sources")
+    ap.add_argument("--kernels", nargs="+", choices=NAMES, default=list(NAMES))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--base-blocks-per-sm", type=int, default=None,
-                    help="the bases' m-split (default: the φ's SPLIT_BLOCKS_PER_SM)")
+                    help="the m-split of a base whose sources record none "
+                         "(default: the φ's SPLIT_BLOCKS_PER_SM)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("ot_ab times kernels on a CUDA card; none is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = smi("name,power.limit")
-    tree = {"ot_kmat_vec": cuda_ot.kmat_vec_cuda, "ot_plan_grad": cuda_ot.plan_grad_cuda}
     bases = {str(b): {name: base_kernel(b.resolve(), name, args.base_blocks_per_sm)
-                      for name in NAMES}
+                      for name in args.kernels}
              for b in args.bases}
     rows_out = []
-    for seed, (name, (S, k, m, d), role) in enumerate(SHAPES):
-        rows, cols, f, g, rhs = inputs(S, k, m, d, 200 + seed)
-        operands = (rows, cols, f, g, rhs) if name == "ot_kmat_vec" else (rows, cols, f, g)
-        want = tree[name](*operands)
-        row = {"kernel": name, "role": role, "shape": [S, k, m, d], "reps": args.reps,
-               "tree": {"rows_per_block": rows_per_block(_build.CSRC, name)}}
+    for seed, (name, (S, k, m, d), role, opts) in enumerate(SHAPES):
+        if name not in args.kernels:
+            continue
+        operands = inputs(name, S, k, m, d, opts, 200 + seed)
+        tree = TREE[name]
+        want = tree(*operands)
+        row = {"kernel": name, "role": role, "shape": [S, k, m, d], **opts,
+               "reps": args.reps,
+               "tree": {"rows_per_block": rows_per_block(_build.CSRC, name),
+                        "blocks_per_sm": blocks_per_sm(_build.CSRC, name)}}
         for label, kernels in bases.items():
             got = kernels[name](*operands)
             torch.cuda.synchronize()
-            row[label] = {"rows_per_block": rows_per_block(Path(label).resolve(), name),
+            base = Path(label).resolve()
+            row[label] = {"rows_per_block": rows_per_block(base, name),
+                          "blocks_per_sm": blocks_per_sm(base, name,
+                                                         args.base_blocks_per_sm),
                           "max_abs_diff_vs_tree": float((got - want).abs().max()),
                           "max_abs_tree": float(want.abs().max())}
             turns = {"base": [], "tree": []}
             for who in ("base", "tree", "tree", "base"):
-                fn = kernels[name] if who == "base" else tree[name]
+                fn = kernels[name] if who == "base" else tree
                 turns[who].append(event_ms(lambda: fn(*operands), args.reps))
             row[label].update(base_ms=turns["base"], tree_ms=turns["tree"])
         row.update(clocks_sm=smi("clocks.sm"), card=card)
         print(json.dumps(row), flush=True)
         rows_out.append(row)
-        del rows, cols, f, g, rhs, operands, want
+        del operands, want
     return rows_out
 
 

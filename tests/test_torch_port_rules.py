@@ -222,7 +222,9 @@ def test_small_d_source_carries_the_noexp_mode_and_its_note():
     the JAX tool's kernel it replaces and why the ragged edge differs."""
     text = (_build.CSRC / "phi_small_d.cu").read_text()
     assert "Replaces: tools/pallas_autotune.py, `_noexp_kernel`" in text
-    assert "kv = -fminf(d2, D2_CAP);" in text and "constexpr float D2_CAP = 1e30f;" in text
+    # K' = −min(d², D2_CAP) of t = −Σ_c diff², the exact tier's exponent chain
+    assert "t = fmaf(-diff, diff, t);" in text and "fmaxf(t, -D2_CAP)" in text
+    assert "constexpr float D2_CAP = 1e30f;" in text
     assert "_FAR" in text and "defined function on every shape" in text
     assert 'extern "C" int phi_small_d_noexp_launch(' in text
     assert "The no-exp probe does ~5d+3 f32 operations a pair" in text
