@@ -13,7 +13,8 @@ paths' shapes and at ragged shapes (at the 100k streaming route's shapes the
 small-d φ, kmat_vec, plan_grad and the soft c-transform against the plain
 version in float64 on a subset of rows: there the card's float32 plain
 version can be the far one; the soft c-transform also on rows built to move
-its lazy reference),
+its lazy reference; the exact big-d φ also at the splice and Covertype lanes'
+own h = 1, with its distance from the float64 φ on a subset of rows),
 drives the north-star path (10,000-particle Bayesian logistic regression,
 8 emulated shards, ``all_particles``) through ``DistSampler.run_steps``
 without and with the Wasserstein term (Sinkhorn at 10,000 particles on the fused route, at
@@ -89,6 +90,21 @@ AUTOTUNE_ITERS = 5
 # reference there (its whole Gram would be 40 GB in float32).
 W2_STREAMING_PHI = (8, 12_500, 100_000, 3)
 LANE_ROWS = 256
+# The exact big-d φ at the paths' own h = 1 (splice, d = 61; Covertype's
+# exact tier, d = 55): (S, k, m, d), role.  At h = 1 nearly every
+# off-diagonal K underflows and φ rides the Gram diagonal's cancellation
+# ‖y‖² + ‖x‖² − 2·y·x; the rows also print both versions' distance from the
+# float64 φ on LANE_ROWS rows a lane.
+BIG_D_SELF_CASES = [((8, 1250, 10_000, 61), "splice lanes h=1"),
+                    ((8, 1250, 10_000, 55), "covertype lanes h=1")]
+# The φ kernels whose rows carry the exp floor and whose pre-pass scratch
+# the wrapper sizes (ops/cuda_svgd.py:_SCRATCH, checked against the
+# library's own count).
+BIG_D_KERNELS = ("phi_big_d", "phi_big_d_bf16x3")
+# Wrapper calls of each big-d kernel profiled at its main shape (h = 1):
+# device ms by kernel a call (the pre-pass, the partial sums, the finalize
+# and the wrapper's torch ops), and the host's enqueue time a call.
+BIG_D_PROFILE_CALLS = 10
 # The streaming route's three 1e10-pair kernels (whose rows print their exp
 # floor), and their rows at that route's shapes, (kernel, (S, k, m, d), role,
 # seed), held against float64 on LANE_ROWS rows a lane; the kmat_vec and
@@ -376,6 +392,24 @@ def exp_floor_ms(pairs):
     return 1e3 * pairs / (16 * sms * mhz * 1e6), mhz
 
 
+def check_scratch(name, S, k, m, d, x_lanes):
+    """The wrapper's pre-pass scratch size for kernel ``name`` against the
+    library's ``<name>_scratch_bytes``; returns it, raises on a mismatch."""
+    import ctypes
+
+    from dist_svgd_torch.ops import _build, cuda_svgd
+
+    fn = getattr(_build.library(cuda_svgd._KERNELS[name][0]), f"{name}_scratch_bytes")
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    ours = cuda_svgd._SCRATCH[name](S, k, m, d, x_lanes)
+    theirs = fn(S, k, m, d, m * d if x_lanes > 1 else 0)
+    if ours != theirs:
+        raise AssertionError(f"{name} scratch at {(S, k, m, d, x_lanes)}: the wrapper "
+                             f"allocates {ours} bytes, the kernel needs {theirs}")
+    return ours
+
+
 def plan_grad_terms(rows, cols, f, g):
     """plan_grad's term scale ``max_i(max_c|y_ic|·Σ_j P_ij)`` (the tolerance
     rules above), from the plain version in the inputs' dtype."""
@@ -500,6 +534,37 @@ def ct_rescale_rows():
             if not ok:
                 raise AssertionError(f"ot_ctransform rescale {case} {(S, k, m, d)}: "
                                      f"max|Δ| {err} over tolerance {tol}")
+
+
+def big_d_profile_rows():
+    """Each big-d kernel's wrapper call at its main shape and h = 1: the
+    host's enqueue time a call (BIG_D_PROFILE_CALLS calls without a
+    synchronise) and the device time a call by kernel (profile_steps)."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_svgd
+
+    for name, shape in (("phi_big_d", (8, 1250, 10_000, 61)),
+                        ("phi_big_d_bf16x3", (8, 1250, 10_000, 55))):
+        y, x, s = phi_inputs(*shape, 0)
+        fn = getattr(cuda_svgd, f"{name}_cuda")
+        for _ in range(3):
+            fn(y, x, s, 1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BIG_D_PROFILE_CALLS):
+            fn(y, x, s, 1.0)
+        host_ms = 1e3 * (time.perf_counter() - t0) / BIG_D_PROFILE_CALLS
+        torch.cuda.synchronize()
+        prof = profile_steps(lambda: [fn(y, x, s, 1.0) for _ in range(BIG_D_PROFILE_CALLS)],
+                             BIG_D_PROFILE_CALLS, phase="big_d_kernel_profile", top=8)
+        prof.pop("top_host_ops_self_ms_per_step")
+        row = {key.replace("_per_step", "_per_call").replace("steps", "calls"): value
+               for key, value in prof.items()}
+        row.update(kernel=name, shape=list(shape), bandwidth=1.0,
+                   host_enqueue_ms_per_call=host_ms)
+        emit(row)
+        del y, x, s
 
 
 def profile_steps(run, steps, phase="profile", top=8):
@@ -1126,6 +1191,9 @@ def main():
                "shape": [S, k, m, d], "bandwidth": h, "max_abs_err": err,
                "max_abs_plain": scale, **extra, "tolerance": tol, "ok": ok,
                "ms": ms, "plain_ms": plain_ms, "bound_us": 1e3 * b_ms, "bound_by": b_by}
+        if name in BIG_D_KERNELS:
+            row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
+            row["scratch_bytes"] = check_scratch(name, S, k, m, d, S if x.dim() == 3 else 1)
         if name in exact_of and role.startswith("main"):
             # the exact tier on the same inputs, beside it
             exact_kern = kernel_fns[exact_of[name]][0]
@@ -1136,6 +1204,42 @@ def main():
         emit(row)
         if not ok:
             raise AssertionError(f"{name} {role}: max|Δ| {err} > {KERNEL_RTOL} × {scale}")
+
+    # The exact big-d kernel at the paths' own h = 1 (BIG_D_SELF_CASES): held
+    # against the plain version at the full shape within KERNEL_RTOL, as
+    # every row above, and both printed beside the float64 φ on the first
+    # LANE_ROWS rows of every lane (rows are independent).
+    for seed, ((S, k, m, d), role) in enumerate(BIG_D_SELF_CASES, start=len(cases) + 2):
+        h = 1.0
+        y, x, s = phi_inputs(S, k, m, d, seed)
+        got = cuda_svgd.phi_big_d_cuda(y, x, s, h)
+        torch.cuda.synchronize()
+        want = cuda_svgd.phi_big_d_plain(y, x, s, h)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        tol = KERNEL_RTOL * scale
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        ys = y[:, :LANE_ROWS].contiguous()
+        exact = cuda_svgd.phi_big_d_plain(ys.double(), x.double(), s.double(), h)
+        row = {"phase": "kernel_parity", "kernel": "phi_big_d", "role": role,
+               "shape": [S, k, m, d], "bandwidth": h, "max_abs_err": err,
+               "max_abs_plain": scale, "rows": LANE_ROWS,
+               "max_abs_err_vs_f64": float(
+                   (got[:, :LANE_ROWS].double() - exact).abs().max()),
+               "plain_max_abs_err_vs_f64": float(
+                   (want[:, :LANE_ROWS].double() - exact).abs().max()),
+               "tolerance": tol, "ok": ok}
+        del got, want, exact
+        b_ms, b_by = bound_ms(*phi_work("phi_big_d", S, k, m, d, x.numel()))
+        row.update(ms=cuda_ms(lambda: cuda_svgd.phi_big_d_cuda(y, x, s, h), TIMED_LAUNCHES),
+                   plain_ms=cuda_ms(lambda: cuda_svgd.phi_big_d_plain(y, x, s, h),
+                                    OTHER_LAUNCHES),
+                   bound_us=1e3 * b_ms, bound_by=b_by)
+        row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
+        emit(row)
+        if not ok:
+            raise AssertionError(f"phi_big_d {role}: max|Δ| {err} > {KERNEL_RTOL} × {scale}")
+        del y, x, s, ys
 
     # The small-d kernel at the W2 streaming route's φ lanes (DistSampler at
     # n = 100,000: 8 × 12,500 × 100,000, d = 3), at that path's h and at
@@ -1258,6 +1362,7 @@ def main():
         emit(row)
         if not ok:
             raise AssertionError(f"{name} {role}: max|Δ| {err} over tolerance {tol}")
+    big_d_profile_rows()
     ot_lanes_f64_rows(timing)
     ct_rescale_rows()
 

@@ -15,10 +15,14 @@ Kernels chosen on the feature dim d, each in two precision tiers:
   rounds the exponent to bf16 and takes its f32 exp;
 - ``csrc/phi_big_d.cu`` (:data:`SMALL_D` < d ≤ :data:`BIG_D_MAX`),
   replacing ``_phi_kernel`` in its exact f32 tier: distances as
-  ``y² + x² − 2·y·xᵀ`` clamped at 0, on the FP32 CUDA cores;
+  ``y² + x² − 2·y·xᵀ`` clamped at 0, on the FP32 CUDA cores, both
+  contractions as register-tiled small GEMMs;
 - ``csrc/phi_big_d_bf16x3.cu``, the same kernel's bf16x3 tier
   (``_dot3``): both contractions as three bf16 tensor-core products
   ``hi·hi + hi·lo + lo·hi`` of the split operands, the exp in f32;
+  both big-d kernels start with a pre-pass (same launch) that pads, and
+  for the bf16x3 tier splits, y, x and ``xs`` once a call into a scratch
+  buffer the wrapper allocates (:data:`_SCRATCH`);
 - ``csrc/phi_wide_d.cu`` and ``csrc/phi_wide_d_bf16x3.cu``
   (:data:`BIG_D_MAX` < d ≤ :data:`WIDE_D_MAX`), the same ``_phi_kernel``
   in both tiers with the feature axis tiled and the drive accumulated in
@@ -36,9 +40,10 @@ small-d φ with K replaced by ``−min(d², 1e30)``, no exp, at h = 1.  Only
 share of the exact kernel's time; no ``phi_impl`` reaches it.
 
 Each kernel has a plain PyTorch version here with the same distance form,
-the same splits and the same ``xs = s − (2/h)·x`` drive operand, so that
-holding a kernel against its plain version on the card measures the
-kernel, not the form.
+the same splits and the same ``xs = s − (2/h)·x`` drive operand (formed by
+the wrapper, or by the big-d kernels' pre-pass with the same roundings),
+so that holding a kernel against its plain version on the card measures
+the kernel, not the form.
 
 Batched interface: ``y`` is ``(S, k, d)`` — S lanes, the emulated shards —
 ``x`` is ``(m, d)`` shared by every lane or ``(S, m, d)``, ``s`` is
@@ -252,20 +257,73 @@ _SD_THREADS, _SD_ROWS_PER_THREAD = 128, 4
 _SD_ROWS = _SD_THREADS * _SD_ROWS_PER_THREAD
 _SD_BLOCKS_PER_SM = 32
 
+#: The big-d kernels' output rows a block, interaction columns a tile and
+#: the m-split's blocks an SM (``BD_ROWS``, ``BD_COLS``, ``BD_BLOCKS_PER_SM``
+#: in csrc/phi_big_d.cu; ``BX_*`` in csrc/phi_big_d_bf16x3.cu).
+_BD_ROWS, _BD_COLS, _BD_BLOCKS_PER_SM = 128, 64, 8
+#: The exact big-d kernel's drive tile width (``BD_TD``): d is padded to a
+#: multiple of it.
+_BD_TD = 8
+_BX_ROWS, _BX_COLS, _BX_BLOCKS_PER_SM = 128, 32, 8
+#: The bf16x3 kernel's padded rows: d rounded up to a multiple of
+#: ``BX_DP_ALIGN``, plus ``BX_ROW_PAD`` bf16 (csrc/phi_big_d_bf16x3.cu).
+_BX_DP_ALIGN, _BX_ROW_PAD = 16, 8
+
+
+def _ceil_to(n: int, q: int) -> int:
+    return -(-n // q) * q
+
+
+def big_d_scratch_bytes(S: int, k: int, m: int, d: int, x_lanes: int) -> int:
+    """Bytes of the exact big-d kernel's pre-pass scratch (``BdScratch`` in
+    csrc/phi_big_d.cu): y, x and xs in float32 rows padded to a stride L
+    (d rounded up to a multiple of ``BD_TD``, plus one float4 where its
+    count of float4s is even), row counts padded to whole row blocks and
+    column tiles, and the norms of the padded y and x rows.  ``x_lanes`` is
+    1 for a shared x."""
+    k_pad, m_pad = _ceil_to(k, _BD_ROWS), _ceil_to(m, _BD_COLS)
+    dp = _ceil_to(d, _BD_TD)
+    ld = dp if (dp // 4) % 2 else dp + 4
+    normed = S * k_pad + x_lanes * m_pad  # the y and x rows
+    return 4 * ((normed + S * m_pad) * ld + normed)
+
+
+def big_d_bf16x3_scratch_bytes(S: int, k: int, m: int, d: int, x_lanes: int) -> int:
+    """Bytes of the bf16x3 kernel's pre-pass scratch (``BxScratch`` in
+    csrc/phi_big_d_bf16x3.cu): the bf16 hi and lo planes of y, x and xs in
+    rows of ``⌈d/BX_DP_ALIGN⌉·BX_DP_ALIGN + BX_ROW_PAD``, row counts padded
+    to whole row blocks and column tiles, and ‖x‖² (float32) on the padded
+    x rows."""
+    k_pad, m_pad = _ceil_to(k, _BX_ROWS), _ceil_to(m, _BX_COLS)
+    lb = _ceil_to(d, _BX_DP_ALIGN) + _BX_ROW_PAD
+    return 2 * 2 * lb * (S * k_pad + x_lanes * m_pad + S * m_pad) + 4 * x_lanes * m_pad
+
+
 # name → (library, C symbol, output rows per block, interaction columns per
 # tile, takes the row norms ‖y‖², ‖x‖², the m-split's blocks an SM (None:
 # SPLIT_BLOCKS_PER_SM)); a library is csrc/<library>.cu
 _KERNELS = {
     "phi_small_d": ("phi_small_d", "phi_small_d_launch", _SD_ROWS, 256, False,
                     _SD_BLOCKS_PER_SM),
-    "phi_big_d": ("phi_big_d", "phi_big_d_launch", 64, 64, False, None),
+    "phi_big_d": ("phi_big_d", "phi_big_d_launch", _BD_ROWS, _BD_COLS, False,
+                  _BD_BLOCKS_PER_SM),
     "phi_small_d_bf16": ("phi_small_d", "phi_small_d_bf16_launch", _SD_ROWS, 256, False,
                          _SD_BLOCKS_PER_SM),
-    "phi_big_d_bf16x3": ("phi_big_d_bf16x3", "phi_big_d_bf16x3_launch", 64, 64, True, None),
+    "phi_big_d_bf16x3": ("phi_big_d_bf16x3", "phi_big_d_bf16x3_launch", _BX_ROWS,
+                         _BX_COLS, True, _BX_BLOCKS_PER_SM),
     "phi_wide_d": ("phi_wide_d", "phi_wide_d_launch", 32, 64, True, None),
     "phi_wide_d_bf16x3": ("phi_wide_d_bf16x3", "phi_wide_d_bf16x3_launch", 16, 64, True, None),
     "phi_small_d_noexp": ("phi_small_d", "phi_small_d_noexp_launch", _SD_ROWS, 256, False,
                           _SD_BLOCKS_PER_SM),
+}
+
+#: Kernels with a pre-pass, by the size in bytes of the scratch buffer it
+#: fills (a pointer after their inputs), ``f(S, k, m, d, x_lanes)``.  They
+#: take the scores ``s`` where the others take ``xs = s − (2/h)·x``: their
+#: pre-pass forms ``xs``, rounded as :func:`_drive_operand` rounds it.
+_SCRATCH: Dict[str, Callable[..., int]] = {
+    "phi_big_d": big_d_scratch_bytes,
+    "phi_big_d_bf16x3": big_d_bf16x3_scratch_bytes,
 }
 
 
@@ -292,7 +350,8 @@ def _kernel_fn(name: str):
     if fn is None:
         library, symbol, _, _, norms, _ = _KERNELS[name]
         fn = getattr(_build.library(library), symbol)
-        fn.argtypes = [ctypes.c_void_p] * (7 if norms else 5) + [ctypes.c_int] * 7 + [
+        pointers = (7 if norms else 5) + (name in _SCRATCH)
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FUNCS[name] = fn
@@ -319,14 +378,16 @@ def _launch(name: str, y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
     if max(S * k * d, S * m * d) >= 2 ** 31:
         raise ValueError(f"{name}: shape {(S, k, m, d)} overflows the kernel's int indexing")
     inv_h = 1.0 / float(bandwidth)
-    xs = _drive_operand(x, s, inv_h)
     norms = _KERNELS[name][4]
     nsplit, chunk = _split_of(name, S, k, m, y.device, _blocks_per_sm)
     part = torch.empty((nsplit, S, k, d + 1), dtype=torch.float32, device=y.device)
     out = torch.empty((S, k, d), dtype=torch.float32, device=y.device)
-    inputs = [y, x, xs]
+    inputs = [y, x, s if name in _SCRATCH else _drive_operand(x, s, inv_h)]
     if norms:  # summed as the plain version sums them
         inputs += [torch.sum(y * y, dim=-1), torch.sum(x * x, dim=-1)]
+    if name in _SCRATCH:
+        inputs.append(torch.empty(_SCRATCH[name](S, k, m, d, S if x.dim() == 3 else 1),
+                                  dtype=torch.uint8, device=y.device))
     err = _kernel_fn(name)(
         *(t.data_ptr() for t in inputs), part.data_ptr(), out.data_ptr(),
         S, k, m, d, m * d if x.dim() == 3 else 0, chunk, nsplit,

@@ -1,21 +1,26 @@
 """Old against new on the card: the streaming route's row kernels
-(``ot_kmat_vec``, ``ot_plan_grad``, ``ot_ctransform``) and the small-d φ
-(``phi_small_d``) of this tree against the same kernels built from another
-version of their sources, timed in turns in one process.
+(``ot_kmat_vec``, ``ot_plan_grad``, ``ot_ctransform``) and the φ kernels
+(``phi_small_d``, ``phi_big_d``, ``phi_big_d_bf16x3``) of this tree against
+the same kernels built from another version of their sources, timed in
+turns in one process.
 
     mkdir -p build/base && git archive <commit> dist_svgd_torch/csrc | tar -x -C build/base
     python -m dist_svgd_torch.tools.ot_ab build/base/dist_svgd_torch/csrc [DIR ...] \\
-        [--kernels ot_ctransform phi_small_d] [--reps 20]
+        [--kernels ot_ctransform phi_big_d] [--reps 20]
 
 Each ``DIR`` holds the sources of the kernels it is timed for
 (``ot_common.cuh`` with ``ot_kmat_vec.cu``, ``ot_plan_grad.cu``,
-``ot_ctransform.cu``; ``phi_common.cuh`` with ``phi_small_d.cu``), their C
-interfaces as this tree's; they are compiled with this tree's flags
-(``ops/_build.py``).  A version's launch geometry is read from its own
-sources (:data:`GEOMETRY`): its threads and rows a thread make its rows a
-block (one row a thread where the source defines no count), and its
-blocks an SM the m-split's target, so a variant is a copy of the sources
-with one constant edited.  A version whose source defines no blocks an SM
+``ot_ctransform.cu``; ``phi_common.cuh`` and ``ot_common.cuh`` with the
+``phi_*.cu``); they are compiled with this tree's flags (``ops/_build.py``).
+A version's C interface is this tree's, except that a big-d φ takes a
+scratch pointer after its inputs only where its source's launch function
+names one (its size from the library's ``<name>_scratch_bytes``), and the
+scores ``s`` in place of ``xs = s − (2/h)·x`` only where it names ``s``.  A
+version's launch geometry is read from its own sources (:data:`GEOMETRY`):
+its rows a block are its threads times its rows a thread (one row a thread
+where the source defines no count; the big-d φ record their rows a block,
+64 where a source records none), and its blocks an SM the m-split's
+target, so a variant is a copy of the sources with one constant edited.  A version whose source defines no blocks an SM
 runs at ``--base-blocks-per-sm`` (by default the φ's
 ``SPLIT_BLOCKS_PER_SM``, 8: the split every kernel took before the
 streaming ones recorded their own; a version that gave ``ot_kmat_vec`` /
@@ -59,11 +64,21 @@ SHAPES = [("ot_kmat_vec", (8, 12_500, 100_000, 3), "main", {}),
           ("ot_ctransform", (8, 12_500, 100_000, 3), "hard", {"soft": False}),
           ("ot_ctransform", (8, 100_000, 12_500, 3), "hard transposed", {"soft": False}),
           ("phi_small_d", (8, 12_500, 100_000, 3), "w2 streaming lanes h=10", {"h": 10.0}),
-          ("phi_small_d", (8, 1250, 10_000, 3), "north-star lanes", {"h": 1.0})]
-NAMES = ("ot_kmat_vec", "ot_plan_grad", "ot_ctransform", "phi_small_d")
+          ("phi_small_d", (8, 1250, 10_000, 3), "north-star lanes", {"h": 1.0}),
+          ("phi_big_d", (8, 1250, 10_000, 61), "splice lanes h=1", {"h": 1.0}),
+          ("phi_big_d", (8, 1250, 10_000, 61), "splice lanes h=2d", {"h": 122.0}),
+          ("phi_big_d", (8, 1250, 10_000, 55), "covertype lanes h=1", {"h": 1.0}),
+          ("phi_big_d_bf16x3", (8, 1250, 10_000, 55), "covertype lanes h=1", {"h": 1.0}),
+          ("phi_big_d_bf16x3", (8, 1250, 10_000, 55), "covertype lanes h=2d", {"h": 110.0}),
+          ("phi_big_d_bf16x3", (1, 10_000, 10_000, 55), "sampler lane h=1", {"h": 1.0})]
+NAMES = ("ot_kmat_vec", "ot_plan_grad", "ot_ctransform", "phi_small_d", "phi_big_d",
+         "phi_big_d_bf16x3")
+BIG_D = ("phi_big_d", "phi_big_d_bf16x3")
+PHI = ("phi_small_d",) + BIG_D
 
 #: Each kernel's geometry in its sources: (file, threads a block, rows a
-#: thread, blocks an SM, columns a tile) — the constants' names.
+#: thread, blocks an SM, columns a tile) — the constants' names; the big-d
+#: φ name their rows a block in place of the threads, and no rows a thread.
 GEOMETRY = {
     "ot_kmat_vec": ("ot_common.cuh", "OT_THREADS", "OT_KMV_ROWS_PER_THREAD",
                     "OT_STREAMING_BLOCKS_PER_SM", "OT_TILE"),
@@ -73,7 +88,12 @@ GEOMETRY = {
                       "OT_CT_BLOCKS_PER_SM", "OT_TILE"),
     "phi_small_d": ("phi_small_d.cu", "SD_THREADS", "SD_ROWS_PER_THREAD",
                     "SD_BLOCKS_PER_SM", "SD_TILE"),
+    "phi_big_d": ("phi_big_d.cu", "BD_ROWS", None, "BD_BLOCKS_PER_SM", "BD_COLS"),
+    "phi_big_d_bf16x3": ("phi_big_d_bf16x3.cu", "BX_ROWS", None, "BX_BLOCKS_PER_SM",
+                         "BX_COLS"),
 }
+#: Rows a block of a big-d φ whose source records none (the first version's).
+BIG_D_ROWS = 64
 
 
 def source_const(csrc: Path, name: str, constant: str,
@@ -90,7 +110,30 @@ def source_const(csrc: Path, name: str, constant: str,
 def rows_per_block(csrc: Path, name: str) -> int:
     """A version's output rows a block of kernel ``name``."""
     _, threads, rows, _, _ = GEOMETRY[name]
+    if rows is None:  # a big-d φ: its rows a block
+        return source_const(csrc, name, threads, BIG_D_ROWS)
     return source_const(csrc, name, threads) * source_const(csrc, name, rows, 1)
+
+
+def _launch_params(csrc: Path, name: str) -> str:
+    path = csrc / GEOMETRY[name][0]
+    found = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)', path.read_text())
+    if found is None:
+        raise ValueError(f"{path} defines no {name}_launch")
+    return found.group(1)
+
+
+def takes_scratch(csrc: Path, name: str) -> bool:
+    """Whether a version's launch function of kernel ``name`` takes a
+    scratch pointer (the big-d φ since their pre-passes)."""
+    return "scratch" in _launch_params(csrc, name)
+
+
+def takes_scores(csrc: Path, name: str) -> bool:
+    """Whether a version's launch function of kernel ``name`` takes the
+    scores ``s`` (its pre-pass forms ``xs = s − (2/h)·x``) rather than
+    ``xs``."""
+    return re.search(r"\bconst void\* s\b", _launch_params(csrc, name)) is not None
 
 
 def blocks_per_sm(csrc: Path, name: str, default: Optional[int] = None) -> int:
@@ -100,19 +143,30 @@ def blocks_per_sm(csrc: Path, name: str, default: Optional[int] = None) -> int:
                         SPLIT_BLOCKS_PER_SM if default is None else default)
 
 
-_PHI_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+def _phi_argtypes(pointers: int):
+    return [ctypes.c_void_p] * pointers + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def base_kernel(csrc: Path, name: str, default_blocks_per_sm: Optional[int] = None):
     """A callable with the tree's wrapper's arguments (``kmat_vec_cuda``,
-    ``plan_grad_cuda``, ``ctransform_reduce_cuda``, ``phi_small_d_cuda``)
-    that launches the kernel built from ``csrc`` at that version's rows a
-    block and blocks an SM (:func:`_split_m`)."""
-    fn = getattr(ctypes.CDLL(str(_build.build([name], csrc=csrc)[name].path)),
-                 f"{name}_launch")
-    fn.argtypes = _PHI_ARGTYPES if name == "phi_small_d" else cuda_ot._ARGTYPES[name]
+    ``plan_grad_cuda``, ``ctransform_reduce_cuda``, ``phi_*_cuda``) that
+    launches the kernel built from ``csrc`` at that version's rows a block
+    and blocks an SM (:func:`_split_m`)."""
+    lib = ctypes.CDLL(str(_build.build([name], csrc=csrc)[name].path))
+    fn = getattr(lib, f"{name}_launch")
+    norms = name == "phi_big_d_bf16x3"
+    scratch = name in BIG_D and takes_scratch(csrc, name)
+    scores = name in BIG_D and takes_scores(csrc, name)
+    if name in PHI:
+        fn.argtypes = _phi_argtypes(5 + 2 * norms + scratch)
+    else:
+        fn.argtypes = cuda_ot._ARGTYPES[name]
     fn.restype = ctypes.c_int
+    if scratch:
+        size = getattr(lib, f"{name}_scratch_bytes")
+        size.argtypes = [ctypes.c_int] * 5
+        size.restype = ctypes.c_longlong
     block = rows_per_block(csrc, name)
     target = blocks_per_sm(csrc, name, default_blocks_per_sm)
     tile = source_const(csrc, name, GEOMETRY[name][4])
@@ -128,14 +182,19 @@ def base_kernel(csrc: Path, name: str, default_blocks_per_sm: Optional[int] = No
         S, k, d = rows.shape
         m = cols.shape[-2]
         nsplit, chunk = _split_m(m, tile, S * -(-k // block), rows.device, target)
-        if name == "phi_small_d":  # rest: the scores and h
+        if name in PHI:  # rest: the scores and h
             s, h = rest
             inv_h = 1.0 / float(h)
-            xs = (s - (2.0 * inv_h) * cols).contiguous()
+            lane_stride = m * d if cols.dim() == 3 else 0
+            ptrs = [rows, cols, s if scores else (s - (2.0 * inv_h) * cols).contiguous()]
+            if norms:
+                ptrs += [torch.sum(rows * rows, dim=-1), torch.sum(cols * cols, dim=-1)]
+            if scratch:
+                ptrs.append(torch.empty(size(S, k, m, d, lane_stride), dtype=torch.uint8,
+                                        device=rows.device))
             part = torch.empty((nsplit, S, k, d + 1), device=rows.device)
             out = torch.empty((S, k, d), device=rows.device)
-            launch((rows, cols, xs, part, out), S, k, m, d,
-                   m * d if cols.dim() == 3 else 0, chunk, nsplit, scale=inv_h)
+            launch((*ptrs, part, out), S, k, m, d, lane_stride, chunk, nsplit, scale=inv_h)
         elif name == "ot_ctransform":  # rest: the potential and soft
             pot, soft = rest
             part = torch.empty((nsplit, S, k, 2), device=rows.device)
@@ -161,7 +220,8 @@ def base_kernel(csrc: Path, name: str, default_blocks_per_sm: Optional[int] = No
 
 TREE = {"ot_kmat_vec": cuda_ot.kmat_vec_cuda, "ot_plan_grad": cuda_ot.plan_grad_cuda,
         "ot_ctransform": cuda_ot.ctransform_reduce_cuda,
-        "phi_small_d": cuda_svgd.phi_small_d_cuda}
+        "phi_small_d": cuda_svgd.phi_small_d_cuda, "phi_big_d": cuda_svgd.phi_big_d_cuda,
+        "phi_big_d_bf16x3": cuda_svgd.phi_big_d_bf16x3_cuda}
 
 
 def inputs(name: str, S: int, k: int, m: int, d: int, opts: Dict, seed: int):
@@ -171,7 +231,7 @@ def inputs(name: str, S: int, k: int, m: int, d: int, opts: Dict, seed: int):
     the inputs of ``chip_smoke.py``'s Sinkhorn parity rows.  φ: particle-like
     lanes, y the lanes' blocks of the shared x, s score-like."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    if name == "phi_small_d":
+    if name in PHI:
         x = torch.randn(m, d, generator=gen)
         y = x[torch.randint(0, m, (S, k), generator=gen)]
         s = torch.randn(S, m, d, generator=gen)
