@@ -105,6 +105,25 @@ BIG_D_KERNELS = ("phi_big_d", "phi_big_d_bf16x3")
 # device ms by kernel a call (the pre-pass, the partial sums, the finalize
 # and the wrapper's torch ops), and the host's enqueue time a call.
 BIG_D_PROFILE_CALLS = 10
+# The wide-d φ kernels (d > 128): their rows carry the exp floor and their
+# pre-pass scratch too (ops/cuda_svgd.py:_SCRATCH, checked as above).
+WIDE_D_KERNELS = ("phi_wide_d", "phi_wide_d_bf16x3")
+# The exact wide-d φ at the BNN paths' own h = 1 beyond the Sampler's lane
+# (the "self h=1" rows): the throughput shape and the 8-shard BNN lanes,
+# (S, k, m, d), role — held against the float64 φ on LANE_ROWS rows a lane
+# within KERNEL_RTOL of its largest value, and printing the float32 plain
+# version's distance from it and the kernel's from the plain version.  At
+# d = 753 the f32 plain version is no reference at h = 1: φ rides K_ii,
+# and its d²_ii = ‖y‖² + ‖x‖² − 2·y·x cancels three numbers near 1506 (on
+# an H100 it lies ~1e-3 of max|φ| from the float64 φ at the throughput
+# shape), where the kernel's is exactly 0.
+WIDE_D_SELF_CASES = [((8, 1250, 10_000, 753), "throughput h=1"),
+                     ((8, 62, 496, 753), "dist lanes h=1")]
+# Wrapper calls of each wide-d kernel profiled at the BNN's one lane (h = 1,
+# y = x = the driver's initial particles) and at the throughput shape
+# (h = 2d): device ms by kernel a call, the host's enqueue time a call, and
+# the clusters of the partial-sum kernel the card holds at once.
+WIDE_D_PROFILE_CALLS = 10
 # The streaming route's three 1e10-pair kernels (whose rows print their exp
 # floor), and their rows at that route's shapes, (kernel, (S, k, m, d), role,
 # seed), held against float64 on LANE_ROWS rows a lane; the kmat_vec and
@@ -536,40 +555,72 @@ def ct_rescale_rows():
                                      f"max|Δ| {err} over tolerance {tol}")
 
 
-def big_d_profile_rows():
-    """Each big-d kernel's wrapper call at its main shape and h = 1: the
-    host's enqueue time a call (BIG_D_PROFILE_CALLS calls without a
-    synchronise) and the device time a call by kernel (profile_steps)."""
+def kernel_profile_row(phase, name, y, x, s, h, calls):
+    """One φ kernel's wrapper call on (y, x, s) at bandwidth h: the host's
+    enqueue time a call (``calls`` calls without a synchronise) and the
+    device time a call by kernel (profile_steps)."""
     import torch
 
     from dist_svgd_torch.ops import cuda_svgd
 
+    fn = getattr(cuda_svgd, f"{name}_cuda")
+    for _ in range(3):
+        fn(y, x, s, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(y, x, s, h)
+    host_ms = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    prof = profile_steps(lambda: [fn(y, x, s, h) for _ in range(calls)], calls,
+                         phase=phase, top=8)
+    prof.pop("top_host_ops_self_ms_per_step")
+    row = {key.replace("_per_step", "_per_call").replace("steps", "calls"): value
+           for key, value in prof.items()}
+    row.update(kernel=name, shape=list(y.shape[:2]) + [x.shape[-2], y.shape[-1]],
+               bandwidth=h, host_enqueue_ms_per_call=host_ms)
+    return row
+
+
+def big_d_profile_rows():
+    """Each big-d kernel's wrapper call at its main shape and h = 1
+    (kernel_profile_row, BIG_D_PROFILE_CALLS calls)."""
     for name, shape in (("phi_big_d", (8, 1250, 10_000, 61)),
                         ("phi_big_d_bf16x3", (8, 1250, 10_000, 55))):
         y, x, s = phi_inputs(*shape, 0)
-        fn = getattr(cuda_svgd, f"{name}_cuda")
-        for _ in range(3):
-            fn(y, x, s, 1.0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(BIG_D_PROFILE_CALLS):
-            fn(y, x, s, 1.0)
-        host_ms = 1e3 * (time.perf_counter() - t0) / BIG_D_PROFILE_CALLS
-        torch.cuda.synchronize()
-        prof = profile_steps(lambda: [fn(y, x, s, 1.0) for _ in range(BIG_D_PROFILE_CALLS)],
-                             BIG_D_PROFILE_CALLS, phase="big_d_kernel_profile", top=8)
-        prof.pop("top_host_ops_self_ms_per_step")
-        row = {key.replace("_per_step", "_per_call").replace("steps", "calls"): value
-               for key, value in prof.items()}
-        row.update(kernel=name, shape=list(shape), bandwidth=1.0,
-                   host_enqueue_ms_per_call=host_ms)
-        emit(row)
+        emit(kernel_profile_row("big_d_kernel_profile", name, y, x, s, 1.0,
+                                BIG_D_PROFILE_CALLS))
         del y, x, s
+
+
+def wide_d_profile_rows():
+    """Each wide-d kernel's wrapper call at the BNN's one lane (h = 1, y = x
+    = the driver's initial particles) and at the throughput shape (8 × 1250
+    × 10,000, h = 2d), WIDE_D_PROFILE_CALLS calls each (kernel_profile_row),
+    with its blocks a cluster."""
+    from dist_svgd_torch.models import bnn
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.utils.datasets import UCI_REGRESSION_DIMS
+
+    for name in WIDE_D_KERNELS:
+        for role, (S, k, m, d) in (("bnn lane h=1", (1, 500, 500, 753)),
+                                   ("throughput", (8, 1250, 10_000, 753))):
+            y, x, s = phi_inputs(S, k, m, d, 1)
+            h = 2.0 * d
+            if role.startswith("bnn"):
+                x = bnn.init_particles(0, m, UCI_REGRESSION_DIMS["boston"], device="cuda")
+                y, h = x[None].clone(), 1.0
+            row = kernel_profile_row("wide_d_kernel_profile", name, y, x, s, h,
+                                     WIDE_D_PROFILE_CALLS)
+            row.update(role=role, blocks_a_cluster=cuda_svgd.wide_d_slices(name, d)[1])
+            emit(row)
+            del y, x, s
 
 
 def profile_steps(run, steps, phase="profile", top=8):
     """Device time by kernel over ``steps`` sampler steps (``run()`` takes
-    them), from the CUDA activities of a torch.profiler trace, the device's
+    them), from the CUDA activities of a torch.profiler trace (and that of
+    the hand φ kernels, whose names hold ``phi_``), the device's
     busy share of the host wall time of those steps (one stream, so kernels
     do not overlap), the wall time the device idles, and the ``top`` host
     operations by their own CPU time (where that idle time goes)."""
@@ -588,6 +639,7 @@ def profile_steps(run, steps, phase="profile", top=8):
             us, count = by_name.get(ev.name[:80], (0.0, 0))
             by_name[ev.name[:80]] = (us + ev.time_range.elapsed_us(), count + 1)
     device_us = sum(us for us, _ in by_name.values())
+    phi_us = sum(us for name, (us, _) in by_name.items() if "phi_" in name)
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     host = sorted(((ev.key, ev.self_cpu_time_total, ev.count) for ev in prof.key_averages()
                    if ev.self_cpu_time_total > 0), key=lambda kv: -kv[1])[:top]
@@ -598,6 +650,8 @@ def profile_steps(run, steps, phase="profile", top=8):
             "device_idle_ms_per_step": ((wall_us - device_us) / 1e3 / steps if device_us
                                         else "not measured"),
             "device_ops_per_step": sum(c for _, c in by_name.values()) / steps,
+            # the hand φ kernels' own (pre-pass, partial sums, finalize)
+            "phi_device_ms_per_step": phi_us / 1e3 / steps if device_us else "not measured",
             "top_kernels_ms_per_step": {name: us / 1e3 / steps
                                         for name, (us, _) in kernels},
             "top_kernel_launches_per_step": {name: c / steps
@@ -1191,7 +1245,7 @@ def main():
                "shape": [S, k, m, d], "bandwidth": h, "max_abs_err": err,
                "max_abs_plain": scale, **extra, "tolerance": tol, "ok": ok,
                "ms": ms, "plain_ms": plain_ms, "bound_us": 1e3 * b_ms, "bound_by": b_by}
-        if name in BIG_D_KERNELS:
+        if name in BIG_D_KERNELS + WIDE_D_KERNELS:
             row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
             row["scratch_bytes"] = check_scratch(name, S, k, m, d, S if x.dim() == 3 else 1)
         if name in exact_of and role.startswith("main"):
@@ -1205,40 +1259,50 @@ def main():
         if not ok:
             raise AssertionError(f"{name} {role}: max|Δ| {err} > {KERNEL_RTOL} × {scale}")
 
-    # The exact big-d kernel at the paths' own h = 1 (BIG_D_SELF_CASES): held
-    # against the plain version at the full shape within KERNEL_RTOL, as
-    # every row above, and both printed beside the float64 φ on the first
-    # LANE_ROWS rows of every lane (rows are independent).
-    for seed, ((S, k, m, d), role) in enumerate(BIG_D_SELF_CASES, start=len(cases) + 2):
+    # The exact big-d kernel at the paths' own h = 1 (BIG_D_SELF_CASES):
+    # held against the plain version at the full shape within KERNEL_RTOL,
+    # as every row above, and both printed beside the float64 φ on the first
+    # LANE_ROWS rows of every lane (rows are independent).  Then the exact
+    # wide-d one (WIDE_D_SELF_CASES), held against that float64 φ.
+    self_cases = ([("phi_big_d", shape, role) for shape, role in BIG_D_SELF_CASES]
+                  + [("phi_wide_d", shape, role) for shape, role in WIDE_D_SELF_CASES])
+    for seed, (name, (S, k, m, d), role) in enumerate(self_cases, start=len(cases) + 2):
         h = 1.0
+        kern = kernel_fns[name][0]
         y, x, s = phi_inputs(S, k, m, d, seed)
-        got = cuda_svgd.phi_big_d_cuda(y, x, s, h)
+        got = kern(y, x, s, h)
         torch.cuda.synchronize()
         want = cuda_svgd.phi_big_d_plain(y, x, s, h)
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        tol = KERNEL_RTOL * scale
-        ok = bool(torch.isfinite(got).all()) and err <= tol
         ys = y[:, :LANE_ROWS].contiguous()
         exact = cuda_svgd.phi_big_d_plain(ys.double(), x.double(), s.double(), h)
-        row = {"phase": "kernel_parity", "kernel": "phi_big_d", "role": role,
-               "shape": [S, k, m, d], "bandwidth": h, "max_abs_err": err,
-               "max_abs_plain": scale, "rows": LANE_ROWS,
-               "max_abs_err_vs_f64": float(
-                   (got[:, :LANE_ROWS].double() - exact).abs().max()),
+        vs_f64 = float((got[:, :LANE_ROWS].double() - exact).abs().max())
+        vs_plain = float((got - want).abs().max())
+        if name == "phi_big_d":
+            err, scale, reference = vs_plain, float(want.abs().max()), "plain"
+        else:
+            err, scale, reference = vs_f64, float(exact.abs().max()), "phi f64"
+        tol = KERNEL_RTOL * scale
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        row = {"phase": "kernel_parity", "kernel": name, "role": role,
+               "shape": [S, k, m, d], "bandwidth": h, "reference": reference,
+               "max_abs_err": err, "max_abs_plain": float(want.abs().max()),
+               "max_abs_ref": scale, "rows": min(k, LANE_ROWS),
+               "max_abs_err_vs_f64": vs_f64,
                "plain_max_abs_err_vs_f64": float(
                    (want[:, :LANE_ROWS].double() - exact).abs().max()),
-               "tolerance": tol, "ok": ok}
+               "max_abs_err_vs_plain": vs_plain, "tolerance": tol, "ok": ok}
         del got, want, exact
-        b_ms, b_by = bound_ms(*phi_work("phi_big_d", S, k, m, d, x.numel()))
-        row.update(ms=cuda_ms(lambda: cuda_svgd.phi_big_d_cuda(y, x, s, h), TIMED_LAUNCHES),
+        b_ms, b_by = bound_ms(*phi_work(name, S, k, m, d, x.numel()))
+        row.update(ms=cuda_ms(lambda: kern(y, x, s, h),
+                              TIMED_LAUNCHES if name == "phi_big_d" else OTHER_LAUNCHES),
                    plain_ms=cuda_ms(lambda: cuda_svgd.phi_big_d_plain(y, x, s, h),
                                     OTHER_LAUNCHES),
                    bound_us=1e3 * b_ms, bound_by=b_by)
         row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
+        row["scratch_bytes"] = check_scratch(name, S, k, m, d, 1)
         emit(row)
         if not ok:
-            raise AssertionError(f"phi_big_d {role}: max|Δ| {err} > {KERNEL_RTOL} × {scale}")
+            raise AssertionError(f"{name} {role}: max|Δ| {err} > {KERNEL_RTOL} × {scale}")
         del y, x, s, ys
 
     # The small-d kernel at the W2 streaming route's φ lanes (DistSampler at
@@ -1363,6 +1427,7 @@ def main():
         if not ok:
             raise AssertionError(f"{name} {role}: max|Δ| {err} over tolerance {tol}")
     big_d_profile_rows()
+    wide_d_profile_rows()
     ot_lanes_f64_rows(timing)
     ct_rescale_rows()
 

@@ -22,12 +22,17 @@ Kernels chosen on the feature dim d, each in two precision tiers:
   ``hi·hi + hi·lo + lo·hi`` of the split operands, the exp in f32;
   both big-d kernels start with a pre-pass (same launch) that pads, and
   for the bf16x3 tier splits, y, x and ``xs`` once a call into a scratch
-  buffer the wrapper allocates (:data:`_SCRATCH`);
+  buffer the wrapper allocates (:data:`_SCRATCH`), so that the wrapper
+  issues no torch op before the launch (the big-d bf16x3 tier's norms
+  aside, which it sums in torch);
 - ``csrc/phi_wide_d.cu`` and ``csrc/phi_wide_d_bf16x3.cu``
   (:data:`BIG_D_MAX` < d ≤ :data:`WIDE_D_MAX`), the same ``_phi_kernel``
-  in both tiers with the feature axis tiled and the drive accumulated in
-  shared memory — the d range of the BNN's weight vectors (d = 753).
-  Their plain versions are the big-d ones: one function at every d, as
+  in both tiers — the d range of the BNN's weight vectors (d = 753) — with
+  the feature axis cut into slices (:func:`wide_d_slices`), one a block,
+  the blocks of a row block forming a thread-block cluster that sums the
+  slices' Gram partials through distributed shared memory, each block's
+  drive in registers; a pre-pass as the big-d kernels'.  Their plain
+  versions are the big-d ones: one function at every d, as
   ``_phi_kernel`` is.
 
 The bf16 tiers are JAX's ``phi_impl='pallas_bf16'`` (here
@@ -269,6 +274,26 @@ _BX_ROWS, _BX_COLS, _BX_BLOCKS_PER_SM = 128, 32, 8
 #: ``BX_DP_ALIGN``, plus ``BX_ROW_PAD`` bf16 (csrc/phi_big_d_bf16x3.cu).
 _BX_DP_ALIGN, _BX_ROW_PAD = 16, 8
 
+#: The wide-d kernels' geometry (``WD_*`` in csrc/phi_wide_d.cu, ``WX_*`` in
+#: csrc/phi_wide_d_bf16x3.cu): interaction columns a tile, the m-split's
+#: blocks an SM (every block of a cluster counted), the largest d of the
+#: narrow geometry, and for the narrow and the wide geometry the rows a
+#: block and the slice width; the exact tier pads a slice row by
+#: ``_WD_ROW_PAD`` floats beyond its features.
+_WD_COLS, _WD_BLOCKS_PER_SM, _WD_ROW_PAD, _WD_NARROW_MAX_D = 64, 1, 4, 1024
+_WD_ROWS, _WD_SLICE, _WD_WIDE_ROWS, _WD_WIDE_SLICE = 128, 128, 32, 320
+_WX_COLS, _WX_BLOCKS_PER_SM, _WX_NARROW_MAX_D = 32, 1, 1024
+_WX_ROWS, _WX_SLICE, _WX_WIDE_ROWS, _WX_WIDE_SLICE = 128, 128, 64, 320
+
+#: name → (rows a block and slice width up to the narrow geometry's largest
+#: d, the same beyond it, that d)
+_WIDE_GEOMETRY = {
+    "phi_wide_d": ((_WD_ROWS, _WD_SLICE), (_WD_WIDE_ROWS, _WD_WIDE_SLICE),
+                   _WD_NARROW_MAX_D),
+    "phi_wide_d_bf16x3": ((_WX_ROWS, _WX_SLICE), (_WX_WIDE_ROWS, _WX_WIDE_SLICE),
+                          _WX_NARROW_MAX_D),
+}
+
 
 def _ceil_to(n: int, q: int) -> int:
     return -(-n // q) * q
@@ -299,9 +324,41 @@ def big_d_bf16x3_scratch_bytes(S: int, k: int, m: int, d: int, x_lanes: int) -> 
     return 2 * 2 * lb * (S * k_pad + x_lanes * m_pad + S * m_pad) + 4 * x_lanes * m_pad
 
 
+def wide_d_slices(name: str, d: int) -> Tuple[int, int, int]:
+    """``(rows, slices, ws)`` of wide-d kernel ``name`` at feature dim ``d``
+    (``WdSlices`` / ``WxSlices`` in its source): its output rows a block,
+    and d cut into ``slices`` d-slices of ``ws`` features (the last padded
+    with zeros), one a block of a cluster."""
+    rows, ws = _WIDE_GEOMETRY[name][0 if d <= _WIDE_GEOMETRY[name][2] else 1]
+    return rows, -(-d // ws), ws
+
+
+def wide_d_scratch_bytes(S: int, k: int, m: int, d: int, x_lanes: int) -> int:
+    """Bytes of the exact wide-d kernel's pre-pass scratch (``WdScratch`` in
+    csrc/phi_wide_d.cu): y, x and xs slice by slice in float32 rows of
+    ws + 4 floats, row counts padded to whole row blocks and column tiles,
+    and each padded y and x row's norm over each slice."""
+    rows, slices, ws = wide_d_slices("phi_wide_d", d)
+    k_pad, m_pad = _ceil_to(k, rows), _ceil_to(m, _WD_COLS)
+    normed = S * k_pad + x_lanes * m_pad  # the y and x rows
+    return 4 * slices * ((normed + S * m_pad) * (ws + _WD_ROW_PAD) + normed)
+
+
+def wide_d_bf16x3_scratch_bytes(S: int, k: int, m: int, d: int, x_lanes: int) -> int:
+    """Bytes of the bf16x3 wide-d kernel's pre-pass scratch (``WxScratch`` in
+    csrc/phi_wide_d_bf16x3.cu): the bf16 hi and lo planes of y, x and xs
+    slice by slice in rows of ws bf16, row counts padded to whole row blocks
+    and column tiles, and ‖y‖², ‖x‖² (float32) on the padded rows."""
+    rows, slices, ws = wide_d_slices("phi_wide_d_bf16x3", d)
+    k_pad, m_pad = _ceil_to(k, rows), _ceil_to(m, _WX_COLS)
+    normed = S * k_pad + x_lanes * m_pad
+    return 2 * 2 * slices * ws * (normed + S * m_pad) + 4 * normed
+
+
 # name → (library, C symbol, output rows per block, interaction columns per
 # tile, takes the row norms ‖y‖², ‖x‖², the m-split's blocks an SM (None:
-# SPLIT_BLOCKS_PER_SM)); a library is csrc/<library>.cu
+# SPLIT_BLOCKS_PER_SM)); a library is csrc/<library>.cu.  A wide-d kernel's
+# rows a block are its narrow geometry's (wide_d_slices gives them by d).
 _KERNELS = {
     "phi_small_d": ("phi_small_d", "phi_small_d_launch", _SD_ROWS, 256, False,
                     _SD_BLOCKS_PER_SM),
@@ -311,8 +368,10 @@ _KERNELS = {
                          _SD_BLOCKS_PER_SM),
     "phi_big_d_bf16x3": ("phi_big_d_bf16x3", "phi_big_d_bf16x3_launch", _BX_ROWS,
                          _BX_COLS, True, _BX_BLOCKS_PER_SM),
-    "phi_wide_d": ("phi_wide_d", "phi_wide_d_launch", 32, 64, True, None),
-    "phi_wide_d_bf16x3": ("phi_wide_d_bf16x3", "phi_wide_d_bf16x3_launch", 16, 64, True, None),
+    "phi_wide_d": ("phi_wide_d", "phi_wide_d_launch", _WD_ROWS, _WD_COLS, False,
+                   _WD_BLOCKS_PER_SM),
+    "phi_wide_d_bf16x3": ("phi_wide_d_bf16x3", "phi_wide_d_bf16x3_launch", _WX_ROWS,
+                          _WX_COLS, False, _WX_BLOCKS_PER_SM),
     "phi_small_d_noexp": ("phi_small_d", "phi_small_d_noexp_launch", _SD_ROWS, 256, False,
                           _SD_BLOCKS_PER_SM),
 }
@@ -324,6 +383,8 @@ _KERNELS = {
 _SCRATCH: Dict[str, Callable[..., int]] = {
     "phi_big_d": big_d_scratch_bytes,
     "phi_big_d_bf16x3": big_d_bf16x3_scratch_bytes,
+    "phi_wide_d": wide_d_scratch_bytes,
+    "phi_wide_d_bf16x3": wide_d_bf16x3_scratch_bytes,
 }
 
 
@@ -334,11 +395,18 @@ def blocks_per_sm(name: str) -> int:
 
 
 def _split_of(name: str, S: int, k: int, m: int, device: torch.device,
-              target: Optional[int] = None) -> Tuple[int, int]:
+              target: Optional[int] = None, d: Optional[int] = None) -> Tuple[int, int]:
     """``(nsplit, chunk)`` of kernel ``name``'s m axis at ``target`` blocks
-    an SM (``None``: the kernel's own, :func:`blocks_per_sm`)."""
+    an SM (``None``: the kernel's own, :func:`blocks_per_sm`).  A wide-d
+    kernel needs the feature dim ``d``: its rows a block and its blocks a
+    cluster (every one counted) follow it."""
     rows, tile = _KERNELS[name][2:4]
-    return _split_m(m, tile, S * -(-k // rows), device,
+    blocks = 1
+    if name in _WIDE_GEOMETRY:
+        if d is None:
+            raise ValueError(f"{name}'s split needs the feature dim d")
+        rows, blocks, _ = wide_d_slices(name, d)
+    return _split_m(m, tile, S * -(-k // rows) * blocks, device,
                     blocks_per_sm(name) if target is None else target)
 
 
@@ -379,7 +447,7 @@ def _launch(name: str, y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"{name}: shape {(S, k, m, d)} overflows the kernel's int indexing")
     inv_h = 1.0 / float(bandwidth)
     norms = _KERNELS[name][4]
-    nsplit, chunk = _split_of(name, S, k, m, y.device, _blocks_per_sm)
+    nsplit, chunk = _split_of(name, S, k, m, y.device, _blocks_per_sm, d)
     part = torch.empty((nsplit, S, k, d + 1), dtype=torch.float32, device=y.device)
     out = torch.empty((S, k, d), dtype=torch.float32, device=y.device)
     inputs = [y, x, s if name in _SCRATCH else _drive_operand(x, s, inv_h)]
@@ -505,10 +573,11 @@ def launch(name: str, y: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
 
 
 def split_count(name: str, S: int, k: int, m: int, device: torch.device,
-                blocks_per_sm: Optional[int] = None) -> int:
+                blocks_per_sm: Optional[int] = None, d: Optional[int] = None) -> int:
     """The number of m-splits :func:`launch` takes for kernel ``name`` on
-    ``S`` lanes of ``k`` rows against ``m`` columns on a card."""
-    return _split_of(name, S, k, m, device, blocks_per_sm)[0]
+    ``S`` lanes of ``k`` rows against ``m`` columns on a card (a wide-d
+    kernel's at feature dim ``d``)."""
+    return _split_of(name, S, k, m, device, blocks_per_sm, d)[0]
 
 
 def load_kernel(d: int, phi_impl: str = "auto") -> None:

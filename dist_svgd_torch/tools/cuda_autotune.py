@@ -37,8 +37,8 @@ counterpart, for the same reason as the sweep's grid.
 
 ``--harvest``: (a) the split ladder at each shape of :data:`HARVEST_SHAPES`
 (JAX's five, the BNN lane and the 8-lane north-star lane), its winner beside
-the kernel's own target (``cuda_svgd.blocks_per_sm``: 32 blocks per SM for
-the small-d kernel, ``SPLIT_BLOCKS_PER_SM`` = 8 for the others) — the port's
+the kernel's own target (``cuda_svgd.blocks_per_sm``: the one its source
+records) — the port's
 reading of JAX's ``_MEASURED_BLOCKS``, printed and not applied; (b) for each
 ``'auto'`` gate, the kernel against the torch φ over the n² ladder :data:`GATE_RUNGS` at S = 1 and the dims of
 :data:`GATE_DIMS`, ending with the two lines to paste into
@@ -99,11 +99,12 @@ GATE_DIMS = {"CUDA_MIN_PAIRS": (3,), "CUDA_MIN_PAIRS_BIG_D": (55, 753)}
 EPS = 1e-6
 
 def _nsplit(name: str, S: int, k: int, m: int, device: torch.device,
-            blocks_per_sm: int) -> Optional[int]:
-    """The m-split a launch takes on the card (``None`` on the CPU)."""
+            blocks_per_sm: int, d: Optional[int] = None) -> Optional[int]:
+    """The m-split a launch takes on the card (``None`` on the CPU); a
+    wide-d kernel's at feature dim ``d``."""
     if device.type != "cuda":
         return None
-    return cuda_svgd.split_count(name, S, k, m, device, blocks_per_sm)
+    return cuda_svgd.split_count(name, S, k, m, device, blocks_per_sm, d)
 
 
 def _chain(fn: Callable, x0: torch.Tensor, iters: int) -> torch.Tensor:
@@ -408,7 +409,7 @@ def harvest(device: torch.device) -> Dict:
             for bps in SPLIT_LADDER], y, iters)
         for key in sorted(best, key=best.get):
             print(f"  ({S},{k},{m},{d}) {name} {int(key):2d}/SM "
-                  f"(nsplit {_nsplit(name, S, k, m, device, int(key))}): "
+                  f"(nsplit {_nsplit(name, S, k, m, device, int(key), d)}): "
                   f"{_rate(S * k * m, best[key])}", flush=True)
         win = min(best, key=best.get)
         own = cuda_svgd.blocks_per_sm(name)

@@ -1,8 +1,8 @@
 """Old against new on the card: the streaming route's row kernels
 (``ot_kmat_vec``, ``ot_plan_grad``, ``ot_ctransform``) and the φ kernels
-(``phi_small_d``, ``phi_big_d``, ``phi_big_d_bf16x3``) of this tree against
-the same kernels built from another version of their sources, timed in
-turns in one process.
+(``phi_small_d``, ``phi_big_d``, ``phi_big_d_bf16x3``, ``phi_wide_d``,
+``phi_wide_d_bf16x3``) of this tree against the same kernels built from
+another version of their sources, timed in turns in one process.
 
     mkdir -p build/base && git archive <commit> dist_svgd_torch/csrc | tar -x -C build/base
     python -m dist_svgd_torch.tools.ot_ab build/base/dist_svgd_torch/csrc [DIR ...] \\
@@ -12,15 +12,19 @@ Each ``DIR`` holds the sources of the kernels it is timed for
 (``ot_common.cuh`` with ``ot_kmat_vec.cu``, ``ot_plan_grad.cu``,
 ``ot_ctransform.cu``; ``phi_common.cuh`` and ``ot_common.cuh`` with the
 ``phi_*.cu``); they are compiled with this tree's flags (``ops/_build.py``).
-A version's C interface is this tree's, except that a big-d φ takes a
-scratch pointer after its inputs only where its source's launch function
-names one (its size from the library's ``<name>_scratch_bytes``), and the
-scores ``s`` in place of ``xs = s − (2/h)·x`` only where it names ``s``.  A
-version's launch geometry is read from its own sources (:data:`GEOMETRY`):
-its rows a block are its threads times its rows a thread (one row a thread
-where the source defines no count; the big-d φ record their rows a block,
-64 where a source records none), and its blocks an SM the m-split's
-target, so a variant is a copy of the sources with one constant edited.  A version whose source defines no blocks an SM
+A version's C interface is this tree's, except that a big-d or wide-d φ
+takes a scratch pointer after its inputs only where its source's launch
+function names one (its size from the library's ``<name>_scratch_bytes``),
+the scores ``s`` in place of ``xs = s − (2/h)·x`` only where it names
+``s``, and a wide-d φ the row norms ‖y‖², ‖x‖² (summed in torch) only
+where it takes no scratch.  A version's launch geometry is read from its
+own sources (:data:`GEOMETRY`): its rows a block are its threads times its
+rows a thread (one row a thread where the source defines no count; the
+big-d φ record their rows a block, 64 where a source records none; the
+wide-d φ their rows a block and d-slices by d, :func:`wide_geometry`, and
+the first version's where a source records none), and its blocks an SM
+the m-split's target (every block of a cluster counted), so a variant is a
+copy of the sources with one constant edited.  A version whose source defines no blocks an SM
 runs at ``--base-blocks-per-sm`` (by default the φ's
 ``SPLIT_BLOCKS_PER_SM``, 8: the split every kernel took before the
 streaming ones recorded their own; a version that gave ``ot_kmat_vec`` /
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -44,15 +49,21 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from dist_svgd_torch.models import bnn
 from dist_svgd_torch.ops import _build, cuda_ot, cuda_svgd
 from dist_svgd_torch.ops.cuda_svgd import SPLIT_BLOCKS_PER_SM, _split_m
+from dist_svgd_torch.ops.kernels import median_bandwidth
+from dist_svgd_torch.utils.datasets import UCI_REGRESSION_DIMS
 
 #: (kernel, (S, k, m, d), role, options): the 100k streaming route's shapes
 #: — its 8 lanes, one lane and one lane the other way round — for
 #: kmat_vec (r = 1) and plan_grad; both directions of the soft c-transform
 #: at the 8 lanes (the solve's warm start), its fused-route 10k shape, and
 #: the hard form (a cold start) at the 8 lanes; the small-d φ at the
-#: streaming lanes (h = 10, that path's) and at the north star's.
+#: streaming lanes (h = 10, that path's) and at the north star's; the big-d
+#: φ at the splice and Covertype lanes; the wide-d φ at the BNN's one lane
+#: (y = x = the driver's initial particles at h = 1, and the inputs'
+#: median h), the 8-shard BNN lanes and 8 lanes × 1250 × 10,000 at h = 2d.
 SHAPES = [("ot_kmat_vec", (8, 12_500, 100_000, 3), "main", {}),
           ("ot_kmat_vec", (1, 12_500, 100_000, 3), "100k lane", {}),
           ("ot_kmat_vec", (1, 100_000, 12_500, 3), "100k lane transposed", {}),
@@ -71,10 +82,16 @@ SHAPES = [("ot_kmat_vec", (8, 12_500, 100_000, 3), "main", {}),
           ("phi_big_d_bf16x3", (8, 1250, 10_000, 55), "covertype lanes h=1", {"h": 1.0}),
           ("phi_big_d_bf16x3", (8, 1250, 10_000, 55), "covertype lanes h=2d", {"h": 110.0}),
           ("phi_big_d_bf16x3", (1, 10_000, 10_000, 55), "sampler lane h=1", {"h": 1.0})]
+WIDE_D = ("phi_wide_d", "phi_wide_d_bf16x3")
+for _name in WIDE_D:
+    SHAPES += [(_name, (1, 500, 500, 753), "bnn lane self h=1", {"h": 1.0, "self": True}),
+               (_name, (1, 500, 500, 753), "bnn lane median h", {"h": "median"}),
+               (_name, (8, 62, 496, 753), "bnn dist lanes", {"h": "median"}),
+               (_name, (8, 1250, 10_000, 753), "throughput h=2d", {"h": 1506.0})]
 NAMES = ("ot_kmat_vec", "ot_plan_grad", "ot_ctransform", "phi_small_d", "phi_big_d",
-         "phi_big_d_bf16x3")
+         "phi_big_d_bf16x3") + WIDE_D
 BIG_D = ("phi_big_d", "phi_big_d_bf16x3")
-PHI = ("phi_small_d",) + BIG_D
+PHI = ("phi_small_d",) + BIG_D + WIDE_D
 
 #: Each kernel's geometry in its sources: (file, threads a block, rows a
 #: thread, blocks an SM, columns a tile) — the constants' names; the big-d
@@ -91,11 +108,19 @@ GEOMETRY = {
     "phi_big_d": ("phi_big_d.cu", "BD_ROWS", None, "BD_BLOCKS_PER_SM", "BD_COLS"),
     "phi_big_d_bf16x3": ("phi_big_d_bf16x3.cu", "BX_ROWS", None, "BX_BLOCKS_PER_SM",
                          "BX_COLS"),
+    "phi_wide_d": ("phi_wide_d.cu", "WD_ROWS", None, "WD_BLOCKS_PER_SM", "WD_COLS"),
+    "phi_wide_d_bf16x3": ("phi_wide_d_bf16x3.cu", "WX_ROWS", None, "WX_BLOCKS_PER_SM",
+                          "WX_COLS"),
 }
 #: Rows a block of a big-d φ whose source records none (the first version's).
 BIG_D_ROWS = 64
+#: The first wide-d versions, whose sources record no geometry: rows a block
+#: up to d = 1024 and beyond, columns a tile; no d-slices.
+FIRST_WIDE_D = {"phi_wide_d": (32, 16, 64), "phi_wide_d_bf16x3": (16, 16, 64)}
 
 
+
+@functools.lru_cache(maxsize=None)
 def source_const(csrc: Path, name: str, constant: str,
                  default: Optional[int] = None) -> int:
     """``constexpr int <constant>`` of kernel ``name``'s geometry file in a
@@ -107,12 +132,46 @@ def source_const(csrc: Path, name: str, constant: str,
     return int(found.group(1)) if found else default
 
 
-def rows_per_block(csrc: Path, name: str) -> int:
-    """A version's output rows a block of kernel ``name``."""
+@functools.lru_cache(maxsize=None)
+def _records(csrc: Path, name: str, constant: str) -> bool:
+    path = csrc / GEOMETRY[name][0]
+    return re.search(rf"constexpr int {constant} = \d+;", path.read_text()) is not None
+
+
+def wide_geometry(csrc: Path, name: str, d: int):
+    """``(rows, blocks)`` of a version's wide-d kernel ``name`` at feature
+    dim ``d``: its output rows a block and the blocks of a cluster (its
+    d-slices, as ``WdSlices`` / ``WxSlices`` cut them), read from its
+    constants; the first version's rows and one block where it records
+    none."""
+    p = GEOMETRY[name][1].split("_")[0]  # WD or WX
+    if not _records(csrc, name, f"{p}_ROWS"):
+        narrow, wide, _ = FIRST_WIDE_D[name]
+        return (narrow if d <= 1024 else wide), 1
+    narrow = d <= source_const(csrc, name, f"{p}_NARROW_MAX_D")
+    rows = source_const(csrc, name, f"{p}_ROWS" if narrow else f"{p}_WIDE_ROWS")
+    ws = source_const(csrc, name, f"{p}_SLICE" if narrow else f"{p}_WIDE_SLICE")
+    return rows, -(-d // ws)
+
+
+def rows_per_block(csrc: Path, name: str, d: Optional[int] = None) -> int:
+    """A version's output rows a block of kernel ``name`` (a wide-d φ's at
+    feature dim ``d``; its narrow geometry's where no d is given)."""
     _, threads, rows, _, _ = GEOMETRY[name]
+    if name in WIDE_D:
+        if d is None:
+            return source_const(csrc, name, threads, FIRST_WIDE_D[name][0])
+        return wide_geometry(csrc, name, d)[0]
     if rows is None:  # a big-d φ: its rows a block
         return source_const(csrc, name, threads, BIG_D_ROWS)
     return source_const(csrc, name, threads) * source_const(csrc, name, rows, 1)
+
+
+def tile_of(csrc: Path, name: str) -> int:
+    """A version's interaction columns a tile of kernel ``name``."""
+    if name in WIDE_D and not _records(csrc, name, GEOMETRY[name][4]):
+        return FIRST_WIDE_D[name][2]
+    return source_const(csrc, name, GEOMETRY[name][4])
 
 
 def _launch_params(csrc: Path, name: str) -> str:
@@ -155,9 +214,9 @@ def base_kernel(csrc: Path, name: str, default_blocks_per_sm: Optional[int] = No
     and blocks an SM (:func:`_split_m`)."""
     lib = ctypes.CDLL(str(_build.build([name], csrc=csrc)[name].path))
     fn = getattr(lib, f"{name}_launch")
-    norms = name == "phi_big_d_bf16x3"
-    scratch = name in BIG_D and takes_scratch(csrc, name)
-    scores = name in BIG_D and takes_scores(csrc, name)
+    scratch = name in BIG_D + WIDE_D and takes_scratch(csrc, name)
+    scores = name in BIG_D + WIDE_D and takes_scores(csrc, name)
+    norms = name == "phi_big_d_bf16x3" or (name in WIDE_D and not scratch)
     if name in PHI:
         fn.argtypes = _phi_argtypes(5 + 2 * norms + scratch)
     else:
@@ -167,9 +226,8 @@ def base_kernel(csrc: Path, name: str, default_blocks_per_sm: Optional[int] = No
         size = getattr(lib, f"{name}_scratch_bytes")
         size.argtypes = [ctypes.c_int] * 5
         size.restype = ctypes.c_longlong
-    block = rows_per_block(csrc, name)
     target = blocks_per_sm(csrc, name, default_blocks_per_sm)
-    tile = source_const(csrc, name, GEOMETRY[name][4])
+    tile = tile_of(csrc, name)
 
     def launch(tensors, *ints, scale):
         dev = tensors[0].device
@@ -181,7 +239,9 @@ def base_kernel(csrc: Path, name: str, default_blocks_per_sm: Optional[int] = No
     def call(rows, cols, *rest):
         S, k, d = rows.shape
         m = cols.shape[-2]
-        nsplit, chunk = _split_m(m, tile, S * -(-k // block), rows.device, target)
+        block, blocks = (wide_geometry(csrc, name, d) if name in WIDE_D
+                         else (rows_per_block(csrc, name), 1))
+        nsplit, chunk = _split_m(m, tile, S * -(-k // block) * blocks, rows.device, target)
         if name in PHI:  # rest: the scores and h
             s, h = rest
             inv_h = 1.0 / float(h)
@@ -221,7 +281,9 @@ def base_kernel(csrc: Path, name: str, default_blocks_per_sm: Optional[int] = No
 TREE = {"ot_kmat_vec": cuda_ot.kmat_vec_cuda, "ot_plan_grad": cuda_ot.plan_grad_cuda,
         "ot_ctransform": cuda_ot.ctransform_reduce_cuda,
         "phi_small_d": cuda_svgd.phi_small_d_cuda, "phi_big_d": cuda_svgd.phi_big_d_cuda,
-        "phi_big_d_bf16x3": cuda_svgd.phi_big_d_bf16x3_cuda}
+        "phi_big_d_bf16x3": cuda_svgd.phi_big_d_bf16x3_cuda,
+        "phi_wide_d": cuda_svgd.phi_wide_d_cuda,
+        "phi_wide_d_bf16x3": cuda_svgd.phi_wide_d_bf16x3_cuda}
 
 
 def inputs(name: str, S: int, k: int, m: int, d: int, opts: Dict, seed: int):
@@ -229,13 +291,20 @@ def inputs(name: str, S: int, k: int, m: int, d: int, opts: Dict, seed: int):
     reg-rescaled units (mean C ≈ 20), f and g the cold start's hard
     c-transform pair, a positive right-hand side, the c-transform taking g —
     the inputs of ``chip_smoke.py``'s Sinkhorn parity rows.  φ: particle-like
-    lanes, y the lanes' blocks of the shared x, s score-like."""
+    lanes, y the lanes' blocks of the shared x, s score-like; with
+    ``opts["self"]`` the BNN driver's one lane, y = x = its initial
+    particles (d = 753); an ``opts["h"]`` of "median" is the inputs' median
+    heuristic."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     if name in PHI:
         x = torch.randn(m, d, generator=gen)
         y = x[torch.randint(0, m, (S, k), generator=gen)]
         s = torch.randn(S, m, d, generator=gen)
-        return (y.cuda(), x.cuda(), s.cuda(), opts["h"])
+        if opts.get("self"):
+            x = bnn.init_particles(seed, m, UCI_REGRESSION_DIMS["boston"])
+            y = x[None].clone()
+        h = float(median_bandwidth(x)) if opts["h"] == "median" else opts["h"]
+        return (y.cuda(), x.cuda(), s.cuda(), h)
     scale = (20.0 / (2 * d)) ** 0.5
     rows = (scale * torch.randn(S, k, d, generator=gen)).cuda()
     cols = (scale * torch.randn(S, m, d, generator=gen)).cuda()
@@ -295,13 +364,15 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
         want = tree(*operands)
         row = {"kernel": name, "role": role, "shape": [S, k, m, d], **opts,
                "reps": args.reps,
-               "tree": {"rows_per_block": rows_per_block(_build.CSRC, name),
+               "tree": {"rows_per_block": rows_per_block(_build.CSRC, name, d),
                         "blocks_per_sm": blocks_per_sm(_build.CSRC, name)}}
+        if name in PHI:
+            row["h"] = operands[3]
         for label, kernels in bases.items():
             got = kernels[name](*operands)
             torch.cuda.synchronize()
             base = Path(label).resolve()
-            row[label] = {"rows_per_block": rows_per_block(base, name),
+            row[label] = {"rows_per_block": rows_per_block(base, name, d),
                           "blocks_per_sm": blocks_per_sm(base, name,
                                                          args.base_blocks_per_sm),
                           "max_abs_diff_vs_tree": float((got - want).abs().max()),

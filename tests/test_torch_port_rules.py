@@ -165,12 +165,12 @@ def test_port_runs_the_covertype_driver_with_jax_blocked():
 
 @pytest.mark.parametrize("name,marker", [
     ("phi_wide_d", "fmaf("),
-    ("phi_wide_d_bf16x3", "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"),
+    ("phi_wide_d_bf16x3", "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"),
 ])
 def test_wide_d_sources_carry_their_notes(name, marker):
     """The two wide-d φ kernels carry the note, name the Pallas kernel they
     replace, are built sources, compute their products by hand (FP32 FMAs,
-    bf16 mma.sync) and call no library GEMM."""
+    bf16 wgmma) and call no library GEMM."""
     text = (_build.CSRC / f"{name}.cu").read_text()
     assert "Replaces: dist_svgd_tpu/ops/pallas_svgd.py, `_phi_kernel`" in text
     assert "What bounds it on this card" in text
