@@ -26,7 +26,13 @@ config 5, d = 753) through its driver ``dist_svgd_torch/experiments/bnn.py``
 at full width in both φ tiers, with the per-step median bandwidth and over
 8 shards, runs the autotune tool ``dist_svgd_torch/tools/cuda_autotune.py``
 (its default and ``--big-d`` modes, short chains), checks the φ policy's
-pair-count lines on either side of their committed values, checks that each
+pair-count lines on either side of their committed values, drives the
+reference's own entry points (BASELINE.json configs 1-2) through
+``dist_svgd_torch/experiments/logreg.py`` (config 1, the ``grid.sh``
+sweep shape in every mode with and without the host-LP W2 term and in
+both update rules, the full width with its history, and one Gauss-Seidel
+step at full width — one φ launch a row, at shapes held against the plain
+and the float64 φ in ``kernel_parity``) and ``gmm.py``, checks that each
 path went through its kernels, and prints one JSON object per phase.  A
 phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
@@ -152,6 +158,37 @@ W2_SYNC_STEPS = 20
 MAIN_100K_LAUNCHES = 20
 OTHER_LAUNCHES = 10
 PLAIN_100K_REPS = 5
+
+# The reference's own entry points (BASELINE.json configs 1-2), through the
+# port's drivers dist_svgd_torch/experiments/logreg.py and gmm.py:
+# config 1 (experiments/logreg.py's defaults at 100 particles: banana fold
+# 42, one shard, partitions, Jacobi, 100 steps of 1e-3); the reference's
+# grid.sh shape (50 particles on 4 and 8 shards, banana, 10 steps, every
+# mode, with and without the host-LP W2 term at h = 10, both update rules);
+# the full width recorded (splice, d = 61, 10,000 particles, 8 shards,
+# partitions, 100 steps with the history); one Gauss-Seidel step at full
+# width (10,000 particles, 8 shards, all_particles: 1250 rows a shard, one
+# φ launch a row); the GMM (config 2: the driver's 50 particles and
+# config 2's 256, 500 steps of 1.0; a Gauss-Seidel run of GMM["gs_steps"],
+# cut from 500 for time, not width).
+LOGREG_DRIVER = dict(dataset="banana", fold=42, n=100, steps=100, step_size=1e-3)
+LOGREG_GRID = dict(n=50, shards=(4, 8), steps=10, step_size=1e-3)
+LOGREG_RECORD = dict(dataset="splice", fold=1, n=10_000, shards=8, steps=100, step_size=1e-3)
+LOGREG_GS = dict(n=10_000, shards=8, step_size=1e-3)
+GMM = dict(n=(50, 256), gs_steps=20)
+# The φ kernels at those paths' own shapes, (kernel, (S, k, m, d), role):
+# the GS probe, one row a lane against the lane's own view (all_particles
+# and partitions at full width, the grid's d = 9 set at 4 shards of 3
+# rows, and a 100-particle view), and the GMM's Jacobi lanes at d = 1;
+# seeds from GS_PROBE_SEED, after every older row's.
+GS_PROBE_CASES = [("phi_small_d", (8, 1, 10_000, 3), "gs probe all_particles"),
+                  ("phi_small_d", (8, 1, 1250, 3), "gs probe partitions"),
+                  ("phi_small_d", (1, 1, 100, 3), "gs probe 100 particles"),
+                  ("phi_big_d", (8, 1, 10_000, 61), "gs probe splice"),
+                  ("phi_big_d", (4, 1, 12, 9), "gs probe d=9"),
+                  ("phi_small_d", (1, 50, 50, 1), "gmm lane d=1"),
+                  ("phi_small_d", (1, 256, 256, 1), "gmm config 2 lane d=1")]
+GS_PROBE_SEED = 500
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -789,6 +826,36 @@ def covertype_phases():
     return launches_ct
 
 
+def device_profile(run, top=6):
+    """Device time and launches by kernel of ``run()`` from a CUDA-only
+    torch.profiler trace: the light form of :func:`profile_steps` for runs
+    of tens of thousands of launches (a full-width Gauss-Seidel step),
+    whose host-op trace takes minutes to read back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us, count = by_name.get(ev.name[:80], (0.0, 0))
+            by_name[ev.name[:80]] = (us + ev.time_range.elapsed_us(), count + 1)
+    device_us = sum(us for us, _ in by_name.values())
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"profiled_wall_ms": wall_us / 1e3,
+            "device_ms": device_us / 1e3 if device_us else "not measured",
+            "device_ops": sum(c for _, c in by_name.values()),
+            "phi_device_ms": (sum(us for name, (us, _) in by_name.items() if "phi_" in name)
+                              / 1e3 if device_us else "not measured"),
+            "top_kernels_ms": {name: us / 1e3 for name, (us, _) in kernels},
+            "top_kernel_launches": {name: c for name, (_, c) in kernels}}
+
+
 def covertype_nproc1_phase():
     """Covertype (BASELINE.json config 4) through the single-device
     ``Sampler`` (``--nproc 1``): the driver's sampler, 10,000 particles
@@ -964,6 +1031,305 @@ def bnn_phases():
     if not ok:
         raise AssertionError(f"small sampler reference: {worst} > {SMALL_RTOL}")
     return launches_bnn, launches_bf16
+
+
+def gs_probe_rows():
+    """The φ kernels at the shapes the reference's entry points give them
+    (GS_PROBE_CASES): the Gauss–Seidel probe, one row a lane ``(S, 1, m,
+    d)`` against each lane's own view ``(S, m, d)``, the row being one of
+    the view's (a self-pair at the drivers' h = 1), and the GMM's d = 1
+    lanes, y = x.  Each is held against the plain version and printed
+    beside the float64 φ; the d > 8 rows hold against the float64 φ (the
+    float32 plain version's y² + x² − 2·y·x does not cancel to 0 on the
+    self-pair, the kernel's pre-pass does), the others against the plain
+    version, within KERNEL_RTOL of the reference's largest value.  Every
+    row is timed beside its bound; raises on a failed row."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.ops.kernels import RBF
+    from dist_svgd_torch.ops.svgd import phi
+
+    fns = {"phi_small_d": (cuda_svgd.phi_small_d_cuda, cuda_svgd.phi_small_d_plain),
+           "phi_big_d": (cuda_svgd.phi_big_d_cuda, cuda_svgd.phi_big_d_plain)}
+    for seed, (name, (S, k, m, d), role) in enumerate(GS_PROBE_CASES, start=GS_PROBE_SEED):
+        kern, plain = fns[name]
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        if k == m:  # a Jacobi lane of the Sampler: y is x
+            x = torch.randn(m, d, generator=g).cuda()
+            y = x[None].clone()
+        else:  # the GS probe: row r of each lane's own view
+            x = torch.randn(S, m, d, generator=g).cuda()
+            rows = torch.randint(0, m, (S,), generator=g).cuda()
+            y = x[torch.arange(S, device=x.device), rows][:, None].contiguous()
+        s = torch.randn(S, m, d, generator=g).cuda()
+        h = 1.0
+        got = kern(y, x, s, h)
+        torch.cuda.synchronize()
+        want = plain(y, x, s, h)
+        exact = phi(y.double(), x.double(), s.double(), RBF(h))
+        vs_f64 = float((got.double() - exact).abs().max())
+        vs_plain = float((got - want).abs().max())
+        if d > cuda_svgd.SMALL_D:
+            err, scale, reference = vs_f64, float(exact.abs().max()), "phi f64"
+        else:
+            err, scale, reference = vs_plain, float(want.abs().max()), "plain"
+        tol = KERNEL_RTOL * scale
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        b_ms, b_by = bound_ms(*phi_work(name, S, k, m, d, x.numel()))
+        row = {"phase": "kernel_parity", "kernel": name, "role": role, "shape": [S, k, m, d],
+               "bandwidth": h, "reference": reference, "max_abs_err": err,
+               "max_abs_ref": scale, "tolerance": tol, "ok": ok,
+               "max_abs_err_vs_f64": vs_f64, "max_abs_err_vs_plain": vs_plain,
+               "plain_max_abs_err_vs_f64": float((want.double() - exact).abs().max()),
+               "ms": cuda_ms(lambda: kern(y, x, s, h), TIMED_LAUNCHES),
+               "plain_ms": cuda_ms(lambda: plain(y, x, s, h), OTHER_LAUNCHES),
+               "bound_us": 1e3 * b_ms, "bound_by": b_by,
+               "m_splits": cuda_svgd.split_count(name, S, k, m, x.device)}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"{name} {role}: max|Δ| {err} vs the {reference} > {tol}")
+
+
+def _f64_driver_init():
+    """The logreg driver's initial draw, in float64: the same numbers as
+    its float32 draw (drawn in float32, then widened), so that a CPU
+    float64 run starts where the card's run starts."""
+    from dist_svgd_torch.utils.rng import init_particles_per_shard
+
+    return lambda *a, **k: init_particles_per_shard(*a, **k).double()
+
+
+def _driver_reference(drv, *args, **kw):
+    """The logreg driver's snapshots on the CPU in float64 with the plain
+    φ: the reference a card run of the same configuration is held
+    against."""
+    real = drv.init_particles_per_shard
+    drv.init_particles_per_shard = _f64_driver_init()
+    try:
+        return drv.run_snapshots(*args, phi_impl="torch", device="cpu", **kw)[1]
+    finally:
+        drv.init_particles_per_shard = real
+
+
+def _snapshots_dev(card, ref):
+    """max|Δ| / max|ref| over every rank's snapshots."""
+    import numpy as np
+
+    return (max(float(np.abs(c - r).max()) for c, r in zip(card, ref))
+            / max(float(np.abs(r).max()) for r in ref))
+
+
+def logreg_phases():
+    """The logreg driver (``dist_svgd_torch/experiments/logreg.py``,
+    ``run_snapshots``: the card has no pandas for its pickles): BASELINE
+    config 1 (``logreg_driver``), the reference's ``grid.sh`` sweep shape
+    (``logreg_grid``), the full-width recorded run (``logreg_north_star
+    _record``) and one full-width Gauss–Seidel step (``logreg_gs_full
+    _width``).  Raises on a failed phase."""
+    import torch
+
+    from dist_svgd_torch import DistSampler
+    from dist_svgd_torch.experiments import logreg as drv
+    from dist_svgd_torch.models.logreg import ensemble_test_accuracy, logreg_logp
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.utils import history
+    from dist_svgd_torch.utils.datasets import load_benchmark
+    from dist_svgd_torch.utils.rng import init_particles_per_shard
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(cuda_svgd.launch_counts)
+
+    # ---- config 1: banana, 100 particles, one shard, partitions ----------
+    c = LOGREG_DRIVER
+    args = (1, c["dataset"], c["fold"], c["n"], c["steps"], c["step_size"], "partitions",
+            False)
+    drv.run_snapshots(1, c["dataset"], c["fold"], c["n"], 2, c["step_size"], "partitions",
+                      False)  # warm
+    (sampler, blocks), host_s, launched = timed(lambda: drv.run_snapshots(*args))
+    rel = _snapshots_dev(blocks, _driver_reference(drv, *args))
+    fold = load_benchmark(c["dataset"], c["fold"])
+    acc = float(ensemble_test_accuracy(torch.as_tensor(blocks[0][-1]),
+                                       torch.as_tensor(fold.x_test),
+                                       torch.as_tensor(fold.t_test.reshape(-1))))
+    ok = launched == phi_counts(phi_small_d=c["steps"]) and rel <= SMALL_RTOL
+    emit({"phase": "logreg_driver", "dataset": c["dataset"], "fold": c["fold"], "n": c["n"],
+          "shards": 1, "exchange": "partitions", "update_rule": "jacobi",
+          "steps": c["steps"], "ms_per_step": 1e3 * host_s / c["steps"],
+          "launches": launched, "test_accuracy": acc, "max_rel_dev_vs_cpu_f64": rel,
+          "bound": SMALL_RTOL, "ok": ok})
+    if not ok:
+        raise AssertionError(f"logreg driver: launches={launched} rel={rel}")
+
+    # ---- the grid.sh shape: 50 particles on 4 and 8 shards ----------------
+    gr = LOGREG_GRID
+    t_phase = time.perf_counter()
+    rows, worst = [], {False: 0.0, True: 0.0}
+    for S in gr["shards"]:
+        per = gr["n"] // S
+        for exchange in ("partitions", "all_particles", "all_scores"):
+            for w2 in (False, True):
+                for rule in ("jacobi", "gauss_seidel"):
+                    args = (S, "banana", 42, gr["n"], gr["steps"], gr["step_size"], exchange,
+                            w2, "lp", rule)
+                    (_, blocks), host_s, launched = timed(lambda: drv.run_snapshots(*args))
+                    rel = _snapshots_dev(blocks, _driver_reference(drv, *args))
+                    expect = gr["steps"] * (per if rule == "gauss_seidel" else 1)
+                    bound = W2_SMALL_RTOL if w2 else SMALL_RTOL
+                    ok = launched == phi_counts(phi_small_d=expect) and rel <= bound
+                    worst[w2] = max(worst[w2], rel)
+                    rows.append({"shards": S, "exchange": exchange, "w2": w2,
+                                 "update_rule": rule,
+                                 "ms_per_step": 1e3 * host_s / gr["steps"],
+                                 "phi_small_d": launched["phi_small_d"], "expect": expect,
+                                 "max_rel_dev_vs_cpu_f64": rel, "ok": ok})
+    ok = all(r["ok"] for r in rows)
+    emit({"phase": "logreg_grid", "dataset": "banana", "fold": 42, "n": gr["n"],
+          "steps": gr["steps"], "step_size": gr["step_size"], "h": drv.W2_H, "runs": rows,
+          "max_rel_dev": {"no_w2": worst[False], "lp_w2": worst[True]},
+          "bound": {"no_w2": SMALL_RTOL, "lp_w2": W2_SMALL_RTOL},
+          "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise AssertionError(f"logreg grid: {[r for r in rows if not r['ok']]}")
+
+    # ---- full width, recorded: splice, 10,000 particles, 8 shards ---------
+    rc = LOGREG_RECORD
+    S, n = rc["shards"], rc["n"]
+    args = (S, rc["dataset"], rc["fold"], n, rc["steps"], rc["step_size"], "partitions",
+            False)
+    sfold = load_benchmark(rc["dataset"], rc["fold"])
+    d = 1 + sfold.x_train.shape[1]
+    init = init_particles_per_shard(0, n, d, S)
+
+    def unrecorded():
+        ds = DistSampler(S, logreg_logp, None, init,
+                         data=(sfold.x_train, sfold.t_train.reshape(-1)),
+                         exchange_particles=False, exchange_scores=False,
+                         include_wasserstein=False, device="cuda")
+        return ds, ds.run_steps(rc["steps"], rc["step_size"])
+
+    unrecorded()  # warm
+    (plain_ds, plain_final), plain_s, _ = timed(unrecorded)
+    (sampler, blocks), host_s, launched = timed(lambda: drv.run_snapshots(*args))
+    final = plain_final.cpu().numpy().reshape(S, n // S, d)
+    same = all((blocks[r][-1] == final[plain_ds.owned_block_index(r)]).all()
+               for r in range(S))
+    stats = sampler.last_run_stats
+    ok = same and launched == phi_counts(phi_big_d=rc["steps"])
+    emit({"phase": "logreg_north_star_record", "dataset": rc["dataset"], "fold": rc["fold"],
+          "n": n, "shards": S, "d": d, "exchange": "partitions", "steps": rc["steps"],
+          "ms_per_step": 1e3 * host_s / rc["steps"],
+          "ms_per_step_unrecorded": 1e3 * plain_s / rc["steps"],
+          "record_chunk_steps": history.record_chunk_steps(n, d),
+          "record_chunks_to_host": stats["record_chunks_to_host"],
+          "history_mb": sum(b.nbytes for b in blocks) / 2 ** 20,
+          "launches": launched, "final_equals_unrecorded": bool(same), "ok": ok})
+    if not ok:
+        raise AssertionError(f"logreg record: same={same} launches={launched}")
+
+    # ---- one Gauss–Seidel step at full width ------------------------------
+    gs = LOGREG_GS
+    S, n = gs["shards"], gs["n"]
+    for dataset, fold_id, kernel in (("banana", 42, "phi_small_d"), ("splice", 1, "phi_big_d")):
+        t_phase = time.perf_counter()
+        f = load_benchmark(dataset, fold_id)
+        d = 1 + f.x_train.shape[1]
+        start = init_particles_per_shard(0, n, d, S)
+
+        def gs_sampler(impl, dtype=torch.float32):
+            return DistSampler(S, logreg_logp, None, start.to(dtype),
+                               data=(f.x_train, f.t_train.reshape(-1)),
+                               exchange_particles=True, exchange_scores=False,
+                               include_wasserstein=False, update_rule="gauss_seidel",
+                               phi_impl=impl, device="cuda")
+
+        ds = gs_sampler("auto")
+        # the step under a CUDA-only trace, whose host cost is nil (6915.4
+        # against 6914.1 ms unprofiled, measured on one H100)
+        prof, _, launched = timed(lambda: device_profile(lambda: ds.make_step(gs["step_size"])))
+        got = ds.particles.clone()
+        ref = gs_sampler("torch").make_step(gs["step_size"])
+        scale = float(ref.abs().max())
+        rel = float((got - ref).abs().max()) / scale
+        row = {"phase": "logreg_gs_full_width", "dataset": dataset, "n": n, "shards": S,
+               "d": d, "exchange": "all_particles", "step_size": gs["step_size"],
+               "ms_per_step": prof.pop("profiled_wall_ms"), "launches": launched,
+               "rows_per_step": n // S, "max_rel_dev_vs_torch": rel}
+        ok = launched == phi_counts(**{kernel: n // S}) and rel <= TRAJ_RTOL
+        if d > cuda_svgd.SMALL_D:  # the self-pair: hold both against float64
+            exact = gs_sampler("torch", torch.float64).make_step(gs["step_size"])
+            row["max_rel_dev_vs_f64"] = float((got.double() - exact).abs().max()) / scale
+            row["torch_max_rel_dev_vs_f64"] = float((ref.double() - exact).abs().max()) / scale
+            ok = ok and row["max_rel_dev_vs_f64"] <= TRAJ_RTOL
+        row.update({f"{k}_per_step": v for k, v in prof.items()})
+        row.update(seconds=time.perf_counter() - t_phase, bound=TRAJ_RTOL, ok=ok)
+        emit(row)
+        if not ok:
+            raise AssertionError(f"logreg GS {dataset}: launches={launched} rel={rel}")
+
+
+def gmm_phase():
+    """The GMM driver's runs (``dist_svgd_torch/experiments/gmm.py``,
+    BASELINE config 2) through ``Sampler.run``: the driver's 50 particles
+    and config 2's 256, 500 steps of 1.0 each, Jacobi, then a short
+    Gauss–Seidel run, which by JAX's design calls the plain φ and launches
+    no kernel.  Each Jacobi run is held against the same run on the CPU in
+    float64 with the plain φ (TRAJ_RTOL: 500 steps of float32 rounding)
+    and its final moments against the mixture's (mean 0, std ~2.24).
+    Raises on a failed run."""
+    import torch
+
+    from dist_svgd_torch.experiments import gmm as drv
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.utils.rng import init_particles
+
+    rows = []
+    for n in GMM["n"]:
+        init = init_particles(drv.SEED, n, drv.D)
+        drv.make_sampler("cuda").run(n, 2, drv.STEP_SIZE, initial_particles=init.cuda())
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        t0 = time.perf_counter()
+        final, hist = drv.make_sampler("cuda").run(n, drv.NUM_ITER, drv.STEP_SIZE,
+                                                   initial_particles=init.cuda())
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launched = dict(cuda_svgd.launch_counts)
+        ref, _ = drv.make_sampler("cpu", phi_impl="torch").run(
+            n, drv.NUM_ITER, drv.STEP_SIZE, initial_particles=init.double(), record=False)
+        rel = float((final.cpu().double() - ref).abs().max() / ref.abs().max())
+        mean, std = float(final.mean()), float(final.std(unbiased=False))
+        ok = (launched == phi_counts(phi_small_d=drv.NUM_ITER) and rel <= TRAJ_RTOL
+              and tuple(hist.shape) == (drv.NUM_ITER + 1, n, 1)
+              and abs(mean) < 0.5 and 1.5 < std < 3.0)
+        rows.append(ok)
+        emit({"phase": "gmm", "n": n, "d": drv.D, "update_rule": "jacobi",
+              "steps": drv.NUM_ITER, "step_size": drv.STEP_SIZE,
+              "ms_per_step": 1e3 * host_s / drv.NUM_ITER, "launches": launched,
+              "final_mean": mean, "final_std": std, "truth": {"mean": 0.0, "std": 2.24},
+              "max_rel_dev_vs_cpu_f64": rel, "bound": TRAJ_RTOL, "ok": ok})
+    init = init_particles(drv.SEED, drv.N, drv.D)
+    torch.cuda.synchronize()
+    cuda_svgd.reset_launch_counts()
+    t0 = time.perf_counter()
+    final, _ = drv.make_sampler("cuda", update_rule="gauss_seidel").run(
+        drv.N, GMM["gs_steps"], drv.STEP_SIZE, initial_particles=init.cuda(), record=False)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launched = dict(cuda_svgd.launch_counts)
+    ok = launched == phi_counts() and bool(torch.isfinite(final).all())
+    rows.append(ok)
+    emit({"phase": "gmm", "n": drv.N, "d": drv.D, "update_rule": "gauss_seidel",
+          "steps": GMM["gs_steps"], "ms_per_step": 1e3 * host_s / GMM["gs_steps"],
+          "launches": launched, "final_mean": float(final.mean()),
+          "final_std": float(final.std(unbiased=False)), "ok": ok})
+    if not all(rows):
+        raise AssertionError(f"gmm: {rows}")
 
 
 def autotune_phase():
@@ -1430,6 +1796,7 @@ def main():
     wide_d_profile_rows()
     ot_lanes_f64_rows(timing)
     ct_rescale_rows()
+    gs_probe_rows()
 
     # ---- 4. north star ---------------------------------------------------
     ns = NORTH_STAR
@@ -1706,6 +2073,10 @@ def main():
     # ---- 13. the autotune tool and the φ policy's gates ---------------------
     launches_tool = autotune_phase()
     auto_gates_phase()
+
+    # ---- 14. the reference's entry points (BASELINE configs 1-2) -----------
+    logreg_phases()
+    gmm_phase()
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

@@ -9,18 +9,25 @@ emulates them on one chip under ``vmap``.
 Ported: the constructor with the JAX signature and defaults, the
 drop-remainder policy (particles and data rows), the importance scale
 ``N_global / N_local``, the three exchange modes with the gather
-implementation and the Jacobi update, per-shard per-step minibatches
+implementation, the Jacobi update and the reference's literal Gauss–Seidel
+sweep (``update_rule='gauss_seidel'``, with or without the W2 term; any
+kernel callable besides the RBF), per-shard per-step minibatches
 (``batch_size``, drawn from a stream keyed by ``(seed, t)``), a separate
 unscaled prior (``log_prior``), sharded data (``shard_data``), the
 per-step median bandwidth (``kernel='median_step'``), the
 Wasserstein/JKO term (host LP through ``make_step``, Sinkhorn through
 ``make_step`` and ``run_steps``, both W2 pairings, the carried Sinkhorn
-dual), ``make_step``, monolithic ``run_steps(record=False)``, and
-``state_dict`` / ``load_state_dict`` for the particles, the step counter,
-the minibatch stream's seed, the W2 snapshots and duals and the topology
-manifest.  Every other option raises ``NotImplementedError``
-naming its ROADMAP item, so a call that runs here means what it means in
-JAX.
+dual), ``make_step``, monolithic ``run_steps`` with or without the history
+(``record=True``, moved to the host in
+:func:`~dist_svgd_torch.utils.history.record_chunk_steps` chunks), the
+rotating ``partitions`` ownership (:meth:`DistSampler.owned_block_index`),
+and ``state_dict`` / ``load_state_dict`` for the particles, the step
+counter, the minibatch stream's seed, the W2 snapshots and duals and the
+topology manifest.  Every other option raises ``NotImplementedError``
+naming its ROADMAP item — the ring, the lagged exchange and the chunked
+``run_steps`` (A5), restoring a W2 snapshot stack of another shard layout
+(A4), ``kernel_approx`` (A6), an explicit mesh (A10) — so a call that runs
+here means what it means in JAX.
 
 The W2 snapshot semantics are the reference's (warty) ones: in exchanged
 modes each shard's ``previous`` is the pre-update gathered set with only its
@@ -50,6 +57,7 @@ from dist_svgd_torch.parallel.exchange import (
 )
 from dist_svgd_torch.parallel.mesh import merge, split
 from dist_svgd_torch.utils import checkpoint as _ckpt
+from dist_svgd_torch.utils import history as _history
 from dist_svgd_torch.utils.platform import resolve_device
 from dist_svgd_torch.utils.rng import minibatch_indices
 
@@ -83,10 +91,13 @@ class DistSampler:
         logp: ``logp(theta, data_local)`` scalar log-density in torch.
         kernel: ``None`` (the reference's ``RBF(1)``), an :class:`RBF`,
             ``'median'`` — an RBF at the median-heuristic bandwidth of the
-            initial particles, resolved once here — or ``'median_step'`` /
+            initial particles, resolved once here — ``'median_step'`` /
             an :class:`AdaptiveRBF`: the bandwidth re-estimated every step
             from each shard's interaction set (the gathered set in the
-            exchanged modes, the shard's own block in ``partitions``).
+            exchanged modes, the shard's own block in ``partitions``;
+            Jacobi only) — or any scalar kernel callable ``kernel(a, b)``
+            in torch, whose φ is the plain generic form (``phi_impl``
+            ``'auto'`` or ``'torch'``).
         particles: ``(n, d)`` initial particles (tensor or array); truncated
             to ``S · (n // S)`` rows.  Their dtype is the run's dtype.
         data: optional tensor / tuple / list / dict of arrays with a common
@@ -100,6 +111,14 @@ class DistSampler:
         include_wasserstein: add the W2/JKO proximal term each step (the
             JAX default ``True``); it waits for a previous snapshot, so the
             first-ever step has none.
+        update_rule: ``'jacobi'`` (every shard moves its block against
+            pre-update values) or ``'gauss_seidel'`` — the reference's
+            literal in-place sweep (dsvgd/distsampler.py:194-200), each
+            shard sweeping its own rows inside its private view, one φ call
+            a row for all shards (``parallel/exchange.py:_build_gs_step``);
+            for small-n parity with the reference.  It requires the gather
+            implementation, no ``batch_size``, no ``kernel_approx`` and a
+            fixed bandwidth, as in JAX.
         wasserstein_solver: ``'lp'`` (host LP, reference parity;
             :meth:`make_step` only) or ``'sinkhorn'`` (entropic OT on the
             device; ``sinkhorn_eps`` relative regulariser, ``sinkhorn_iters``
@@ -136,7 +155,7 @@ class DistSampler:
         device: ``None`` → the card (raises without CUDA); ``'cpu'`` for the
             plain path.
         donate_carries: accepted for signature parity; it has no effect
-            without a compiled scan.  Every other option outside the slice
+            without a compiled scan.  Every other option outside the port
             raises ``NotImplementedError``.
     """
 
@@ -184,29 +203,39 @@ class DistSampler:
         if w2_pairing not in ("auto", "global", "block"):
             raise ValueError(f"unknown w2_pairing {w2_pairing!r}")
         if update_rule == "gauss_seidel":
-            raise _not_ported("update_rule='gauss_seidel'", "A10")
+            # the sweep exists for literal reference parity (JAX's rules)
+            if exchange_impl == "ring":
+                raise ValueError(
+                    "update_rule='gauss_seidel' requires exchange_impl='gather' "
+                    "(the sweep mutates a materialised local view)")
+            if batch_size is not None:
+                raise ValueError("minibatching supports only the jacobi update rule")
+            if kernel_approx is not None:
+                raise ValueError(
+                    "kernel_approx requires update_rule='jacobi': the Gauss-Seidel "
+                    "sweep exists for literal reference parity, which an approximate "
+                    "kernel cannot provide")
+            if (isinstance(kernel, str) and kernel == "median_step") or isinstance(
+                    kernel, AdaptiveRBF):
+                raise ValueError("kernel='median_step' requires update_rule='jacobi'")
         if exchange_impl == "ring":
-            raise _not_ported("exchange_impl='ring'", "A10")
+            raise _not_ported("exchange_impl='ring'", "A5")
         if exchange_every > 1:
-            raise _not_ported("exchange_every > 1 (the lagged exchange)", "A10")
+            raise _not_ported("exchange_every > 1 (the lagged exchange)", "A5")
         if shard_data and not exchange_particles:
             raise ValueError("shard_data is unsupported in partitions mode")
         if isinstance(seed, bool) or not isinstance(seed, (int, np.integer)):
             raise ValueError(f"seed must be an int (the minibatch stream's root), got {seed!r}")
         if kernel_approx is not None:
-            raise _not_ported("kernel_approx", "A11")
+            raise _not_ported("kernel_approx", "A6")
         if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
             raise _not_ported(
                 "an explicit mesh (the torch.distributed backend; the port "
-                "emulates the shards on one device)", "A6")
+                "emulates the shards on one device)", "A10")
 
         self._device = resolve_device(device)
-        if phi_impl == "cuda" and self._device.type != "cuda":
-            raise ValueError(
-                "phi_impl='cuda' launches the hand kernel and needs the card; "
-                "use phi_impl='auto' or 'torch' on the CPU"
-            )
         self._num_shards = int(num_shards)
+        self._update_rule = update_rule
         self._logp = logp
         self._phi_impl = phi_impl
         self._shard_data = bool(shard_data)
@@ -261,9 +290,19 @@ class DistSampler:
             num_shards=self._num_shards,
             score_scale=self._score_scale,
             phi_impl=phi_impl,
+            update_rule=update_rule,
             **self._data_kwargs(),
         )
+        # after the step's build, which refuses a kernel the φ backend
+        # cannot take
+        if phi_impl == "cuda" and self._device.type != "cuda":
+            raise ValueError(
+                "phi_impl='cuda' launches the hand kernel and needs the card; "
+                "use phi_impl='auto' or 'torch' on the CPU"
+            )
         self._t = 0  # step counter (drives the partitions rotation)
+        #: Execution report of the most recent :meth:`run_steps` call.
+        self.last_run_stats = None
 
         self._include_wasserstein = bool(include_wasserstein)
         self._wasserstein_solver = wasserstein_solver
@@ -364,6 +403,25 @@ class DistSampler:
         """The resolved Wasserstein pairing, ``'global'`` or ``'block'``."""
         return self._w2_pairing
 
+    def owned_block_index(self, rank: int, t: Optional[int] = None) -> int:
+        """Logical block owned by (updated against the data slice of) shard
+        ``rank`` at step counter ``t`` (default: now): ``(rank − t) mod S``
+        under the ``partitions`` rotation (reference
+        dsvgd/distsampler.py:148-150), ``rank`` otherwise.  An explicit
+        ``t`` reads a recorded history: snapshot ``t`` of
+        ``run_steps(record=True)`` was taken at counter ``t0 + t``."""
+        if self._mode == PARTITIONS:
+            return (rank - (self._t if t is None else t)) % self._num_shards
+        return rank
+
+    def owned_block(self, rank: int) -> torch.Tensor:
+        """The block now updated against data shard ``rank`` — the
+        reference's per-rank ``.particles`` view with the ring's rotating
+        ownership (dsvgd/distsampler.py:53-56, 148-150)."""
+        s = self._particles_per_shard
+        b = self.owned_block_index(rank)
+        return self._particles[b * s:(b + 1) * s]
+
     def _prev_shape(self) -> tuple:
         """Shape of the ``previous`` snapshot stack: block-sized under block
         pairing, global-sized under the mixed-snapshot pairing."""
@@ -414,7 +472,7 @@ class DistSampler:
         :class:`~dist_svgd_torch.utils.checkpoint.TopologyMismatch`.  A save
         at another shard count restores as is when it holds no W2 snapshot
         (the particle array is global); a snapshot stack of another layout
-        would need JAX's reshard-on-restore (ROADMAP A8) and is refused.  A
+        would need JAX's reshard-on-restore (ROADMAP A4) and is refused.  A
         dual that does not match its snapshot raises ``ValueError``; a save
         under the other ``w2_pairing`` warns, as in JAX.  A saved
         ``rng_batch_seed`` replaces the constructed seed, so a minibatched
@@ -444,7 +502,7 @@ class DistSampler:
         if previous is not None and previous.shape != self._prev_shape():
             raise _not_ported(
                 f"restoring a W2 snapshot stack {tuple(previous.shape)} saved under "
-                f"another shard layout (this sampler's is {self._prev_shape()})", "A8")
+                f"another shard layout (this sampler's is {self._prev_shape()})", "A4")
         if w2_g is not None and w2_g.shape != self._g_shape():
             raise ValueError(
                 f"checkpoint 'w2_g' dual {tuple(w2_g.shape)} != expected "
@@ -494,6 +552,7 @@ class DistSampler:
                         num_shards=self._num_shards, score_scale=self._score_scale,
                         phi_impl=self._phi_impl, w2_pairing=self._w2_pairing,
                         wasserstein_solver=self._wasserstein_solver,
+                        update_rule=self._update_rule,
                         sinkhorn_impl=self._sinkhorn_impl, **self._sinkhorn,
                         **self._data_kwargs())
                 blocks, self._previous, self._w2_g = self._w2_step(
@@ -520,25 +579,51 @@ class DistSampler:
         hops_per_dispatch: Optional[int] = None,
         max_passes_per_dispatch: Optional[int] = None,
         time_dispatches: bool = False,
-    ) -> torch.Tensor:
+    ):
         """``num_steps`` distributed SVGD steps, monolithic — the same
         trajectory as ``num_steps`` calls of :meth:`make_step`.  Returns the
-        final particles.  With the W2 term on, this requires
+        final particles, or ``(final, history)`` with ``record=True``:
+        ``history`` is the ``(num_steps, n, d)`` stack of pre-update
+        snapshots (the state before each step — the reference's convention;
+        append ``final`` for the last one).  The history goes to the host
+        in chunks of :func:`~dist_svgd_torch.utils.history.
+        record_chunk_steps` snapshots (looked up at run time), so the device
+        never holds more than one chunk; a run longer than one chunk
+        returns a numpy array, a shorter one a tensor on the device, as in
+        JAX.  With the W2 term on, this requires
         ``wasserstein_solver='sinkhorn'`` (the host LP is ``make_step``-only,
-        as in JAX).  ``record=True`` (history) and the chunking knobs
-        (``dispatch_budget`` / ``hops_per_dispatch`` /
-        ``max_passes_per_dispatch``) are not ported; ``pairs_per_sec`` and
-        ``time_dispatches`` only act together with them in JAX."""
+        as in JAX).  The chunking knobs (``dispatch_budget`` /
+        ``hops_per_dispatch`` / ``max_passes_per_dispatch``) are ROADMAP
+        A5; ``pairs_per_sec`` and ``time_dispatches`` only act together
+        with them in JAX.  Each call writes :attr:`last_run_stats`."""
         if self._include_wasserstein and self._wasserstein_solver != "sinkhorn":
             raise ValueError(
                 "run_steps with the Wasserstein term requires "
                 "wasserstein_solver='sinkhorn'; the host-LP snapshot path is "
                 "make_step-only")
-        if record:
-            raise _not_ported("run_steps(record=True) (history recording)", "A8")
         if (dispatch_budget is not None or hops_per_dispatch is not None
                 or max_passes_per_dispatch is not None):
-            raise _not_ported("chunked run_steps (dispatch_budget / hops / passes)", "A10")
+            raise _not_ported("chunked run_steps (dispatch_budget / hops / passes)", "A5")
+        chunk = _history.record_chunk_steps(self._num_particles, self._d,
+                                            self._particles.element_size())
+        spill = num_steps > chunk  # a history longer than one chunk goes to the host
+        held, host = [], []
         for _ in range(num_steps):
+            if record:
+                held.append(self._particles)
+                if spill and len(held) == chunk:
+                    host.append(torch.stack(held).cpu().numpy())
+                    held = []
             self._advance(step_size, h)
-        return self._particles
+        if host and held:  # the last, partial chunk
+            host.append(torch.stack(held).cpu().numpy())
+        self.last_run_stats = {"execution": "eager", "num_steps": num_steps,
+                               "num_dispatches": num_steps, "dispatches_per_step": 1.0,
+                               "record_chunks_to_host": len(host)}
+        if not record:
+            return self._particles
+        if host:
+            return self._particles, np.concatenate(host, axis=0)
+        if not held:  # no step: an empty history
+            return self._particles, self._particles.new_empty((0, *self._particles.shape))
+        return self._particles, torch.stack(held)

@@ -22,7 +22,7 @@ It prints the metrics as one JSON line and writes ``metrics.json`` and
 ``particles.npy`` under ``--results-dir`` (default ``build/results/``).
 Without ``--data-dir`` (or without ``<name>.npz`` there) the datasets are
 the loader's deterministic synthetic stand-ins with the real feature
-counts.  ``--exchange-every > 1`` (the lagged exchange) is ROADMAP A10.
+counts.  ``--exchange-every > 1`` (the lagged exchange) is ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ def run(dataset="boston", split=0, nproc=1, nparticles=500, n_hidden=50, niter=1
                              f"--exchange-every ({exchange_every})")
         raise NotImplementedError(
             "--exchange-every > 1 (the lagged exchange) is not ported to PyTorch yet "
-            "(ROADMAP A10)")
+            "(ROADMAP A5)")
     dev = resolve_device(device)
     sp = load_uci_regression(dataset, split, data_path=data_dir)
     n_features = sp.x_train.shape[1]

@@ -19,8 +19,8 @@ reference's ``(log α, w)``, d = 55.
 
 ``--nproc 1`` runs the single-device ``Sampler`` on all the training rows.
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: the checkpoint, log and profile cadences (A8) and
-``--exchange-every > 1`` (A10).
+ROADMAP item: the checkpoint, log and profile cadences (A4) and
+``--exchange-every > 1`` (A5).
 """
 
 from __future__ import annotations
@@ -146,11 +146,11 @@ def run(nrows=50_000, nproc=8, nparticles=10_000, niter=200, stepsize=1e-4, batc
     if checkpoint_every or resume or log_every or profile_dir or checkpoint_dir or metrics_path:
         raise NotImplementedError(
             "checkpoint / log / profile cadences are not ported to PyTorch yet "
-            "(ROADMAP A8)")
+            "(ROADMAP A4)")
     if exchange_every != 1:
         raise NotImplementedError(
             "--exchange-every > 1 (the lagged exchange) is not ported to PyTorch "
-            "yet (ROADMAP A10)")
+            "yet (ROADMAP A5)")
     sampler, (x_test, t_test), info = make_sampler(
         nrows, nproc, nparticles, batch_size, exchange, shard_data, seed, phi_impl,
         bandwidth, device)

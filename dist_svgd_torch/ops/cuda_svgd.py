@@ -655,9 +655,10 @@ def _pairs(y: torch.Tensor, x: torch.Tensor) -> int:
     return y.numel() // y.shape[-1] * x.shape[-2]
 
 
-def _plain_phi_fn(kernel: RBF) -> Callable:
+def _plain_phi_fn(kernel) -> Callable:
     """The plain φ of ``'torch'``: ``phi``, or ``phi_blockwise`` at or
-    above :data:`TORCH_BLOCKWISE_MIN_PAIRS`."""
+    above :data:`TORCH_BLOCKWISE_MIN_PAIRS` (an RBF or any kernel
+    callable)."""
 
     def torch_fn(y, x, s):
         if _pairs(y, x) >= TORCH_BLOCKWISE_MIN_PAIRS:
@@ -696,8 +697,13 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
       already stochastic (minibatches).
     - ``'torch_bf16'`` — the bf16 tiers' plain versions on any device.
 
-    ``kernel`` is an :class:`~dist_svgd_torch.ops.kernels.RBF` or an
-    :class:`~dist_svgd_torch.ops.kernels.AdaptiveRBF`.  For the latter the
+    ``kernel`` is an :class:`~dist_svgd_torch.ops.kernels.RBF`, an
+    :class:`~dist_svgd_torch.ops.kernels.AdaptiveRBF` or any scalar kernel
+    callable ``kernel(a, b)`` in torch.  Any other kernel than the RBF has
+    no hand kernel: ``'auto'`` and ``'torch'`` take the plain φ's generic
+    form (:func:`~dist_svgd_torch.ops.svgd.phi`), as JAX's ``'auto'`` takes
+    its ``'xla'`` φ, and the kernel tiers raise ``ValueError``, as JAX's
+    ``'pallas'`` does.  For an :class:`AdaptiveRBF` the
     returned function estimates the median bandwidth h from the interaction
     set on every call (:func:`~dist_svgd_torch.ops.kernels.
     median_bandwidth_approx`; a lane with its own ``(S, m, d)`` set takes its
@@ -725,10 +731,11 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
 
         return adaptive_fn
     if not isinstance(kernel, RBF):
-        raise NotImplementedError(
-            f"kernel {kernel!r} is not ported: the port's φ takes an RBF or an "
-            "AdaptiveRBF (arbitrary kernel callables are ROADMAP A2)"
-        )
+        if phi_impl in ("auto", "torch"):
+            return _plain_phi_fn(kernel)
+        raise ValueError(
+            f"phi_impl={phi_impl!r} requires an RBF kernel, got {kernel!r}: the hand "
+            "kernels compute the RBF's φ; use phi_impl='auto' or 'torch'")
     bw = kernel.bandwidth
     if phi_impl == "torch":
         return _plain_phi_fn(kernel)

@@ -4,14 +4,17 @@ Counterpart of ``dist_svgd_tpu/ops/kernels.py``: ``squared_distances`` (the
 ``x² + y² − 2·x·yᵀ`` form, clamped at 0), ``RBF``, the median-heuristic
 ``median_bandwidth`` that ``kernel='median'`` resolves once, and the
 sort-free per-step estimate ``median_bandwidth_approx`` behind
-``kernel='median_step'`` (:class:`AdaptiveRBF`), and the drivers' mapping
-of ``--bandwidth`` onto these (:func:`resolve_bandwidth_kernel`).  Every
-function accepts leading batch dimensions (the emulated shard axis).
+``kernel='median_step'`` (:class:`AdaptiveRBF`), the drivers' mapping
+of ``--bandwidth`` onto these (:func:`resolve_bandwidth_kernel`), and
+:func:`kernel_matrix` / :func:`kernel_grad_matrix` for any scalar kernel
+callable.  Every RBF function accepts leading batch dimensions (the
+emulated shard axis).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 
@@ -140,3 +143,24 @@ def resolve_bandwidth_kernel(bandwidth: str):
         return bandwidth
     h = float(bandwidth)
     return None if h == 1.0 else RBF(h)
+
+
+def kernel_matrix(kernel: Callable, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Gram matrix ``K[i, j] = k(x_i, y_j)`` ``(m, k)`` of the rows of ``x``
+    ``(m, d)`` and ``y`` ``(k, d)`` for a scalar kernel callable
+    ``kernel(a, b)`` written in torch, through ``torch.func.vmap``; a kernel
+    with a ``matrix`` method (an :class:`RBF`) computes it itself."""
+    if hasattr(kernel, "matrix"):
+        return kernel.matrix(x, y)
+    vmap = torch.func.vmap
+    return vmap(lambda xi: vmap(lambda yj: kernel(xi, yj))(y))(x)
+
+
+def kernel_grad_matrix(kernel: Callable, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``G[i, j] = ∇_{x_i} k(x_i, y_j)`` as an ``(m, k, d)`` tensor, by
+    ``torch.func.grad`` of the scalar kernel callable (the reference's
+    per-pair ``_dkernel``).  Only the generic φ builds it; the RBF φ never
+    does."""
+    vmap = torch.func.vmap
+    dk = torch.func.grad(kernel, argnums=0)
+    return vmap(lambda xi: vmap(lambda yj: dk(xi, yj))(y))(x)

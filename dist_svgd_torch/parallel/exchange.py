@@ -2,7 +2,8 @@
 the emulated shard axis.
 
 Counterpart of ``dist_svgd_tpu/parallel/exchange.py`` (gather
-implementation, Jacobi update).  Reference semantics:
+implementation; the Jacobi update, and the reference's literal
+Gauss–Seidel sweep, :func:`_build_gs_step`).  Reference semantics:
 
 - ``all_particles`` — every shard gathers the full particle set and scores
   all n particles on its **local data slice**, importance-scaled by
@@ -127,6 +128,14 @@ def _builder_prelude(logp, kernel, phi_impl: str, num_shards: int, log_prior=Non
     return phi_fn, shared_scores, own_scores, prior_scores
 
 
+def _with_prior(prior_scores, scores, thetas):
+    """``scores`` plus the prior gradient of ``thetas`` row by row (nothing
+    to add without a separate prior)."""
+    if prior_scores is None:
+        return scores
+    return scores + prior_scores(thetas.reshape(-1, thetas.shape[-1])).reshape(thetas.shape)
+
+
 def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
                 phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
                 log_prior=None, n_local_data: int = 0):
@@ -151,9 +160,7 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
         return scores if mb_scale is None else mb_scale * scores
 
     def with_prior(scores, thetas):
-        if prior_scores is None:
-            return scores
-        return scores + prior_scores(thetas.reshape(-1, thetas.shape[-1])).reshape(thetas.shape)
+        return _with_prior(prior_scores, scores, thetas)
 
     def core(blocks, data, t: int, idx: Optional[torch.Tensor] = None):
         data_local = resolve_data(data, t)
@@ -175,6 +182,67 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
     return core
 
 
+def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
+                   phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
+                   log_prior=None, n_local_data: int = 0):
+    """The reference's literal Gauss–Seidel step, all shards at once (JAX
+    ``parallel/exchange.py:_build_gs_step``; reference
+    dsvgd/distsampler.py:194-200, ``tests/_oracle.py``).
+
+    Each shard holds a private view — the gathered set in the exchanged
+    modes, its own block in ``partitions`` — and sweeps its owned rows in
+    order inside it, row ``i + 1`` seeing row ``i``'s new value.  Every row
+    re-scores the whole view at its current values on the shard's data
+    (importance-scaled, prior added once), except in ``all_scores``, whose
+    exchanged scores are frozen at their pre-update psum for the whole step.
+    Only the shard's own block is committed: the other rows of a view stay
+    at their pre-exchange values.  The S shards are independent, so row
+    ``i`` of every shard moves in one φ call, ``phi_fn(y (S, 1, d), view
+    (S, m, d), scores)``: one φ launch a row and step, not S.  A
+    ``w_grad`` ``(S, s, d)`` (the W2 gradient, solved once from the
+    pre-sweep blocks) is applied row by row, ``δ_i = φ + h·w_grad_i``.
+
+    Minibatches are refused (``ValueError``), as in JAX.  Returns
+    ``gs(blocks, data, t, step_size, w_grad=None, h=1.0) -> new_blocks``."""
+    if mode not in MODES:
+        raise ValueError(f"unknown exchange mode {mode!r}")
+    if batch_size is not None:
+        raise ValueError("minibatching supports only the jacobi update rule")
+    phi_fn, shared_scores, own_scores, prior_scores = _builder_prelude(
+        logp, kernel, phi_impl, num_shards, log_prior, None, n_local_data)
+    resolve_data = _shard_data_resolver(mode, num_shards, shard_data)
+
+    def gs(blocks, data, t: int, step_size: float, w_grad=None, h: float = 1.0):
+        S, s, d = blocks.shape
+        data_local = resolve_data(data, t)
+        lanes = torch.arange(S, device=blocks.device)
+        if mode == PARTITIONS:
+            view, lo = blocks.clone(), torch.zeros_like(lanes)
+        else:
+            view, lo = all_gather(blocks).repeat(S, 1, 1), lanes * s  # (S, n, d)
+        if mode == ALL_SCORES:
+            gathered = view[0]
+            frozen = _with_prior(prior_scores, psum(shared_scores(gathered, data_local)),
+                                 gathered).expand_as(view)
+        for i in range(s):
+            if mode == ALL_SCORES:
+                scores = frozen
+            else:  # fresh scores of the view as it stands
+                scores = _with_prior(prior_scores, score_scale * own_scores(view, data_local),
+                                     view)
+            rows = lo + i
+            y = view[lanes, rows]  # (S, d), pre-update
+            delta = phi_fn(y[:, None], view, scores)[:, 0]
+            if w_grad is not None:
+                delta = delta + h * w_grad[:, i]
+            view[lanes, rows] = y + step_size * delta
+        if mode == PARTITIONS:
+            return view
+        return view.view(S, S, s, d)[lanes, lanes]  # each shard's own block
+
+    return gs
+
+
 def make_shard_step(
     logp: Callable,
     kernel,
@@ -186,6 +254,7 @@ def make_shard_step(
     batch_size: Optional[int] = None,
     log_prior: Optional[Callable] = None,
     n_local_data: int = 0,
+    update_rule: str = "jacobi",
 ) -> Callable:
     """Build the batched SVGD step for one exchange strategy.
 
@@ -207,13 +276,21 @@ def make_shard_step(
             ``n_local_data`` local rows, scaled by ``n_local_data / B``.
         log_prior: optional ``log_prior(theta)``, added once and unscaled.
         n_local_data: data rows per shard.
+        update_rule: ``'jacobi'`` (every shard moves its block against
+            pre-update values) or ``'gauss_seidel'`` (the literal sweep,
+            :func:`_build_gs_step`; no minibatch).
 
     Returns ``step(blocks, data, t, step_size, idx=None) -> new_blocks``:
-    one Jacobi update of all ``(S, s, d)`` blocks (every shard moves its
-    block against pre-update values); ``t`` is the 1-based step counter that
-    drives the ``partitions`` rotation; ``idx`` the step's ``(S, B)``
-    minibatch indices.
+    one update of all ``(S, s, d)`` blocks; ``t`` is the 1-based step
+    counter that drives the ``partitions`` rotation; ``idx`` the step's
+    ``(S, B)`` minibatch indices.
     """
+    if update_rule == "gauss_seidel":
+        gs = _build_gs_step(logp, kernel, mode, num_shards, score_scale, phi_impl,
+                            shard_data, batch_size, log_prior, n_local_data)
+        return lambda blocks, data, t, step_size, idx=None: gs(blocks, data, t, step_size)
+    if update_rule != "jacobi":
+        raise ValueError(f"unknown update_rule {update_rule!r}")
     core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
                        shard_data, batch_size, log_prior, n_local_data)
 
@@ -249,9 +326,10 @@ def make_shard_step_sinkhorn_w2(
     batch_size: Optional[int] = None,
     log_prior: Optional[Callable] = None,
     n_local_data: int = 0,
+    update_rule: str = "jacobi",
 ) -> Callable:
     """The batched SVGD step with the Wasserstein/JKO term, solved inside the
-    step from carried snapshot state (Jacobi, gather implementation).
+    step from carried snapshot state (gather implementation).
 
     The W2 gradient pairs each shard's **pre-update** block with its
     ``previous`` snapshot, and the update is ``new = block + ε·(δ +
@@ -277,6 +355,12 @@ def make_shard_step_sinkhorn_w2(
     ``n_local_data`` act as in :func:`make_shard_step`, so the W2 term
     composes with minibatches.
 
+    ``update_rule='gauss_seidel'`` composes the term with the literal sweep
+    as JAX does: the W2 gradient is solved once a step from the pre-sweep
+    blocks and applied row by row (:func:`_build_gs_step`); the snapshot is
+    built from the pre-sweep gather with the swept own block patched in, the
+    same rule as the Jacobi step's.
+
     Returns ``step(blocks, prev, g_dual, data, t, step_size, h, idx=None) ->
     (new_blocks, new_prev, new_g)``; ``prev=None`` is a first-ever step,
     which has no W2 term (reference: the term waits for a snapshot) and
@@ -286,8 +370,14 @@ def make_shard_step_sinkhorn_w2(
         raise ValueError(f"unknown w2_pairing {w2_pairing!r}")
     if wasserstein_solver not in ("lp", "sinkhorn"):
         raise ValueError(f"unknown wasserstein_solver {wasserstein_solver!r}")
-    core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
-                       shard_data, batch_size, log_prior, n_local_data)
+    if update_rule == "gauss_seidel":
+        gs = _build_gs_step(logp, kernel, mode, num_shards, score_scale, phi_impl,
+                            shard_data, batch_size, log_prior, n_local_data)
+    elif update_rule == "jacobi":
+        core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
+                           shard_data, batch_size, log_prior, n_local_data)
+    else:
+        raise ValueError(f"unknown update_rule {update_rule!r}")
     block_pair = w2_block_pairing(mode, w2_pairing, num_shards)
 
     def solve(blocks, prev_for, g_dual):
@@ -304,13 +394,17 @@ def make_shard_step_sinkhorn_w2(
             tol=sinkhorn_tol, g_init=g_init, return_g=True, impl=sinkhorn_impl)
 
     def step(blocks, prev, g_dual, data, t: int, step_size: float, h: float, idx=None):
-        delta = core(blocks, data, t, idx)
-        g_out = g_dual
+        w_grad, g_out = None, g_dual
         if prev is not None:
             prev_for = torch.roll(prev, -1, dims=0) if block_pair else prev
             w_grad, g_out = solve(blocks, prev_for, g_dual)
-            delta = delta + h * w_grad
-        new = blocks + step_size * delta
+        if update_rule == "gauss_seidel":
+            new = gs(blocks, data, t, step_size, w_grad, h)
+        else:
+            delta = core(blocks, data, t, idx)
+            if w_grad is not None:
+                delta = delta + h * w_grad
+            new = blocks + step_size * delta
         if block_pair:
             return new, new, g_out
         S, s, d = blocks.shape

@@ -5,7 +5,7 @@ Counterpart of the ``vmap(axis_name=...)`` backend of
 leading batch axis written out.  A global ``(n, ...)`` array splits into
 ``(S, n/S, ...)`` blocks; the all-gather of the blocks is the global array;
 a psum is a sum over the shard axis.  The ``torch.distributed`` backend (one
-process per card) is later work (ROADMAP A6).
+process per card) is later work (ROADMAP A10).
 """
 
 from __future__ import annotations

@@ -7,16 +7,17 @@ one card.  A step is the scores ``torch.func.vmap(torch.func.grad(logp))``
 of all n particles (full data, or the step's minibatch scaled ``N / B``
 with a separate unscaled prior), then φ through the φ-backend policy
 (:func:`~dist_svgd_torch.ops.cuda_svgd.resolve_phi_fn`, one lane), then the
-Jacobi update ``parts + ε·φ``.
+Jacobi update ``parts + ε·φ``.  ``update_rule='gauss_seidel'`` runs the
+reference's literal sweep instead
+(:func:`~dist_svgd_torch.ops.svgd.svgd_step_sequential`).
 
 History follows the reference's timestep convention: a snapshot *before*
 each update at timesteps ``0..num_iter-1`` plus the final state at
 ``num_iter``.
 
 Not ported yet, each refused with ``NotImplementedError`` naming its ROADMAP
-item: ``update_rule='gauss_seidel'`` (A3, the sequential sweep),
-``kernel_approx`` and ``approx_residual`` (A11), and ``dispatch_budget``
-(A8).
+item: ``kernel_approx`` and ``approx_residual`` (A6), and
+``dispatch_budget`` (A5).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth
+from dist_svgd_torch.ops.svgd import svgd_step_sequential
 from dist_svgd_torch.parallel.exchange import tree_map
 from dist_svgd_torch.utils import history as _history
 from dist_svgd_torch.utils.history import history_to_dataframe
@@ -48,10 +50,19 @@ class Sampler:
             ``(d,)``; ``logp(theta, data_batch)`` when ``data`` is given.
         kernel: ``None`` (the reference's ``RBF(1)``), an :class:`RBF`,
             ``'median'`` (an RBF at the median-heuristic bandwidth of each
-            run's initial particles) or ``'median_step'`` / an
+            run's initial particles), ``'median_step'`` / an
             :class:`AdaptiveRBF` (the bandwidth re-estimated from the current
-            particles every step).
-        update_rule: ``'jacobi'``; ``'gauss_seidel'`` is ROADMAP A3.
+            particles every step; Jacobi only) or any scalar kernel callable
+            ``kernel(a, b)`` in torch (the plain φ's generic form).
+        update_rule: ``'jacobi'`` or ``'gauss_seidel'``, the reference's
+            in-place sweep (dsvgd/sampler.py:62-68) for small-n parity: row
+            ``i`` moves against the particles as they stand, every row
+            re-scoring all of them.  As in JAX, the sweep calls the plain
+            :func:`~dist_svgd_torch.ops.svgd.phi` row by row, not the φ
+            policy, so it launches no hand kernel on the card — the JAX
+            program's design, not a fallback; ``phi_impl`` ``'cuda'`` /
+            ``'cuda_bf16'``, ``batch_size``, ``'median_step'`` and
+            ``kernel_approx`` are refused with it (``ValueError``).
         data: optional tensor / tuple / list / dict of arrays with a common
             leading row axis, passed to ``logp`` (full, or the step's
             minibatch).  Floating leaves are cast to the run's dtype.
@@ -67,7 +78,7 @@ class Sampler:
         seed: the default ``seed`` of :meth:`run` and :meth:`sample`: it
             draws the initial particles and keys the minibatch stream, step
             ``t`` drawing from ``(seed, t)`` alone.
-        kernel_approx: ROADMAP A11 (must be ``None``).
+        kernel_approx: ROADMAP A6 (must be ``None``).
     """
 
     def __init__(
@@ -93,22 +104,28 @@ class Sampler:
         if isinstance(kernel, str) and kernel not in ("median", "median_step"):
             raise ValueError(f"unknown kernel {kernel!r}")
         if update_rule != "jacobi":
-            if kernel == "median_step" or isinstance(kernel, AdaptiveRBF):
+            if (isinstance(kernel, str) and kernel == "median_step") or isinstance(
+                    kernel, AdaptiveRBF):
                 raise ValueError("kernel='median_step' requires update_rule='jacobi'")
-            raise _not_ported("update_rule='gauss_seidel' (svgd_step_sequential)", "A3")
+            if phi_impl in ("cuda", "cuda_bf16"):
+                # the sweep never calls the φ policy, so a forced kernel
+                # would silently not run
+                raise ValueError(f"phi_impl={phi_impl!r} requires update_rule='jacobi'")
+            if kernel_approx is not None:
+                raise ValueError(
+                    "kernel_approx requires update_rule='jacobi': the Gauss-Seidel "
+                    "sweep exists for literal reference parity, which an approximate "
+                    "kernel cannot provide")
         if kernel_approx is not None:
-            raise _not_ported("kernel_approx", "A11")
+            raise _not_ported("kernel_approx", "A6")
         if isinstance(seed, bool) or not isinstance(seed, (int, np.integer)):
             raise ValueError(f"seed must be an int, got {seed!r}")
 
         self._device = resolve_device(device)
-        if phi_impl == "cuda" and self._device.type != "cuda":
-            raise ValueError(
-                "phi_impl='cuda' launches the hand kernel and needs the card; "
-                "use phi_impl='auto' or 'torch' on the CPU")
         self._d = int(d)
         self._logp = logp
         self._log_prior = log_prior
+        self._update_rule = update_rule
         self._phi_impl = phi_impl
         self._seed = int(seed)
         self._median_kernel = isinstance(kernel, str) and kernel == "median"
@@ -118,6 +135,10 @@ class Sampler:
             kernel = AdaptiveRBF()
         self._kernel = kernel if kernel is not None else RBF(1.0)
         self._phi = resolve_phi_fn(self._kernel, phi_impl)
+        if phi_impl == "cuda" and self._device.type != "cuda":
+            raise ValueError(
+                "phi_impl='cuda' launches the hand kernel and needs the card; "
+                "use phi_impl='auto' or 'torch' on the CPU")
         self._data = tree_map(lambda a: torch.as_tensor(a, device=self._device), data)
         rows = []
         tree_map(lambda a: rows.append(a.shape[0]), self._data)
@@ -186,7 +207,7 @@ class Sampler:
         self._set_kernel(RBF(float(bandwidth)))
 
     def approx_residual(self, *args, **kwargs):
-        raise _not_ported("approx_residual (kernel_approx)", "A11")
+        raise _not_ported("approx_residual (kernel_approx)", "A6")
 
     # ------------------------------------------------------------------ #
 
@@ -195,6 +216,15 @@ class Sampler:
             return torch.as_tensor(self._batch_index_seam(t), dtype=torch.int64,
                                    device=self._device)
         return minibatch_indices(seed, t, 1, self._n_rows, self._batch_size, self._device)[0]
+
+    def _full_logp(self, data):
+        """The full-data ``theta -> log p`` (prior included) on ``data``."""
+        logp, log_prior = self._logp, self._log_prior
+        if data is None:
+            return logp if log_prior is None else (lambda th: logp(th) + log_prior(th))
+        if log_prior is None:
+            return lambda th: logp(th, data)
+        return lambda th: logp(th, data) + log_prior(th)
 
     def _score_fns(self, dtype: torch.dtype):
         """``scores(parts, t, seed) -> (n, d)`` for the run's dtype."""
@@ -212,13 +242,7 @@ class Sampler:
                 return s if prior is None else s + prior(parts)
 
             return scores
-        if data is None:
-            full = logp if log_prior is None else (lambda th: logp(th) + log_prior(th))
-        elif log_prior is None:
-            full = lambda th: logp(th, data)  # noqa: E731
-        else:
-            full = lambda th: logp(th, data) + log_prior(th)  # noqa: E731
-        batched = torch.func.vmap(torch.func.grad(full))
+        batched = torch.func.vmap(torch.func.grad(self._full_logp(data)))
         return lambda parts, t, seed: batched(parts)
 
     def run(
@@ -249,9 +273,9 @@ class Sampler:
         ``(seed, step_offset + i)``), so a segmented drive with a fixed seed
         draws the monolithic run's minibatches.  ``dtype`` defaults to that
         of ``initial_particles``, else float32.  ``dispatch_budget`` is
-        ROADMAP A8."""
+        ROADMAP A5."""
         if dispatch_budget is not None:
-            raise _not_ported("dispatch_budget (chunked dispatches)", "A8")
+            raise _not_ported("dispatch_budget (chunked dispatches)", "A5")
         seed = self._seed if seed is None else int(seed)
         if initial_particles is not None:
             particles = torch.as_tensor(initial_particles, device=self._device)
@@ -264,7 +288,17 @@ class Sampler:
                              f"{particles.dtype} {tuple(particles.shape)}")
         if self._median_kernel:
             self._set_kernel(RBF(float(median_bandwidth(particles))))
-        scores = self._score_fns(particles.dtype)
+        if self._update_rule == "gauss_seidel":
+            data = tree_map(lambda a: a.to(particles.dtype) if a.is_floating_point() else a,
+                            self._data)
+            score_fn = torch.func.grad(self._full_logp(data))
+            kernel = self._kernel
+            move = lambda parts, i: svgd_step_sequential(  # noqa: E731
+                parts, score_fn, step_size, kernel)
+        else:
+            scores = self._score_fns(particles.dtype)
+            move = lambda parts, i: parts + step_size * self._phi(  # noqa: E731
+                parts[None], parts, scores(parts, step_offset + i, seed)[None])[0]
         chunk = _history.record_chunk_steps(*particles.shape, particles.element_size())
         held, host = [], []
         parts = particles
@@ -275,8 +309,7 @@ class Sampler:
                     if len(held) == chunk:
                         host.append(torch.stack(held).cpu().numpy())
                         held = []
-                s = scores(parts, step_offset + i, seed)
-                parts = parts + step_size * self._phi(parts[None], parts, s[None])[0]
+                parts = move(parts, i)
         self.last_run_stats = {"execution": "eager", "num_steps": num_iter,
                                "num_dispatches": num_iter, "dispatches_per_step": 1.0,
                                "steps_per_dispatch": 1, "record_chunks_to_host": len(host)}

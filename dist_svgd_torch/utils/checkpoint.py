@@ -2,7 +2,7 @@
 manifest half of ``dist_svgd_tpu/utils/checkpoint.py`` (same keys, same
 encoding), so a JAX ``DistSampler.state_dict()`` and the port's agree on
 what a save describes.  The storage backends and ``reshard_state`` are not
-ported yet (ROADMAP A8)."""
+ported yet (ROADMAP A4)."""
 
 from __future__ import annotations
 

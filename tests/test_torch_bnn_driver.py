@@ -81,7 +81,7 @@ def test_resolve_bandwidth_kernel():
     ({"exchange_every": 2}, ValueError, "requires --nproc > 1"),
     ({"exchange_every": 2, "nproc": 2, "exchange": "all_scores"}, ValueError, "all_particles"),
     ({"exchange_every": 3, "nproc": 2, "niter": 4}, ValueError, "multiple"),
-    ({"exchange_every": 2, "nproc": 2, "niter": 4}, NotImplementedError, "ROADMAP A10"),
+    ({"exchange_every": 2, "nproc": 2, "niter": 4}, NotImplementedError, "ROADMAP A5"),
     ({"phi_impl": "pallas"}, ValueError, "unknown phi_impl"),
 ])
 def test_bnn_driver_refusals(kw, err, match):

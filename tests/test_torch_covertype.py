@@ -76,11 +76,11 @@ def test_resolve_phi_impl_policy(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"nproc": 1, "checkpoint_every": 5}, "A8"),
-    ({"checkpoint_every": 5}, "A8"),
-    ({"log_every": 1}, "A8"),
-    ({"exchange_every": 2}, "A10"),
-    ({"nproc": 1, "exchange_every": 2}, "A10"),
+    ({"nproc": 1, "checkpoint_every": 5}, "A4"),
+    ({"checkpoint_every": 5}, "A4"),
+    ({"log_every": 1}, "A4"),
+    ({"exchange_every": 2}, "A5"),
+    ({"nproc": 1, "exchange_every": 2}, "A5"),
 ])
 def test_driver_refuses_unported_options(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

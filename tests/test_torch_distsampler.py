@@ -201,23 +201,24 @@ def test_device_rules():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"include_wasserstein": True, "update_rule": "gauss_seidel"}, "A10"),
-    ({"update_rule": "gauss_seidel"}, "A10"),
-    ({"exchange_impl": "ring"}, "A10"),
-    ({"exchange_every": 2}, "A10"),
+    ({"update_rule": "gauss_seidel", "exchange_impl": "ring"}, "requires exchange_impl='gather'"),
+    ({"update_rule": "gauss_seidel", "batch_size": 4}, "supports only the jacobi"),
+    ({"exchange_impl": "ring"}, "A5"),
+    ({"exchange_every": 2}, "A5"),
     ({"shard_data": True, "exchange_particles": False}, "partitions mode"),
     ({"batch_size": 13}, "local rows"),
     ({"log_prior": lambda th: -(th * th).sum(), "seed": 1.5}, "seed must be an int"),
-    ({"kernel_approx": "rff"}, "A11"),
-    ({"kernel": lambda a, b: (a - b).abs().sum()}, "A2"),
+    ({"kernel_approx": "rff"}, "A6"),
+    ({"kernel": lambda a, b: (a - b).abs().sum(), "phi_impl": "cuda"}, "requires an RBF kernel"),
     ({"phi_impl": "pallas_bf16"}, "the port's is 'cuda_bf16'"),
-    ({"mesh": object()}, "A6"),
+    ({"mesh": object()}, "A10"),
 ])
 def test_out_of_slice_options_raise(kw, item):
     """Options outside the port raise NotImplementedError naming their
     ROADMAP item; the ported minibatch, prior, shard_data and bf16 options
     raise JAX's ValueErrors on bad values (48 rows / 4 shards = 12 a
-    shard)."""
+    shard), and so do JAX's constraints on the Gauss–Seidel sweep and on a
+    kernel that is not an RBF."""
     particles, x, t = problem(3)
     args = dict(exchange_particles=True, exchange_scores=False,
                 include_wasserstein=False, device="cpu")
@@ -232,9 +233,7 @@ def test_out_of_slice_options_raise(kw, item):
 def test_out_of_slice_run_options_raise():
     particles, x, t = problem(3)
     ps = port_sampler(4, particles, x, t, True, False, "auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        ps.run_steps(2, 0.05, record=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         ps.run_steps(2, 0.05, dispatch_budget=1.0)
     with pytest.raises(ValueError, match="exchange particles"):
         tdt.DistSampler(4, logreg_logp, None, particles, exchange_particles=False,
@@ -377,7 +376,7 @@ def test_w2_run_steps_refuses_lp_and_port_state_round_trips():
     with pytest.raises(ValueError, match="w2_g"):
         b.load_state_dict({**state, "w2_g": state["w2_g"][:, :8]})
     _, c = w2_pair(4, particles, x, t, True, False, "sinkhorn")  # another layout
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         c.load_state_dict(state)
     _, blk = w2_pair(2, particles, x, t, True, False, "sinkhorn", w2_pairing="block")
     with pytest.warns(UserWarning, match="w2_pairing='global'"):

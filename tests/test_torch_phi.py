@@ -125,7 +125,9 @@ def test_resolve_phi_fn_policy():
     """'auto' → phi_cuda (plain version on the CPU), 'torch' → plain phi,
     'cuda' → the kernel, refused on CPU tensors; 'cuda_bf16' → the bf16
     tiers (their plain versions on the CPU); JAX's names raise naming the
-    port's."""
+    port's.  A kernel callable that is not an RBF takes the generic plain φ
+    under 'auto' and 'torch' (equal to the fused RBF φ within float32
+    rounding, 1e-5 relative), and the kernel tiers refuse it."""
     y, x, s = (_t(a, torch.float32) for a in _inputs(2, 6, 9, 3))
     auto = resolve_phi_fn(RBF(1.0), "auto")(y, x, s)
     torch.testing.assert_close(auto, phi_cuda(y, x, s, 1.0), rtol=0, atol=0)
@@ -140,8 +142,15 @@ def test_resolve_phi_fn_policy():
         resolve_phi_fn(RBF(1.0), "pallas_bf16")
     with pytest.raises(ValueError, match="unknown phi_impl"):
         resolve_phi_fn(RBF(1.0), "xla")
-    with pytest.raises(NotImplementedError, match="RBF"):
-        resolve_phi_fn(lambda a, b: a @ b, "torch")
+    def plain(a, b):
+        return torch.exp(-torch.sum((a - b) ** 2))
+
+    for impl in ("auto", "torch"):
+        torch.testing.assert_close(resolve_phi_fn(plain, impl)(y, x, s),
+                                   phi(y, x, s, RBF(1.0)), rtol=1e-5, atol=1e-6)
+    for impl in ("cuda", "cuda_bf16", "torch_bf16"):
+        with pytest.raises(ValueError, match="requires an RBF kernel"):
+            resolve_phi_fn(plain, impl)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -224,8 +224,8 @@ def test_set_data_swaps_rows_and_refuses_other_specs():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    ({"update_rule": "gauss_seidel"}, NotImplementedError, "ROADMAP A3"),
-    ({"kernel_approx": "rff"}, NotImplementedError, "ROADMAP A11"),
+    ({"update_rule": "gauss_seidel", "kernel_approx": "rff"}, ValueError, "kernel_approx requires"),
+    ({"kernel_approx": "rff"}, NotImplementedError, "ROADMAP A6"),
     ({"update_rule": "sor"}, ValueError, "unknown update_rule"),
     ({"batch_size": 8, "data": None}, ValueError, "requires data"),
     ({"batch_size": 31}, ValueError, "not in"),
@@ -247,9 +247,9 @@ def test_sampler_refusals(kw, err, match):
 def test_sampler_run_refusals_and_device_rule():
     particles, x, t = problem()
     ps = tdt.Sampler(6, logreg_logp, data=(x, t), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         ps.run(20, 2, 0.05, dispatch_budget=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         ps.approx_residual()
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
