@@ -32,8 +32,18 @@ reference's own entry points (BASELINE.json configs 1-2) through
 sweep shape in every mode with and without the host-LP W2 term and in
 both update rules, the full width with its history, and one Gauss-Seidel
 step at full width — one φ launch a row, at shapes held against the plain
-and the float64 φ in ``kernel_parity``) and ``gmm.py``, checks that each
-path went through its kernels, and prints one JSON object per phase.  A
+and the float64 φ in ``kernel_parity``) and ``gmm.py``, then the
+resumable, budgeted runs: the ring exchange at the north star against the
+gather, ``dist_svgd_torch/tools/large_n.py`` at 100,000 particles (the
+ring with the block pairing and the gather with the global one, each
+monolithic and under a dispatch budget that splits every Sinkhorn solve
+in two), the 10,000-particle solve split, a 100,000-particle W2 run
+checkpointed, resumed bitwise and resumed at 4 shards, the lagged
+Covertype (both tiers) and BNN drivers, the Covertype cadences and a
+resume, and the 100,000-particle ring step's pairs a second (the
+chunked planner's rate), with their kernels held at the new per-lane
+shapes in ``kernel_parity``; it checks that
+each path went through its kernels, and prints one JSON object per phase.  A
 phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
 
@@ -189,6 +199,54 @@ GS_PROBE_CASES = [("phi_small_d", (8, 1, 10_000, 3), "gs probe all_particles"),
                   ("phi_small_d", (1, 50, 50, 1), "gmm lane d=1"),
                   ("phi_small_d", (1, 256, 256, 1), "gmm config 2 lane d=1")]
 GS_PROBE_SEED = 500
+
+# Resumable, budgeted runs (the ring and lagged exchanges, chunked
+# run_steps, checkpoints and step metrics):
+# - the φ kernels at the shapes these paths give them, per-lane visiting
+#   blocks / views (kernel, (S, k, m, d), h, y taken from x's first rows,
+#   role): the 100k ring hop (12,500 rows against each lane's visiting
+#   block), the lagged Covertype view (the own block is the view's first
+#   rows, h = 1) in both tiers, the lagged BNN view at --nproc 8;
+#   the d ≤ 8 and the exact big-d rows held against the float64 φ on
+#   LANE_ROWS rows a lane, the bf16x3 row against its plain version;
+# - the Sinkhorn kernels at the 100k ring's block-pairing solve, (8,
+#   12,500, 12,500, 3), its dual-advance start passes and scalings;
+# - the north star under the ring (both all_* modes, ring against gather
+#   over RING_STEPS, within TRAJ_RTOL · max|θ|);
+# - the port's tools/large_n.py at n = 100,000, 8 shards: the ring with
+#   the block pairing (fused route at 12,500² pairs a lane), monolithic and
+#   under a dispatch budget that plans intra_step with two W2 dispatches a
+#   step (LARGE_N budget / pairs_per_sec), and the gather with the global
+#   pairing (the streaming route) under the same budget; and a ring
+#   parity run of both executions at sinkhorn_tol=None;
+# - the 10k fused route with its solve split (max_passes_per_dispatch);
+# - a 100k W2 streaming run saved at step 2 and resumed (bitwise at step
+#   4), then resumed at 4 shards;
+# - Covertype lagged (--exchange-every 4) in both tiers, its cadences
+#   (--checkpoint-every 50 --log-every 10 --profile-dir) and a resume; the
+#   BNN lagged at --nproc 8 --exchange-every 5; the pairs/s of the 100k
+#   ring step behind distsampler.DISPATCH_PAIRS_PER_SEC.
+LANE_CASES = [("phi_small_d", (8, 12_500, 12_500, 3), 1.0, False, "ring hop 100k"),
+              ("phi_small_d", (8, 1250, 1250, 3), 1.0, False, "ring hop north star"),
+              ("phi_big_d", (8, 1250, 10_000, 55), 1.0, True, "lagged covertype view h=1"),
+              ("phi_big_d_bf16x3", (8, 1250, 10_000, 55), 1.0, True,
+               "lagged covertype view h=1"),
+              ("phi_wide_d", (8, 62, 496, 753), 1.0, True, "lagged bnn view h=1")]
+LANE_SEED = 600
+RING_OT = [("ot_ctransform", (8, 12_500, 12_500, 3), "100k ring block pairing start", 601),
+           ("ot_kexp", (8, 12_500, 12_500, 3), "100k ring block pairing", 602)]
+RING_STEPS = 20
+LARGE_N = dict(n=100_000, shards=8, steps=2, samples=1, pairs_per_sec=1e11,
+               budget={"ring": 1.3, "gather": 10.3}, parity_steps=4, parity_iters=200)
+W2_CHUNKED = dict(steps=10, max_passes=100)
+CHECKPOINT = dict(steps=4, save_at=2, reshard_to=4)
+CT_LAGGED = dict(exchange_every=4, niter=200)
+CT_CADENCES = dict(niter=100, checkpoint_every=50, log_every=10)
+BNN_LAGGED = dict(nproc=8, exchange_every=5, niter=50)
+PAIRS_RATE = dict(n=100_000, shards=8, warm_steps=2, steps=5)
+# The keys of a line of the JAX Covertype driver's metrics log.
+JSONL_KEYS = {"ts", "step", "wall_s", "updates_per_sec", "particle_mean_norm",
+              "particle_norm_std", "particle_mean", "mean_update", "max_update"}
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -1091,6 +1149,421 @@ def gs_probe_rows():
             raise AssertionError(f"{name} {role}: max|Δ| {err} vs the {reference} > {tol}")
 
 
+def lane_rows():
+    """The φ kernels at the ring's and the lagged exchange's per-lane
+    shapes (LANE_CASES): each
+    lane's own rows against its own visiting block or stale view, x
+    ``(S, m, d)``.  The d ≤ 8 and exact big-d rows are held against the
+    float64 φ on the first LANE_ROWS rows of every lane (the float32 plain
+    version sums long chains, and at h = 1 the self-pairs ride the Gram
+    diagonal's cancellation), the bf16x3 row against its plain version at
+    the full shape; every row prints the plain version's distance from the
+    float64 φ, is timed beside its bound and checks the wrapper's scratch.
+    Raises on a failed row."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.ops.kernels import RBF
+    from dist_svgd_torch.ops.svgd import phi
+
+    fns = {"phi_small_d": (cuda_svgd.phi_small_d_cuda, cuda_svgd.phi_small_d_plain),
+           "phi_big_d": (cuda_svgd.phi_big_d_cuda, cuda_svgd.phi_big_d_plain),
+           "phi_big_d_bf16x3": (cuda_svgd.phi_big_d_bf16x3_cuda,
+                                cuda_svgd.phi_big_d_bf16x3_plain),
+           "phi_wide_d": (cuda_svgd.phi_wide_d_cuda, cuda_svgd.phi_big_d_plain)}
+    for seed, (name, (S, k, m, d), h, own_rows, role) in enumerate(LANE_CASES,
+                                                                    start=LANE_SEED):
+        kern, plain = fns[name]
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        x = torch.randn(S, m, d, generator=g).cuda()
+        s = torch.randn(S, m, d, generator=g).cuda()
+        # the lagged view holds the own block in its first rows; a ring hop
+        # meets another shard's block
+        y = (x[:, :k] if own_rows else torch.randn(S, k, d, generator=g).cuda()).contiguous()
+        got = kern(y, x, s, h)
+        torch.cuda.synchronize()
+        ys = y[:, :LANE_ROWS].contiguous()
+        exact = phi(ys.double(), x.double(), s.double(), RBF(h))
+        plain_rows = plain(ys, x, s, h)
+        vs_f64 = float((got[:, :LANE_ROWS].double() - exact).abs().max())
+        if name == "phi_big_d_bf16x3":
+            want = plain(y, x, s, h)
+            err, scale, reference = float((got - want).abs().max()), float(
+                want.abs().max()), "plain"
+            del want
+        else:
+            err, scale, reference = vs_f64, float(exact.abs().max()), "phi f64"
+        tol = KERNEL_RTOL * scale
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        b_ms, b_by = bound_ms(*phi_work(name, S, k, m, d, x.numel()))
+        row = {"phase": "kernel_parity", "kernel": name, "role": role, "shape": [S, k, m, d],
+               "x_lanes": S, "bandwidth": h, "reference": reference, "rows": min(k, LANE_ROWS),
+               "max_abs_err": err, "max_abs_ref": scale, "tolerance": tol, "ok": ok,
+               "max_abs_err_vs_f64": vs_f64,
+               "plain_max_abs_err_vs_f64": float((plain_rows.double() - exact).abs().max()),
+               "ms": cuda_ms(lambda: kern(y, x, s, h), TIMED_LAUNCHES),
+               "plain_ms": cuda_ms(lambda: plain(y, x, s, h), OTHER_LAUNCHES),
+               "bound_us": 1e3 * b_ms, "bound_by": b_by,
+               "m_splits": cuda_svgd.split_count(name, S, k, m, x.device, d=d)}
+        row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
+        if name != "phi_small_d":
+            row["scratch_bytes"] = check_scratch(name, S, k, m, d, S)
+        emit(row)
+        del got, exact, plain_rows, x, y, s
+        if not ok:
+            raise AssertionError(f"{name} {role}: max|Δ| {err} vs the {reference} > {tol}")
+
+
+def ring_ot_rows():
+    """The Sinkhorn kernels at the 100k ring's block-pairing solve (RING_OT:
+    8 lanes of 12,500 rows against 12,500, the fused route): the soft
+    c-transform of every dual-advance start, held against the plain version
+    in float64 on the first LANE_ROWS rows of every lane (SOFT_CT_TOL), and
+    the Gibbs kernel held elementwise against the float32 plain version on
+    those rows (KEXP_RTOL, its float64 distance printed); each timed at the
+    full shape beside its bound.  Raises on a failed row."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_ot
+
+    for name, (S, k, m, d), role, seed in RING_OT:
+        rows, cols, f, gpot, _, _ = ot_inputs(S, k, m, d, seed)
+        sub = rows[:, :LANE_ROWS].contiguous()
+        if name == "ot_ctransform":
+            kern = lambda: cuda_ot.ctransform_reduce_cuda(rows, cols, gpot, soft=True)  # noqa: E731
+            plain = lambda: cuda_ot.ctransform_reduce_plain(rows, cols, gpot, soft=True)  # noqa: E731
+            got = kern()[:, :LANE_ROWS]
+            exact = cuda_ot.ctransform_reduce_plain(sub.double(), cols.double(),
+                                                    gpot.double(), soft=True)
+            plain32 = cuda_ot.ctransform_reduce_plain(sub, cols, gpot, soft=True)
+            ok, err, tol, scale = ot_check(name, got.double(), exact, soft=True)
+            opts = {"soft": True}
+        else:
+            kern = lambda: cuda_ot.kexp_cuda(rows, cols, f, gpot)  # noqa: E731
+            plain = lambda: cuda_ot.kexp_plain(rows, cols, f, gpot)  # noqa: E731
+            got = kern()[:, :LANE_ROWS]
+            fs = f[:, :LANE_ROWS].contiguous()
+            plain32 = cuda_ot.kexp_plain(sub, cols, fs, gpot)
+            exact = cuda_ot.kexp_plain(sub.double(), cols.double(), fs.double(),
+                                       gpot.double())
+            ok, err, tol, scale = ot_check(name, got, plain32)
+            opts = {}
+        torch.cuda.synchronize()
+        b_ms, b_by = bound_ms(*ot_work(name, S, k, m, d, **opts))
+        row = {"phase": "kernel_parity", "kernel": name, "role": role, "shape": [S, k, m, d],
+               **opts, "rows": LANE_ROWS,
+               "reference": "plain f64" if name == "ot_ctransform" else "plain",
+               "max_abs_err": err, "max_abs_ref": scale, "tolerance": tol, "ok": ok,
+               "max_abs_err_vs_f64": float((got.double() - exact).abs().max()),
+               "plain_max_abs_err_vs_f64": float((plain32.double() - exact).abs().max()),
+               "ms": cuda_ms(kern, MAIN_100K_LAUNCHES), "plain_ms": cuda_ms(plain, PLAIN_100K_REPS),
+               "bound_us": 1e3 * b_ms, "bound_by": b_by}
+        row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
+        emit(row)
+        del got, exact, plain32, rows, cols, f, gpot
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"{name} {role}: max|Δ| {err} > {tol}")
+
+
+def resumable_phases(data, init, x_test, t_test):
+    """The resumable, budgeted paths on the card (the constants above
+    LANE_CASES):
+    the ring north star, the port's tools/large_n.py at 100k monolithic and
+    chunked, the 10k fused route chunked, the checkpoint round trip, the
+    lagged Covertype and BNN drivers, the Covertype cadences and resume,
+    and the 100k ring step's pair rate.  Each phase's launch counts are set
+    to 0 just before it and read just after; a phase that fails raises.
+    Returns the measured pairs a second."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch import DistSampler
+    from dist_svgd_torch.experiments import bnn as bnn_drv
+    from dist_svgd_torch.experiments import covertype as cov
+    from dist_svgd_torch.models.logreg import ensemble_test_accuracy, logreg_logp
+    from dist_svgd_torch.ops import cuda_ot, cuda_svgd
+    from dist_svgd_torch.parallel import exchange
+    from dist_svgd_torch.tools import large_n
+    from dist_svgd_torch.utils import checkpoint as ckpt
+    from dist_svgd_torch.utils.rng import init_particles_per_shard
+
+    ns = NORTH_STAR
+    d = init.shape[1]
+    card = smi("name,power.limit")
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        cuda_ot.reset_launch_counts()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**cuda_svgd.launch_counts, **cuda_ot.launch_counts}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- ring north star: ring against gather, both all_* modes ----------
+    for mode, exch_s in (("all_particles", False), ("all_scores", True)):
+        row = {"phase": "ring_north_star", "mode": mode, "n": ns["n"], "shards": ns["shards"],
+               "d": d, "steps": RING_STEPS, "card": card}
+        out = {}
+        for impl in ("gather", "ring"):
+            rds = DistSampler(ns["shards"], logreg_logp, None, init, data=data,
+                              exchange_particles=True, exchange_scores=exch_s,
+                              include_wasserstein=False, exchange_impl=impl)
+            rds.run_steps(3, ns["step_size"])  # warm: the same 3 steps in both
+            reset_counts()
+            _, sec = timed(lambda: rds.run_steps(RING_STEPS, ns["step_size"]))
+            launched = counts()
+            row[f"{impl}_ms_per_step"] = 1e3 * sec / RING_STEPS
+            row[f"{impl}_phi_launches_per_step"] = launched["phi_small_d"] / RING_STEPS
+            out[impl] = rds.particles
+        dev = float((out["ring"] - out["gather"]).abs().max())
+        bound = TRAJ_RTOL * float(out["gather"].abs().max())
+        ok = (bool(torch.isfinite(out["ring"]).all()) and dev <= bound
+              and row["ring_phi_launches_per_step"] == ns["shards"]
+              and row["gather_phi_launches_per_step"] == 1)
+        row.update(max_abs_dev=dev, bound=bound, ok=ok)
+        emit(row)
+        if not ok:
+            raise AssertionError(f"ring north star {mode}: {row}")
+
+    # ---- large_n: the port's tool at 100k, ring and gather, budgeted ------
+    ln = LARGE_N
+    base = ["--n", str(ln["n"]), "--shards", str(ln["shards"]), "--w2", "--ab",
+            "--steps", str(ln["steps"]), "--samples", str(ln["samples"]),
+            "--pairs-per-sec", str(ln["pairs_per_sec"])]
+    device = torch.device("cuda")
+    for impl, route in (("ring", "fused"), ("gather", "streaming")):
+        args = large_n.build_parser().parse_args(
+            base + ["--exchange-impl", impl, "--dispatch-budget", str(ln["budget"][impl])])
+        reset_counts()
+        records = large_n.run_w2(args, device)
+        launched = counts()
+        by_exec = {r["execution"]: r for r in records}
+        chunked = by_exec["chunked"]
+        want = ["phi_small_d", "ot_ctransform"] + (
+            ["ot_kexp"] if route == "fused" else ["ot_kmat_vec", "ot_plan_grad"])
+        # a chunked W2 step: the split solve's dispatches, the φ and the finish
+        w2_dispatches = chunked["dispatches_per_step"] - (2 if impl == "ring" else 1)
+        ok = (chunked["plan"] == "intra_step" and w2_dispatches >= 2
+              and all(launched[k] > 0 for k in want)
+              and (launched["ot_kexp"] == 0) == (route == "streaming"))
+        row = {"phase": "large_n_ring_w2" if impl == "ring" else "large_n_gather_w2",
+               "n": ln["n"], "shards": ln["shards"], "route": route,
+               "w2_pairing": chunked["w2_pairing"], "records": records,
+               "ms_per_step": {e: 1e3 * r["wall_per_step_s"] for e, r in by_exec.items()},
+               "dispatches_per_step": {e: r["dispatches_per_step"] for e, r in by_exec.items()},
+               "max_dispatch_wall_s": {e: r["max_dispatch_wall_s"] for e, r in by_exec.items()},
+               "w2_dispatches_per_step": w2_dispatches, "launches": launched,
+               "card": card, "ok": ok}
+        if impl == "ring":  # the two executions from one state, at a converging solve
+            args.sinkhorn_iters = ln["parity_iters"]
+            finals = {}
+            for label, kw in (("monolithic", {}),
+                              ("chunked", dict(dispatch_budget=ln["budget"][impl],
+                                               pairs_per_sec=ln["pairs_per_sec"]))):
+                pds = large_n.w2_sampler(args, device)
+                pds._sinkhorn["sinkhorn_tol"] = None
+                pds.run_steps(ln["parity_steps"], args.stepsize, h=10.0, **kw)
+                finals[label] = pds.particles
+                del pds
+            dev = float((finals["chunked"] - finals["monolithic"]).abs().max())
+            bound = TRAJ_RTOL * float(finals["monolithic"].abs().max())
+            row.update(parity_steps=ln["parity_steps"], parity_iters=ln["parity_iters"],
+                       max_abs_dev=dev, bound=bound)
+            row["ok"] = ok = ok and bool(torch.isfinite(finals["chunked"]).all()) and dev <= bound
+            del finals
+        emit(row)
+        if not ok:
+            raise AssertionError(f"large_n {impl}: {row}")
+        torch.cuda.empty_cache()
+
+    # ---- the 10k fused route with its solve split --------------------------
+    wc = W2_CHUNKED
+    rows = {}
+    for label, kw in (("monolithic", {}), ("chunked", dict(max_passes_per_dispatch=wc["max_passes"]))):
+        wds = DistSampler(ns["shards"], logreg_logp, None, init, data=data,
+                          exchange_particles=True, exchange_scores=False,
+                          include_wasserstein=True, wasserstein_solver="sinkhorn",
+                          sinkhorn_tol=None)
+        wds.run_steps(2, ns["step_size"], h=10.0)
+        reset_counts()
+        _, sec = timed(lambda: wds.run_steps(wc["steps"], ns["step_size"], h=10.0, **kw))
+        rows[label] = {"ms_per_step": 1e3 * sec / wc["steps"], "launches": counts(),
+                       "stats": wds.last_run_stats, "particles": wds.particles}
+    dev = float((rows["chunked"]["particles"] - rows["monolithic"]["particles"]).abs().max())
+    bound = TRAJ_RTOL * float(rows["monolithic"]["particles"].abs().max())
+    launched = rows["chunked"]["launches"]
+    ok = (dev <= bound and launched["ot_kexp"] > 0 and launched["ot_ctransform"] > 0
+          and rows["chunked"]["stats"]["execution"] == "intra_step")
+    emit({"phase": "w2_chunked_north_star", "n": ns["n"], "shards": ns["shards"],
+          "steps": wc["steps"], "max_passes_per_dispatch": wc["max_passes"],
+          "ms_per_step": {k: v["ms_per_step"] for k, v in rows.items()},
+          "dispatches_per_step": rows["chunked"]["stats"]["dispatches_per_step"],
+          "launches": launched, "max_abs_dev": dev, "bound": bound, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"w2 chunked north star: dev {dev} launches {launched}")
+    del rows
+
+    # ---- checkpoint round trip of a 100k W2 streaming run -------------------
+    cp = CHECKPOINT
+    init100k = init_particles_per_shard(0, W2_STREAMING["n"], d, ns["shards"])
+
+    def streaming(S=ns["shards"]):
+        return DistSampler(S, logreg_logp, None, init100k, data=data,
+                           exchange_particles=True, exchange_scores=False,
+                           include_wasserstein=True, wasserstein_solver="sinkhorn")
+
+    ref = streaming()
+    ref.run_steps(cp["steps"], ns["step_size"], h=W2_STREAMING["h"])
+    root = os.path.join("build", "chip_smoke_ckpt")
+    mgr = ckpt.CheckpointManager(root, every=cp["save_at"])
+    mgr.clear()
+    a = streaming()
+    reset_counts()
+    a.run_steps(cp["save_at"], ns["step_size"], h=W2_STREAMING["h"])
+    launched = counts()
+    state, state_s = timed(a.state_dict)
+    path, save_s = timed(lambda: mgr.save(cp["save_at"], state))
+    nbytes = os.path.getsize(os.path.join(path, "state.npz"))
+    del a
+    b = streaming()
+    loaded, load_s = timed(mgr.restore_latest)
+    _, restore_s = timed(lambda: b.load_state_dict(loaded))
+    b.run_steps(cp["steps"] - cp["save_at"], ns["step_size"], h=W2_STREAMING["h"])
+    bitwise = bool(torch.equal(b.particles, ref.particles))
+    c = streaming(cp["reshard_to"])
+    c.load_state_dict(loaded)
+    resharded = (tuple(c._previous.shape), c._w2_g is None)
+    c.run_steps(2, ns["step_size"], h=W2_STREAMING["h"])
+    ok = (bitwise and bool(torch.isfinite(c.particles).all())
+          and resharded == ((cp["reshard_to"], W2_STREAMING["n"], d), True)
+          and launched["ot_kmat_vec"] > 0 and launched["ot_plan_grad"] > 0)
+    emit({"phase": "checkpoint_roundtrip", "n": W2_STREAMING["n"], "shards": ns["shards"],
+          "saved_at": cp["save_at"], "steps": cp["steps"], "bitwise": bitwise,
+          "state_dict_ms": 1e3 * state_s, "save_ms": 1e3 * save_s, "load_ms": 1e3 * load_s,
+          "load_state_dict_ms": 1e3 * restore_s, "npz_bytes": nbytes,
+          "bytes": {k: int(v.nbytes) for k, v in loaded.items()
+                    if k in ("particles", "previous", "w2_g")},
+          "resharded_to": cp["reshard_to"], "resharded_previous": list(resharded[0]),
+          "dual_cold": resharded[1], "launches": launched, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"checkpoint round trip: bitwise={bitwise} {resharded}")
+    del ref, b, c, loaded, state
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- Covertype lagged (--exchange-every 4), both tiers -------------------
+    gathers = {"n": 0}
+    real_gather = exchange.all_gather
+
+    def counting_gather(blocks):
+        gathers["n"] += 1
+        return real_gather(blocks)
+
+    cl = CT_LAGGED
+    exchange.all_gather = counting_gather
+    try:
+        for tier, kernel in (("cuda_bf16", "phi_big_d_bf16x3"), ("cuda", "phi_big_d")):
+            gathers["n"] = 0
+            reset_counts()
+            final, metrics = cov.run(niter=cl["niter"], exchange_every=cl["exchange_every"],
+                                     phi_impl=tier)
+            launched = counts()
+            ok = (bool(np.isfinite(final).all())
+                  and launched == {**launched, **phi_counts(**{kernel: cl["niter"]})}
+                  and gathers["n"] == cl["niter"] // cl["exchange_every"])
+            emit({"phase": "covertype_lagged", **metrics,
+                  "ms_per_step": 1e3 * metrics["wall_s"] / cl["niter"],
+                  "gathers_per_step": gathers["n"] / cl["niter"], "launches": launched,
+                  "card": card, "ok": ok})
+            if not ok:
+                raise AssertionError(f"covertype lagged {tier}: {launched} {gathers}")
+    finally:
+        exchange.all_gather = real_gather
+
+    # ---- Covertype cadences and a resume ----------------------------------
+    cc = CT_CADENCES
+    out_dir = os.path.join("build", "chip_smoke_cadences")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ck_dir, log_path = os.path.join(out_dir, "ckpt"), os.path.join(out_dir, "metrics.jsonl")
+    os.makedirs(out_dir)
+    reset_counts()
+    final, metrics = cov.run(niter=cc["niter"], checkpoint_every=cc["checkpoint_every"],
+                             checkpoint_dir=ck_dir, log_every=cc["log_every"],
+                             metrics_path=log_path,
+                             profile_dir=os.path.join(out_dir, "profile"))
+    launched = counts()
+    lines = [json.loads(ln) for ln in open(log_path)]
+    steps_saved = sorted(os.listdir(ck_dir))
+    # the newest checkpoint set aside: the resume starts from the one before
+    newest = os.path.join(ck_dir, f"step_{cc['niter']}")
+    shutil.move(newest, os.path.join(out_dir, "newest"))
+    resumed, rmetrics = cov.run(niter=cc["niter"], resume=True, checkpoint_dir=ck_dir)
+    d_ct = final.shape[1]
+    trace = os.path.join(out_dir, "profile", "trace.json")
+    ok = (all(set(ln) == JSONL_KEYS for ln in lines)
+          and [ln["step"] for ln in lines] == list(range(cc["log_every"], cc["niter"] + 1,
+                                                         cc["log_every"]))
+          and rmetrics["resumed_from"] == cc["niter"] - cc["checkpoint_every"]
+          and np.array_equal(resumed, final) and os.path.getsize(trace) > 0
+          # the resolved tier's kernel: a warm-up step and every step
+          and launched[cuda_svgd.kernel_for(
+              d_ct, "bf16" if metrics["phi_impl"] == "cuda_bf16" else "f32")] == cc["niter"] + 1)
+    emit({"phase": "covertype_cadences", "niter": cc["niter"],
+          "checkpoint_every": cc["checkpoint_every"], "log_every": cc["log_every"],
+          "jsonl_lines": lines, "jsonl_keys_match_jax": all(set(ln) == JSONL_KEYS for ln in lines),
+          "checkpoints": steps_saved, "resumed_from": rmetrics["resumed_from"],
+          "resume_bitwise": bool(np.array_equal(resumed, final)),
+          "trace_bytes": os.path.getsize(trace), "test_acc": metrics["test_acc"],
+          "wall_s": metrics["wall_s"], "launches": launched, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError("covertype cadences failed")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # ---- BNN lagged (--nproc 8 --exchange-every 5), the exact tier ---------
+    bl = BNN_LAGGED
+    reset_counts()
+    final, metrics = bnn_drv.run(nproc=bl["nproc"], exchange_every=bl["exchange_every"],
+                                 niter=bl["niter"], phi_impl="cuda")
+    launched = counts()
+    ok = (bool(np.isfinite(final).all())
+          and launched == {**launched, **phi_counts(phi_wide_d=bl["niter"])})
+    emit({"phase": "bnn_lagged", **metrics, "ms_per_step": 1e3 * metrics["wall_s"] / bl["niter"],
+          "launches": launched, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"bnn lagged: {launched}")
+
+    # ---- the pairs/s of the 100k ring step ---------------------------------
+    pr = PAIRS_RATE
+    rds = DistSampler(pr["shards"], logreg_logp, None,
+                      init_particles_per_shard(0, pr["n"], d, pr["shards"]), data=data,
+                      exchange_particles=True, exchange_scores=False, include_wasserstein=False,
+                      exchange_impl="ring")
+    rds.run_steps(pr["warm_steps"], ns["step_size"])
+    reset_counts()
+    _, sec = timed(lambda: rds.run_steps(pr["steps"], ns["step_size"]))
+    launched = counts()
+    rate = float(pr["n"]) ** 2 * pr["steps"] / sec
+    emit({"phase": "dispatch_pairs_per_sec", "n": pr["n"], "shards": pr["shards"],
+          "steps": pr["steps"], "ms_per_step": 1e3 * sec / pr["steps"], "pairs_per_sec": rate,
+          "launches": launched, "card": card,
+          "test_accuracy": float(ensemble_test_accuracy(rds.particles, x_test, t_test))})
+    if not launched["phi_small_d"] == pr["shards"] * pr["steps"]:
+        raise AssertionError(f"pairs rate: launches {launched}")
+    return rate
+
+
 def _f64_driver_init():
     """The logreg driver's initial draw, in float64: the same numbers as
     its float32 draw (drawn in float32, then widened), so that a CPU
@@ -1797,6 +2270,8 @@ def main():
     ot_lanes_f64_rows(timing)
     ct_rescale_rows()
     gs_probe_rows()
+    lane_rows()
+    ring_ot_rows()
 
     # ---- 4. north star ---------------------------------------------------
     ns = NORTH_STAR
@@ -2077,6 +2552,9 @@ def main():
     # ---- 14. the reference's entry points (BASELINE configs 1-2) -----------
     logreg_phases()
     gmm_phase()
+
+    # ---- 15. resumable, budgeted runs --------------------------------------
+    resumable_phases(data, init, x_test, t_test)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

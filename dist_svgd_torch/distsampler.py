@@ -8,26 +8,34 @@ emulates them on one chip under ``vmap``.
 
 Ported: the constructor with the JAX signature and defaults, the
 drop-remainder policy (particles and data rows), the importance scale
-``N_global / N_local``, the three exchange modes with the gather
-implementation, the Jacobi update and the reference's literal Gauss–Seidel
-sweep (``update_rule='gauss_seidel'``, with or without the W2 term; any
-kernel callable besides the RBF), per-shard per-step minibatches
+``N_global / N_local``, the three exchange modes with the gather and the
+ring implementations (``exchange_impl='ring'``), the lagged exchange
+(``exchange_every > 1``), the Jacobi update and the reference's literal
+Gauss–Seidel sweep (``update_rule='gauss_seidel'``, with or without the W2
+term; any kernel callable besides the RBF), per-shard per-step minibatches
 (``batch_size``, drawn from a stream keyed by ``(seed, t)``), a separate
 unscaled prior (``log_prior``), sharded data (``shard_data``), the
 per-step median bandwidth (``kernel='median_step'``), the
 Wasserstein/JKO term (host LP through ``make_step``, Sinkhorn through
 ``make_step`` and ``run_steps``, both W2 pairings, the carried Sinkhorn
-dual), ``make_step``, monolithic ``run_steps`` with or without the history
-(``record=True``, moved to the host in
-:func:`~dist_svgd_torch.utils.history.record_chunk_steps` chunks), the
-rotating ``partitions`` ownership (:meth:`DistSampler.owned_block_index`),
-and ``state_dict`` / ``load_state_dict`` for the particles, the step
-counter, the minibatch stream's seed, the W2 snapshots and duals and the
-topology manifest.  Every other option raises ``NotImplementedError``
-naming its ROADMAP item — the ring, the lagged exchange and the chunked
-``run_steps`` (A5), restoring a W2 snapshot stack of another shard layout
-(A4), ``kernel_approx`` (A6), an explicit mesh (A10) — so a call that runs
-here means what it means in JAX.
+dual), ``make_step``, ``run_steps`` monolithic or chunked into bounded
+dispatches (``dispatch_budget``, ``hops_per_dispatch``,
+``max_passes_per_dispatch``: whole-step chunks, ring-hop chunks and split
+Sinkhorn solves), with or without the history (``record=True``, moved to
+the host in :func:`~dist_svgd_torch.utils.history.record_chunk_steps`
+chunks), the rotating ``partitions`` ownership
+(:meth:`DistSampler.owned_block_index`), and ``state_dict`` /
+``load_state_dict`` for the particles, the step counter, the minibatch
+stream's seed, the W2 snapshots and duals and the topology manifest, with
+the W2 snapshots resharded when a save's shard count differs.  Every other
+option raises ``NotImplementedError`` naming its ROADMAP item —
+``kernel_approx`` (A6), an explicit mesh (A10) — so a call that runs here
+means what it means in JAX.
+
+A "dispatch" of the chunked executor is one host-driven segment of JAX's
+plan (a chunk of steps, a chunk of ring hops, a dual-advance chunk of a
+Sinkhorn solve, the finish); the seams are JAX's, so ``last_run_stats``
+counts what JAX counts.  On the card each is a run of eager launches.
 
 The W2 snapshot semantics are the reference's (warty) ones: in exchanged
 modes each shard's ``previous`` is the pre-update gathered set with only its
@@ -38,6 +46,7 @@ own block post-update; under block pairing (``partitions``, or
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Callable, Optional
 
@@ -49,11 +58,14 @@ from dist_svgd_torch.parallel.exchange import (
     ALL_PARTICLES,
     ALL_SCORES,
     PARTITIONS,
+    make_chunked_ring_step_fns,
     make_shard_step,
+    make_shard_step_lagged,
     make_shard_step_sinkhorn_w2,
     stack_shards,
     tree_map,
     w2_block_pairing,
+    w2_snapshot,
 )
 from dist_svgd_torch.parallel.mesh import merge, split
 from dist_svgd_torch.utils import checkpoint as _ckpt
@@ -70,6 +82,26 @@ W2_GLOBAL_PAIRING_MAX_N = 400_000
 
 #: ``state_dict`` encoding of the resolved ``w2_pairing`` (an index).
 W2_PAIRING_CODES = ("global", "block")
+
+#: Pairwise interactions a second that the ``dispatch_budget`` planner
+#: converts a step's work into time with (:meth:`DistSampler.run_steps`;
+#: pass ``pairs_per_sec`` for other hardware).  Measured by
+#: ``chip_smoke.py``'s ``dispatch_pairs_per_sec`` phase on an NVIDIA H100
+#: 80GB HBM3 at a 700.00 W power limit: the 100,000-particle, 8-shard ring
+#: step (banana, d = 3, no W2), n² pairs over its wall time — 15.10 ms a
+#: step, 6.62e11 pairs/s.  (JAX's 2.4e11 is a TPU's rate and does not
+#: carry over.)
+DISPATCH_PAIRS_PER_SEC = 6.6e11
+
+
+def _chunk_sizes(total: int, per: int):
+    """``total`` units as full chunks of ``per`` plus a remainder (JAX's
+    dispatch-chain schedule)."""
+    per = max(1, min(int(per), total))
+    sizes = [per] * (total // per)
+    if total % per:
+        sizes.append(total % per)
+    return sizes
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -133,6 +165,19 @@ class DistSampler:
             :data:`W2_GLOBAL_PAIRING_MAX_N` particles, then block, with a
             warning).  ``partitions`` is always block-paired (``'global'``
             raises there); the value is inert with the W2 term off.
+        exchange_impl: ``'gather'`` (each shard gathers the ``(n, d)`` set)
+            or ``'ring'`` (the blocks travel hop by hop, one φ call a hop of
+            every block against its visiting block; the ``all_*`` modes, no
+            effect in ``partitions``; Jacobi only; with the W2 term,
+            ``run_steps`` needs the block pairing, as in JAX).  Same
+            semantics, another summation order; the ring is the one with a
+            seam inside a step for the chunked executor.
+        exchange_every: the gather cadence T; T > 1 is the lagged exchange
+            (``parallel/exchange.py:make_shard_step_lagged``): one gather a
+            macro-step of T steps, each shard's view the stale set with its
+            own block live; ``all_particles``, the gather implementation,
+            Jacobi and no W2 term only (``ValueError`` otherwise), driven by
+            :meth:`run_steps` with a multiple of T steps.
         shard_data: shard the data rows instead of replicating them
             (``all_*`` modes only; ``partitions`` raises ``ValueError``).
             Rows are truncated to ``S · (rows // S)`` either way; under the
@@ -145,7 +190,8 @@ class DistSampler:
             then the likelihood alone and the prior gradient is added once,
             unscaled.
         phi_impl: ``'auto'`` (the exact hand CUDA kernel on the card, its
-            plain version on the CPU), ``'torch'`` (the plain
+            plain version on float32 CPU tensors, the plain φ of ``'torch'``
+            on wider ones), ``'torch'`` (the plain
             ``ops.svgd.phi``), ``'cuda'`` (the exact kernel; refused on the
             CPU), ``'cuda_bf16'`` (the bf16 tiers — JAX's ``'pallas_bf16'``)
             or ``'torch_bf16'`` (their plain versions) — see
@@ -218,10 +264,17 @@ class DistSampler:
             if (isinstance(kernel, str) and kernel == "median_step") or isinstance(
                     kernel, AdaptiveRBF):
                 raise ValueError("kernel='median_step' requires update_rule='jacobi'")
-        if exchange_impl == "ring":
-            raise _not_ported("exchange_impl='ring'", "A5")
         if exchange_every > 1:
-            raise _not_ported("exchange_every > 1 (the lagged exchange)", "A5")
+            # JAX's rules: the lagged exchange is the gathered all_particles
+            # step; the W2 snapshot bookkeeping is per step, not per refresh
+            if not (exchange_particles and not exchange_scores):
+                raise ValueError("exchange_every > 1 requires the all_particles mode")
+            if exchange_impl != "gather":
+                raise ValueError("exchange_every > 1 requires exchange_impl='gather'")
+            if include_wasserstein:
+                raise ValueError("exchange_every > 1 is incompatible with the Wasserstein term")
+            if update_rule != "jacobi":
+                raise ValueError("exchange_every > 1 requires update_rule='jacobi'")
         if shard_data and not exchange_particles:
             raise ValueError("shard_data is unsupported in partitions mode")
         if isinstance(seed, bool) or not isinstance(seed, (int, np.integer)):
@@ -242,6 +295,8 @@ class DistSampler:
         self._batch_size = None if batch_size is None else int(batch_size)
         self._log_prior = log_prior
         self._seed = int(seed)
+        self._exchange_impl = exchange_impl
+        self._exchange_every = int(exchange_every)
         #: Private seam: ``fn(t) -> (S, B)`` minibatch indices for step
         #: ``t``, used instead of the sampler's own stream when set (tests
         #: inject the JAX stream's indices through it).
@@ -291,8 +346,11 @@ class DistSampler:
             score_scale=self._score_scale,
             phi_impl=phi_impl,
             update_rule=update_rule,
+            ring=exchange_impl == "ring",
             **self._data_kwargs(),
         )
+        self._lagged = {}  # record flag -> the lagged macro-step, built at first use
+        self._chunk_builders = None  # the ring's hop pieces, built at first use
         # after the step's build, which refuses a kernel the φ backend
         # cannot take
         if phi_impl == "cuda" and self._device.type != "cuda":
@@ -470,14 +528,20 @@ class DistSampler:
         :func:`dist_svgd_torch.utils.interop.state_from_jax`).  The manifest
         is checked first: a particle-count or dimension mismatch raises
         :class:`~dist_svgd_torch.utils.checkpoint.TopologyMismatch`.  A save
-        at another shard count restores as is when it holds no W2 snapshot
-        (the particle array is global); a snapshot stack of another layout
-        would need JAX's reshard-on-restore (ROADMAP A4) and is refused.  A
-        dual that does not match its snapshot raises ``ValueError``; a save
-        under the other ``w2_pairing`` warns, as in JAX.  A saved
-        ``rng_batch_seed`` replaces the constructed seed, so a minibatched
-        resume continues the saved run's draws; a state without one (a JAX
-        save) goes on from this sampler's own seed."""
+        at another shard count restores too (reshard-on-restore, JAX's
+        ``_reshard_previous``): the particle array is global, the W2
+        snapshot stack is rebuilt exactly for this layout
+        (:func:`~dist_svgd_torch.utils.checkpoint.reshard_previous_stack`),
+        and the carried dual, whose pairing is per block, is dropped, so the
+        first resumed solve starts cold.  A dual that does not match an
+        unresharded snapshot raises ``ValueError``; a save under the other
+        ``w2_pairing`` warns, as in JAX.  A saved ``rng_batch_seed``
+        replaces the constructed seed, so a minibatched resume continues the
+        saved run's draws; a state without one (a JAX save, whose
+        ``rng_batch_key`` no torch stream can follow) goes on from this
+        sampler's own seed.  JAX, given a port save, ignores
+        ``rng_batch_seed`` (it reads only its own keys) and keeps its
+        constructed key."""
         _ckpt.check_topology(
             state, {"n_particles": self._num_particles, "d": self._d})
         if state.get("approx_method") is not None:
@@ -500,9 +564,10 @@ class DistSampler:
         previous = self._restore_w2("previous", state)
         w2_g = self._restore_w2("w2_g", state)
         if previous is not None and previous.shape != self._prev_shape():
-            raise _not_ported(
-                f"restoring a W2 snapshot stack {tuple(previous.shape)} saved under "
-                f"another shard layout (this sampler's is {self._prev_shape()})", "A4")
+            stack = _ckpt.reshard_previous_stack(previous.cpu().numpy(), self._num_particles,
+                                                 self._d, self._prev_shape())
+            previous = torch.from_numpy(stack).to(previous)
+            w2_g = None  # the dual's per-block pairing does not survive it
         if w2_g is not None and w2_g.shape != self._g_shape():
             raise ValueError(
                 f"checkpoint 'w2_g' dual {tuple(w2_g.shape)} != expected "
@@ -540,31 +605,65 @@ class DistSampler:
     # ------------------------------------------------------------------ #
     # Stepping
 
+    def _w2_step_fn(self):
+        """The step with the W2 term, built at the first W2 step (it reads
+        the Sinkhorn route then)."""
+        if self._w2_step is None:
+            self._w2_step = make_shard_step_sinkhorn_w2(
+                logp=self._logp, kernel=self._kernel, mode=self._mode,
+                num_shards=self._num_shards, score_scale=self._score_scale,
+                phi_impl=self._phi_impl, w2_pairing=self._w2_pairing,
+                wasserstein_solver=self._wasserstein_solver,
+                update_rule=self._update_rule, ring=self._exchange_impl == "ring",
+                sinkhorn_impl=self._sinkhorn_impl, **self._sinkhorn,
+                **self._data_kwargs())
+        return self._w2_step
+
     def _advance(self, step_size: float, h: float) -> None:
         self._t += 1
         blocks = split(self._particles, self._num_shards)
         idx = self._batch_indices(self._t)
         with torch.no_grad():
             if self._include_wasserstein:
-                if self._w2_step is None:
-                    self._w2_step = make_shard_step_sinkhorn_w2(
-                        logp=self._logp, kernel=self._kernel, mode=self._mode,
-                        num_shards=self._num_shards, score_scale=self._score_scale,
-                        phi_impl=self._phi_impl, w2_pairing=self._w2_pairing,
-                        wasserstein_solver=self._wasserstein_solver,
-                        update_rule=self._update_rule,
-                        sinkhorn_impl=self._sinkhorn_impl, **self._sinkhorn,
-                        **self._data_kwargs())
-                blocks, self._previous, self._w2_g = self._w2_step(
+                blocks, self._previous, self._w2_g = self._w2_step_fn()(
                     blocks, self._previous, self._w2_g, self._data_stacked, self._t,
                     step_size, h, idx)
             else:
                 blocks = self._step(blocks, self._data_stacked, self._t, step_size, idx)
         self._particles = merge(blocks)
 
+    def _advance_lagged(self, step_size: float, record: bool):
+        """One lagged macro-step of ``exchange_every`` steps; returns the
+        pre-update global particles of each sub-step (``record=True``) or
+        ``None``."""
+        macro = self._lagged.get(record)
+        if macro is None:
+            macro = self._lagged[record] = make_shard_step_lagged(
+                self._logp, self._kernel, self._num_shards, self._score_scale,
+                self._exchange_every, phi_impl=self._phi_impl, record=record,
+                **self._data_kwargs())
+        blocks = split(self._particles, self._num_shards)
+        with torch.no_grad():
+            out = macro(blocks, self._data_stacked, self._t + 1, step_size,
+                        self._batch_indices)
+        self._t += self._exchange_every
+        if record:
+            blocks, hist = out
+            self._particles = merge(blocks)
+            return list(hist.reshape(self._exchange_every, self._num_particles, self._d))
+        self._particles = merge(out)
+        return None
+
     def make_step(self, step_size: float, h: float = 1.0) -> torch.Tensor:
         """Perform one distributed SVGD step; returns the global particles.
-        ``h`` weights the W2 term (reference ``δ += h·w_grad``)."""
+        ``h`` weights the W2 term (reference ``δ += h·w_grad``).  The lagged
+        exchange refuses it (``ValueError``): drive it through
+        :meth:`run_steps`."""
+        if self._exchange_every > 1:
+            raise ValueError(
+                "exchange_every > 1 amortises one gather over a block of steps; drive "
+                "it through run_steps(num_steps) with num_steps a multiple of "
+                "exchange_every")
         self._advance(step_size, h)
         return self._particles
 
@@ -580,46 +679,131 @@ class DistSampler:
         max_passes_per_dispatch: Optional[int] = None,
         time_dispatches: bool = False,
     ):
-        """``num_steps`` distributed SVGD steps, monolithic — the same
-        trajectory as ``num_steps`` calls of :meth:`make_step`.  Returns the
-        final particles, or ``(final, history)`` with ``record=True``:
+        """``num_steps`` distributed SVGD steps — the same trajectory as
+        ``num_steps`` calls of :meth:`make_step` (a whole number of
+        macro-steps under the lagged exchange).  Returns the final
+        particles, or ``(final, history)`` with ``record=True``:
         ``history`` is the ``(num_steps, n, d)`` stack of pre-update
         snapshots (the state before each step — the reference's convention;
         append ``final`` for the last one).  The history goes to the host
         in chunks of :func:`~dist_svgd_torch.utils.history.
-        record_chunk_steps` snapshots (looked up at run time), so the device
-        never holds more than one chunk; a run longer than one chunk
+        record_chunk_steps` snapshots (looked up at run time; whole
+        macro-steps under the lagged exchange), so the device never holds
+        more than one chunk; a run longer than one chunk, or a chunked run,
         returns a numpy array, a shorter one a tensor on the device, as in
         JAX.  With the W2 term on, this requires
-        ``wasserstein_solver='sinkhorn'`` (the host LP is ``make_step``-only,
-        as in JAX).  The chunking knobs (``dispatch_budget`` /
-        ``hops_per_dispatch`` / ``max_passes_per_dispatch``) are ROADMAP
-        A5; ``pairs_per_sec`` and ``time_dispatches`` only act together
-        with them in JAX.  Each call writes :attr:`last_run_stats`."""
-        if self._include_wasserstein and self._wasserstein_solver != "sinkhorn":
+        ``wasserstein_solver='sinkhorn'`` (the host LP is ``make_step``-only)
+        and, under the ring, the block pairing, as in JAX.
+
+        Chunked execution (JAX's executor, :meth:`_plan_dispatches`):
+        ``dispatch_budget`` (seconds) picks, from n, S and ``pairs_per_sec``
+        (default :data:`DISPATCH_PAIRS_PER_SEC`), the coarsest plan whose
+        largest dispatch fits — the whole run (``'monolithic'``), chunks of
+        whole steps (``'scan_chunks'``) or chunks inside a step
+        (``'intra_step'``: ring hops ``hops_per_dispatch`` at a time, each
+        Sinkhorn solve split into ``max_passes_per_dispatch``-iteration
+        dual advances, :func:`~dist_svgd_torch.ops.ot.sinkhorn_dual_advance`).
+        ``hops_per_dispatch`` / ``max_passes_per_dispatch`` force the
+        intra-step plan.  Hop chunks replay the monolithic accumulation
+        order; split solves agree at convergence.  ``time_dispatches``
+        fences each dispatch (``torch.cuda.synchronize`` on the card) and
+        records the longest.  Each call writes :attr:`last_run_stats`
+        (``execution``, ``num_dispatches``, ``dispatches_per_step``,
+        ``max_dispatch_wall_s``, the resolved knobs and ``w2_pairing``)."""
+        if self._include_wasserstein:
+            if self._wasserstein_solver != "sinkhorn" or (
+                    self._exchange_impl == "ring" and self._mode != PARTITIONS
+                    and not self._block_w2 and self._num_shards > 1):
+                raise ValueError(
+                    "run_steps with the Wasserstein term requires "
+                    "wasserstein_solver='sinkhorn', and the global W2 pairing "
+                    "requires exchange_impl='gather' (its snapshot is the gathered "
+                    "set; pass w2_pairing='block' to compose with the ring "
+                    "implementation).  The host-LP snapshot path is make_step-only")
+        if self._exchange_every > 1 and num_steps % self._exchange_every:
+            raise ValueError(f"num_steps ({num_steps}) must be a multiple of "
+                             f"exchange_every ({self._exchange_every})")
+        explicit = hops_per_dispatch is not None or max_passes_per_dispatch is not None
+        for name, val in (("hops_per_dispatch", hops_per_dispatch),
+                          ("max_passes_per_dispatch", max_passes_per_dispatch)):
+            if val is not None and val < 1:
+                raise ValueError(f"{name} must be >= 1, got {val}")
+        if dispatch_budget is not None and explicit:
             raise ValueError(
-                "run_steps with the Wasserstein term requires "
-                "wasserstein_solver='sinkhorn'; the host-LP snapshot path is "
-                "make_step-only")
-        if (dispatch_budget is not None or hops_per_dispatch is not None
-                or max_passes_per_dispatch is not None):
-            raise _not_ported("chunked run_steps (dispatch_budget / hops / passes)", "A5")
-        chunk = _history.record_chunk_steps(self._num_particles, self._d,
-                                            self._particles.element_size())
+                "pass either dispatch_budget (auto-chunking) or explicit "
+                "hops_per_dispatch / max_passes_per_dispatch, not both")
+        if dispatch_budget is None and not explicit:
+            return self._run_eager(num_steps, step_size, record, h)
+        if explicit:
+            plan = {"execution": "intra_step", "hops_per_dispatch": hops_per_dispatch,
+                    "max_passes_per_dispatch": max_passes_per_dispatch}
+        else:
+            if dispatch_budget <= 0:
+                raise ValueError(f"dispatch_budget must be positive, got {dispatch_budget}")
+            plan = self._plan_dispatches(num_steps, dispatch_budget, pairs_per_sec)
+        if plan["execution"] == "monolithic":
+            run, rec = self._dispatch_runner(time_dispatches)
+            out = run(self._run_eager, num_steps, step_size, record, h)
+            self.last_run_stats = self._stats(
+                "monolithic", num_steps, rec["count"], rec["max_wall"],
+                dispatch_budget_s=dispatch_budget,
+                record_chunks_to_host=self.last_run_stats["record_chunks_to_host"])
+            return out
+        if plan["execution"] == "scan_chunks":
+            return self._run_steps_scan_chunks(num_steps, step_size, record, h,
+                                               plan["steps_per_dispatch"], time_dispatches,
+                                               dispatch_budget)
+        return self._run_steps_intra(num_steps, step_size, record, h,
+                                     plan.get("hops_per_dispatch"),
+                                     plan.get("max_passes_per_dispatch"), time_dispatches,
+                                     dispatch_budget)
+
+    def _record_chunk(self) -> int:
+        """Snapshots a history chunk holds on the device
+        (:func:`~dist_svgd_torch.utils.history.record_chunk_steps`, looked
+        up at run time); under the lagged exchange a whole number of
+        macro-steps, forced up to one with a warning (JAX's
+        ``_record_chunk``)."""
+        rc = _history.record_chunk_steps(self._num_particles, self._d,
+                                         self._particles.element_size())
+        T = self._exchange_every
+        if T > 1 and rc < T:
+            warnings.warn(
+                f"record=True history chunk forced up from {rc} to the lagged exchange "
+                f"cadence {T}: one macro-step's (T={T}, n={self._num_particles}, d) "
+                "snapshot stack is the indivisible recording unit and exceeds the "
+                "device history budget (utils/history.py:RECORD_HBM_BUDGET_BYTES) — "
+                "expect elevated device memory, or drop exchange_every / record at "
+                "this scale", stacklevel=4)
+            return T
+        return rc - rc % T if T > 1 else rc
+
+    def _run_eager(self, num_steps: int, step_size: float, record: bool, h: float):
+        """The run as one host loop of steps (macro-steps under the lagged
+        exchange), the history moved to the host a chunk at a time."""
+        chunk = self._record_chunk() if record else num_steps
         spill = num_steps > chunk  # a history longer than one chunk goes to the host
         held, host = [], []
-        for _ in range(num_steps):
+        lagged = self._exchange_every > 1
+        done = 0
+        while done < num_steps:
+            if lagged:
+                snaps = self._advance_lagged(step_size, record)
+                done += self._exchange_every
+            else:
+                snaps = [self._particles] if record else None
+                self._advance(step_size, h)
+                done += 1
             if record:
-                held.append(self._particles)
+                held += snaps
                 if spill and len(held) == chunk:
                     host.append(torch.stack(held).cpu().numpy())
                     held = []
-            self._advance(step_size, h)
         if host and held:  # the last, partial chunk
             host.append(torch.stack(held).cpu().numpy())
-        self.last_run_stats = {"execution": "eager", "num_steps": num_steps,
-                               "num_dispatches": num_steps, "dispatches_per_step": 1.0,
-                               "record_chunks_to_host": len(host)}
+        self.last_run_stats = self._stats(
+            "eager", num_steps, num_steps // self._exchange_every, None,
+            record_chunks_to_host=len(host))
         if not record:
             return self._particles
         if host:
@@ -627,3 +811,213 @@ class DistSampler:
         if not held:  # no step: an empty history
             return self._particles, self._particles.new_empty((0, *self._particles.shape))
         return self._particles, torch.stack(held)
+
+    def _stats(self, execution, num_steps, num_dispatches, max_wall, **extra) -> dict:
+        stats = {"execution": execution, "num_steps": num_steps,
+                 "num_dispatches": num_dispatches,
+                 "dispatches_per_step": round(num_dispatches / max(num_steps, 1), 4),
+                 "max_dispatch_wall_s": max_wall, "w2_pairing": self._w2_pairing}
+        stats.update(extra)
+        return stats
+
+    def _plan_dispatches(self, num_steps: int, budget: float, pairs_per_sec) -> dict:
+        """The ``dispatch_budget`` planner, JAX's arithmetic: a step's work
+        in pairwise interactions (φ, plus ``iters + 3`` Sinkhorn passes with
+        the W2 term), over the pairs/s rate, and the coarsest execution
+        whose largest dispatch fits the budget."""
+        pps = float(pairs_per_sec if pairs_per_sec is not None else DISPATCH_PAIRS_PER_SEC)
+        if pps <= 0:
+            raise ValueError(f"pairs_per_sec must be positive, got {pps}")
+        n = float(self._num_particles)
+        S = self._num_shards
+        exchanged = self._mode != PARTITIONS
+        phi_pairs = n * n if exchanged else n * n / S
+        w2_pass_pairs, w2_passes = 0.0, 0
+        if self._include_wasserstein and self._wasserstein_solver == "sinkhorn":
+            # S solves of (n/S, n/S) under the block pairing, (n/S, n) under
+            # the global one; the 2 start passes and ~1 finish a solve
+            w2_pass_pairs = n * n / S if self._block_w2 else n * n
+            w2_passes = self._sinkhorn["sinkhorn_iters"] + 3
+        t_step = (phi_pairs + w2_pass_pairs * w2_passes) / pps
+        if num_steps * t_step <= budget:
+            return {"execution": "monolithic"}
+        if t_step <= budget:
+            k = max(1, int(budget // t_step))
+            if self._exchange_every > 1:  # whole macro-steps
+                k = max(self._exchange_every, k - k % self._exchange_every)
+            return {"execution": "scan_chunks", "steps_per_dispatch": min(k, num_steps)}
+        if self._exchange_every > 1:
+            raise ValueError(
+                f"one lagged macro-step (~{t_step:.1f} s estimated at {pps:.2e} pairs/s) "
+                f"exceeds dispatch_budget={budget} s, and the lagged exchange has no "
+                "intra-step seam (one macro-step IS the gather-amortisation unit) — "
+                "raise the budget or drop exchange_every")
+        hpd = None
+        if self._exchange_impl == "ring" and exchanged:
+            hpd = max(1, min(S, int(budget * pps // max(phi_pairs / S, 1.0))))
+        elif phi_pairs / pps > budget:
+            raise ValueError(
+                f"one step's φ pass alone ({phi_pairs:.2e} pairs ≈ {phi_pairs / pps:.1f} s "
+                f"at {pps:.2e} pairs/s) exceeds dispatch_budget={budget} s, and only the "
+                "ring exchange has an intra-step seam to split at — construct with "
+                "exchange_impl='ring' (all_* modes), raise num_shards, or raise the "
+                "budget")
+        max_passes = None
+        if w2_pass_pairs:
+            # every resumed chunk pays the 2 start passes (the last the finish)
+            max_passes = max(1, min(self._sinkhorn["sinkhorn_iters"],
+                                    int(budget * pps // w2_pass_pairs) - 3))
+        return {"execution": "intra_step", "hops_per_dispatch": hpd,
+                "max_passes_per_dispatch": max_passes}
+
+    def _dispatch_runner(self, time_dispatches: bool):
+        """``(run, rec)``: ``run(fn, *args)`` calls one dispatch and counts
+        it in ``rec['count']``; with ``time_dispatches`` it fences the card
+        after the call and keeps the longest wall in ``rec['max_wall']``."""
+        rec = {"count": 0, "max_wall": None}
+        on_card = self._device.type == "cuda"
+
+        def run(fn, *args):
+            t0 = time.perf_counter() if time_dispatches else None
+            out = fn(*args)
+            rec["count"] += 1
+            if time_dispatches:
+                if on_card:
+                    torch.cuda.synchronize(self._device)
+                wall = time.perf_counter() - t0
+                rec["max_wall"] = wall if rec["max_wall"] is None else max(rec["max_wall"], wall)
+            return out
+
+        return run, rec
+
+    def _run_steps_scan_chunks(self, num_steps, step_size, record, h, steps_per_dispatch,
+                               time_dispatches, budget):
+        """Chunks of ``steps_per_dispatch`` whole steps (the history chunk
+        bounds them too with ``record=True``); the step counter and the
+        minibatch stream carry across chunks, and the chunks' histories
+        join without duplicates (each holds pre-update snapshots only)."""
+        if record:
+            steps_per_dispatch = min(steps_per_dispatch, self._record_chunk())
+        run, rec = self._dispatch_runner(time_dispatches)
+        hists = []
+        for k in _chunk_sizes(num_steps, steps_per_dispatch):
+            out = run(self._run_eager, k, step_size, record, h)
+            if record:
+                hist = out[1]
+                hists.append(hist.cpu().numpy() if isinstance(hist, torch.Tensor) else hist)
+        self.last_run_stats = self._stats(
+            "scan_chunks", num_steps, rec["count"], rec["max_wall"],
+            steps_per_dispatch=steps_per_dispatch, dispatch_budget_s=budget)
+        if record:
+            return self._particles, np.concatenate(hists, axis=0)
+        return self._particles
+
+    def _chunked_w2_grad(self, blocks, max_passes, run):
+        """The step's W2 gradient as a chain of bounded solve dispatches:
+        ``ceil(iters / max_passes) − 1`` dual advances threading ``g``, then
+        one that pays the gradient finish; the carried dual is updated."""
+        from dist_svgd_torch.ops.ot import sinkhorn_dual_advance, wasserstein_grad_sinkhorn
+
+        sk = self._sinkhorn
+        prev_for = torch.roll(self._previous, -1, dims=0) if self._block_w2 else self._previous
+        g = self._w2_g if self._w2_g is not None else blocks.new_zeros(self._g_shape())
+        total = sk["sinkhorn_iters"]
+        splits = _chunk_sizes(total, max_passes) if max_passes is not None else [total]
+        cold0 = not sk["sinkhorn_warm_start"]  # the first chunk starts cold
+        kw = dict(eps=sk["sinkhorn_eps"], tol=sk["sinkhorn_tol"], impl=self._sinkhorn_impl)
+        for i, k in enumerate(splits[:-1]):
+            g = run(lambda g_, k_=k, cold=cold0 and i == 0: sinkhorn_dual_advance(
+                blocks, prev_for, iters=k_, g_init=None if cold else g_, **kw), g)
+        grad, g = run(lambda g_: wasserstein_grad_sinkhorn(
+            blocks, prev_for, iters=splits[-1], return_g=True,
+            g_init=None if (cold0 and len(splits) == 1) else g_, **kw), g)
+        self._w2_g = g
+        return grad
+
+    def _chunked_phi_step(self, run, blocks, w_grad, t, idx, step_size, h, hops_per_dispatch):
+        """One ring step as a chain of hop-chunk dispatches and the finish
+        (:func:`~dist_svgd_torch.parallel.exchange.make_chunked_ring_step_fns`)."""
+        if self._chunk_builders is None:
+            self._chunk_builders = make_chunked_ring_step_fns(
+                self._logp, self._kernel, self._mode, self._num_shards, self._score_scale,
+                phi_impl=self._phi_impl, **self._data_kwargs())
+        b = self._chunk_builders
+        data = self._data_stacked
+        sizes = _chunk_sizes(self._num_shards, hops_per_dispatch)
+        last = len(sizes) - 1
+        acc = torch.zeros_like(blocks)
+        if self._mode == ALL_SCORES:
+            visiting, vscores = blocks, torch.zeros_like(blocks)
+            for k in sizes:  # the score pass: every hop rotates
+                visiting, vscores = run(b["score_hops"](k), visiting, vscores, data, t, idx)
+            vscores = run(b["add_prior"], visiting, vscores)
+            for i, k in enumerate(sizes):
+                visiting, vscores, acc = run(b["exact_phi_hops"](k, i < last), blocks,
+                                             visiting, vscores, acc)
+        else:
+            visiting = blocks
+            for i, k in enumerate(sizes):
+                visiting, acc = run(b["local_hops"](k, i < last), blocks, visiting, acc, data,
+                                    t, idx)
+        return run(b["finish"], blocks, acc, w_grad, step_size, h)
+
+    def _run_steps_intra(self, num_steps, step_size, record, h, hops_per_dispatch, max_passes,
+                         time_dispatches, budget):
+        """Each step as a host-driven chain of dispatches — the split W2
+        solve, the ring hop chunks (or the whole gather step), the finish —
+        with the carried state threaded between them (JAX's
+        ``_run_steps_intra``; the history goes to the host a step at a
+        time)."""
+        if self._exchange_every > 1:
+            raise ValueError(
+                "intra-step chunking is undefined for the lagged exchange "
+                "(exchange_every > 1): one macro-step IS the amortisation unit — use "
+                "dispatch_budget, which chunks at whole-cadence granularity")
+        ring_hops = self._exchange_impl == "ring" and self._mode != PARTITIONS
+        if hops_per_dispatch is not None and not ring_hops:
+            raise ValueError(
+                "hops_per_dispatch requires exchange_impl='ring' in an all_* mode: the "
+                "gather step has no hop seam to split at, and the partitions step is "
+                "already block-local")
+        if max_passes is not None and not (self._include_wasserstein
+                                           and self._wasserstein_solver == "sinkhorn"):
+            raise ValueError(
+                "max_passes_per_dispatch splits the per-step Sinkhorn solve and requires "
+                "include_wasserstein=True with wasserstein_solver='sinkhorn' (the "
+                "host-LP solve has no pass seam)")
+        if ring_hops and isinstance(self._kernel, AdaptiveRBF):
+            raise ValueError(
+                "chunked ring stepping requires a fixed-bandwidth kernel: "
+                "kernel='median_step' resolves per step from a gathered subsample the "
+                "bounded-dispatch chain does not carry — use kernel='median' instead")
+        run, rec = self._dispatch_runner(time_dispatches)
+        history = [] if record else None
+        for _ in range(num_steps):
+            self._t += 1
+            t = self._t
+            idx = self._batch_indices(t)
+            if record:
+                history.append(self._particles.cpu().numpy())
+            blocks = split(self._particles, self._num_shards)
+            with torch.no_grad():
+                w_grad = None
+                if self._include_wasserstein and self._previous is not None:
+                    w_grad = self._chunked_w2_grad(blocks, max_passes, run)
+                if ring_hops:
+                    new = self._chunked_phi_step(
+                        run, blocks, w_grad, t, idx, step_size, h,
+                        hops_per_dispatch if hops_per_dispatch is not None
+                        else self._num_shards)
+                else:
+                    new = run(self._step, blocks, self._data_stacked, t, step_size, idx,
+                              w_grad, h)
+                if self._include_wasserstein:
+                    self._previous = w2_snapshot(blocks, new, self._block_w2)
+            self._particles = merge(new)
+        self.last_run_stats = self._stats(
+            "intra_step", num_steps, rec["count"], rec["max_wall"],
+            hops_per_dispatch=hops_per_dispatch, max_passes_per_dispatch=max_passes,
+            dispatch_budget_s=budget)
+        if record:
+            return self._particles, np.stack(history)
+        return self._particles

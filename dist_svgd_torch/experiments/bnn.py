@@ -22,7 +22,9 @@ It prints the metrics as one JSON line and writes ``metrics.json`` and
 ``particles.npy`` under ``--results-dir`` (default ``build/results/``).
 Without ``--data-dir`` (or without ``<name>.npz`` there) the datasets are
 the loader's deterministic synthetic stand-ins with the real feature
-counts.  ``--exchange-every > 1`` (the lagged exchange) is ROADMAP A5.
+counts.  ``--exchange-every T > 1`` runs the lagged exchange over the
+shards (``DistSampler(exchange_every=T)``: one gather a macro-step of T
+steps; ``all_particles``, ``--nproc > 1``, ``--niter`` a multiple of T).
 """
 
 from __future__ import annotations
@@ -91,9 +93,6 @@ def run(dataset="boston", split=0, nproc=1, nparticles=500, n_hidden=50, niter=1
         if niter % exchange_every:
             raise ValueError(f"--niter ({niter}) must be a multiple of "
                              f"--exchange-every ({exchange_every})")
-        raise NotImplementedError(
-            "--exchange-every > 1 (the lagged exchange) is not ported to PyTorch yet "
-            "(ROADMAP A5)")
     dev = resolve_device(device)
     sp = load_uci_regression(dataset, split, data_path=data_dir)
     n_features = sp.x_train.shape[1]
@@ -119,7 +118,7 @@ def run(dataset="boston", split=0, nproc=1, nparticles=500, n_hidden=50, niter=1
             nproc, likelihood, kernel, particles, data=data,
             exchange_particles=True, exchange_scores=exchange == "all_scores",
             include_wasserstein=False, batch_size=batch, log_prior=prior,
-            phi_impl=phi_impl, seed=seed, device=dev)
+            phi_impl=phi_impl, exchange_every=exchange_every, seed=seed, device=dev)
         _sync(dev)
         t0 = time.perf_counter()
         final = sampler.run_steps(niter, stepsize)

@@ -364,6 +364,12 @@ def _solve_setup(particles, previous, eps: float, g_init):
     return xs, ys, f0, g0, torch.abs(g0 - gi).amax(dim=-1), reg, sr
 
 
+def _duals(g, reg, dtype, single):
+    """The dual ``g`` back in cost units and the input dtype."""
+    g = (g * reg[:, None]).to(dtype)
+    return g[0] if single else g
+
+
 def _finish(grad, g, reg, sr, dtype, single, return_g):
     grad = (grad * sr[:, None, None]).to(dtype)
     g = (g * reg[:, None]).to(dtype)
@@ -374,7 +380,7 @@ def _finish(grad, g, reg, sr, dtype, single, return_g):
 
 def sinkhorn_grad_fused(particles, previous, eps: float = 0.05, iters: int = 200,
                         tol=None, absorb_every: int = 10, g_init=None,
-                        return_g: bool = False):
+                        return_g: bool = False, duals_only: bool = False):
     """W2 gradient by the fused route, for one pair or lanes — the algorithm
     and exit of ``ops/ot.py`` (same scaling loop), with the fixed passes on
     the kernels: the start from two :func:`ctransform_reduce` passes, the
@@ -382,7 +388,9 @@ def sinkhorn_grad_fused(particles, previous, eps: float = 0.05, iters: int = 200
     ``torch.matmul`` against it (full float32; ``resolve_device`` keeps TF32
     off).  In rescaled coordinates the gradient is ``grad/√reg``, so it is
     scaled back by √reg; the dual returns in cost units as ``g·reg``.
-    Returns ``grad`` or ``(grad, g)``, in the input dtype."""
+    Returns ``grad`` or ``(grad, g)``, in the input dtype; ``duals_only=True``
+    skips the finish and returns ``g`` alone (cost units) — the resumable
+    chunk behind ``ops/ot.py:sinkhorn_dual_advance``."""
     if absorb_every <= 0:
         raise ValueError(f"absorb_every must be positive, got {absorb_every}")
     (particles, previous, g_init), single = _lanes(particles, previous, g_init)
@@ -396,6 +404,8 @@ def sinkhorn_grad_fused(particles, previous, eps: float = 0.05, iters: int = 200
 
     _, g, kmat, u, v = _sinkhorn_scaling_loop(
         f0, g0, make_ops, 1.0, xs.shape[1], ys.shape[1], iters, tol, absorb_every)
+    if duals_only:
+        return _duals(g, reg, particles.dtype, single)
     row = u * torch.matmul(kmat, v[..., None])[..., 0]
     py = u[..., None] * torch.matmul(kmat, v[..., None] * ys)
     return _finish(xs * row[..., None] - py, g, reg, sr, particles.dtype, single, return_g)
@@ -403,16 +413,20 @@ def sinkhorn_grad_fused(particles, previous, eps: float = 0.05, iters: int = 200
 
 def sinkhorn_grad_streaming(particles, previous, eps: float = 0.05, iters: int = 200,
                             tol=None, absorb_every: int = 10, g_init=None,
-                            return_g: bool = False):
+                            return_g: bool = False, duals_only: bool = False):
     """W2 gradient with O(n·d) memory: every scaling matvec rebuilds the
     kernel from coordinates (:func:`kmat_vec`), the finish is
     :func:`plan_grad`; no ``(k, m)`` buffer ever exists.  Blocks are pure
     exit granularity here, so with a ``tol`` the loop runs at
     ``absorb_every = 1``; and a warm lane whose start pair already meets the
     exit (``delta0 ≤ tol``) skips the loop (JAX's ``lax.cond``, a per-lane
-    select under ``vmap``).  Returns like :func:`sinkhorn_grad_fused`."""
+    select under ``vmap``).  Returns like :func:`sinkhorn_grad_fused`; with
+    ``duals_only`` no :func:`plan_grad` pass runs, and ``iters=0`` returns
+    the start pair's ``g`` (the two c-transform passes, no scaling)."""
     (particles, previous, g_init), single = _lanes(particles, previous, g_init)
     xs, ys, f0, g0, delta0, reg, sr = _solve_setup(particles, previous, eps, g_init)
+    if duals_only and iters == 0:
+        return _duals(g0, reg, particles.dtype, single)
 
     def make_ops(f, g):
         return ((lambda v: kmat_vec(xs, ys, f, g, v)),
@@ -423,4 +437,6 @@ def sinkhorn_grad_streaming(particles, previous, eps: float = 0.05, iters: int =
         f0, g0, make_ops, 1.0, xs.shape[1], ys.shape[1], iters, tol,
         1 if tol is not None else absorb_every, carry_kmat=False,
         start_delta=delta0 if tol is not None else None)
+    if duals_only:
+        return _duals(g, reg, particles.dtype, single)
     return _finish(plan_grad(xs, ys, f, g), g, reg, sr, particles.dtype, single, return_g)

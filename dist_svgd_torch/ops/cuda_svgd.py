@@ -678,7 +678,9 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
 
     - ``'auto'``  — :func:`phi_cuda` at or above a pair-count line:
       the hand kernel for the tensors' d on CUDA tensors, that kernel's
-      plain version on CPU tensors.  The line is :data:`CUDA_MIN_PAIRS`
+      plain version on float32 CPU tensors; CPU tensors wider than float32
+      take the plain φ of ``'torch'`` at their dtype (JAX's ``'auto'`` off
+      the TPU is its ``'xla'`` φ at the input dtype).  The line is :data:`CUDA_MIN_PAIRS`
       for d ≤ :data:`SMALL_D` and :data:`CUDA_MIN_PAIRS_BIG_D` above,
       compared with the call's S·k·m, as JAX's ``PALLAS_MIN_PAIRS*`` with
       ``k·m·batch_hint``; their values were measured on the H100 by
@@ -745,7 +747,10 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
         def auto_fn(y, x, s):
             d = y.shape[-1]
             gate = CUDA_MIN_PAIRS if d <= SMALL_D else CUDA_MIN_PAIRS_BIG_D
-            if d <= WIDE_D_MAX and _pairs(y, x) >= gate:
+            # CPU tensors wider than float32 keep their dtype, as JAX's
+            # 'auto' takes the 'xla' φ off the TPU
+            wide_cpu = y.device.type == "cpu" and y.dtype.itemsize > 4
+            if not wide_cpu and d <= WIDE_D_MAX and _pairs(y, x) >= gate:
                 return phi_cuda(y, x, s, bw)
             return plain_fn(y, x, s)
 

@@ -4,7 +4,8 @@ Counterpart of ``dist_svgd_tpu/ops/kernels.py``: ``squared_distances`` (the
 ``x² + y² − 2·x·yᵀ`` form, clamped at 0), ``RBF``, the median-heuristic
 ``median_bandwidth`` that ``kernel='median'`` resolves once, and the
 sort-free per-step estimate ``median_bandwidth_approx`` behind
-``kernel='median_step'`` (:class:`AdaptiveRBF`), the drivers' mapping
+``kernel='median_step'`` (:class:`AdaptiveRBF`) with its masked form for
+the ring exchange (:func:`median_bandwidth_approx_masked`), the drivers' mapping
 of ``--bandwidth`` onto these (:func:`resolve_bandwidth_kernel`), and
 :func:`kernel_matrix` / :func:`kernel_grad_matrix` for any scalar kernel
 callable.  Every RBF function accepts leading batch dimensions (the
@@ -14,7 +15,7 @@ emulated shard axis).
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -97,24 +98,50 @@ def median_bandwidth_approx(particles: torch.Tensor, max_points: int = 1024,
     return _median_bracket(sq, target, probes) / math.log(full_n + 1.0)
 
 
-def _median_bracket(sq: torch.Tensor, target: int, probes: int) -> torch.Tensor:
+def _median_bracket(sq: torch.Tensor, target: int, probes: int,
+                    pair: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The four-pass counting bracket over the last two dims of ``sq``: each
     pass counts the entries at or below ``probes`` evenly spaced thresholds
     of the current bracket and keeps the first bucket whose count reaches
-    ``target``; returns the final bracket's midpoint, floored at 1e-12."""
+    ``target``; returns the final bracket's midpoint, floored at 1e-12.
+    ``pair`` (a boolean matrix) restricts the counts and the initial width
+    to the valid entries — one copy of the bracket for the plain and the
+    masked estimator, so the ring's bandwidth cannot drift from the
+    gather's."""
     ks = torch.arange(1, probes + 1, dtype=sq.dtype, device=sq.device)
 
     def refine(lo, width):
         t = lo[..., None] + width[..., None] * ks / probes           # (..., probes)
-        cnt = (sq[..., None, :, :] <= t[..., None, None]).sum(dim=(-2, -1))
+        hit = sq[..., None, :, :] <= t[..., None, None]
+        if pair is not None:
+            hit = hit & pair
+        cnt = hit.sum(dim=(-2, -1))
         i = torch.argmax((cnt >= target).to(torch.int32), dim=-1)  # first bucket
         return lo + width * i.to(sq.dtype) / probes, width / probes
 
-    w0 = torch.amax(sq, dim=(-2, -1))
+    w0 = torch.amax(sq if pair is None else torch.where(pair, sq, torch.zeros_like(sq)),
+                    dim=(-2, -1))
     lo, w = refine(torch.zeros_like(w0), w0)
     for _ in range(3):
         lo, w = refine(lo, w)
     return torch.clamp(lo + 0.5 * w, min=1e-12)
+
+
+def median_bandwidth_approx_masked(points: torch.Tensor, valid: torch.Tensor, n_valid: int,
+                                   full_n: int, probes: int = 16) -> torch.Tensor:
+    """:func:`median_bandwidth_approx` over the ``valid`` rows of an
+    already-subsampled, padded point set ``(P, d)`` — the ring exchange's
+    per-step bandwidth, where each shard contributes its ragged slice of
+    the global strided subsample (JAX ``ops/kernels.py:
+    median_bandwidth_approx_masked``).  ``n_valid`` is the subsample's true
+    size and ``full_n`` the particle count of the ``log(n + 1)`` normaliser.
+    Only valid × valid pairs are counted, against the same thresholds and
+    target rank, so on the same point set it equals the unmasked estimate
+    exactly (no sort, no host sync)."""
+    sq = squared_distances(points, points)
+    pair = valid[:, None] & valid[None, :]
+    target = n_valid + (n_valid * n_valid - n_valid + 1) // 2
+    return _median_bracket(sq, target, probes, pair) / math.log(full_n + 1.0)
 
 
 class AdaptiveRBF:

@@ -13,7 +13,9 @@ Two solvers:
 - :func:`wasserstein_grad_lp` — the reference's dense LP on the host
   (``scipy.optimize.linprog``), float64, one pair of point sets at a time;
 - :func:`wasserstein_grad_sinkhorn` — entropic OT by absorption-stabilised
-  Sinkhorn scaling (:func:`sinkhorn_plan` says how), with three routes
+  Sinkhorn scaling (:func:`sinkhorn_plan` says how), with its resumable
+  half :func:`sinkhorn_dual_advance` (the duals only, for a solve split
+  across dispatches), on three routes
   chosen by :func:`_resolve_sinkhorn_route`: ``'torch'`` (the dense solve
   here, in cost units), and on the card the hand-kernel routes ``'fused'``
   and ``'streaming'`` of :mod:`dist_svgd_torch.ops.cuda_ot` (reg-rescaled
@@ -276,7 +278,7 @@ def _resolve_sinkhorn_route(x: torch.Tensor, y: torch.Tensor, impl: str) -> str:
     - ``'torch'`` — always the torch route.
     - ``'auto'`` — on CUDA tensors, float32 and d ≤ SMALL_D take the hand
       kernels at any size (the TPU's ``FUSED_SINKHORN_MIN_PAIRS`` does not
-      carry over, ROADMAP B10), streaming from
+      carry over, ROADMAP B9), streaming from
       :data:`FUSED_SINKHORN_STREAM_MIN_PAIRS` pairs per lane; anything else
       takes the torch route, with a warning past that memory line.  On the
       CPU, the torch route.
@@ -364,3 +366,42 @@ def wasserstein_grad_sinkhorn(particles, previous, eps: float = 0.05,
     if single:
         grad, g = grad[0], g[0]
     return (grad, g) if return_g else grad
+
+
+def sinkhorn_dual_advance(particles, previous, eps: float = 0.05, iters: int = 200,
+                          tol: Optional[float] = None, absorb_every: int = 10, g_init=None,
+                          impl: str = "auto"):
+    """Advance the Sinkhorn dual ``g`` by up to ``iters`` scaling iterations
+    without the gradient finish — the resumable half of
+    :func:`wasserstein_grad_sinkhorn` (JAX ``ops/ot.py:sinkhorn_dual_advance``).
+    A host loop splits one solve into chunks, ``g = sinkhorn_dual_advance(x,
+    y, iters=k, g_init=g)`` repeated, and only the last chunk pays the
+    finish (``wasserstein_grad_sinkhorn(..., g_init=g, return_g=True)``).
+
+    Each resume pays the two soft c-transform start passes; the start pair
+    is one exact log-domain iteration from ``g_init``, so a split solve sits
+    a few iterations ahead of the unsplit one and meets it at convergence.
+    ``iters=0`` returns the bare start pair's ``g`` — on the streaming route
+    without ever building C.  Same routes as
+    :func:`wasserstein_grad_sinkhorn`; returns ``g`` in cost units, ``(m,)``
+    or ``(S, m)``."""
+    if impl not in SINKHORN_IMPLS:
+        raise ValueError(f"unknown sinkhorn impl {impl!r}; the port has {SINKHORN_IMPLS}")
+    (x, y, g_init), single = _lanes(particles, previous, g_init)
+    route = _resolve_sinkhorn_route(x, y, impl)
+    if iters == 0 and route != "streaming":
+        _, (_, g) = sinkhorn_plan(x, y, eps=eps, iters=0, absorb_every=absorb_every,
+                                  g_init=g_init, return_potentials=True)
+    elif route == "torch":
+        if absorb_every <= 0:
+            raise ValueError(f"absorb_every must be positive, got {absorb_every}")
+        _, g, _, _, _, _ = _sinkhorn_solve(squared_distances(x, y), eps, iters, tol,
+                                           absorb_every, g_init)
+    else:
+        from dist_svgd_torch.ops import cuda_ot
+
+        fn = (cuda_ot.sinkhorn_grad_streaming if route == "streaming"
+              else cuda_ot.sinkhorn_grad_fused)
+        g = fn(x, y, eps=eps, iters=iters, tol=tol, absorb_every=absorb_every,
+               g_init=g_init, duals_only=True)
+    return g[0] if single else g

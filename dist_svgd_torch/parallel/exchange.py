@@ -1,9 +1,12 @@
 """The three particle/score exchange strategies, as one batched step over
 the emulated shard axis.
 
-Counterpart of ``dist_svgd_tpu/parallel/exchange.py`` (gather
-implementation; the Jacobi update, and the reference's literal
-Gauss–Seidel sweep, :func:`_build_gs_step`).  Reference semantics:
+Counterpart of ``dist_svgd_tpu/parallel/exchange.py``: the gather and the
+ring implementations of the ``all_*`` exchanges, the Jacobi update, the
+reference's literal Gauss–Seidel sweep (:func:`_build_gs_step`), the lagged
+exchange (:func:`make_shard_step_lagged`) and the resumable hop pieces of
+the chunked executor (:func:`make_chunked_ring_step_fns`).  Reference
+semantics:
 
 - ``all_particles`` — every shard gathers the full particle set and scores
   all n particles on its **local data slice**, importance-scaled by
@@ -24,6 +27,18 @@ scores, on each shard, ``B`` rows of that shard's slice drawn for the step
 
 :func:`make_shard_step_sinkhorn_w2` adds the Wasserstein/JKO term with the
 reference's snapshot semantics (``dist_svgd_tpu/parallel/exchange.py``).
+
+**Ring execution** (``ring=True``, the ``all_*`` modes): instead of
+gathering the ``(n, d)`` set, the blocks travel hop by hop around the shards
+— JAX's ``ppermute`` from rank ``j`` to ``j + 1``, here
+``torch.roll(stack, 1, dims=0)`` over the ``(S, s, d)`` block stack — and
+each hop adds the visiting block's φ contribution to a running ``(S, s, d)``
+accumulator: one φ call a hop for all S shards, each lane against its own
+visiting block.  ``all_particles`` is one pass, each shard scoring the
+visiting block on its own data; ``all_scores`` first carries each block
+once around the ring summing the shards' likelihood scores (the psum), then
+rotates (block, score) pairs for φ.  The same math as the gather, in
+another summation order.
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ from typing import Callable, Optional
 import torch
 
 from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
+from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth_approx_masked
 from dist_svgd_torch.ops.ot import wasserstein_grad_lp, wasserstein_grad_sinkhorn
 from dist_svgd_torch.parallel.mesh import all_gather, psum, split
 
@@ -93,6 +109,111 @@ def take_minibatch(data, idx: torch.Tensor):
     return tree_map(lambda a: a[lanes, idx], data)
 
 
+def ring_hops_per_step(mode: str, num_shards: int) -> dict:
+    """``{'hops': H, 'arrays_per_hop': A}``: how many rotations one ring
+    step issues and how many arrays each rotates (JAX's count, the
+    terminal hop's elided rotation included): ``all_particles`` S − 1 of 1
+    array, ``all_scores`` a score pass of S plus a φ pass of S − 1, 2 arrays
+    each; ``partitions`` and S = 1 none."""
+    S = int(num_shards)
+    if mode == PARTITIONS or S < 2:
+        return {"hops": 0, "arrays_per_hop": 0}
+    if mode == ALL_PARTICLES:
+        return {"hops": S - 1, "arrays_per_hop": 1}
+    if mode == ALL_SCORES:
+        return {"hops": (S - 1) + S, "arrays_per_hop": 2}
+    raise ValueError(f"unknown exchange mode {mode!r}")
+
+
+def _ring_rotate(stack: torch.Tensor) -> torch.Tensor:
+    """One ring hop: shard ``j``'s entry moves to shard ``j + 1`` (JAX's
+    ``_ring_perm``, the reference's direction)."""
+    return torch.roll(stack, 1, dims=0)
+
+
+def _ring_local_hops(blocks, carry, score_of, phi_fn, num_hops: int, rotate_last: bool):
+    """Advance ``num_hops`` (accumulate, rotate) hops of the single-pass
+    (``all_particles``) ring φ from the carry ``(visiting, acc)`` — the
+    resumable state of the hop loop, so a pass runs whole or split at any
+    hop with the same accumulation order.  Each hop is one φ call of the
+    ``(S, s, d)`` blocks against the per-lane visiting blocks.
+    ``rotate_last=False`` skips the final hop's rotation (the pass's
+    terminal chunk only)."""
+    visiting, acc = carry
+    for i in range(num_hops):
+        acc = acc + phi_fn(blocks, visiting, score_of(visiting))
+        if rotate_last or i < num_hops - 1:
+            visiting = _ring_rotate(visiting)
+    return visiting, acc
+
+
+def _ring_phi_local_scores(blocks, score_of, phi_fn, num_shards: int):
+    """Single-pass ring φ with ``all_particles`` semantics: each visiting
+    block scored by the shard it visits (``score_of``, per lane); each hop's
+    φ is normalised by the block size, so the hop sum over S is the global
+    mean."""
+    _, acc = _ring_local_hops(blocks, (blocks, torch.zeros_like(blocks)), score_of, phi_fn,
+                              num_shards, rotate_last=False)
+    return acc / num_shards
+
+
+def _ring_exact_score_hops(carry, lik_score_of, num_hops: int):
+    """Advance ``num_hops`` hops of the ``all_scores`` score pass from the
+    carry ``(visiting, vscores)``: each hop adds the visited shard's
+    likelihood score of the visiting block to its travelling sum, then
+    rotates both (every hop rotates, so chunks compose freely)."""
+    visiting, vscores = carry
+    for _ in range(num_hops):
+        vscores = vscores + lik_score_of(visiting)
+        visiting, vscores = _ring_rotate(visiting), _ring_rotate(vscores)
+    return visiting, vscores
+
+
+def _ring_exact_phi_hops(blocks, carry, phi_fn, num_hops: int, rotate_last: bool):
+    """Advance ``num_hops`` hops of the ``all_scores`` φ pass from the carry
+    ``(visiting, vscores, acc)``: the (block, score) pairs rotate and the
+    accumulator grows; ``rotate_last=False`` as in :func:`_ring_local_hops`."""
+    visiting, vscores, acc = carry
+    for i in range(num_hops):
+        acc = acc + phi_fn(blocks, visiting, vscores)
+        if rotate_last or i < num_hops - 1:
+            visiting, vscores = _ring_rotate(visiting), _ring_rotate(vscores)
+    return visiting, vscores, acc
+
+
+def _ring_phi_exact_scores(blocks, lik_score_of, prior_of, phi_fn, num_shards: int):
+    """Two-pass ring φ with ``all_scores`` semantics: the score pass brings
+    every block home with the shards' summed likelihood score, the prior is
+    added once (``prior_of(visiting, vscores)``), then the φ pass."""
+    visiting, vscores = _ring_exact_score_hops(
+        (blocks, torch.zeros_like(blocks)), lik_score_of, num_shards)
+    vscores = prior_of(visiting, vscores)
+    _, _, acc = _ring_exact_phi_hops(blocks, (visiting, vscores, torch.zeros_like(blocks)),
+                                     phi_fn, num_shards, rotate_last=False)
+    return acc / num_shards
+
+
+def _ring_median_bandwidth(blocks: torch.Tensor, max_points: int) -> torch.Tensor:
+    """The gather path's per-step median bandwidth without the gathered
+    set: ``median_bandwidth_approx`` of the global array subsamples rows
+    ``global[::stride]``, and shard ``r`` holds those whose global index
+    ``r·s + j`` is a stride multiple.  Each shard's ragged slice, padded to
+    ``cap`` rows and masked, is gathered (``(S·cap, d)``) and the masked
+    median over it equals the gather's estimate exactly."""
+    S, s, _ = blocks.shape
+    n = s * S
+    stride = -(-n // max_points) if n > max_points else 1
+    p = -(-n // stride)    # the global subsample's size
+    cap = -(-s // stride)  # the most rows one shard contributes
+    lanes = torch.arange(S, device=blocks.device)
+    off = (-lanes * s) % stride  # each shard's first stride-multiple row
+    idx = off[:, None] + stride * torch.arange(cap, device=blocks.device)[None]
+    valid = idx < s
+    rows = blocks[lanes[:, None], idx.clamp(max=s - 1)]
+    rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
+    return median_bandwidth_approx_masked(rows.reshape(S * cap, -1), valid.reshape(-1), p, n)
+
+
 def _builder_prelude(logp, kernel, phi_impl: str, num_shards: int, log_prior=None,
                      batch_size: Optional[int] = None, n_local_data: int = 0):
     """``(phi_fn, shared_scores, own_scores, prior_scores)``:
@@ -136,9 +257,35 @@ def _with_prior(prior_scores, scores, thetas):
     return scores + prior_scores(thetas.reshape(-1, thetas.shape[-1])).reshape(thetas.shape)
 
 
+def _step_data(mode: str, num_shards: int, shard_data: bool, batch_size: Optional[int],
+               n_local_data: int):
+    """``(local, lik)``: ``local(data, t, idx)`` is each shard's data for
+    step ``t`` — its slice after the ``partitions`` rotation, then its
+    minibatch rows ``idx[r]`` (the draw is keyed by the shard, not the data
+    rank) — and ``lik(scores)`` applies the minibatch scale
+    ``n_local_data / B``.  One definition for the gather core, the ring and
+    its hop chunks, so every piece of a step sees the step's one
+    minibatch."""
+    resolve_data = _shard_data_resolver(mode, num_shards, shard_data)
+    mb_scale = n_local_data / batch_size if batch_size is not None else None
+
+    def local(data, t: int, idx: Optional[torch.Tensor]):
+        data_local = resolve_data(data, t)
+        if mb_scale is not None:
+            if idx is None:
+                raise ValueError("a minibatched step needs the step's (S, B) indices")
+            data_local = take_minibatch(data_local, idx)
+        return data_local
+
+    def lik(scores):
+        return scores if mb_scale is None else mb_scale * scores
+
+    return local, lik
+
+
 def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
                 phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
-                log_prior=None, n_local_data: int = 0):
+                log_prior=None, n_local_data: int = 0, ring: bool = False):
     """``core(blocks, data, t, idx) -> delta``: exchange, scores and φ for
     all shards at once (``blocks`` is ``(S, s, d)``, ``data`` the
     :func:`stack_shards` layout, ``idx`` the step's ``(S, B)`` minibatch
@@ -148,29 +295,45 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
     (after the ``partitions`` rotation — the draw is keyed by the shard, not
     by the data rank) scaled by ``n_local_data / B``; the prior gradient is
     added once, after that scale and after the psum or the importance
-    scale, in every mode (JAX ``parallel/exchange.py:_build_core``)."""
+    scale, in every mode (JAX ``parallel/exchange.py:_build_core``).
+
+    ``ring=True`` runs the ``all_*`` modes by ring hops (module docstring;
+    no effect in ``partitions``, already block-local).  With
+    ``kernel='median_step'`` the ring resolves the bandwidth once a step
+    from the gathered strided subsample (:func:`_ring_median_bandwidth`,
+    the gather's exact estimate) and applies the rescaling identity
+    ``φ_h(y; x, s) = φ₁(y/√h; x/√h, √h·s)/√h`` to each hop (linear in the
+    hop sum, JAX ``:538-546``)."""
     if mode not in MODES:
         raise ValueError(f"unknown exchange mode {mode!r}")
+    ring = ring and mode != PARTITIONS
+    ring_adaptive = ring and isinstance(kernel, AdaptiveRBF)
     phi_fn, shared_scores, own_scores, prior_scores = _builder_prelude(
-        logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data)
-    resolve_data = _shard_data_resolver(mode, num_shards, shard_data)
-    mb_scale = n_local_data / batch_size if batch_size is not None else None
-
-    def lik(scores):
-        return scores if mb_scale is None else mb_scale * scores
+        logp, RBF(1.0) if ring_adaptive else kernel, phi_impl, num_shards, log_prior,
+        batch_size, n_local_data)
+    local, lik = _step_data(mode, num_shards, shard_data, batch_size, n_local_data)
 
     def with_prior(scores, thetas):
         return _with_prior(prior_scores, scores, thetas)
 
     def core(blocks, data, t: int, idx: Optional[torch.Tensor] = None):
-        data_local = resolve_data(data, t)
-        if mb_scale is not None:
-            if idx is None:
-                raise ValueError("a minibatched step needs the step's (S, B) indices")
-            data_local = take_minibatch(data_local, idx)
+        data_local = local(data, t, idx)
         if mode == PARTITIONS:
             scores = with_prior(score_scale * lik(own_scores(blocks, data_local)), blocks)
             return phi_fn(blocks, blocks, scores)
+        if ring:
+            hop_phi = phi_fn
+            if ring_adaptive:
+                sh = torch.sqrt(_ring_median_bandwidth(blocks, kernel.max_points)
+                                .to(blocks.dtype))
+                hop_phi = lambda y, x, s_: phi_fn(y / sh, x / sh, s_ * sh) / sh  # noqa: E731
+            if mode == ALL_SCORES:
+                return _ring_phi_exact_scores(
+                    blocks, lambda v: lik(own_scores(v, data_local)),
+                    lambda v, vs: with_prior(vs, v), hop_phi, num_shards)
+            return _ring_phi_local_scores(
+                blocks, lambda v: with_prior(score_scale * lik(own_scores(v, data_local)), v),
+                hop_phi, num_shards)
         interacting = all_gather(blocks)
         local_scores = lik(shared_scores(interacting, data_local))  # (S, n, d)
         if mode == ALL_SCORES:
@@ -182,9 +345,128 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
     return core
 
 
+def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_scale: float,
+                               phi_impl: str = "auto", shard_data: bool = False,
+                               batch_size: Optional[int] = None, log_prior=None,
+                               n_local_data: int = 0) -> dict:
+    """The pieces of a ring step for a host-driven chain of bounded
+    dispatches (JAX ``make_chunked_ring_step_fns``): each piece resumes the
+    hop loop from an explicit carry, so the chain replays the monolithic
+    pass's accumulation order exactly.  A dict of:
+
+    - ``'local_hops'``: ``factory(num_hops, rotate_last) -> fn(blocks,
+      visiting, acc, data, t, idx) -> (visiting, acc)`` (``all_particles``);
+      every chunk re-derives the step's one minibatch from ``(t, idx)``;
+    - ``'score_hops'``: ``factory(num_hops) -> fn(visiting, vscores, data,
+      t, idx) -> (visiting, vscores)`` (``all_scores`` score pass);
+    - ``'exact_phi_hops'``: ``factory(num_hops, rotate_last) -> fn(blocks,
+      visiting, vscores, acc) -> (visiting, vscores, acc)``;
+    - ``'add_prior'``: ``fn(visiting, vscores) -> vscores``;
+    - ``'finish'``: ``fn(blocks, acc, w_grad, step_size, h) -> new_blocks``
+      — the hop mean plus the update (``w_grad`` may be ``None``).
+
+    Fixed-bandwidth kernels only: ``'median_step'`` raises ``ValueError``
+    (its per-step subsample is not carried across the chain), as in JAX."""
+    if mode not in (ALL_PARTICLES, ALL_SCORES):
+        raise ValueError(
+            f"chunked ring stepping is defined for the all_* modes, got {mode!r}")
+    if isinstance(kernel, AdaptiveRBF):
+        raise ValueError(
+            "chunked ring stepping requires a fixed-bandwidth kernel: "
+            "kernel='median_step' resolves per step from a gathered subsample the "
+            "bounded-dispatch chain does not carry — use kernel='median' (resolved "
+            "once at construction) instead")
+    phi_fn, _, own_scores, prior_scores = _builder_prelude(
+        logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data)
+    local, lik = _step_data(mode, num_shards, shard_data, batch_size, n_local_data)
+
+    def local_hops(num_hops: int, rotate_last: bool):
+        def fn(blocks, visiting, acc, data, t, idx=None):
+            data_local = local(data, t, idx)
+            score_of = lambda v: _with_prior(  # noqa: E731
+                prior_scores, score_scale * lik(own_scores(v, data_local)), v)
+            return _ring_local_hops(blocks, (visiting, acc), score_of, phi_fn, num_hops,
+                                    rotate_last)
+        return fn
+
+    def score_hops(num_hops: int):
+        def fn(visiting, vscores, data, t, idx=None):
+            data_local = local(data, t, idx)
+            return _ring_exact_score_hops(
+                (visiting, vscores), lambda v: lik(own_scores(v, data_local)), num_hops)
+        return fn
+
+    def exact_phi_hops(num_hops: int, rotate_last: bool):
+        def fn(blocks, visiting, vscores, acc):
+            return _ring_exact_phi_hops(blocks, (visiting, vscores, acc), phi_fn, num_hops,
+                                        rotate_last)
+        return fn
+
+    def add_prior(visiting, vscores):
+        return _with_prior(prior_scores, vscores, visiting)
+
+    def finish(blocks, acc, w_grad, step_size: float, h: float):
+        delta = acc / num_shards
+        if w_grad is not None:
+            delta = delta + h * w_grad
+        return blocks + step_size * delta
+
+    return {"local_hops": local_hops, "score_hops": score_hops,
+            "exact_phi_hops": exact_phi_hops, "add_prior": add_prior, "finish": finish}
+
+
+def make_shard_step_lagged(logp, kernel, num_shards: int, score_scale: float,
+                           exchange_every: int, phi_impl: str = "auto",
+                           shard_data: bool = False, batch_size: Optional[int] = None,
+                           log_prior=None, n_local_data: int = 0, record: bool = False):
+    """The lagged (stale) ``all_particles`` exchange: one gather a
+    macro-step of ``exchange_every`` SVGD steps (JAX
+    ``make_shard_step_lagged``, "lagged-remote, live-local").  At the
+    macro-step's start each shard takes the gathered set; for each sub-step
+    its interaction set is that stale snapshot with its **own block patched
+    live** — a per-lane view ``(S, n, d)`` — scored afresh on its data, and
+    φ runs all S views in one call.
+
+    Returns ``macro(blocks, data, t, step_size, idx_of) -> new_blocks``
+    (``(new_blocks, hist)`` with ``record=True``, ``hist`` the
+    ``(exchange_every, S, s, d)`` pre-update blocks of each sub-step);
+    ``t`` is the first sub-step's 1-based counter and ``idx_of(u)`` the
+    ``(S, B)`` minibatch indices of absolute step ``u`` (``None`` without a
+    minibatch).  The port's stream is keyed by ``(seed, u)``, so sub-step
+    ``i`` draws from ``(seed, t + i)``; JAX folds ``(key_t, i)`` and then
+    the shard instead — the same structure, another stream (parity tests
+    inject JAX's indices through the samplers' ``_batch_index_seam``)."""
+    if exchange_every < 1:
+        raise ValueError(f"exchange_every must be >= 1, got {exchange_every}")
+    phi_fn, _, own_scores, prior_scores = _builder_prelude(
+        logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data)
+    local, lik = _step_data(ALL_PARTICLES, num_shards, shard_data, batch_size, n_local_data)
+
+    def macro(blocks, data, t: int, step_size: float, idx_of):
+        S, s, d = blocks.shape
+        stale = all_gather(blocks)  # the one gather of the macro-step
+        lanes = torch.arange(S, device=blocks.device)
+        hist = []
+        blk = blocks
+        for i in range(exchange_every):
+            view = stale.expand(S, *stale.shape).clone()
+            view.view(S, S, s, d)[lanes, lanes] = blk  # own block live
+            data_local = local(data, t + i, idx_of(t + i))
+            scores = _with_prior(prior_scores, score_scale * lik(own_scores(view, data_local)),
+                                 view)
+            if record:
+                hist.append(blk)
+            blk = blk + step_size * phi_fn(blk, view, scores)
+        if record:
+            return blk, torch.stack(hist)
+        return blk
+
+    return macro
+
+
 def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
                    phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
-                   log_prior=None, n_local_data: int = 0):
+                   log_prior=None, n_local_data: int = 0, ring: bool = False):
     """The reference's literal Gauss–Seidel step, all shards at once (JAX
     ``parallel/exchange.py:_build_gs_step``; reference
     dsvgd/distsampler.py:194-200, ``tests/_oracle.py``).
@@ -202,10 +484,14 @@ def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
     ``w_grad`` ``(S, s, d)`` (the W2 gradient, solved once from the
     pre-sweep blocks) is applied row by row, ``δ_i = φ + h·w_grad_i``.
 
-    Minibatches are refused (``ValueError``), as in JAX.  Returns
-    ``gs(blocks, data, t, step_size, w_grad=None, h=1.0) -> new_blocks``."""
+    Minibatches and the ring are refused (``ValueError``), as in JAX.
+    Returns ``gs(blocks, data, t, step_size, w_grad=None, h=1.0) ->
+    new_blocks``."""
     if mode not in MODES:
         raise ValueError(f"unknown exchange mode {mode!r}")
+    if ring:
+        raise ValueError("update_rule='gauss_seidel' requires exchange_impl='gather' "
+                         "(the sweep mutates a materialised local view)")
     if batch_size is not None:
         raise ValueError("minibatching supports only the jacobi update rule")
     phi_fn, shared_scores, own_scores, prior_scores = _builder_prelude(
@@ -255,6 +541,7 @@ def make_shard_step(
     log_prior: Optional[Callable] = None,
     n_local_data: int = 0,
     update_rule: str = "jacobi",
+    ring: bool = False,
 ) -> Callable:
     """Build the batched SVGD step for one exchange strategy.
 
@@ -279,23 +566,31 @@ def make_shard_step(
         update_rule: ``'jacobi'`` (every shard moves its block against
             pre-update values) or ``'gauss_seidel'`` (the literal sweep,
             :func:`_build_gs_step`; no minibatch).
+        ring: the ring implementation of the ``all_*`` exchanges (module
+            docstring; Jacobi only).
 
-    Returns ``step(blocks, data, t, step_size, idx=None) -> new_blocks``:
-    one update of all ``(S, s, d)`` blocks; ``t`` is the 1-based step
-    counter that drives the ``partitions`` rotation; ``idx`` the step's
-    ``(S, B)`` minibatch indices.
+    Returns ``step(blocks, data, t, step_size, idx=None, w_grad=None,
+    h=1.0) -> new_blocks``: one update of all ``(S, s, d)`` blocks; ``t`` is
+    the 1-based step counter that drives the ``partitions`` rotation;
+    ``idx`` the step's ``(S, B)`` minibatch indices; ``w_grad`` a W2
+    gradient solved outside the step (the chunked executor's), added as
+    ``δ + h·w_grad``.
     """
     if update_rule == "gauss_seidel":
         gs = _build_gs_step(logp, kernel, mode, num_shards, score_scale, phi_impl,
-                            shard_data, batch_size, log_prior, n_local_data)
-        return lambda blocks, data, t, step_size, idx=None: gs(blocks, data, t, step_size)
+                            shard_data, batch_size, log_prior, n_local_data, ring)
+        return (lambda blocks, data, t, step_size, idx=None, w_grad=None, h=1.0:
+                gs(blocks, data, t, step_size, w_grad, h))
     if update_rule != "jacobi":
         raise ValueError(f"unknown update_rule {update_rule!r}")
     core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
-                       shard_data, batch_size, log_prior, n_local_data)
+                       shard_data, batch_size, log_prior, n_local_data, ring)
 
-    def step(blocks, data, t: int, step_size: float, idx=None):
-        return blocks + step_size * core(blocks, data, t, idx)
+    def step(blocks, data, t: int, step_size: float, idx=None, w_grad=None, h: float = 1.0):
+        delta = core(blocks, data, t, idx)
+        if w_grad is not None:
+            delta = delta + h * w_grad
+        return blocks + step_size * delta
 
     return step
 
@@ -327,6 +622,7 @@ def make_shard_step_sinkhorn_w2(
     log_prior: Optional[Callable] = None,
     n_local_data: int = 0,
     update_rule: str = "jacobi",
+    ring: bool = False,
 ) -> Callable:
     """The batched SVGD step with the Wasserstein/JKO term, solved inside the
     step from carried snapshot state (gather implementation).
@@ -353,7 +649,8 @@ def make_shard_step_sinkhorn_w2(
     the host LP (:func:`~dist_svgd_torch.ops.ot.wasserstein_grad_lp`) and
     carries no dual.  ``shard_data``, ``batch_size``, ``log_prior`` and
     ``n_local_data`` act as in :func:`make_shard_step`, so the W2 term
-    composes with minibatches.
+    composes with minibatches; ``ring`` too (the snapshot rules are the
+    same: under the emulation the global pairing's gathered set is at hand).
 
     ``update_rule='gauss_seidel'`` composes the term with the literal sweep
     as JAX does: the W2 gradient is solved once a step from the pre-sweep
@@ -372,10 +669,10 @@ def make_shard_step_sinkhorn_w2(
         raise ValueError(f"unknown wasserstein_solver {wasserstein_solver!r}")
     if update_rule == "gauss_seidel":
         gs = _build_gs_step(logp, kernel, mode, num_shards, score_scale, phi_impl,
-                            shard_data, batch_size, log_prior, n_local_data)
+                            shard_data, batch_size, log_prior, n_local_data, ring)
     elif update_rule == "jacobi":
         core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
-                           shard_data, batch_size, log_prior, n_local_data)
+                           shard_data, batch_size, log_prior, n_local_data, ring)
     else:
         raise ValueError(f"unknown update_rule {update_rule!r}")
     block_pair = w2_block_pairing(mode, w2_pairing, num_shards)
@@ -405,12 +702,20 @@ def make_shard_step_sinkhorn_w2(
             if w_grad is not None:
                 delta = delta + h * w_grad
             new = blocks + step_size * delta
-        if block_pair:
-            return new, new, g_out
-        S, s, d = blocks.shape
-        new_prev = all_gather(blocks).repeat(S, 1, 1)  # (S, n, d)
-        lanes = torch.arange(S, device=blocks.device)
-        new_prev.view(S, S, s, d)[lanes, lanes] = new  # own block post-update
-        return new, new_prev, g_out
+        return new, w2_snapshot(blocks, new, block_pair), g_out
 
     return step
+
+
+def w2_snapshot(blocks: torch.Tensor, new: torch.Tensor, block_pair: bool) -> torch.Tensor:
+    """The next W2 ``previous`` stack from a step's pre-update ``blocks``
+    and post-update ``new``: the own post-update block under block pairing,
+    else each shard's mixed snapshot — the pre-update gathered set with
+    only its own block post-update, ``(S, n, d)``."""
+    if block_pair:
+        return new
+    S, s, d = blocks.shape
+    new_prev = all_gather(blocks).repeat(S, 1, 1)  # (S, n, d)
+    lanes = torch.arange(S, device=blocks.device)
+    new_prev.view(S, S, s, d)[lanes, lanes] = new  # own block post-update
+    return new_prev

@@ -15,18 +15,22 @@ History follows the reference's timestep convention: a snapshot *before*
 each update at timesteps ``0..num_iter-1`` plus the final state at
 ``num_iter``.
 
+``run(dispatch_budget=...)`` splits a run into chunks of whole steps, each
+estimated to fit the budget (JAX's ``Sampler.run``).
+
 Not ported yet, each refused with ``NotImplementedError`` naming its ROADMAP
-item: ``kernel_approx`` and ``approx_residual`` (A6), and
-``dispatch_budget`` (A5).
+item: ``kernel_approx`` and ``approx_residual`` (A6).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from dist_svgd_torch.distsampler import _chunk_sizes
 from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth
 from dist_svgd_torch.ops.svgd import svgd_step_sequential
@@ -255,6 +259,7 @@ class Sampler:
         initial_particles=None,
         dtype: Optional[torch.dtype] = None,
         dispatch_budget: Optional[float] = None,
+        pairs_per_sec: Optional[float] = None,
         step_offset: int = 0,
     ):
         """Raw-tensor variant of :meth:`sample`.
@@ -272,10 +277,18 @@ class Sampler:
         step in a longer run (step ``step_offset + i`` draws from
         ``(seed, step_offset + i)``), so a segmented drive with a fixed seed
         draws the monolithic run's minibatches.  ``dtype`` defaults to that
-        of ``initial_particles``, else float32.  ``dispatch_budget`` is
-        ROADMAP A5."""
-        if dispatch_budget is not None:
-            raise _not_ported("dispatch_budget (chunked dispatches)", "A5")
+        of ``initial_particles``, else float32.
+
+        ``dispatch_budget`` (seconds) splits the run into chunks of
+        ``budget // (n² / pairs_per_sec)`` whole steps (``pairs_per_sec``
+        default :data:`~dist_svgd_torch.distsampler.DISPATCH_PAIRS_PER_SEC`),
+        JAX's arithmetic; with ``record=True`` a chunk holds at most one
+        history chunk.  Each chunk continues the step index, so the
+        minibatch stream is the monolithic one, and the chunks' histories
+        join without duplicate rows (returned on the host).  A single step
+        over the budget warns and runs one step a chunk: one device has no
+        seam inside a step.  :attr:`last_run_stats` reports ``'monolithic'``
+        or ``'scan_chunks'`` with JAX's keys."""
         seed = self._seed if seed is None else int(seed)
         if initial_particles is not None:
             particles = torch.as_tensor(initial_particles, device=self._device)
@@ -300,26 +313,64 @@ class Sampler:
             move = lambda parts, i: parts + step_size * self._phi(  # noqa: E731
                 parts[None], parts, scores(parts, step_offset + i, seed)[None])[0]
         chunk = _history.record_chunk_steps(*particles.shape, particles.element_size())
+        spd = num_iter
+        if dispatch_budget is not None:
+            spd = self._steps_per_dispatch(particles.shape[0], num_iter, dispatch_budget,
+                                           pairs_per_sec)
+            if record:
+                spd = min(spd, chunk)
+        sizes = _chunk_sizes(num_iter, spd) if num_iter else []
         held, host = [], []
         parts = particles
+        start = 0
         with torch.no_grad():
-            for i in range(num_iter):
-                if record:
-                    held.append(parts)
-                    if len(held) == chunk:
-                        host.append(torch.stack(held).cpu().numpy())
-                        held = []
-                parts = move(parts, i)
-        self.last_run_stats = {"execution": "eager", "num_steps": num_iter,
-                               "num_dispatches": num_iter, "dispatches_per_step": 1.0,
-                               "steps_per_dispatch": 1, "record_chunks_to_host": len(host)}
+            for size in sizes:  # one dispatch a chunk
+                for i in range(start, start + size):
+                    if record:
+                        held.append(parts)
+                        if len(held) == chunk:
+                            host.append(torch.stack(held).cpu().numpy())
+                            held = []
+                    parts = move(parts, i)
+                start += size
+        if dispatch_budget is None:
+            self.last_run_stats = {"execution": "eager", "num_steps": num_iter,
+                                   "num_dispatches": num_iter, "dispatches_per_step": 1.0,
+                                   "steps_per_dispatch": 1,
+                                   "record_chunks_to_host": len(host)}
+        else:
+            chunked = spd < num_iter
+            self.last_run_stats = {
+                "execution": "scan_chunks" if chunked else "monolithic",
+                "num_steps": num_iter, "num_dispatches": len(sizes),
+                "dispatches_per_step": round(len(sizes) / max(num_iter, 1), 4),
+                "steps_per_dispatch": spd, "record_chunks_to_host": len(host)}
         if not record:
             return parts, None
         held.append(parts)
         hist = torch.stack(held)
-        if host:
+        if host or (dispatch_budget is not None and spd < num_iter):
             hist = np.concatenate(host + [hist.cpu().numpy()], axis=0)
         return parts, hist
+
+    @staticmethod
+    def _steps_per_dispatch(n: int, num_iter: int, budget: float, pairs_per_sec) -> int:
+        """Whole steps a dispatch under ``budget`` seconds, from the n² pairs
+        of a step at ``pairs_per_sec`` (JAX's arithmetic); warns when one
+        step alone is over the budget."""
+        if budget <= 0:
+            raise ValueError(f"dispatch_budget must be positive, got {budget}")
+        from dist_svgd_torch.distsampler import DISPATCH_PAIRS_PER_SEC
+
+        pps = float(pairs_per_sec if pairs_per_sec is not None else DISPATCH_PAIRS_PER_SEC)
+        t_step = float(n) * float(n) / pps
+        if t_step > budget:
+            warnings.warn(
+                f"one {n}-particle step (~{t_step:.1f} s at {pps:.2e} pairs/s) exceeds "
+                f"dispatch_budget={budget} s and the single-device step has no internal "
+                "seam to split at; running one step per dispatch — shard over "
+                "DistSampler's ring executor to chunk inside a step", stacklevel=3)
+        return max(1, min(num_iter, int(budget // max(t_step, 1e-30))))
 
     def sample(self, n: int, num_iter: int, step_size: float, seed: Optional[int] = None,
                initial_particles=None):

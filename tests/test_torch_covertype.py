@@ -76,14 +76,18 @@ def test_resolve_phi_impl_policy(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"nproc": 1, "checkpoint_every": 5}, "A4"),
-    ({"checkpoint_every": 5}, "A4"),
-    ({"log_every": 1}, "A4"),
-    ({"exchange_every": 2}, "A5"),
-    ({"nproc": 1, "exchange_every": 2}, "A5"),
+    ({"exchange_every": 2, "checkpoint_every": 5}, "cadences are unsupported"),
+    ({"exchange_every": 2, "resume": True}, "cadences are unsupported"),
+    ({"exchange_every": 2, "log_every": 1}, "cadences are unsupported"),
+    ({"exchange_every": 3}, "multiple of"),
+    ({"nproc": 1, "exchange_every": 2}, "requires --nproc > 1"),
 ])
 def test_driver_refuses_unported_options(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    """The cadences and the lagged exchange are ported; what JAX's driver
+    refuses, the port refuses with its ValueError: the cadences together
+    with --exchange-every > 1, a --niter that is not a multiple of it, and
+    a lagged single-device run."""
+    with pytest.raises(ValueError, match=item):
         tcov.run(**{**SMALL, "device": "cpu", **kw})
 
 

@@ -52,7 +52,8 @@ def test_auto_gate_routes_on_the_calls_pair_count(monkeypatch, spies, d, S):
     pairs = S * k * m
     gate, other = (("CUDA_MIN_PAIRS", "CUDA_MIN_PAIRS_BIG_D") if d <= cuda_svgd.SMALL_D
                    else ("CUDA_MIN_PAIRS_BIG_D", "CUDA_MIN_PAIRS"))
-    y, x, s = _inputs(S, k, m, d)
+    # float32: on wider CPU tensors 'auto' is the plain φ at every count
+    y, x, s = _inputs(S, k, m, d, dtype=torch.float32)
     monkeypatch.setattr(cuda_svgd, other, 1)  # the other band's line plays no part
     for line, want in ((pairs + 1, "phi"), (pairs, "kernel"), (S * k, "kernel")):
         monkeypatch.setattr(cuda_svgd, gate, line)
@@ -93,7 +94,7 @@ def test_adaptive_rbf_composes_with_the_gates(monkeypatch, spies):
     which are the call's: the result is the rescaling identity either side
     of the line."""
     S, k, m, d = 2, 6, 9, 3
-    y, x, s = _inputs(S, k, m, d)
+    y, x, s = _inputs(S, k, m, d, dtype=torch.float32)  # where the CPU gate applies
     h = cuda_svgd.median_bandwidth_approx(x, AdaptiveRBF().max_points)
     sh = torch.sqrt(h)
     want = svgd.phi(y / sh, x / sh, s * sh, RBF(1.0)) / sh
@@ -124,7 +125,7 @@ def test_auto_gates_follow_jax_at_patched_thresholds(monkeypatch):
         route = []
         monkeypatch.setattr(cuda_svgd, "phi_cuda", lambda *a, **kw: route.append("kernel"))
         monkeypatch.setattr(cuda_svgd, "phi", lambda *a, **kw: route.append("phi"))
-        resolve_phi_fn(RBF(1.0), "auto")(*_inputs(S, k, m, d))
+        resolve_phi_fn(RBF(1.0), "auto")(*_inputs(S, k, m, d, dtype=torch.float32))
         assert route == jroute, (S, k, m, d)
 
 

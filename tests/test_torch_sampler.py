@@ -247,8 +247,10 @@ def test_sampler_refusals(kw, err, match):
 def test_sampler_run_refusals_and_device_rule():
     particles, x, t = problem()
     ps = tdt.Sampler(6, logreg_logp, data=(x, t), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        ps.run(20, 2, 0.05, dispatch_budget=1.0)
+    ps.run(20, 2, 0.05, dispatch_budget=1.0)  # ported: chunks of whole steps
+    assert ps.last_run_stats["execution"] == "monolithic"
+    with pytest.raises(ValueError, match="positive"):
+        ps.run(20, 2, 0.05, dispatch_budget=0.0)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         ps.approx_residual()
     assert not torch.cuda.is_available()
