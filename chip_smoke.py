@@ -42,7 +42,13 @@ checkpointed, resumed bitwise and resumed at 4 shards, the lagged
 Covertype (both tiers) and BNN drivers, the Covertype cadences and a
 resume, and the 100,000-particle ring step's pairs a second (the
 chunked planner's rate), with their kernels held at the new per-lane
-shapes in ``kernel_parity``; it checks that
+shapes in ``kernel_parity``; then the observability layer — the north star
+under the span tracer with a dispatch budget (traced against untraced),
+the posterior diagnostics on its final particles (float32 against float64)
+and on the Covertype and BNN ensembles — and the sub-quadratic φ: the
+``large_n_approx`` rows of ``tools/large_n.py`` at 100,000 particles, the
+``'auto'`` crossover's ladder of the exact φ against random features and
+Nyström, and the north star with ``kernel_approx``; it checks that
 each path went through its kernels, and prints one JSON object per phase.  A
 phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
@@ -244,6 +250,40 @@ CT_LAGGED = dict(exchange_every=4, niter=200)
 CT_CADENCES = dict(niter=100, checkpoint_every=50, log_every=10)
 BNN_LAGGED = dict(nproc=8, exchange_every=5, niter=50)
 PAIRS_RATE = dict(n=100_000, shards=8, warm_steps=2, steps=5)
+# Observability and the sub-quadratic φ:
+# - telemetry_north_star: the north star (10,000 particles, 8 shards) under
+#   telemetry.enable() with a dispatch budget of TELEMETRY["chunk"] steps
+#   at DISPATCH_PAIRS_PER_SEC (two train.step_chunk dispatches a run),
+#   traced against untraced in turns, the Chrome export parsed;
+# - diagnostics: PosteriorDiagnostics on the north star's final particles
+#   at max_points = 10,000 with the full-data scores and 8 shards, float32
+#   against float64 on the card (KSD and ESS within DIAG["rtol"]); then the
+#   Covertype ensemble after DIAG["ct_steps"] exact-tier steps (d = 55) and
+#   the BNN driver's after DIAG["bnn_niter"] (d = 753) at the defaults,
+#   with ensemble_health / ReloadPolicy;
+# - large_n_approx: tools/large_n.py --kernel-approx at n = 100,000,
+#   R = L = 4096, with the exact probe at 65,536 particles on phi_small_d;
+# - approx_crossover: the exact φ ('auto': phi_small_d), phi_rff and
+#   phi_nystrom at k = m = n, d = 3, R = L in CROSSOVER["dials"], n
+#   doubling, CROSSOVER["reps"] CUDA-event-timed calls each.  A method is
+#   faster at a rung only where it beats the exact φ by more than
+#   CROSSOVER["margin"] (a win inside the spread of repeated runs is not a
+#   measured one).  'auto' switches at n = 2·factor·F; that point must lie
+#   at or above the first rung of the method's run of faster rungs up to
+#   the top, or above the ladder where the top rung is not faster, so no
+#   unmeasured gap below a win is taken approximate.  A committed
+#   APPROX_CROSSOVER_FACTOR that breaks this fails the phase;
+# - approx_north_star: the north star with kernel_approx under 'auto' and
+#   'torch', its residual gauges, and 20 steps of the card's float32 RFF
+#   run against the CPU's float64 one on the same bank (APPROX_NS).
+TELEMETRY = dict(steps=100, chunk=50)
+DIAG = dict(max_points=10_000, shards=8, rtol=1e-4, ct_steps=20, bnn_niter=100, computes=3)
+APPROX_LARGE_N = dict(n=100_000, dial=4096, steps=5, samples=2, pin_n=2048,
+                      exact_probe_n=65_536)
+CROSSOVER = dict(ns=(8192, 16_384, 32_768, 65_536, 131_072, 262_144), dials=(2048, 4096),
+                 d=3, reps=10, margin=0.05)
+APPROX_NS = dict(steps=50, num_features=2048, num_landmarks=2048, traj_steps=20,
+                 traj_rtol=1e-4, residual_points=512)
 # The keys of a line of the JAX Covertype driver's metrics log.
 JSONL_KEYS = {"ts", "step", "wall_s", "updates_per_sec", "particle_mean_norm",
               "particle_norm_std", "particle_mean", "mean_update", "max_update"}
@@ -1942,6 +1982,330 @@ def auto_gates_phase():
         cuda_svgd.TORCH_BLOCKWISE_MIN_PAIRS = orig_line
 
 
+def telemetry_phase(init, data, card):
+    """The north star under the tracer: a budgeted run_steps planning two
+    whole-step dispatches, traced and untraced in turns (untraced, traced,
+    traced, untraced).  Checks the span counts against the dispatches, the
+    kernel launches, and that the Chrome export parses."""
+    import os
+
+    import torch
+
+    from dist_svgd_torch import DistSampler, telemetry
+    from dist_svgd_torch.distsampler import DISPATCH_PAIRS_PER_SEC
+    from dist_svgd_torch.models.logreg import logreg_logp
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.utils.metrics import StepTimer
+
+    ns, tm = NORTH_STAR, TELEMETRY
+    budget = tm["chunk"] * float(ns["n"]) ** 2 / DISPATCH_PAIRS_PER_SEC
+    walls = {"untraced": [], "traced": []}
+    row = {"phase": "telemetry_north_star", "n": ns["n"], "shards": ns["shards"],
+           "steps": tm["steps"], "dispatch_budget_s": budget, "card": card}
+    for label in ("untraced", "traced", "traced", "untraced"):
+        tds = DistSampler(ns["shards"], logreg_logp, None, init, data=data,
+                          exchange_particles=True, exchange_scores=False,
+                          include_wasserstein=False)
+        tds.run_steps(3, ns["step_size"])
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        tracer = telemetry.enable() if label == "traced" else None
+        try:
+            timer = StepTimer(span_name="train.run")
+            tds.run_steps(tm["steps"], ns["step_size"], dispatch_budget=budget)
+            sec = timer.mark(tds.particles)
+        finally:
+            if tracer is not None:
+                telemetry.disable()
+        launched = dict(cuda_svgd.launch_counts)
+        stats = tds.last_run_stats
+        walls[label].append(1e3 * sec / tm["steps"])
+        ok = (stats["execution"] == "scan_chunks" and stats["num_dispatches"] >= 2
+              and launched == phi_counts(phi_small_d=tm["steps"])
+              and bool(torch.isfinite(tds.particles).all()))
+        if tracer is not None:
+            counts = tracer.counts()
+            os.makedirs(os.path.join("build", "chip_smoke_telemetry"), exist_ok=True)
+            path = os.path.join("build", "chip_smoke_telemetry", "north_star.trace.json")
+            n_events = tracer.export_chrome(path)
+            with open(path) as fh:
+                doc = json.load(fh)
+            ok = ok and (counts.get("train.step_chunk") == stats["num_dispatches"]
+                         and counts.get("train.run") == 1
+                         and len(doc["traceEvents"]) == n_events
+                         and doc["otherData"]["process"]["pid"] == os.getpid())
+            row.update(span_counts=counts, chrome_events=n_events,
+                       dropped_events=tracer.dropped_events)
+        row.update(num_dispatches=stats["num_dispatches"], launches=launched)
+        if not ok:
+            emit({**row, "ok": False})
+            raise AssertionError(f"telemetry north star ({label}): {stats} {launched} {row}")
+    row.update(ms_per_step=walls, ok=True,
+               traced_over_untraced=sum(walls["traced"]) / sum(walls["untraced"]))
+    emit(row)
+
+
+def diagnostics_phase(ds, data, card):
+    """PosteriorDiagnostics on the north star's final particles (float32
+    against float64 on the card), then the Covertype and BNN ensembles at
+    the defaults, with ensemble_health and ReloadPolicy."""
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch.experiments import bnn as bnn_drv
+    from dist_svgd_torch.experiments import covertype as cov
+    from dist_svgd_torch.models.logreg import logreg_logp
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.telemetry import (DiagnosticsConfig, MetricsRegistry,
+                                           PosteriorDiagnostics, ReloadPolicy,
+                                           ensemble_health)
+
+    dg = DIAG
+    parts = ds.particles
+    full = tuple(a.cuda() for a in data)
+    scores = torch.func.vmap(torch.func.grad(lambda th: logreg_logp(th, full)))(parts)
+    cfg = DiagnosticsConfig(max_points=dg["max_points"])
+    reg = MetricsRegistry()
+    pd = PosteriorDiagnostics(cfg, registry=reg)
+    walls = []
+    for step in range(dg["computes"]):
+        rep32 = pd.compute(parts, scores=scores, num_shards=dg["shards"], step=step)
+        walls.append(rep32["wall_s"])
+    rep64 = PosteriorDiagnostics(cfg, registry=MetricsRegistry()).compute(
+        parts.double(), scores=scores.double(), num_shards=dg["shards"])
+    keys = ("ksd", "ksd_sq", "ess", "min_pairwise_dist", "median_pairwise_dist",
+            "min_dim_var", "shard_mean_div", "shard_var_div")
+    rel = {k: abs(rep32[k] - rep64[k]) / max(abs(rep64[k]), 1e-30) for k in keys}
+    ok = (all(np.isfinite(rep32[k]) for k in keys) and rep32["n_eval"] == parts.shape[0]
+          and rel["ksd"] <= dg["rtol"] and rel["ess"] <= dg["rtol"]
+          and reg.gauge("svgd_diag_ksd").value() == rep32["ksd"])
+    emit({"phase": "diagnostics", "ensemble": "north_star", "n": parts.shape[0],
+          "d": parts.shape[1], "max_points": dg["max_points"], "shards": dg["shards"],
+          "compute_wall_s": walls, "f32": {k: rep32[k] for k in keys},
+          "f64": {k: rep64[k] for k in keys}, "rel_dev": rel, "bound": dg["rtol"],
+          "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"diagnostics north star: rel {rel}")
+
+    def judge(name, particles, extra):
+        rep = PosteriorDiagnostics(registry=MetricsRegistry()).compute(
+            particles, num_shards=extra.pop("shards", None))
+        health = ensemble_health(particles)
+        policy = ReloadPolicy()
+        collapsed = particles[:1].expand_as(particles).contiguous()
+        rejected = policy.judge(ensemble_health(collapsed), health)
+        ok = (all(np.isfinite(v) for v in rep.values() if isinstance(v, float))
+              and bool(rejected))
+        emit({"phase": "diagnostics", "ensemble": name, **extra, "report": rep,
+              "health": health, "admitted": policy.judge(health, None) == [],
+              "collapsed_rejected": rejected, "card": card, "ok": ok})
+        if not ok:
+            raise AssertionError(f"diagnostics {name}: {rep} {rejected}")
+
+    torch.cuda.synchronize()
+    cuda_svgd.reset_launch_counts()
+    cds, _, info = cov.make_sampler(phi_impl="cuda")
+    cds.run_steps(dg["ct_steps"], COVERTYPE["step_size"])
+    torch.cuda.synchronize()
+    launched_ct = dict(cuda_svgd.launch_counts)
+    if launched_ct != phi_counts(phi_big_d=dg["ct_steps"]):
+        raise AssertionError(f"diagnostics covertype launches {launched_ct}")
+    judge("covertype", cds.particles, {"n": info["n_used"], "d": cds.particles.shape[1],
+                                       "steps": dg["ct_steps"], "shards": cds._num_shards,
+                                       "launches": launched_ct})
+    del cds
+    cuda_svgd.reset_launch_counts()
+    final, metrics = bnn_drv.run(niter=dg["bnn_niter"])
+    torch.cuda.synchronize()
+    launched_bnn = dict(cuda_svgd.launch_counts)
+    if launched_bnn != phi_counts(phi_wide_d=dg["bnn_niter"]):
+        raise AssertionError(f"diagnostics bnn launches {launched_bnn}")
+    judge("bnn", torch.as_tensor(final, device="cuda"),
+          {"n": final.shape[0], "d": final.shape[1], "steps": dg["bnn_niter"],
+           "test_rmse": metrics["test_rmse"], "launches": launched_bnn})
+
+
+def large_n_approx_phase(card):
+    """tools/large_n.py's large_n_approx row for both methods at n =
+    100,000: within its budget, active, and the exact probe on
+    phi_small_d."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.tools import large_n
+
+    a = APPROX_LARGE_N
+    for method in ("rff", "nystrom"):
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        row = large_n.run_approx_row(
+            a["n"], method=method, num_features=a["dial"], num_landmarks=a["dial"],
+            steps=a["steps"], samples=a["samples"], pin_n=a["pin_n"],
+            exact_probe_n=a["exact_probe_n"], device="cuda")
+        torch.cuda.synchronize()
+        launched = dict(cuda_svgd.launch_counts)
+        gate_ok, why = large_n.approx_row_ok(row)
+        probe_launches = (1 + a["samples"]) * a["steps"]
+        ok = gate_ok and launched == phi_counts(phi_small_d=probe_launches)
+        emit({"phase": "large_n_approx", **row, "launches": launched,
+              "ms_per_step": 1e3 * row["wall_per_step_s"],
+              "exact_probe_ms_per_step": 1e3 * row["exact_probe_wall_per_step_s"],
+              "gate": why, "card": card, "ok": ok})
+        if not ok:
+            raise AssertionError(f"large_n_approx {method}: {why} launches {launched}")
+
+
+def crossover_factor_needed(rungs, feature_counts):
+    """The smallest crossover factor the ladder allows, per series and in
+    all: 'auto' switches a series with F features at n = 2·factor·F, which
+    must be at or above the first rung after the series' last rung that was
+    not faster (``(n, False)`` ends the run of wins), or above the top rung
+    when that one was not faster.  Returns ``(factor, strict)``: the factor
+    must be ``>= factor``, or ``> factor`` where ``strict``."""
+    need, strict = 0.0, False
+    for name, series in rungs.items():
+        f2 = 2.0 * feature_counts[name]
+        slow = [n for n, faster in series if not faster]
+        if not slow:
+            req, req_strict = series[0][0] / f2, False
+        elif slow[-1] == series[-1][0]:
+            req, req_strict = slow[-1] / f2, True
+        else:
+            req, req_strict = min(n for n, _ in series if n > slow[-1]) / f2, False
+        if req > need or (req == need and req_strict):
+            need, strict = req, req_strict
+    return need, strict
+
+
+def approx_crossover_phase(card):
+    """The 'auto' crossover's ladder: the exact φ against phi_rff and
+    phi_nystrom at k = m = n.  Prints each rung, then the smallest factor
+    the ladder allows beside the committed one; fails when the committed
+    factor would take a series approximate where it was not measured
+    faster (:func:`crossover_factor_needed`)."""
+    import torch
+
+    from dist_svgd_torch.ops import approx, cuda_svgd
+    from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
+    from dist_svgd_torch.ops.kernels import RBF, median_bandwidth
+    from dist_svgd_torch.utils.rng import approx_bank_seed, init_particles
+
+    cr = CROSSOVER
+    series, feature_counts = {}, {}
+    torch.cuda.synchronize()
+    cuda_svgd.reset_launch_counts()
+    for n in cr["ns"]:
+        x = 2.5 * init_particles(0, n, cr["d"], device="cuda") + 1.5
+        y, s = x[None], -x[None]
+        h = float(median_bandwidth(x))
+        exact_fn = resolve_phi_fn(RBF(h), "auto")
+        exact = exact_fn(y, x, s)
+        row = {"phase": "approx_crossover", "n": n, "d": cr["d"], "bandwidth": h,
+               "exact_ms": cuda_ms(lambda: exact_fn(y, x, s), cr["reps"]), "card": card}
+        for dial in cr["dials"]:
+            for method in ("rff", "nystrom"):
+                spec = approx.KernelApprox(method, num_features=dial, num_landmarks=dial,
+                                           seed=approx_bank_seed(0))
+                fn = approx.make_approx_phi_fn(RBF(h), spec)
+                err = approx.phi_rel_error(exact, fn(y, x, s))
+                ms = cuda_ms(lambda: fn(y, x, s), cr["reps"])
+                faster = ms < (1.0 - cr["margin"]) * row["exact_ms"]
+                name = f"{method}_{dial}"
+                series.setdefault(name, []).append((n, faster))
+                feature_counts[name] = spec.feature_count
+                row[name] = {"ms": ms, "rel_err": err, "faster": faster,
+                             "auto_picks": approx.approx_preferred(n, n, spec.feature_count)}
+                if not err < 1.0:
+                    raise AssertionError(f"approx crossover {method} {dial} at n={n}: "
+                                         f"rel err {err}")
+                del fn
+            torch.cuda.empty_cache()
+        emit(row)
+        del x, y, s, exact
+        torch.cuda.empty_cache()
+    launched = dict(cuda_svgd.launch_counts)
+    expect = sum(4 + cr["reps"] for _ in cr["ns"])  # one call, 3 warm, reps timed
+    need, strict = crossover_factor_needed(series, feature_counts)
+    factor = approx.APPROX_CROSSOVER_FACTOR
+    consistent = factor > need if strict else factor >= need
+    ok = consistent and launched == phi_counts(phi_small_d=expect)
+    emit({"phase": "approx_crossover", "summary": True, "margin": cr["margin"],
+          "factor_needed": need, "needed_strictly_above": strict,
+          "committed_factor": factor, "consistent": consistent,
+          "launches": launched, "card": card, "ok": ok})
+    if not consistent:
+        raise AssertionError(f"approx crossover: committed factor {factor} against the "
+                             f"ladder's {'>' if strict else '>='} {need}")
+    if launched != phi_counts(phi_small_d=expect):
+        raise AssertionError(f"approx crossover: exact launches {launched} != {expect}")
+
+
+def approx_north_star_phase(init, data, card):
+    """The north star with kernel_approx: RFF under 'auto' and 'torch' and
+    Nyström under 'torch', timed, with the residual gauges; then 20 steps
+    of the card's float32 RFF run against the CPU's float64 one on the
+    same bank (drawn on the CPU from the run seed)."""
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch import DistSampler
+    from dist_svgd_torch.models.logreg import logreg_logp
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.ops.approx import KernelApprox
+    from dist_svgd_torch.telemetry import MetricsRegistry
+
+    ns, an = NORTH_STAR, APPROX_NS
+
+    def make(spec, impl, particles=init, device=None):
+        return DistSampler(ns["shards"], logreg_logp, None, particles, data=data,
+                           exchange_particles=True, exchange_scores=False,
+                           include_wasserstein=False, phi_impl=impl, kernel_approx=spec,
+                           device=device)
+
+    for method, impl in (("rff", "auto"), ("rff", "torch"), ("nystrom", "torch")):
+        spec = KernelApprox(method, num_features=an["num_features"],
+                            num_landmarks=an["num_landmarks"])
+        ads = make(spec, impl)
+        ads.run_steps(3, ns["step_size"])
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        t0 = time.perf_counter()
+        ads.run_steps(an["steps"], ns["step_size"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launched = dict(cuda_svgd.launch_counts)
+        active = ads.kernel_approx_active
+        reg = MetricsRegistry()
+        rep = ads.approx_residual(max_points=an["residual_points"], registry=reg)
+        gauges = {k: reg.gauge(f"svgd_diag_{k}").value()
+                  for k in ("phi_approx_rel_err", "phi_approx_budget",
+                            "phi_approx_within_budget", "phi_approx_dial")}
+        expect = phi_counts() if active else phi_counts(phi_small_d=an["steps"])
+        ok = (launched == expect and bool(torch.isfinite(ads.particles).all())
+              and all(np.isfinite(v) for v in gauges.values())
+              and (impl == "auto" or active))
+        emit({"phase": "approx_north_star", "method": method, "phi_impl": impl,
+              "dial": spec.accuracy_dial, "active": active, "steps": an["steps"],
+              "ms_per_step": 1e3 * sec / an["steps"], "launches": launched,
+              "residual": rep, "gauges": gauges, "card": card, "ok": ok})
+        if not ok:
+            raise AssertionError(f"approx north star {method} {impl}: {launched} {rep}")
+        del ads
+    out = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        spec = KernelApprox("rff", num_features=an["num_features"])
+        tds = make(spec, "torch", init.to(dtype), device)
+        tds.run_steps(an["traj_steps"], ns["step_size"])
+        out[device] = tds.particles.double().cpu()
+    rel = float((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max())
+    ok = rel <= an["traj_rtol"]
+    emit({"phase": "approx_north_star", "trajectory": "card f32 vs cpu f64",
+          "method": "rff", "dial": an["num_features"], "steps": an["traj_steps"],
+          "max_rel_dev": rel, "bound": an["traj_rtol"], "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"approx north star trajectory: {rel} > {an['traj_rtol']}")
+
+
 def main():
     import torch
 
@@ -2555,6 +2919,15 @@ def main():
 
     # ---- 15. resumable, budgeted runs --------------------------------------
     resumable_phases(data, init, x_test, t_test)
+
+    # ---- 16. observability: the tracer and the posterior diagnostics ------
+    telemetry_phase(init, data, card)
+    diagnostics_phase(ds, data, card)
+
+    # ---- 17. the sub-quadratic φ and its 'auto' crossover ------------------
+    large_n_approx_phase(card)
+    approx_crossover_phase(card)
+    approx_north_star_phase(init, data, card)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

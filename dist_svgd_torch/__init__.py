@@ -11,11 +11,15 @@ CPU.
 - ``DistSampler`` — sharded SVGD, the S shards emulated on one card, the
   three exchange modes (gather implementation, Jacobi update), with the
   Wasserstein/JKO term (host LP or Sinkhorn);
-- ``ops``         — the RBF kernel, the plain φ, the W2 solvers, and the
+- ``ops``         — the RBF kernel, the plain φ, the sub-quadratic φ
+                    (random features, Nyström), the W2 solvers, and the
                     hand-written CUDA φ and Sinkhorn kernels (``csrc/``)
                     with their plain versions;
 - ``models``      — Bayesian logistic regression, the two-layer Bayesian
                     neural network (regression), the 1-D Gaussian mixture;
+- ``telemetry``   — the metrics registry, the span tracer and flight
+                    recorder, posterior diagnostics and SLOs (import
+                    ``dist_svgd_torch.telemetry``);
 - ``utils``       — devices, datasets, RNG, checkpoint manifest, JAX interop.
 """
 
@@ -37,6 +41,7 @@ from dist_svgd_torch.models.logreg import (
     make_logreg_split,
     posterior_predictive_prob,
 )
+from dist_svgd_torch.ops.approx import KernelApprox
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth, median_bandwidth_approx
 from dist_svgd_torch.sampler import Sampler
 
@@ -47,6 +52,7 @@ __all__ = [
     "DistSampler",
     "RBF",
     "AdaptiveRBF",
+    "KernelApprox",
     "median_bandwidth",
     "median_bandwidth_approx",
     "bnn_logp",

@@ -26,16 +26,21 @@ the host in :func:`~dist_svgd_torch.utils.history.record_chunk_steps`
 chunks), the rotating ``partitions`` ownership
 (:meth:`DistSampler.owned_block_index`), and ``state_dict`` /
 ``load_state_dict`` for the particles, the step counter, the minibatch
-stream's seed, the W2 snapshots and duals and the topology manifest, with
-the W2 snapshots resharded when a save's shard count differs.  Every other
-option raises ``NotImplementedError`` naming its ROADMAP item —
-``kernel_approx`` (A6), an explicit mesh (A10) — so a call that runs here
+stream's seed, the W2 snapshots and duals, the kernel approximation's
+identity and the topology manifest, with the W2 snapshots resharded when a
+save's shard count differs, and the sub-quadratic φ (``kernel_approx``,
+``ops/approx.py``) with its crossover pinned once from the global shape and
+its residual probe (:meth:`DistSampler.approx_residual`).  An explicit mesh
+raises ``NotImplementedError`` naming ROADMAP A10, so a call that runs here
 means what it means in JAX.
 
 A "dispatch" of the chunked executor is one host-driven segment of JAX's
 plan (a chunk of steps, a chunk of ring hops, a dual-advance chunk of a
 Sinkhorn solve, the finish); the seams are JAX's, so ``last_run_stats``
-counts what JAX counts.  On the card each is a run of eager launches.
+counts what JAX counts.  On the card each is a run of eager launches.  While
+the telemetry tracer is enabled each is a span — ``train.step_chunk`` for a
+chunk of whole steps (and the whole run when it is one), ``train.dispatch``
+for an intra-step piece — tagged with whether it fenced.
 
 The W2 snapshot semantics are the reference's (warty) ones: in exchanged
 modes each shard's ``previous`` is the pre-update gathered set with only its
@@ -53,6 +58,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from dist_svgd_torch.ops.approx import (
+    APPROX_METHOD_CODES,
+    RFF_REDRAW_MODES,
+    approx_preferred,
+    as_kernel_approx,
+    nystrom_landmark_indices,
+)
+from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth
 from dist_svgd_torch.parallel.exchange import (
     ALL_PARTICLES,
@@ -68,10 +81,11 @@ from dist_svgd_torch.parallel.exchange import (
     w2_snapshot,
 )
 from dist_svgd_torch.parallel.mesh import merge, split
+from dist_svgd_torch.telemetry import trace as _trace
 from dist_svgd_torch.utils import checkpoint as _ckpt
 from dist_svgd_torch.utils import history as _history
 from dist_svgd_torch.utils.platform import resolve_device
-from dist_svgd_torch.utils.rng import minibatch_indices
+from dist_svgd_torch.utils.rng import approx_bank_seed, minibatch_indices
 
 
 #: Above this global particle count, ``w2_pairing='auto'`` routes the
@@ -196,8 +210,20 @@ class DistSampler:
             CPU), ``'cuda_bf16'`` (the bf16 tiers — JAX's ``'pallas_bf16'``)
             or ``'torch_bf16'`` (their plain versions) — see
             :func:`dist_svgd_torch.ops.cuda_svgd.resolve_phi_fn`.
-        seed: an int, the root of the minibatch stream: step ``t`` draws
-            from ``(seed, t)`` alone, so a resume continues it.
+        seed: an int, the root of the minibatch stream — step ``t`` draws
+            from ``(seed, t)`` alone, so a resume continues it — and of the
+            RFF bank stream (:func:`~dist_svgd_torch.utils.rng.
+            approx_bank_seed`).
+        kernel_approx: ``None`` (the exact φ), ``'rff'``, ``'nystrom'`` or a
+            :class:`~dist_svgd_torch.ops.approx.KernelApprox`: the
+            sub-quadratic φ on every φ call site (gather, ring hops, lagged
+            views, the W2 step, the chunked pieces).  Under ``phi_impl=
+            'auto'`` the crossover is decided ONCE from the global shape
+            (``approx_preferred(n, m)``, m = n in the exchanged modes and
+            n/S in ``partitions``) and pinned, so ring and gather, and 1 and
+            S shards, pick the same backend; the pin rides ``state_dict``.
+            ``'torch'`` forces the approximation; the kernel tiers are
+            refused.  Jacobi only.
         device: ``None`` → the card (raises without CUDA); ``'cpu'`` for the
             plain path.
         donate_carries: accepted for signature parity; it has no effect
@@ -279,8 +305,6 @@ class DistSampler:
             raise ValueError("shard_data is unsupported in partitions mode")
         if isinstance(seed, bool) or not isinstance(seed, (int, np.integer)):
             raise ValueError(f"seed must be an int (the minibatch stream's root), got {seed!r}")
-        if kernel_approx is not None:
-            raise _not_ported("kernel_approx", "A6")
         if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
             raise _not_ported(
                 "an explicit mesh (the torch.distributed backend; the port "
@@ -338,19 +362,24 @@ class DistSampler:
             self._mode = ALL_SCORES if exchange_scores else ALL_PARTICLES
         else:
             self._mode = PARTITIONS
-        self._step = make_shard_step(
-            logp=logp,
-            kernel=self._kernel,
-            mode=self._mode,
-            num_shards=self._num_shards,
-            score_scale=self._score_scale,
-            phi_impl=phi_impl,
-            update_rule=update_rule,
-            ring=exchange_impl == "ring",
-            **self._data_kwargs(),
-        )
-        self._lagged = {}  # record flag -> the lagged macro-step, built at first use
-        self._chunk_builders = None  # the ring's hop pieces, built at first use
+        # The sub-quadratic φ: the 'auto' crossover is resolved ONCE from
+        # the global shape and pinned, so the ring's per-hop blocks cannot
+        # pick another backend than the gather's global set; validation
+        # runs through the one policy seam
+        self._approx = as_kernel_approx(kernel_approx)
+        self._approx_active = False
+        if self._approx is not None:
+            if self._approx.method == "rff":
+                self._approx = self._approx.with_seed(approx_bank_seed(seed))
+            resolve_phi_fn(self._kernel, phi_impl, kernel_approx=self._approx)
+            if phi_impl == "auto":
+                m_interact = (self._num_particles if self._mode != PARTITIONS
+                              else self._particles_per_shard)
+                self._approx_active = approx_preferred(
+                    self._num_particles, m_interact, self._approx.feature_count)
+            else:
+                self._approx_active = True  # 'torch' is always approximate
+        self._build_step_programs()
         # after the step's build, which refuses a kernel the φ backend
         # cannot take
         if phi_impl == "cuda" and self._device.type != "cuda":
@@ -373,12 +402,40 @@ class DistSampler:
         #: internal — a run may pin ``'torch'`` or ``'cuda'`` before its first
         #: W2 step to compare the routes.
         self._sinkhorn_impl = "auto"
-        self._w2_step = None  # built at the first W2 step
         # The W2 "previous" snapshot stack (_prev_shape()) and the carried
         # Sinkhorn dual per shard (_g_shape()); None until the first step /
         # the first solve, as in the reference (dsvgd/distsampler.py:50).
         self._previous = None
         self._w2_g = None
+
+    def _phi_kwargs(self) -> dict:
+        """The ``(phi_impl, kernel_approx)`` pair every step builder gets:
+        the always-approximate ``'torch'`` combination while the
+        approximation is pinned active, the exact configuration
+        otherwise."""
+        if self._approx is not None and self._approx_active:
+            return {"phi_impl": "torch", "kernel_approx": self._approx}
+        return {"phi_impl": self._phi_impl, "kernel_approx": None}
+
+    def _build_step_programs(self) -> None:
+        """(Re)build the step from the current kernel and approximation
+        state, and drop the steps built at first use (the lagged macro-step,
+        the ring's hop pieces, the W2 step) — at construction, and when a
+        restored checkpoint's bank or crossover pin wins."""
+        self._step = make_shard_step(
+            logp=self._logp,
+            kernel=self._kernel,
+            mode=self._mode,
+            num_shards=self._num_shards,
+            score_scale=self._score_scale,
+            update_rule=self._update_rule,
+            ring=self._exchange_impl == "ring",
+            **self._phi_kwargs(),
+            **self._data_kwargs(),
+        )
+        self._lagged = {}  # record flag -> the lagged macro-step, built at first use
+        self._chunk_builders = None  # the ring's hop pieces, built at first use
+        self._w2_step = None  # built at the first W2 step
 
     def _data_kwargs(self) -> dict:
         """The minibatch, prior and data-layout arguments of both step
@@ -461,6 +518,50 @@ class DistSampler:
         """The resolved Wasserstein pairing, ``'global'`` or ``'block'``."""
         return self._w2_pairing
 
+    @property
+    def kernel_approx(self):
+        """The resolved :class:`~dist_svgd_torch.ops.approx.KernelApprox`
+        (RFF bank seed bound), or ``None`` for the exact kernel."""
+        return self._approx
+
+    @property
+    def kernel_approx_active(self) -> bool:
+        """Whether φ runs the approximation after the ``'auto'`` global-shape
+        crossover (the constructor's pin, or a restored checkpoint's)."""
+        return self._approx is not None and self._approx_active
+
+    def approx_residual(self, max_points: int = 512, registry=None) -> dict:
+        """The configured approximation's φ residual on the CURRENT ensemble
+        (the exact against the approximate φ over a ≤ ``max_points`` strided
+        subsample), published as ``svgd_diag_phi_approx_*`` gauges.  Probe
+        scores are the full-data (unscaled) ``∇log p`` on the whole data
+        plus the prior, as in JAX.  O(max_points²); run it at diagnostics
+        cadence, not every step."""
+        from dist_svgd_torch.ops.approx import phi_residual_report, record_phi_residual
+        from dist_svgd_torch.ops.kernels import median_bandwidth_approx
+
+        if self._approx is None:
+            raise ValueError("approx_residual needs kernel_approx (exact runs have no "
+                             "approximation residual to measure)")
+        particles = self._particles
+        n = particles.shape[0]
+        if n > max_points:
+            particles = particles[::-(-n // max_points)]
+        with torch.no_grad():
+            scores = torch.func.vmap(torch.func.grad(self._logp), in_dims=(0, None))(
+                particles, self._data)
+            if self._log_prior is not None:
+                scores = scores + torch.func.vmap(torch.func.grad(self._log_prior))(particles)
+        if isinstance(self._kernel, RBF):
+            kernel = self._kernel
+        else:  # AdaptiveRBF: probe at the current per-step median bandwidth
+            kernel = RBF(float(median_bandwidth_approx(particles)))
+        report = phi_residual_report(particles, scores, kernel, self._approx,
+                                     max_points=max_points)
+        report["active"] = bool(self._approx_active)
+        record_phi_residual(report, registry=registry)
+        return report
+
     def owned_block_index(self, rank: int, t: Optional[int] = None) -> int:
         """Logical block owned by (updated against the data slice of) shard
         ``rank`` at step counter ``t`` (default: now): ``(rank − t) mod S``
@@ -499,8 +600,13 @@ class DistSampler:
         """Resume state: particles, the step counter, the minibatch stream's
         seed (``rng_batch_seed``; JAX saves its key as ``rng_batch_key``),
         the resolved ``w2_pairing``, the W2 ``previous`` snapshots and the
-        carried Sinkhorn duals (``None`` until they exist) and the topology
-        manifest, in the JAX ``state_dict``'s keys and numpy encoding."""
+        carried Sinkhorn duals (``None`` until they exist), the topology
+        manifest and, with ``kernel_approx``, the approximation's identity —
+        ``approx_method``, ``approx_dial``, ``approx_active`` and, for RFF,
+        ``approx_rff_redraw`` and the bank stream's seed
+        ``approx_bank_seed`` (JAX saves its threefry ``approx_bank_key``),
+        for Nyström ``approx_landmark_idx`` — in the JAX ``state_dict``'s
+        keys and numpy encoding."""
 
         def host(t):
             return None if t is None else t.detach().cpu().numpy()
@@ -521,6 +627,21 @@ class DistSampler:
             state["w2_g_start"] = np.asarray(0, dtype=np.int64)
         state.update(_ckpt.topology_manifest(
             self._num_shards, self._num_particles, self._d, self._rows_per_shard))
+        if self._approx is not None:
+            # layout-free: reshard_state passes these through verbatim
+            state["approx_method"] = np.asarray(
+                APPROX_METHOD_CODES.index(self._approx.method), dtype=np.int8)
+            state["approx_dial"] = np.asarray(self._approx.accuracy_dial, dtype=np.int64)
+            state["approx_active"] = np.asarray(int(self._approx_active), dtype=np.int8)
+            if self._approx.method == "rff":
+                state["approx_bank_seed"] = np.asarray(self._approx.seed, dtype=np.int64)
+                state["approx_rff_redraw"] = np.asarray(
+                    RFF_REDRAW_MODES.index(self._approx.rff_redraw), dtype=np.int8)
+            else:
+                m_interact = (self._num_particles if self._mode != PARTITIONS
+                              else self._particles_per_shard)
+                state["approx_landmark_idx"] = nystrom_landmark_indices(
+                    m_interact, self._approx.num_landmarks).astype(np.int64)
         return state
 
     def load_state_dict(self, state: dict) -> None:
@@ -541,15 +662,21 @@ class DistSampler:
         ``rng_batch_key`` no torch stream can follow) goes on from this
         sampler's own seed.  JAX, given a port save, ignores
         ``rng_batch_seed`` (it reads only its own keys) and keeps its
-        constructed key."""
+        constructed key.
+
+        The kernel approximation follows JAX's rules: a save with another
+        method, another dial or another ``rff_redraw`` than this sampler's
+        (or an approximate save into an exact sampler, or the reverse)
+        raises ``ValueError``; the saved ``approx_active`` pin wins over
+        this sampler's, so a resharded resume cannot switch φ backends.  A
+        saved ``approx_bank_seed`` wins over the constructed bank, so an
+        RFF resume is the saved run's trajectory.  A JAX save carries its
+        bank as a threefry ``approx_bank_key``, which no torch stream can
+        follow: it resumes on this sampler's own bank (the precedent of
+        ``rng_batch_key``), and JAX, given a port save, keeps its own."""
         _ckpt.check_topology(
             state, {"n_particles": self._num_particles, "d": self._d})
-        if state.get("approx_method") is not None:
-            raise ValueError(
-                "checkpoint was written with a kernel_approx but this sampler "
-                "runs the exact kernel: resuming would switch φ backends "
-                "mid-trajectory"
-            )
+        self._check_approx_identity(state)
         if int(np.asarray(state.get("particles_start", 0))) != 0:
             raise ValueError(
                 "checkpoint holds one process's particle block (particles_start "
@@ -587,6 +714,58 @@ class DistSampler:
         self._t = int(np.asarray(state["t"]))
         if state.get("rng_batch_seed") is not None:
             self._seed = int(np.asarray(state["rng_batch_seed"]))
+        self._adopt_approx_state(state)
+
+    def _check_approx_identity(self, state: dict) -> None:
+        """JAX's refusals: the approximation's presence, method, dial and
+        (RFF) bank lifetime must match the save's."""
+        acode = state.get("approx_method")
+        if (acode is None) != (self._approx is None):
+            want = self._approx.method if self._approx is not None else "exact"
+            saved = ("exact" if acode is None
+                     else APPROX_METHOD_CODES[int(np.asarray(acode))])
+            raise ValueError(
+                f"checkpoint was written with kernel_approx={saved!r} but this sampler "
+                f"runs {want!r}: resuming would silently switch φ backends "
+                "mid-trajectory — construct the sampler with the checkpoint's "
+                "kernel_approx (or retrain)")
+        if acode is None:
+            return
+        saved_method = APPROX_METHOD_CODES[int(np.asarray(acode))]
+        saved_dial = int(np.asarray(state["approx_dial"]))
+        if saved_method != self._approx.method or saved_dial != self._approx.accuracy_dial:
+            raise ValueError(
+                f"checkpoint kernel_approx is {saved_method!r} at dial {saved_dial} but "
+                f"this sampler runs {self._approx.method!r} at "
+                f"{self._approx.accuracy_dial}: the accuracy dial is part of the "
+                "trajectory — match the saved configuration")
+        redraw_code = state.get("approx_rff_redraw")
+        saved_redraw = (RFF_REDRAW_MODES[int(np.asarray(redraw_code))]
+                        if redraw_code is not None else "run")
+        if self._approx.method == "rff" and saved_redraw != self._approx.rff_redraw:
+            raise ValueError(
+                f"checkpoint was written with rff_redraw={saved_redraw!r} but this "
+                f"sampler runs {self._approx.rff_redraw!r}: the bank lifetime is part "
+                "of the trajectory — match the saved configuration")
+
+    def _adopt_approx_state(self, state: dict) -> None:
+        """The saved bank seed and the saved crossover pin win; the steps
+        are rebuilt when either changes this sampler's φ."""
+        if self._approx is None:
+            return
+        rebuild = False
+        bank = state.get("approx_bank_seed")
+        if bank is not None and int(np.asarray(bank)) != self._approx.seed:
+            self._approx = self._approx.with_seed(int(np.asarray(bank)))
+            rebuild = True
+        active = state.get("approx_active")
+        if active is not None and bool(int(np.asarray(active))) != self._approx_active:
+            # in partitions the 'auto' decision depends on the block size, so
+            # a resharded resume could otherwise re-pin the other backend
+            self._approx_active = bool(int(np.asarray(active)))
+            rebuild = True
+        if rebuild:
+            self._build_step_programs()
 
     def _restore_w2(self, name: str, state: dict):
         """A W2 entry of ``state`` as a tensor of the run's dtype on its
@@ -612,7 +791,7 @@ class DistSampler:
             self._w2_step = make_shard_step_sinkhorn_w2(
                 logp=self._logp, kernel=self._kernel, mode=self._mode,
                 num_shards=self._num_shards, score_scale=self._score_scale,
-                phi_impl=self._phi_impl, w2_pairing=self._w2_pairing,
+                w2_pairing=self._w2_pairing, **self._phi_kwargs(),
                 wasserstein_solver=self._wasserstein_solver,
                 update_rule=self._update_rule, ring=self._exchange_impl == "ring",
                 sinkhorn_impl=self._sinkhorn_impl, **self._sinkhorn,
@@ -640,7 +819,7 @@ class DistSampler:
         if macro is None:
             macro = self._lagged[record] = make_shard_step_lagged(
                 self._logp, self._kernel, self._num_shards, self._score_scale,
-                self._exchange_every, phi_impl=self._phi_impl, record=record,
+                self._exchange_every, record=record, **self._phi_kwargs(),
                 **self._data_kwargs())
         blocks = split(self._particles, self._num_shards)
         with torch.no_grad():
@@ -733,7 +912,10 @@ class DistSampler:
                 "pass either dispatch_budget (auto-chunking) or explicit "
                 "hops_per_dispatch / max_passes_per_dispatch, not both")
         if dispatch_budget is None and not explicit:
-            return self._run_eager(num_steps, step_size, record, h)
+            with _trace.span("train.step_chunk",
+                             {"steps": num_steps, "execution": "monolithic"}
+                             if _trace.enabled() else None):
+                return self._run_eager(num_steps, step_size, record, h)
         if explicit:
             plan = {"execution": "intra_step", "hops_per_dispatch": hops_per_dispatch,
                     "max_passes_per_dispatch": max_passes_per_dispatch}
@@ -742,7 +924,7 @@ class DistSampler:
                 raise ValueError(f"dispatch_budget must be positive, got {dispatch_budget}")
             plan = self._plan_dispatches(num_steps, dispatch_budget, pairs_per_sec)
         if plan["execution"] == "monolithic":
-            run, rec = self._dispatch_runner(time_dispatches)
+            run, rec = self._dispatch_runner(time_dispatches, "train.step_chunk")
             out = run(self._run_eager, num_steps, step_size, record, h)
             self.last_run_stats = self._stats(
                 "monolithic", num_steps, rec["count"], rec["max_wall"],
@@ -870,22 +1052,32 @@ class DistSampler:
         return {"execution": "intra_step", "hops_per_dispatch": hpd,
                 "max_passes_per_dispatch": max_passes}
 
-    def _dispatch_runner(self, time_dispatches: bool):
+    def _dispatch_runner(self, time_dispatches: bool, span_name: str = "train.dispatch"):
         """``(run, rec)``: ``run(fn, *args)`` calls one dispatch and counts
         it in ``rec['count']``; with ``time_dispatches`` it fences the card
-        after the call and keeps the longest wall in ``rec['max_wall']``."""
+        after the call and keeps the longest wall in ``rec['max_wall']``.
+        While the tracer is enabled each dispatch is a ``span_name`` span
+        tagged with the dispatched function and ``fenced`` — whether the
+        span waits for the card (``time_dispatches``); unfenced, it shows
+        the host's time, and chained dispatches keep the card busy."""
         rec = {"count": 0, "max_wall": None}
         on_card = self._device.type == "cuda"
 
         def run(fn, *args):
-            t0 = time.perf_counter() if time_dispatches else None
-            out = fn(*args)
-            rec["count"] += 1
-            if time_dispatches:
-                if on_card:
-                    torch.cuda.synchronize(self._device)
-                wall = time.perf_counter() - t0
-                rec["max_wall"] = wall if rec["max_wall"] is None else max(rec["max_wall"], wall)
+            tags = None
+            if _trace.enabled():
+                tags = {"fn": getattr(fn, "__name__", type(fn).__name__),
+                        "fenced": bool(time_dispatches)}
+            with _trace.span(span_name, tags):
+                t0 = time.perf_counter() if time_dispatches else None
+                out = fn(*args)
+                rec["count"] += 1
+                if time_dispatches:
+                    if on_card:
+                        torch.cuda.synchronize(self._device)
+                    wall = time.perf_counter() - t0
+                    rec["max_wall"] = (wall if rec["max_wall"] is None
+                                       else max(rec["max_wall"], wall))
             return out
 
         return run, rec
@@ -898,7 +1090,7 @@ class DistSampler:
         join without duplicates (each holds pre-update snapshots only)."""
         if record:
             steps_per_dispatch = min(steps_per_dispatch, self._record_chunk())
-        run, rec = self._dispatch_runner(time_dispatches)
+        run, rec = self._dispatch_runner(time_dispatches, "train.step_chunk")
         hists = []
         for k in _chunk_sizes(num_steps, steps_per_dispatch):
             out = run(self._run_eager, k, step_size, record, h)
@@ -940,7 +1132,7 @@ class DistSampler:
         if self._chunk_builders is None:
             self._chunk_builders = make_chunked_ring_step_fns(
                 self._logp, self._kernel, self._mode, self._num_shards, self._score_scale,
-                phi_impl=self._phi_impl, **self._data_kwargs())
+                **self._phi_kwargs(), **self._data_kwargs())
         b = self._chunk_builders
         data = self._data_stacked
         sizes = _chunk_sizes(self._num_shards, hops_per_dispatch)

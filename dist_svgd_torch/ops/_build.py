@@ -11,6 +11,9 @@ library is built once per source version and reused after that.  All
 requested sources compile in parallel (one ``nvcc`` each, started together).
 Nothing here runs at import time: the first call that needs a kernel builds
 it, and a missing ``nvcc`` or a failed compile raises — there is no fallback.
+While the telemetry tracer is enabled, each compile records a
+``kernel_build`` instant (tagged with the library and its ``nvcc`` seconds)
+inside whatever span was active on the building thread.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from dist_svgd_torch.telemetry import trace as _trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dist_svgd_torch"
@@ -118,6 +123,8 @@ def build(names: Optional[Iterable[str]] = None, csrc: Path = CSRC) -> Dict[str,
             continue
         os.replace(tmp, target)
         results[name] = BuildResult(name, target, seconds, False, log)
+        _trace.instant("kernel_build", {"kernel": name, "seconds": round(seconds, 3)}
+                       if _trace.enabled() else None)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return results

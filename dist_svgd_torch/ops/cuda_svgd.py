@@ -672,7 +672,7 @@ def _plain_phi_fn(kernel) -> Callable:
 _JAX_NAMES = {"xla": "torch", "pallas": "cuda", "pallas_bf16": "cuda_bf16"}
 
 
-def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
+def resolve_phi_fn(kernel, phi_impl: str, *, kernel_approx=None) -> Callable:
     """The φ-backend policy: returns ``phi_fn(updated, interacting,
     scores)`` on batched lanes.
 
@@ -712,6 +712,26 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
     own h) and runs the bandwidth-1 backend through the rescaling identity
     ``φ_h(y; x, s) = φ₁(y/√h; x/√h, √h·s)/√h``.
 
+    ``kernel_approx`` (``None`` | ``'rff'`` | ``'nystrom'`` | a
+    :class:`~dist_svgd_torch.ops.approx.KernelApprox`) swaps the exact Gram
+    evaluation for the sub-quadratic φ (``ops/approx.py``):
+
+    - with ``'auto'`` the crossover :func:`~dist_svgd_torch.ops.approx.
+      approx_preferred` of (S·k, m) picks, per call shape, the
+      approximation above it and below it the exact φ of ``'auto'`` (the
+      hand kernel for the tensors' d on the card);
+    - ``'torch'`` always takes the approximation (JAX's ``'xla'``);
+    - ``'cuda'``, ``'cuda_bf16'`` and ``'torch_bf16'`` are refused
+      (``ValueError``; JAX refuses its ``'pallas*'``): the approximation
+      has no kernel tier, and ``'auto'`` is how the exact kernel composes
+      with it;
+    - an ``AdaptiveRBF`` composes through the rescaling identity with
+      ``'nystrom'`` and with ``KernelApprox('rff', rff_redraw='step')``
+      (a fresh bank every step; the returned φ then carries ``needs_step =
+      True`` and the step builders bind the index with
+      :func:`~dist_svgd_torch.ops.approx.bind_phi_step`); with ``'rff'`` at
+      ``rff_redraw='run'`` it is refused (``ValueError``).
+
     JAX's names ``'xla'``, ``'pallas'`` and ``'pallas_bf16'`` raise
     ``ValueError`` naming the port's.
     """
@@ -721,17 +741,75 @@ def resolve_phi_fn(kernel, phi_impl: str) -> Callable:
             f"the port's is {_JAX_NAMES[phi_impl]!r}")
     if phi_impl not in PHI_IMPLS:
         raise ValueError(f"unknown phi_impl {phi_impl!r}; the port has {PHI_IMPLS}")
+    if kernel_approx is not None:
+        from dist_svgd_torch.ops.approx import as_kernel_approx
+
+        kernel_approx = as_kernel_approx(kernel_approx)
+        if phi_impl not in ("auto", "torch"):
+            raise ValueError(
+                f"phi_impl={phi_impl!r} is incompatible with kernel_approx: the "
+                "approximate φ has no kernel tier — use 'auto' (the exact kernel below "
+                "the crossover, features/landmarks above) or 'torch' (always "
+                "approximate)")
+        if (isinstance(kernel, AdaptiveRBF) and kernel_approx.method == "rff"
+                and kernel_approx.rff_redraw != "step"):
+            raise ValueError(
+                "kernel_approx='rff' with the per-step median bandwidth "
+                "(kernel='median_step' / AdaptiveRBF) is refused at rff_redraw='run': "
+                "the bank is drawn once at a frozen bandwidth and per-step drift would "
+                "silently decalibrate it — use KernelApprox('rff', rff_redraw='step') "
+                "(a fresh bank every step), kernel='median' (frozen per run), or "
+                "kernel_approx='nystrom' (re-factored every step)")
     if isinstance(kernel, AdaptiveRBF):
-        base = resolve_phi_fn(RBF(1.0), phi_impl)
+        # kernel_approx ('nystrom', or 'rff' redrawn every step) passes
+        # through: its landmarks come from the rescaled interaction set,
+        # which is the rescaled landmark set, so the identity holds exactly
+        base = resolve_phi_fn(RBF(1.0), phi_impl, kernel_approx=kernel_approx)
         max_points = kernel.max_points
 
-        def adaptive_fn(y, x, s):
+        def rescaled(y, x):
             h = median_bandwidth_approx(x, max_points)  # () or (S,)
             sh = torch.sqrt(h.to(y.dtype))[..., None, None]
-            sx = sh if x.dim() == 3 else sh[..., 0, 0]
+            return sh, (sh if x.dim() == 3 else sh[..., 0, 0])
+
+        if getattr(base, "needs_step", False):
+            def adaptive_step_fn(y, x, s, t=None):
+                sh, sx = rescaled(y, x)
+                return base(y / sh, x / sx, s * sh, t=t) / sh
+
+            adaptive_step_fn.needs_step = True
+            return adaptive_step_fn
+
+        def adaptive_fn(y, x, s):
+            sh, sx = rescaled(y, x)
             return base(y / sh, x / sx, s * sh) / sh
 
         return adaptive_fn
+    if kernel_approx is not None:
+        from dist_svgd_torch.ops.approx import approx_preferred, make_approx_phi_fn
+
+        approx_fn = make_approx_phi_fn(kernel, kernel_approx)
+        if phi_impl == "torch":
+            return approx_fn
+        exact_fn = resolve_phi_fn(kernel, "auto")
+        feature_count = kernel_approx.feature_count
+
+        def prefer(y, x):
+            return approx_preferred(y.numel() // y.shape[-1], x.shape[-2], feature_count)
+
+        if getattr(approx_fn, "needs_step", False):
+            def auto_approx_step_fn(y, x, s, t=None):
+                if prefer(y, x):
+                    return approx_fn(y, x, s, t=t)
+                return exact_fn(y, x, s)
+
+            auto_approx_step_fn.needs_step = True
+            return auto_approx_step_fn
+
+        def auto_approx_fn(y, x, s):
+            return approx_fn(y, x, s) if prefer(y, x) else exact_fn(y, x, s)
+
+        return auto_approx_fn
     if not isinstance(kernel, RBF):
         if phi_impl in ("auto", "torch"):
             return _plain_phi_fn(kernel)

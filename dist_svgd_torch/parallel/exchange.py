@@ -39,6 +39,15 @@ visiting block on its own data; ``all_scores`` first carries each block
 once around the ring summing the shards' likelihood scores (the psum), then
 rotates (block, score) pairs for φ.  The same math as the gather, in
 another summation order.
+
+**Kernel approximation** (``kernel_approx``, ``ops/approx.py``): every
+builder takes it and resolves its φ through
+:func:`~dist_svgd_torch.ops.cuda_svgd.resolve_phi_fn`, so the gather, each
+ring hop (the visiting block approximated with its own features or
+landmarks), the lagged views and the W2 step all use one backend.  A φ that
+redraws its bank every step (``rff_redraw='step'``) is bound to the step's
+index with :func:`~dist_svgd_torch.ops.approx.bind_phi_step` where the step
+knows it — the ``t`` its minibatch is keyed by.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from typing import Callable, Optional
 
 import torch
 
+from dist_svgd_torch.ops.approx import bind_phi_step
 from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth_approx_masked
 from dist_svgd_torch.ops.ot import wasserstein_grad_lp, wasserstein_grad_sinkhorn
@@ -215,7 +225,8 @@ def _ring_median_bandwidth(blocks: torch.Tensor, max_points: int) -> torch.Tenso
 
 
 def _builder_prelude(logp, kernel, phi_impl: str, num_shards: int, log_prior=None,
-                     batch_size: Optional[int] = None, n_local_data: int = 0):
+                     batch_size: Optional[int] = None, n_local_data: int = 0,
+                     kernel_approx=None):
     """``(phi_fn, shared_scores, own_scores, prior_scores)``:
 
     - ``shared_scores(thetas (n, d), data) -> (S, n, d)`` — every shard
@@ -226,10 +237,12 @@ def _builder_prelude(logp, kernel, phi_impl: str, num_shards: int, log_prior=Non
       ``None`` without a separate prior.
 
     Data-free targets (``data is None``) score once and broadcast.  A
-    ``batch_size`` outside ``(0, n_local_data]`` raises ``ValueError``."""
+    ``batch_size`` outside ``(0, n_local_data]`` raises ``ValueError``.
+    ``phi_fn`` is the ``(phi_impl, kernel_approx)`` backend; it may need the
+    step index (:func:`~dist_svgd_torch.ops.approx.bind_phi_step`)."""
     if batch_size is not None and not 0 < batch_size <= n_local_data:
         raise ValueError(f"batch_size {batch_size} not in (0, {n_local_data}] local rows")
-    phi_fn = resolve_phi_fn(kernel, phi_impl)
+    phi_fn = resolve_phi_fn(kernel, phi_impl, kernel_approx=kernel_approx)
     score = torch.func.vmap(torch.func.grad(logp), in_dims=(0, None))
     per_shard_shared = torch.func.vmap(score, in_dims=(None, 0))
     per_shard_own = torch.func.vmap(score, in_dims=(0, 0))
@@ -285,7 +298,8 @@ def _step_data(mode: str, num_shards: int, shard_data: bool, batch_size: Optiona
 
 def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
                 phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
-                log_prior=None, n_local_data: int = 0, ring: bool = False):
+                log_prior=None, n_local_data: int = 0, ring: bool = False,
+                kernel_approx=None):
     """``core(blocks, data, t, idx) -> delta``: exchange, scores and φ for
     all shards at once (``blocks`` is ``(S, s, d)``, ``data`` the
     :func:`stack_shards` layout, ``idx`` the step's ``(S, B)`` minibatch
@@ -308,9 +322,9 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
         raise ValueError(f"unknown exchange mode {mode!r}")
     ring = ring and mode != PARTITIONS
     ring_adaptive = ring and isinstance(kernel, AdaptiveRBF)
-    phi_fn, shared_scores, own_scores, prior_scores = _builder_prelude(
+    phi_base, shared_scores, own_scores, prior_scores = _builder_prelude(
         logp, RBF(1.0) if ring_adaptive else kernel, phi_impl, num_shards, log_prior,
-        batch_size, n_local_data)
+        batch_size, n_local_data, kernel_approx)
     local, lik = _step_data(mode, num_shards, shard_data, batch_size, n_local_data)
 
     def with_prior(scores, thetas):
@@ -318,6 +332,7 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
 
     def core(blocks, data, t: int, idx: Optional[torch.Tensor] = None):
         data_local = local(data, t, idx)
+        phi_fn = bind_phi_step(phi_base, t)  # a per-step bank folds t
         if mode == PARTITIONS:
             scores = with_prior(score_scale * lik(own_scores(blocks, data_local)), blocks)
             return phi_fn(blocks, blocks, scores)
@@ -348,7 +363,7 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
 def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_scale: float,
                                phi_impl: str = "auto", shard_data: bool = False,
                                batch_size: Optional[int] = None, log_prior=None,
-                               n_local_data: int = 0) -> dict:
+                               n_local_data: int = 0, kernel_approx=None) -> dict:
     """The pieces of a ring step for a host-driven chain of bounded
     dispatches (JAX ``make_chunked_ring_step_fns``): each piece resumes the
     hop loop from an explicit carry, so the chain replays the monolithic
@@ -366,7 +381,9 @@ def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_s
       — the hop mean plus the update (``w_grad`` may be ``None``).
 
     Fixed-bandwidth kernels only: ``'median_step'`` raises ``ValueError``
-    (its per-step subsample is not carried across the chain), as in JAX."""
+    (its per-step subsample is not carried across the chain), as in JAX.  A
+    φ that redraws its bank every step is refused in ``all_scores``, whose
+    φ-pass chunks carry no step index (JAX's refusal)."""
     if mode not in (ALL_PARTICLES, ALL_SCORES):
         raise ValueError(
             f"chunked ring stepping is defined for the all_* modes, got {mode!r}")
@@ -377,7 +394,14 @@ def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_s
             "bounded-dispatch chain does not carry — use kernel='median' (resolved "
             "once at construction) instead")
     phi_fn, _, own_scores, prior_scores = _builder_prelude(
-        logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data)
+        logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data,
+        kernel_approx)
+    if getattr(phi_fn, "needs_step", False) and mode == ALL_SCORES:
+        raise ValueError(
+            "chunked all_scores ring stepping does not thread the step index through "
+            "its φ-pass chunks (exact_phi_hops carries only the rotating (block, score, "
+            "acc) state), which rff_redraw='step' needs for its per-step bank — use "
+            "rff_redraw='run', kernel_approx='nystrom', or the all_particles mode")
     local, lik = _step_data(mode, num_shards, shard_data, batch_size, n_local_data)
 
     def local_hops(num_hops: int, rotate_last: bool):
@@ -385,8 +409,8 @@ def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_s
             data_local = local(data, t, idx)
             score_of = lambda v: _with_prior(  # noqa: E731
                 prior_scores, score_scale * lik(own_scores(v, data_local)), v)
-            return _ring_local_hops(blocks, (visiting, acc), score_of, phi_fn, num_hops,
-                                    rotate_last)
+            return _ring_local_hops(blocks, (visiting, acc), score_of,
+                                    bind_phi_step(phi_fn, t), num_hops, rotate_last)
         return fn
 
     def score_hops(num_hops: int):
@@ -418,7 +442,8 @@ def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_s
 def make_shard_step_lagged(logp, kernel, num_shards: int, score_scale: float,
                            exchange_every: int, phi_impl: str = "auto",
                            shard_data: bool = False, batch_size: Optional[int] = None,
-                           log_prior=None, n_local_data: int = 0, record: bool = False):
+                           log_prior=None, n_local_data: int = 0, record: bool = False,
+                           kernel_approx=None):
     """The lagged (stale) ``all_particles`` exchange: one gather a
     macro-step of ``exchange_every`` SVGD steps (JAX
     ``make_shard_step_lagged``, "lagged-remote, live-local").  At the
@@ -439,7 +464,8 @@ def make_shard_step_lagged(logp, kernel, num_shards: int, score_scale: float,
     if exchange_every < 1:
         raise ValueError(f"exchange_every must be >= 1, got {exchange_every}")
     phi_fn, _, own_scores, prior_scores = _builder_prelude(
-        logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data)
+        logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data,
+        kernel_approx)
     local, lik = _step_data(ALL_PARTICLES, num_shards, shard_data, batch_size, n_local_data)
 
     def macro(blocks, data, t: int, step_size: float, idx_of):
@@ -456,7 +482,8 @@ def make_shard_step_lagged(logp, kernel, num_shards: int, score_scale: float,
                                  view)
             if record:
                 hist.append(blk)
-            blk = blk + step_size * phi_fn(blk, view, scores)
+            # sub-step i is absolute step t + i: a per-step bank folds it
+            blk = blk + step_size * bind_phi_step(phi_fn, t + i)(blk, view, scores)
         if record:
             return blk, torch.stack(hist)
         return blk
@@ -466,7 +493,8 @@ def make_shard_step_lagged(logp, kernel, num_shards: int, score_scale: float,
 
 def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
                    phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
-                   log_prior=None, n_local_data: int = 0, ring: bool = False):
+                   log_prior=None, n_local_data: int = 0, ring: bool = False,
+                   kernel_approx=None):
     """The reference's literal Gauss–Seidel step, all shards at once (JAX
     ``parallel/exchange.py:_build_gs_step``; reference
     dsvgd/distsampler.py:194-200, ``tests/_oracle.py``).
@@ -484,7 +512,8 @@ def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
     ``w_grad`` ``(S, s, d)`` (the W2 gradient, solved once from the
     pre-sweep blocks) is applied row by row, ``δ_i = φ + h·w_grad_i``.
 
-    Minibatches and the ring are refused (``ValueError``), as in JAX.
+    Minibatches, the ring and ``kernel_approx`` are refused (``ValueError``),
+    as in JAX.
     Returns ``gs(blocks, data, t, step_size, w_grad=None, h=1.0) ->
     new_blocks``."""
     if mode not in MODES:
@@ -494,6 +523,10 @@ def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
                          "(the sweep mutates a materialised local view)")
     if batch_size is not None:
         raise ValueError("minibatching supports only the jacobi update rule")
+    if kernel_approx is not None:
+        raise ValueError(
+            "kernel_approx requires update_rule='jacobi' (the GS sweep exists for "
+            "literal reference parity, which an approximate kernel cannot provide)")
     phi_fn, shared_scores, own_scores, prior_scores = _builder_prelude(
         logp, kernel, phi_impl, num_shards, log_prior, None, n_local_data)
     resolve_data = _shard_data_resolver(mode, num_shards, shard_data)
@@ -542,6 +575,7 @@ def make_shard_step(
     n_local_data: int = 0,
     update_rule: str = "jacobi",
     ring: bool = False,
+    kernel_approx=None,
 ) -> Callable:
     """Build the batched SVGD step for one exchange strategy.
 
@@ -568,6 +602,9 @@ def make_shard_step(
             :func:`_build_gs_step`; no minibatch).
         ring: the ring implementation of the ``all_*`` exchanges (module
             docstring; Jacobi only).
+        kernel_approx: the sub-quadratic φ (``ops/approx.py``; Jacobi
+            only), resolved with ``phi_impl`` by
+            :func:`~dist_svgd_torch.ops.cuda_svgd.resolve_phi_fn`.
 
     Returns ``step(blocks, data, t, step_size, idx=None, w_grad=None,
     h=1.0) -> new_blocks``: one update of all ``(S, s, d)`` blocks; ``t`` is
@@ -578,13 +615,14 @@ def make_shard_step(
     """
     if update_rule == "gauss_seidel":
         gs = _build_gs_step(logp, kernel, mode, num_shards, score_scale, phi_impl,
-                            shard_data, batch_size, log_prior, n_local_data, ring)
+                            shard_data, batch_size, log_prior, n_local_data, ring,
+                            kernel_approx)
         return (lambda blocks, data, t, step_size, idx=None, w_grad=None, h=1.0:
                 gs(blocks, data, t, step_size, w_grad, h))
     if update_rule != "jacobi":
         raise ValueError(f"unknown update_rule {update_rule!r}")
     core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
-                       shard_data, batch_size, log_prior, n_local_data, ring)
+                       shard_data, batch_size, log_prior, n_local_data, ring, kernel_approx)
 
     def step(blocks, data, t: int, step_size: float, idx=None, w_grad=None, h: float = 1.0):
         delta = core(blocks, data, t, idx)
@@ -623,6 +661,7 @@ def make_shard_step_sinkhorn_w2(
     n_local_data: int = 0,
     update_rule: str = "jacobi",
     ring: bool = False,
+    kernel_approx=None,
 ) -> Callable:
     """The batched SVGD step with the Wasserstein/JKO term, solved inside the
     step from carried snapshot state (gather implementation).
@@ -649,7 +688,7 @@ def make_shard_step_sinkhorn_w2(
     the host LP (:func:`~dist_svgd_torch.ops.ot.wasserstein_grad_lp`) and
     carries no dual.  ``shard_data``, ``batch_size``, ``log_prior`` and
     ``n_local_data`` act as in :func:`make_shard_step`, so the W2 term
-    composes with minibatches; ``ring`` too (the snapshot rules are the
+    composes with minibatches, and so does ``kernel_approx``; ``ring`` too (the snapshot rules are the
     same: under the emulation the global pairing's gathered set is at hand).
 
     ``update_rule='gauss_seidel'`` composes the term with the literal sweep
@@ -669,10 +708,12 @@ def make_shard_step_sinkhorn_w2(
         raise ValueError(f"unknown wasserstein_solver {wasserstein_solver!r}")
     if update_rule == "gauss_seidel":
         gs = _build_gs_step(logp, kernel, mode, num_shards, score_scale, phi_impl,
-                            shard_data, batch_size, log_prior, n_local_data, ring)
+                            shard_data, batch_size, log_prior, n_local_data, ring,
+                            kernel_approx)
     elif update_rule == "jacobi":
         core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
-                           shard_data, batch_size, log_prior, n_local_data, ring)
+                           shard_data, batch_size, log_prior, n_local_data, ring,
+                           kernel_approx)
     else:
         raise ValueError(f"unknown update_rule {update_rule!r}")
     block_pair = w2_block_pairing(mode, w2_pairing, num_shards)

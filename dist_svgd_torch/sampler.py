@@ -16,10 +16,13 @@ each update at timesteps ``0..num_iter-1`` plus the final state at
 ``num_iter``.
 
 ``run(dispatch_budget=...)`` splits a run into chunks of whole steps, each
-estimated to fit the budget (JAX's ``Sampler.run``).
+estimated to fit the budget (JAX's ``Sampler.run``); each chunk is a
+``train.step_chunk`` span while the telemetry tracer is enabled.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its ROADMAP
-item: ``kernel_approx`` and ``approx_residual`` (A6).
+``kernel_approx`` runs the sub-quadratic φ (``ops/approx.py``): under
+``phi_impl='auto'`` each run pins the (n, R) crossover once from its n, and
+:meth:`Sampler.approx_residual` measures the approximation against the exact
+φ into the ``svgd_diag_phi_approx_*`` gauges.
 """
 
 from __future__ import annotations
@@ -31,18 +34,16 @@ import numpy as np
 import torch
 
 from dist_svgd_torch.distsampler import _chunk_sizes
+from dist_svgd_torch.ops.approx import approx_preferred, as_kernel_approx, bind_phi_step
 from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth
 from dist_svgd_torch.ops.svgd import svgd_step_sequential
 from dist_svgd_torch.parallel.exchange import tree_map
+from dist_svgd_torch.telemetry import trace as _trace
 from dist_svgd_torch.utils import history as _history
 from dist_svgd_torch.utils.history import history_to_dataframe
 from dist_svgd_torch.utils.platform import resolve_device
-from dist_svgd_torch.utils.rng import init_particles, minibatch_indices
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP {item})")
+from dist_svgd_torch.utils.rng import approx_bank_seed, init_particles, minibatch_indices
 
 
 class Sampler:
@@ -82,7 +83,18 @@ class Sampler:
         seed: the default ``seed`` of :meth:`run` and :meth:`sample`: it
             draws the initial particles and keys the minibatch stream, step
             ``t`` drawing from ``(seed, t)`` alone.
-        kernel_approx: ROADMAP A6 (must be ``None``).
+        kernel_approx: ``None`` (the exact φ), ``'rff'``, ``'nystrom'`` or a
+            :class:`~dist_svgd_torch.ops.approx.KernelApprox` — the
+            sub-quadratic φ with its ``num_features`` / ``num_landmarks``
+            dial.  With ``phi_impl='auto'`` the (n, R) crossover picks exact
+            or approximate once a :meth:`run`, from that run's n; ``'torch'``
+            forces the approximation; the kernel tiers are refused.  The RFF
+            bank is drawn from each run's ``seed``
+            (:func:`~dist_svgd_torch.utils.rng.approx_bank_seed`) at the
+            bandwidth frozen by then — ``kernel='median'`` resolves first;
+            ``'median_step'`` + ``'rff'`` is refused unless
+            ``KernelApprox('rff', rff_redraw='step')`` (a fresh bank every
+            step).  Jacobi only.
     """
 
     def __init__(
@@ -120,8 +132,6 @@ class Sampler:
                     "kernel_approx requires update_rule='jacobi': the Gauss-Seidel "
                     "sweep exists for literal reference parity, which an approximate "
                     "kernel cannot provide")
-        if kernel_approx is not None:
-            raise _not_ported("kernel_approx", "A6")
         if isinstance(seed, bool) or not isinstance(seed, (int, np.integer)):
             raise ValueError(f"seed must be an int, got {seed!r}")
 
@@ -138,7 +148,16 @@ class Sampler:
         elif isinstance(kernel, str):
             kernel = AdaptiveRBF()
         self._kernel = kernel if kernel is not None else RBF(1.0)
-        self._phi = resolve_phi_fn(self._kernel, phi_impl)
+        self._approx = as_kernel_approx(kernel_approx)
+        self._approx_active = False
+        if self._approx is not None:
+            # validate through the one policy seam (kernel tiers, AdaptiveRBF
+            # + rff refusals); the real bank seed arrives with run()'s seed
+            va = self._approx
+            if va.method == "rff" and va.seed is None:
+                va = va.with_seed(approx_bank_seed(0))
+            resolve_phi_fn(self._kernel, phi_impl, kernel_approx=va)
+        self._phi = self._resolve_phi()
         if phi_impl == "cuda" and self._device.type != "cuda":
             raise ValueError(
                 "phi_impl='cuda' launches the hand kernel and needs the card; "
@@ -168,9 +187,51 @@ class Sampler:
     def device(self) -> torch.device:
         return self._device
 
+    @property
+    def kernel_approx(self):
+        """The resolved :class:`~dist_svgd_torch.ops.approx.KernelApprox`
+        (RFF bank seed bound once a run has derived it), or ``None``."""
+        return self._approx
+
+    @property
+    def kernel_approx_active(self) -> bool:
+        """Whether the most recent :meth:`run`'s φ used the approximation
+        (the per-run (n, R) crossover under ``phi_impl='auto'``; always with
+        ``'torch'`` + ``kernel_approx``)."""
+        return self._approx is not None and self._approx_active
+
+    def _resolve_phi(self):
+        """The φ backend of the current kernel and approximation state: the
+        always-approximate ``'torch'`` combination while the approximation
+        is pinned active, the exact configuration otherwise — one decision
+        a run, like ``DistSampler``'s global-shape pin."""
+        if self._approx is not None and self._approx_active:
+            return resolve_phi_fn(self._kernel, "torch", kernel_approx=self._approx)
+        return resolve_phi_fn(self._kernel, self._phi_impl)
+
+    def _pin_approx(self, n: int, seed: int) -> None:
+        """Per-run approximation resolution: bind the run's RFF bank seed
+        and pin the (n, R) crossover, then rebuild φ if either changed.
+        Nothing for exact samplers."""
+        if self._approx is None:
+            return
+        changed = False
+        if self._approx.method == "rff":
+            bank = approx_bank_seed(seed)
+            if self._approx.seed != bank:
+                self._approx = self._approx.with_seed(bank)
+                changed = True
+        active = (approx_preferred(n, n, self._approx.feature_count)
+                  if self._phi_impl == "auto" else True)
+        if active != self._approx_active:
+            self._approx_active = active
+            changed = True
+        if changed:
+            self._phi = self._resolve_phi()
+
     def _set_kernel(self, kernel: RBF) -> None:
         self._kernel = kernel
-        self._phi = resolve_phi_fn(kernel, self._phi_impl)
+        self._phi = self._resolve_phi()
 
     def set_data(self, data) -> None:
         """Swap the minibatch dataset in place (streaming ingest): minibatch
@@ -210,8 +271,43 @@ class Sampler:
         self._median_kernel = False
         self._set_kernel(RBF(float(bandwidth)))
 
-    def approx_residual(self, *args, **kwargs):
-        raise _not_ported("approx_residual (kernel_approx)", "A6")
+    def approx_residual(self, particles=None, max_points: int = 512,
+                        seed: Optional[int] = None, registry=None) -> dict:
+        """The configured approximation's φ residual — the exact against the
+        approximate φ over a strided ≤ ``max_points`` subsample, scores from
+        this sampler's own ``∇log p`` (full data) — published as
+        ``svgd_diag_phi_approx_*`` gauges.  ``particles`` defaults to a
+        fresh :func:`~dist_svgd_torch.utils.rng.init_particles` draw of
+        ``max_points`` rows from ``seed`` (default: the constructor's), a
+        pre-run probe; pass the current ensemble to probe a live run.  The
+        probe binds its own bank seed and never re-pins the live run."""
+        from dist_svgd_torch.ops.approx import phi_residual_report, record_phi_residual
+        from dist_svgd_torch.ops.kernels import median_bandwidth_approx
+
+        if self._approx is None:
+            raise ValueError("approx_residual needs kernel_approx (exact runs have no "
+                             "approximation residual to measure)")
+        seed = self._seed if seed is None else int(seed)
+        if particles is None:
+            particles = init_particles(seed, max_points, self._d, device=self._device)
+        particles = torch.as_tensor(particles, device=self._device)
+        if particles.shape[0] > max_points:
+            particles = particles[::-(-particles.shape[0] // max_points)]
+        spec = self._approx
+        if spec.method == "rff" and spec.seed is None:
+            spec = spec.with_seed(approx_bank_seed(seed))
+        data = tree_map(lambda a: a.to(particles.dtype) if a.is_floating_point() else a,
+                        self._data)
+        with torch.no_grad():
+            scores = torch.func.vmap(torch.func.grad(self._full_logp(data)))(particles)
+        if isinstance(self._kernel, RBF):
+            kernel = self._kernel
+        else:  # AdaptiveRBF: probe at the current per-step median bandwidth
+            kernel = RBF(float(median_bandwidth_approx(particles)))
+        report = phi_residual_report(particles, scores, kernel, spec, max_points=max_points)
+        report["active"] = bool(self._approx_active)
+        record_phi_residual(report, registry=registry)
+        return report
 
     # ------------------------------------------------------------------ #
 
@@ -301,6 +397,8 @@ class Sampler:
                              f"{particles.dtype} {tuple(particles.shape)}")
         if self._median_kernel:
             self._set_kernel(RBF(float(median_bandwidth(particles))))
+        # the bandwidth is frozen by here; the RFF bank (if any) builds at it
+        self._pin_approx(particles.shape[0], seed)
         if self._update_rule == "gauss_seidel":
             data = tree_map(lambda a: a.to(particles.dtype) if a.is_floating_point() else a,
                             self._data)
@@ -310,7 +408,11 @@ class Sampler:
                 parts, score_fn, step_size, kernel)
         else:
             scores = self._score_fns(particles.dtype)
-            move = lambda parts, i: parts + step_size * self._phi(  # noqa: E731
+            phi_fn = self._phi
+            # a per-step RFF bank folds the step's absolute index, the one
+            # the minibatch stream is keyed by (ops/approx.py:bind_phi_step)
+            move = lambda parts, i: parts + step_size * bind_phi_step(  # noqa: E731
+                phi_fn, step_offset + i)(
                 parts[None], parts, scores(parts, step_offset + i, seed)[None])[0]
         chunk = _history.record_chunk_steps(*particles.shape, particles.element_size())
         spd = num_iter
@@ -325,13 +427,20 @@ class Sampler:
         start = 0
         with torch.no_grad():
             for size in sizes:  # one dispatch a chunk
-                for i in range(start, start + size):
-                    if record:
-                        held.append(parts)
-                        if len(held) == chunk:
-                            host.append(torch.stack(held).cpu().numpy())
-                            held = []
-                    parts = move(parts, i)
+                # unfenced: the span shows the chunk's host time (JAX's tags)
+                tags = None
+                if _trace.enabled():
+                    tags = {"steps": size, "fenced": False}
+                    if len(sizes) == 1:
+                        tags["execution"] = "monolithic"
+                with _trace.span("train.step_chunk", tags):
+                    for i in range(start, start + size):
+                        if record:
+                            held.append(parts)
+                            if len(held) == chunk:
+                                host.append(torch.stack(held).cpu().numpy())
+                                held = []
+                        parts = move(parts, i)
                 start += size
         if dispatch_budget is None:
             self.last_run_stats = {"execution": "eager", "num_steps": num_iter,

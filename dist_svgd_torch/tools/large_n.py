@@ -19,17 +19,30 @@ stdout (``--json-out`` appends it to a file too), with the resolved
     python -m dist_svgd_torch.tools.large_n --device cpu --n 64 --shards 4 \\
         --w2 --exchange-impl ring --hops-per-dispatch 1 --steps 2 --samples 1
 
+``--kernel-approx rff|nystrom`` is the ``large_n_approx`` row
+(:func:`run_approx_row`): the single-device step with the sub-quadratic φ
+at ``--n`` (``--num-features`` / ``--num-landmarks`` the dial), its error
+pinned against the exact φ at ``--approx-pin-n`` particles, and the exact
+step timed at ``--exact-probe-n`` to extrapolate the exact wall to n; the
+exit code is 1 when :func:`approx_row_ok` fails the row::
+
+    python -m dist_svgd_torch.tools.large_n --kernel-approx rff   # the card
+    python -m dist_svgd_torch.tools.large_n --device cpu --kernel-approx rff \\
+        --n 256 --num-features 64 --approx-pin-n 128 --exact-probe-n 64 \\
+        --steps 2 --samples 1
+
 Timing: host clock around ``--steps`` steps that end in
 ``torch.cuda.synchronize``, best of ``--samples``, after an untimed run
 of the same length; the per-dispatch wall comes from one more run with
-``time_dispatches=True``.  ``--kernel-approx`` (the sub-quadratic φ row)
-is ROADMAP A6.
+``time_dispatches=True``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import sys
 import time
 from typing import Optional
 
@@ -37,10 +50,18 @@ import torch
 
 from dist_svgd_torch.distsampler import W2_GLOBAL_PAIRING_MAX_N, DistSampler
 from dist_svgd_torch.models.logreg import logreg_logp
+from dist_svgd_torch.ops.approx import (
+    KernelApprox,
+    default_error_budget,
+    error_pin_probe,
+    make_approx_phi_fn,
+    phi_rel_error,
+)
+from dist_svgd_torch.ops.svgd import phi as phi_exact
 from dist_svgd_torch.sampler import Sampler
 from dist_svgd_torch.utils.datasets import load_benchmark
 from dist_svgd_torch.utils.platform import resolve_device
-from dist_svgd_torch.utils.rng import init_particles, init_particles_per_shard
+from dist_svgd_torch.utils.rng import approx_bank_seed, init_particles, init_particles_per_shard
 
 
 def resolve_ring_pairing(n: int, exchange: str, exchange_impl: str, w2_pairing: str) -> str:
@@ -180,6 +201,112 @@ def run_phi(args, device) -> dict:
     return record
 
 
+def run_approx_row(n: int, method: str = "rff", num_features: int = 4096,
+                   num_landmarks: int = 4096, steps: int = 5, samples: int = 2,
+                   stepsize: float = 3e-3, pin_n: int = 2048, exact_probe_n: int = 0,
+                   seed: int = 0, device=None) -> dict:
+    """The ``large_n_approx`` row (JAX's ``run_approx_row``, the same
+    record keys): the sampler step with the sub-quadratic φ at a particle
+    count the exact O(n²) step cannot touch on the same budget.  Three
+    measurements in one record:
+
+    - **throughput** — full sampler steps (banana logistic regression
+      scores + approximate φ, ``phi_impl='torch'``) at ``n``, best of
+      ``samples`` runs of ``steps`` after an untimed one;
+    - **error pin** — the relative φ error of THIS configuration (method,
+      dial and, for RFF, the bank of ``seed``) against the exact φ on
+      :func:`~dist_svgd_torch.ops.approx.error_pin_probe` at ``pin_n``,
+      judged against ``default_error_budget``;
+    - **exact extrapolation** — the exact step (``'auto'``: the hand kernel
+      on the card) at ``exact_probe_n`` (default ``min(n, 65536)``), a
+      pairs/s rate extrapolated quadratically to ``n``.
+
+    Eager PyTorch has no retrace sentry: ``recompiles`` is ``None`` and
+    ``sentry_supported`` false."""
+    device = resolve_device(device)
+    if method == "rff":
+        spec, dial = KernelApprox("rff", num_features=num_features), num_features
+    else:
+        spec, dial = KernelApprox("nystrom", num_landmarks=num_landmarks), num_landmarks
+    fold = load_benchmark("banana", 42)
+    d = 1 + fold.x_train.shape[1]
+    data = (fold.x_train, fold.t_train.reshape(-1))
+    sampler = Sampler(d, logreg_logp, data=data, kernel_approx=spec, phi_impl="torch",
+                      device=device)
+
+    def timed(s, parts):
+        def chain(p):
+            out, _ = s.run(p.shape[0], steps, stepsize, seed=seed, record=False,
+                           initial_particles=p)
+            _sync(device)
+            return out
+
+        parts = chain(parts)  # untimed
+        best = float("inf")
+        for _ in range(samples):
+            t0 = time.perf_counter()
+            parts = chain(parts)
+            best = min(best, (time.perf_counter() - t0) / steps)
+        return best
+
+    best = timed(sampler, init_particles(seed, n, d, device=device))
+
+    # error pin at small n: the measured configuration's method, dial, bank
+    pin_spec = spec.with_seed(approx_bank_seed(seed)) if method == "rff" else spec
+    px, ps, pk = error_pin_probe(pin_n, d, seed, device=device)
+    with torch.no_grad():
+        err = phi_rel_error(phi_exact(px, px, ps, pk),
+                            make_approx_phi_fn(pk, pin_spec)(px, px, ps))
+    budget = default_error_budget(pin_spec, d)
+
+    # the exact step at the probe size → quadratic extrapolation to n
+    probe_n = exact_probe_n or min(n, 65_536)
+    exact = Sampler(d, logreg_logp, data=data, device=device)
+    ebest = timed(exact, init_particles(seed, probe_n, d, device=device))
+    pairs_per_sec = probe_n * probe_n / ebest
+    exact_est = n * n / pairs_per_sec
+    return {
+        "bench": "large_n_approx", "n": n, "method": method, "dial": dial,
+        "d": d, "stepsize": stepsize, "steps_per_dispatch": steps,
+        "wall_per_step_s": round(best, 6),
+        "updates_per_sec": round(n / best, 1),
+        "approx_rel_err": round(err, 6),
+        "error_budget": round(budget, 6),
+        "within_budget": bool(err <= budget),
+        "pin_n": pin_n,
+        "recompiles": None,
+        "sentry_supported": False,
+        "exact_probe_n": probe_n,
+        "exact_probe_wall_per_step_s": round(ebest, 6),
+        "exact_pairs_per_sec": round(pairs_per_sec, 1),
+        "exact_est_wall_per_step_s": round(exact_est, 3),
+        "est_speedup_vs_exact": round(exact_est / best, 1),
+        "kernel_approx_active": sampler.kernel_approx_active,
+        "device": _device_name(device),
+    }
+
+
+def approx_row_ok(row: dict) -> tuple:
+    """The ``large_n_approx`` row's correctness gates (JAX's): the error
+    inside its budget at the small-n pin, no steady-state recompile where a
+    sentry exists, a finite positive wall, and the approximation active.
+    Returns ``(ok, reasons)``."""
+    why = []
+    if not row.get("within_budget"):
+        why.append(f"approximation error {row.get('approx_rel_err')} exceeds the declared "
+                   f"budget {row.get('error_budget')} at the small-n pin")
+    if row.get("sentry_supported") and row.get("recompiles"):
+        why.append(f"{row['recompiles']} steady-state recompile(s) in the timed window — "
+                   "a retrace bug contaminating the measurement")
+    wall = row.get("wall_per_step_s")
+    if not (isinstance(wall, (int, float)) and math.isfinite(wall) and wall > 0):
+        why.append(f"non-finite wall_per_step_s {wall!r}")
+    if not row.get("kernel_approx_active"):
+        why.append("the approximate backend was not active — the row measured the exact "
+                   "kernel")
+    return (not why), why
+
+
 def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
@@ -209,11 +336,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ab", action="store_true",
                     help="time the chunked and the monolithic execution")
     ap.add_argument("--kernel-approx", default=None, choices=["rff", "nystrom"],
-                    help="the sub-quadratic φ row: ROADMAP A6, not ported")
-    ap.add_argument("--num-features", type=int, default=None)
-    ap.add_argument("--num-landmarks", type=int, default=None)
-    ap.add_argument("--approx-pin-n", type=int, default=None)
-    ap.add_argument("--exact-probe-n", type=int, default=None)
+                    help="the large_n_approx row: the sub-quadratic φ step at --n, its "
+                         "small-n error pin and the exact wall extrapolated to n")
+    ap.add_argument("--num-features", type=int, default=4096,
+                    help="RFF accuracy dial R (--kernel-approx rff)")
+    ap.add_argument("--num-landmarks", type=int, default=4096,
+                    help="Nyström accuracy dial L (--kernel-approx nystrom)")
+    ap.add_argument("--approx-pin-n", type=int, default=2048,
+                    help="small-n size of the exact-against-approximate error pin")
+    ap.add_argument("--exact-probe-n", type=int, default=0,
+                    help="exact-step probe size of the extrapolation (0 = min(n, 65536))")
     ap.add_argument("--json-out", default=None, help="append one JSON record a row here")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: the card (fails without CUDA)")
@@ -222,13 +354,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    approx = [f for f in ("kernel_approx", "num_features", "num_landmarks", "approx_pin_n",
-                          "exact_probe_n") if getattr(args, f) is not None]
-    if approx:
-        raise NotImplementedError(
-            f"--{approx[0].replace('_', '-')} (the kernel-approximation row) is not "
-            "ported to PyTorch yet (ROADMAP A6)")
     device = resolve_device(args.device)
+    if args.kernel_approx is not None:
+        record = run_approx_row(
+            args.n, method=args.kernel_approx, num_features=args.num_features,
+            num_landmarks=args.num_landmarks, steps=args.steps, samples=args.samples,
+            stepsize=args.stepsize, pin_n=args.approx_pin_n,
+            exact_probe_n=args.exact_probe_n, device=device)
+        emit(record, args.json_out)
+        ok, why = approx_row_ok(record)
+        if not ok:
+            print("GATE: " + "; ".join(why), file=sys.stderr, flush=True)
+        return 0 if ok else 1
     if args.w2:
         run_w2(args, device)
     else:

@@ -220,6 +220,13 @@ def reshard_state(state: Dict[str, Any], n_shards_to: int) -> Dict[str, Any]:
     - the minibatch stream's root (JAX's ``rng_batch_key``, the port's
       ``rng_batch_seed``) is kept: each step's draw is keyed by
       ``(root, t)`` alone;
+    - the kernel approximation's identity (``approx_method``,
+      ``approx_dial``, ``approx_active``, ``approx_rff_redraw``, the bank's
+      ``approx_bank_seed`` / JAX's ``approx_bank_key``,
+      ``approx_landmark_idx``) passes through verbatim: the bank derives
+      from its seed alone and the landmarks from the layout-free global
+      particle order, so a resharded resume rebuilds the same
+      approximation;
     - the manifest is restamped, with ``topo_resharded_from``.
 
     A target that does not divide the particle count lands at 1 shard, with

@@ -20,6 +20,11 @@ import torch
 
 from dist_svgd_torch.utils import checkpoint as _ckpt
 
+#: The kernel approximation's identity fields a JAX save carries across
+#: (its threefry ``approx_bank_key`` stays behind).
+APPROX_KEYS = ("approx_method", "approx_dial", "approx_active", "approx_rff_redraw",
+               "approx_landmark_idx")
+
 
 def state_from_jax(jax_state: Dict[str, Any], device, sampler=None) -> Dict[str, Any]:
     """Convert a JAX ``DistSampler.state_dict()`` to the port's layout.
@@ -37,12 +42,15 @@ def state_from_jax(jax_state: Dict[str, Any], device, sampler=None) -> Dict[str,
     checked against that port sampler's particle count and dimension
     (:class:`~dist_svgd_torch.utils.checkpoint.TopologyMismatch`).
 
-    Raises ``ValueError`` for a kernel-approximation save or one process's
-    block of a multi-process save.
+    A kernel-approximation save keeps its identity (``approx_method``,
+    ``approx_dial``, ``approx_active``, ``approx_rff_redraw``,
+    ``approx_landmark_idx``), so ``load_state_dict`` refuses a mismatched
+    sampler and adopts the saved crossover pin as JAX does; its RFF bank
+    key ``approx_bank_key`` is dropped for the reason ``rng_batch_key`` is,
+    and the port resumes on its own bank.
+
+    Raises ``ValueError`` for one process's block of a multi-process save.
     """
-    if jax_state.get("approx_method") is not None:
-        raise ValueError("JAX state was written with a kernel_approx; the port runs "
-                         "the exact kernel only")
     particles = np.asarray(jax_state["particles"])
     man = _ckpt.read_manifest(jax_state)
     if man is None:
@@ -70,6 +78,8 @@ def state_from_jax(jax_state: Dict[str, Any], device, sampler=None) -> Dict[str,
         state["w2_pairing"] = np.asarray(jax_state["w2_pairing"], dtype=np.int8)
     state.update({k: np.asarray(jax_state[k]) for k in _ckpt.MANIFEST_KEYS
                   if k in jax_state})
+    state.update({k: np.asarray(jax_state[k]) for k in APPROX_KEYS
+                  if jax_state.get(k) is not None})
     return state
 
 

@@ -9,13 +9,10 @@ Counterpart of ``dist_svgd_tpu/utils/metrics.py``:
   device → host transfer;
 - :class:`StepTimer` — wall-clock laps fenced by ``torch.cuda.synchronize``
   on a CUDA tensor (the card runs asynchronously; a CPU tensor needs no
-  fence);
+  fence), each lap also a completed span of the telemetry tracer while one
+  is enabled (``span_name``);
 - :func:`profiler_trace` — a ``torch.profiler`` trace of the card and the
   host, written as a Chrome trace into a directory.
-
-JAX's ``StepTimer(span_name=...)`` mirrors each lap into the telemetry
-tracer; the port has no tracer yet (ROADMAP A7), so the argument is kept
-and does nothing.
 """
 
 from __future__ import annotations
@@ -29,6 +26,8 @@ from typing import IO, Optional
 
 import numpy as np
 import torch
+
+from dist_svgd_torch.telemetry import trace as _trace
 
 
 class JsonlLogger:
@@ -122,9 +121,13 @@ def particle_stats(particles: torch.Tensor, prev: Optional[torch.Tensor] = None)
 
 class StepTimer:
     """Fenced step timing: ``mark(value)`` waits for the card when ``value``
-    is a CUDA tensor and records the wall time since the previous mark.
-    ``span_name`` is accepted for JAX's signature; the telemetry tracer it
-    feeds there is ROADMAP A7."""
+    holds a CUDA tensor and records the wall time since the previous mark.
+
+    ``span_name`` bridges into the telemetry tracer: while
+    ``telemetry.enable()`` is active, every lap also records a completed
+    span of that name with explicit timestamps (the fence already happened,
+    so the span covers the card's wall).  Disabled tracing costs one
+    ``None`` check a mark."""
 
     def __init__(self, span_name: Optional[str] = None):
         self._last = time.perf_counter()
@@ -132,12 +135,17 @@ class StepTimer:
         self.laps: list = []
 
     def mark(self, value=None) -> float:
-        if isinstance(value, torch.Tensor) and value.device.type == "cuda":
-            torch.cuda.synchronize(value.device)
+        if value is not None:
+            _trace.fence(value)
         now = time.perf_counter()
         lap = now - self._last
         self._last = now
         self.laps.append(lap)
+        if self._span_name is not None:
+            tracer = _trace.get_tracer()
+            if tracer is not None:
+                end = tracer.now()
+                tracer.complete(self._span_name, max(end - lap, 0.0), end)
         return lap
 
     @property

@@ -2,7 +2,7 @@
 ``torch.Generator`` streams.
 
 Counterpart of ``dist_svgd_tpu/utils/rng.py`` (``init_particles*``,
-``minibatch_key`` and ``draw_minibatch``).  JAX's threefry streams cannot be
+``minibatch_key``, ``draw_minibatch`` and ``approx_bank_key``).  JAX's threefry streams cannot be
 reproduced in PyTorch, so the two packages draw different numbers from the
 same seed; tests that compare them make their inputs with numpy and hand
 them to both (a sampler takes its minibatch indices through a seam).
@@ -11,7 +11,11 @@ Initial particles are drawn on a CPU generator and then moved to the
 device, so a seed gives the same particles on the CPU and on the card.  The
 minibatch stream is drawn on the device it is used on, keyed by
 ``(seed, t)`` alone, so a run resumed at step ``t`` draws what the
-uninterrupted run drew there.
+uninterrupted run drew there.  The random-feature bank stream
+(:func:`approx_bank_seed`, :func:`approx_bank_generator`) follows the same
+rules: one bank a run drawn on the CPU from a fixed fold of the run seed, or
+with ``rff_redraw='step'`` one a step keyed by ``(bank seed, t)`` on the
+device.
 """
 
 from __future__ import annotations
@@ -88,3 +92,34 @@ def init_particles_per_shard(
         for r in range(num_shards)
     ])
     return out if device is None else out.to(device)
+
+
+#: Fixed stream tag of the random-feature bank (JAX folds the same number
+#: into its seed for ``approx_bank_key``), so the bank never shares a stream
+#: with the particle init or the minibatch draws.
+APPROX_BANK_STREAM = 104729
+
+
+def approx_bank_seed(seed: int) -> int:
+    """The bank stream's seed for run seed ``seed`` (JAX's
+    ``approx_bank_key``): a fixed fold of the run seed, a non-negative
+    63-bit int.  It, not the bank, rides ``state_dict``
+    (``approx_bank_seed``), so a resumed or resharded run re-derives the
+    same bank."""
+    state = np.random.SeedSequence([int(seed), APPROX_BANK_STREAM]).generate_state(1, np.uint64)
+    return int(state[0]) & ((1 << 63) - 1)
+
+
+def approx_bank_generator(bank_seed: int, t: Optional[int] = None,
+                          device: Union[str, torch.device] = "cpu") -> torch.Generator:
+    """The generator a bank is drawn from: ``t=None`` is the run's one bank,
+    a CPU stream of ``bank_seed`` alone (drawn once and moved to the device,
+    so a seed gives the same bank on the CPU and on the card); an int ``t``
+    is step ``t``'s bank under ``rff_redraw='step'``, a stream of
+    ``(bank_seed, t)`` on ``device`` (as :func:`minibatch_indices` keys its
+    draws), so chunked, resumed and resharded runs draw the same banks."""
+    if t is None:
+        return _generator(bank_seed)
+    state = np.random.SeedSequence([int(bank_seed), int(t)]).generate_state(1, np.uint64)
+    return torch.Generator(device=torch.device(device)).manual_seed(
+        int(state[0]) & ((1 << 63) - 1))

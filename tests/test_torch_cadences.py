@@ -147,9 +147,17 @@ def test_large_n_phi_record_and_refusals(capsys):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["bench"] == "large_n_phi" and row["execution"] == "scan_chunks"
     assert row["dispatches_per_step"] == 1.0 and row["pairs_per_sec"] > 0
-    for flag in (["--kernel-approx", "rff"], ["--num-features", "64"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            large_n.main(["--device", "cpu"] + flag)
+    # the approximation's knobs: a dial without --kernel-approx leaves the
+    # exact row as it is (JAX ignores it too); with it, the approx row runs
+    assert large_n.main(["--device", "cpu", "--n", "24", "--steps", "2", "--samples", "1",
+                         "--num-features", "64"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["bench"] == "large_n_phi"
+    assert large_n.main(["--device", "cpu", "--n", "24", "--steps", "2", "--samples", "1",
+                         "--kernel-approx", "rff", "--num-features", "64",
+                         "--approx-pin-n", "32", "--exact-probe-n", "16"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["bench"] == "large_n_approx" and row["kernel_approx_active"]
 
 
 def test_large_n_ring_pairing_resolution_matches_jax_tool(monkeypatch):

@@ -172,8 +172,9 @@ def test_port_state_dict_round_trip_and_topology_check():
 
 
 def test_state_from_jax_refuses_unported_state():
-    """W2 snapshots and duals now cross over (round-trip below); a
-    kernel-approximation save and one process's block are still refused."""
+    """W2 snapshots and duals cross over (round-trip below), and so does a
+    kernel-approximation save's identity, without JAX's threefry bank key;
+    one process's block is still refused."""
     particles, x, t = problem(3)
     state = port_sampler(4, particles, x, t, True, False, "auto").state_dict()
     prev = np.random.default_rng(0).normal(size=(4, 64, 3))
@@ -182,8 +183,11 @@ def test_state_from_jax_refuses_unported_state():
     np.testing.assert_array_equal(carried["previous"].numpy(), prev)
     np.testing.assert_array_equal(carried["w2_g"].numpy(), g)
     assert int(carried["w2_pairing"]) == 0
-    with pytest.raises(ValueError, match="kernel_approx"):
-        state_from_jax({**state, "approx_method": np.asarray(0)}, "cpu")
+    approx = state_from_jax({**state, "approx_method": np.asarray(0, np.int8),
+                             "approx_dial": np.asarray(64), "approx_active": np.asarray(1),
+                             "approx_bank_key": np.asarray([0, 7], np.uint32)}, "cpu")
+    assert int(approx["approx_method"]) == 0 and int(approx["approx_dial"]) == 64
+    assert int(approx["approx_active"]) == 1 and "approx_bank_key" not in approx
     with pytest.raises(ValueError, match="block"):
         state_from_jax({**state, "particles": state["particles"][:16]}, "cpu")
 
@@ -208,7 +212,7 @@ def test_device_rules():
     ({"shard_data": True, "exchange_particles": False}, "partitions mode"),
     ({"batch_size": 13}, "local rows"),
     ({"log_prior": lambda th: -(th * th).sum(), "seed": 1.5}, "seed must be an int"),
-    ({"kernel_approx": "rff"}, "A6"),
+    ({"kernel_approx": "rff", "phi_impl": "cuda"}, "no kernel tier"),
     ({"kernel": lambda a, b: (a - b).abs().sum(), "phi_impl": "cuda"}, "requires an RBF kernel"),
     ({"phi_impl": "pallas_bf16"}, "the port's is 'cuda_bf16'"),
     ({"mesh": object()}, "A10"),

@@ -94,10 +94,19 @@ def test_particle_stats_values():
 
 
 def test_step_timer_rates():
-    t = tm.StepTimer(span_name="train.step")
-    time.sleep(0.01)
-    lap = t.mark(torch.ones(4))  # a CPU tensor: no fence
+    from dist_svgd_torch import telemetry
+
+    tracer = telemetry.enable()
+    t = tm.StepTimer(span_name="train.step")  # a lap starts after the tracer's epoch
+    try:
+        time.sleep(0.01)
+        lap = t.mark(torch.ones(4))  # a CPU tensor: no fence
+    finally:
+        telemetry.disable()
     assert lap >= 0.01
+    assert tracer.counts() == {"train.step": 1}  # each lap is a completed span
+    (span,) = [e for e in tracer.chrome_events() if e["ph"] == "X"]
+    assert span["dur"] == pytest.approx(lap * 1e6, rel=1e-3, abs=1.0)
     t.mark()
     assert t.total == pytest.approx(sum(t.laps))
     assert t.updates_per_sec(100) == pytest.approx(len(t.laps) * 100 / t.total)

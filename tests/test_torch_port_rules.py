@@ -228,3 +228,32 @@ def test_small_d_source_carries_the_noexp_mode_and_its_note():
     assert "_FAR" in text and "defined function on every shape" in text
     assert 'extern "C" int phi_small_d_noexp_launch(' in text
     assert "The no-exp probe does ~5d+3 f32 operations a pair" in text
+
+
+def test_telemetry_and_approx_run_with_jax_blocked():
+    """A process where ``import jax`` fails imports the port's telemetry
+    (its diagnostics and SLOs too) and runs one CPU step
+    of each approximate φ, with its residual gauges."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "import numpy as np, dist_svgd_torch as dt\n"
+        "from dist_svgd_torch import telemetry\n"
+        "from dist_svgd_torch.telemetry import diagnostics, slo\n"
+        "p = np.random.default_rng(0).normal(size=(32, 2))\n"
+        "lp = lambda th, _=None: -0.5 * (th * th).sum()\n"
+        "tracer = telemetry.enable()\n"
+        "for m in ('rff', 'nystrom'):\n"
+        "    ds = dt.DistSampler(4, lp, None, p, include_wasserstein=False,\n"
+        "                        kernel_approx=dt.KernelApprox(m, 16, 8), phi_impl='torch',\n"
+        "                        device='cpu')\n"
+        "    assert ds.kernel_approx_active and bool(ds.run_steps(1, 1e-2).isfinite().all())\n"
+        "    assert ds.approx_residual(max_points=16)['n_eval'] == 16\n"
+        "telemetry.disable()\n"
+        "assert tracer.counts()['train.step_chunk'] == 2\n"
+        "rep = telemetry.PosteriorDiagnostics().compute(p, scores=-p, num_shards=4)\n"
+        "assert 'ksd' in rep and rep['ess'] > 1\n"
+        "assert 'svgd_diag_phi_approx_rel_err' in telemetry.default_registry().exposition()\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    _run_with_jax_blocked(code)
