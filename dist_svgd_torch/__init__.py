@@ -20,6 +20,10 @@ CPU.
 - ``telemetry``   — the metrics registry, the span tracer and flight
                     recorder, posterior diagnostics and SLOs (import
                     ``dist_svgd_torch.telemetry``);
+- ``resilience``  — supervised runs (``RunSupervisor``: checkpoints, a
+                    bitwise resume, retries, guards, elastic reshards),
+                    fault injection and the federation loop (import
+                    ``dist_svgd_torch.resilience``);
 - ``utils``       — devices, datasets, RNG, checkpoint manifest, JAX interop.
 """
 

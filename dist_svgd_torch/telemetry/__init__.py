@@ -17,12 +17,14 @@ Counterpart of ``dist_svgd_tpu/telemetry`` with the same ``__all__``:
   registry (burn rates, gauge ceilings, staleness).
 
 Not ported yet, and their names raise ``NotImplementedError`` naming
-ROADMAP A8: the dispatch profiler (``DispatchProfiler``,
+ROADMAP A9: the dispatch profiler (``DispatchProfiler``,
 ``enable_profiler``, ``disable_profiler``, ``get_profiler``,
 ``profiler_enabled``), the per-tenant usage meter (``UsageMeter``,
 ``enable_usage``, ``disable_usage``, ``get_meter``, ``usage_enabled``,
 ``usage_summary``) and the on-disk snapshot ring (``TelemetryHistory``,
-``HistoryRecorder``): no path of the port reads them yet.
+``HistoryRecorder``).  The profiler attributes time to the programs of
+``Plan`` and the meter and the ring serve the serving layer's tools, all
+of which come with A9.
 
 Quickstart::
 
@@ -155,7 +157,7 @@ def __getattr__(name):
         if name in names:
             raise NotImplementedError(
                 f"telemetry.{name} (telemetry/{module}) is not ported to PyTorch yet "
-                "(ROADMAP A8)")
+                "(ROADMAP A9)")
     submodule = _LAZY.get(name)
     if submodule is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -257,3 +257,36 @@ def test_telemetry_and_approx_run_with_jax_blocked():
         "print('ok')\n"
     )
     _run_with_jax_blocked(code)
+
+
+def test_resilience_and_fault_drill_run_with_jax_blocked():
+    """A process where ``import jax`` (and JAX's tools) fails runs a
+    supervised GMM run preempted and resumed bitwise, and the port's fault
+    drill at a shrunk size, on the CPU."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "sys.modules['tools'] = None\n"
+        "import tempfile, numpy as np, torch, dist_svgd_torch as dt\n"
+        "from dist_svgd_torch.models.gmm import gmm_logp\n"
+        "from dist_svgd_torch.resilience import FaultPlan, PreemptAt, RunSupervisor\n"
+        "from dist_svgd_torch.tools import fault_drill\n"
+        "root = tempfile.mkdtemp()\n"
+        "p = np.random.default_rng(0).normal(size=(32, 2))\n"
+        "def sup(name, **kw):\n"
+        "    ds = dt.DistSampler(4, lambda th, _=None: gmm_logp(th), None, p,\n"
+        "                        exchange_scores=False, include_wasserstein=False, device='cpu')\n"
+        "    return RunSupervisor(ds, 8, 0.05, checkpoint_dir=f'{root}/{name}',\n"
+        "                         checkpoint_every=4, segment_steps=2, **kw)\n"
+        "ref = sup('ref'); ref.run()\n"
+        "assert sup('k', faults=FaultPlan(PreemptAt(3))).run()['status'] == 'preempted'\n"
+        "res = sup('k'); r = res.run(resume=True)\n"
+        "assert r['resumed_from'] == 4 and torch.equal(ref.particles, res.particles)\n"
+        "row = fault_drill.run_drill(n=64, num_shards=2, num_steps=12, checkpoint_every=4,\n"
+        "                            segment_steps=2, root=f'{root}/drill',\n"
+        "                            diag_overhead=False, device='cpu')\n"
+        "assert row['resumed_bitwise_identical'] and row['nan_rollback_recovered']\n"
+        "assert row['retry_backoff_recovered']\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    _run_with_jax_blocked(code)

@@ -372,7 +372,7 @@ def test_package_surface_matches_jax():
     for name in ("DispatchProfiler", "enable_profiler", "disable_profiler", "get_profiler",
                  "profiler_enabled", "UsageMeter", "usage_summary", "TelemetryHistory",
                  "HistoryRecorder"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             getattr(ttel, name)
     with pytest.raises(AttributeError):
         ttel.no_such_name  # noqa: B018
