@@ -57,7 +57,14 @@ exhausted restart budget with their postmortem bundles read back by
 8 → 4 → 8 → 5 shards against the never-resharded run, and
 ``dist_svgd_torch/tools/fault_drill.py`` at its defaults, with
 ``phi_small_d`` held at the resharded and drill lanes in
-``kernel_parity``; it checks that
+``kernel_parity`` — and then the serving layer: ``dist_svgd_torch/
+experiments/serve_covertype.py`` at its defaults (train, cold start,
+a concurrent HTTP self-test), ``dist_svgd_torch/tools/serve_bench.py`` at
+its defaults and with an open loop, four lanes, bf16 and three tenants
+(no graph capture or kernel build in any timed window), every bucket's
+CUDA graph against the eager function underneath it, the dispatch
+profiler's A/B cost and a hot reload under concurrent predicts, with both
+big-d φ tiers held at the serving paths' training lanes; it checks that
 each path went through its kernels, and prints one JSON object per phase.  A
 phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
@@ -335,6 +342,54 @@ RESHARD_LANES = [((4, 2500, 10_000, 3), "elastic north star 4 shards"),
                  ((5, 2000, 10_000, 3), "elastic north star 5 shards"),
                  ((4, 512, 2048, 2), "fault drill lanes")]
 RESHARD_SEED = 700
+
+# Posterior-predictive serving (serving/, parallel/plan.py, the dispatch
+# profiler and the usage meter):
+# - serve_covertype: the port's experiments/serve_covertype.py at its
+#   defaults (20,000 rows, 8 shards, 1,024 particles, 100 steps of 1e-4,
+#   B = 256; on the card 'auto' is the bf16 tier), its concurrent HTTP
+#   self-test (served against a direct call, bitwise flag beside it), and the
+#   served ensemble's card float32 predictions on the test rows against a CPU
+#   float64 engine's on the same ensemble (CARD_VS_F64_TOL);
+# - serve_bench: dist_svgd_torch/tools/serve_bench.py at its defaults
+#   (logreg, 10,000 particles, 54 features, max_batch 256, 16 closed-loop
+#   clients, 2,000 requests of 1, 4 or 16 rows), then an open loop at half
+#   the closed loop's rps, --lanes 4, --dtype bfloat16 and --tenants 3:
+#   recompiles and sentry_compiles 0, the eviction and quota probes firing;
+# - serve_buckets: every bucket program of that 10,000 × 55 engine, f32 and
+#   bf16, its CUDA graph against the eager function underneath it (host p50
+#   of a whole call — copy in, run, fetch — and CUDA-event ms of the device
+#   work alone), the bf16 graphs against the f32 ones and the CPU's bf16
+#   engine, and served against direct at request sizes 1..256 (SERVED_TOL);
+# - profiler_overhead: serve_bench's closed loop with the dispatch profiler
+#   and the usage meter off and on, interleaved, best of SERVING["ab_rounds"],
+#   each round's rps and their spread printed; the instruments' added time a
+#   batch on the dispatch path, times the closed loop's batch rate, held to
+#   JAX's 3% gate;
+# - serve_hot_reload: lanes and direct callers predicting on the 10,000 × 55
+#   engine while a CheckpointHotReloader swaps in a newer step;
+# - the φ lanes these paths give the kernels (SERVING_LANES: the
+#   serve_covertype training's bf16x3 lanes, the resilient driver's exact
+#   lanes at its defaults) in kernel_parity, seeds from SERVING_SEED (after
+#   every older row's); the exact one also against the float64 φ.
+SERVING = dict(n=10_000, features=54, ab_rounds=8, ab_requests=2000, bucket_reps=100,
+               reload_threads=4, reload_calls=40, served_sizes=(1, 2, 3, 5, 8, 13, 16, 31,
+                                                                33, 64, 100, 128, 200, 256))
+SERVING_LANES = [("phi_big_d_bf16x3", (8, 128, 1024, 55), "serve_covertype training lanes h=1"),
+                 ("phi_big_d", (4, 128, 512, 55), "resilient driver lanes h=1")]
+SERVING_SEED = 800
+# Served against direct class probabilities, and the card's float32
+# predictions against the CPU's float64 ones on the same ensemble.
+SERVED_TOL = 1e-6
+CARD_VS_F64_TOL = 1e-5
+# The bf16 engine's programs (serve_buckets): each graph against its eager
+# function within one bf16 unit in the last place (2**-7 of the output's
+# largest magnitude), and against the CPU's bf16 engine within two (the
+# product and the reduction may each round in another order); against the
+# f32 engine at JAX's bf16 tolerances (tests/test_plan.py): rtol 5e-2 and
+# atol 2e-2 on the mean, rtol 2e-1 and atol 2e-2 on the variance.
+BF16_ULP = 2.0 ** -7
+BF16_VS_F32 = {"mean": (5e-2, 2e-2), "var": (2e-1, 2e-2)}
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -2402,6 +2457,370 @@ def reshard_lane_rows():
                                  f"the f64 φ, beyond {KERNEL_RTOL} of {scale} / {f64_scale}")
 
 
+def serving_lane_rows():
+    """The big-d φ kernels at the lanes the serving section's training
+    paths give them (SERVING_LANES, h = 1, y the lanes' blocks of the shared
+    x as in all_particles): held against the plain version at the full shape
+    within KERNEL_RTOL of its largest value, the exact tier also against the
+    float64 φ on every row (k ≤ LANE_ROWS); timed beside the bound.  Raises
+    on a failed row."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_svgd
+
+    fns = {"phi_big_d": (cuda_svgd.phi_big_d_cuda, cuda_svgd.phi_big_d_plain),
+           "phi_big_d_bf16x3": (cuda_svgd.phi_big_d_bf16x3_cuda,
+                                cuda_svgd.phi_big_d_bf16x3_plain)}
+    h = 1.0
+    for seed, (name, (S, k, m, d), role) in enumerate(SERVING_LANES, start=SERVING_SEED):
+        y, x, s = phi_inputs(S, k, m, d, seed)
+        kern_fn, plain_fn = fns[name]
+        kern = lambda: kern_fn(y, x, s, h)  # noqa: E731
+        plain = lambda: plain_fn(y, x, s, h)  # noqa: E731
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+        row = {"phase": "kernel_parity", "kernel": name, "role": role, "shape": [S, k, m, d],
+               "bandwidth": h, "max_abs_err": err, "max_abs_plain": scale,
+               "tolerance": KERNEL_RTOL * scale}
+        if name == "phi_big_d":
+            ys = y[:, :LANE_ROWS].contiguous()
+            exact = cuda_svgd.phi_big_d_plain(ys.double(), x.double(), s.double(), h)
+            vs_f64, f64_scale = (float((got[:, :LANE_ROWS].double() - exact).abs().max()),
+                                 float(exact.abs().max()))
+            ok = ok and vs_f64 <= KERNEL_RTOL * f64_scale
+            row.update(reference="plain and phi f64", rows=min(k, LANE_ROWS),
+                       max_abs_err_vs_f64=vs_f64, f64_tolerance=KERNEL_RTOL * f64_scale,
+                       plain_max_abs_err_vs_f64=float(
+                           (want[:, :LANE_ROWS].double() - exact).abs().max()))
+            del exact
+        b_ms, b_by = bound_ms(*phi_work(name, S, k, m, d, x.numel()))
+        row.update(ok=ok, ms=cuda_ms(kern, TIMED_LAUNCHES), plain_ms=cuda_ms(plain, OTHER_LAUNCHES),
+                   bound_us=1e3 * b_ms, bound_by=b_by,
+                   m_splits=cuda_svgd.split_count(name, S, k, m, x.device, d=d))
+        row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
+        row["scratch_bytes"] = check_scratch(name, S, k, m, d, 1)
+        emit(row)
+        del got, want, y, x, s
+        if not ok:
+            raise AssertionError(f"{name} {role}: {row}")
+
+
+def _serving_counts():
+    """(reset, read) of every hand kernel's launch counts, fenced."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_ot, cuda_svgd
+
+    def reset():
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        cuda_ot.reset_launch_counts()
+
+    def read():
+        torch.cuda.synchronize()
+        return {**cuda_svgd.launch_counts, **cuda_ot.launch_counts}
+
+    return reset, read
+
+
+def serve_covertype_phase(root, card):
+    """serve_covertype at its defaults, then the served ensemble's card
+    float32 predictions against a CPU float64 engine's (the constants above
+    SERVING)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch.experiments import serve_covertype as tsc
+    from dist_svgd_torch.serving import PredictiveEngine
+    from dist_svgd_torch.utils.datasets import load_covertype
+
+    reset, read = _serving_counts()
+    ckpt = os.path.join(root, "covertype-ckpt")
+    reset()
+    t0 = time.perf_counter()
+    out = tsc.run(checkpoint_dir=ckpt)
+    wall = time.perf_counter() - t0
+    launched = read()
+    train = out.pop("train")
+    nrows = train["nrows"]
+    x, _ = load_covertype(nrows, seed=0)
+    x_test = x[-max(nrows // 10, 1):]
+    card_eng = PredictiveEngine.from_checkpoint(ckpt, "logreg", max_bucket=128)
+    cpu_eng = PredictiveEngine.from_checkpoint(ckpt, "logreg", max_bucket=128, device="cpu",
+                                               dtype=torch.float64)
+    chunks = range(0, len(x_test), 128)
+    f32 = np.concatenate([card_eng.predict(x_test[i:i + 128].astype(np.float32))["mean"]
+                          for i in chunks])
+    f64 = np.concatenate([cpu_eng.predict(x_test[i:i + 128].astype(np.float64))["mean"]
+                          for i in chunks])
+    vs_f64 = float(np.max(np.abs(f32.astype(np.float64) - f64)))
+    others = {k: v for k, v in launched.items() if k != "phi_big_d_bf16x3"}
+    bst = out["metrics"]["batcher"]
+    row = {"phase": "serve_covertype", **{k: v for k, v in out.items() if k != "metrics"},
+           "bitwise": out["served_vs_direct_max_abs_dev"] == 0.0,
+           "train": {k: train[k] for k in ("phi_impl", "niter", "nparticles", "nproc",
+                                           "test_acc", "wall_s")},
+           "launches": launched, "phase_wall_s": wall,
+           "card_f32_vs_cpu_f64_max_abs_dev": vs_f64, "card_vs_f64_tol": CARD_VS_F64_TOL,
+           "batcher": {k: bst[k] for k in ("requests", "batches", "batch_occupancy_mean",
+                                           "latency_p50_ms", "latency_p99_ms",
+                                           "device_p50_ms", "queue_wait_p50_ms")},
+           "engine": {k: out["metrics"]["engine"][k] for k in (
+               "bucket_hits", "bucket_misses", "compiled_buckets", "n_particles", "dtype")},
+           "card": card}
+    ok = (out["request_errors"] == [] and out["rows_served"] > 0
+          and out["served_vs_direct_max_abs_dev"] <= SERVED_TOL
+          and vs_f64 <= CARD_VS_F64_TOL and train["phi_impl"] == "cuda_bf16"
+          and launched["phi_big_d_bf16x3"] >= train["niter"]
+          and not any(others.values()))
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"serve_covertype: {row}")
+
+
+def serve_bench_phase(card):
+    """tools/serve_bench.py at its defaults, the open loop at half the
+    closed loop's rps, --lanes 4, --dtype bfloat16, --tenants 3; no hand
+    kernel launches in any of them (the predictive programs hold none)."""
+    from dist_svgd_torch.tools import serve_bench
+
+    reset, read = _serving_counts()
+    reset()
+    closed = serve_bench.run_bench()
+    rows = {"closed": closed,
+            "open": serve_bench.run_bench(open_rate=closed["value"] / 2),
+            "lanes4": serve_bench.run_bench(lanes=4),
+            "bf16": serve_bench.run_bench(dtype="bfloat16"),
+            "tenants3": serve_bench.run_multitenant_bench(tenants=3)}
+    launched = read()
+    failed = []
+    for variant, row in rows.items():
+        ok = row["recompiles"] == 0 and row["sentry_compiles"] == 0 and row["value"] > 0
+        if variant == "open":
+            ok = ok and row["open_loop"]["completed"] + row["open_loop"]["shed"] == 500
+        if variant == "bf16":
+            ok = ok and row["dtype"] == "bfloat16" and row.get("dtype_speedup") is not None
+        if variant == "tenants3":
+            ok = (ok and row["evictions"] >= 1 and row["quota_sheds"] >= 1
+                  and row["quota_probe"]["polite_served"])
+        else:
+            ok = ok and row["shed"] == 0
+        row = {"phase": "serve_bench", "variant": variant, **row, "card": card, "ok": ok}
+        emit(row)
+        if not ok:
+            failed.append(variant)
+    if failed or any(launched.values()):
+        raise AssertionError(f"serve_bench: failed {failed}, kernel launches {launched}")
+
+
+def serve_buckets_phase(card):
+    """Every bucket program of the 10,000 × 55 logreg engine, f32 and bf16:
+    its CUDA graph against the eager function underneath it; the bf16 graphs
+    also against the f32 engine's and, at the largest bucket, against the
+    CPU's bf16 engine; and served against direct at request sizes 1..256
+    (the constants above SERVING)."""
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch.models.logreg import posterior_predictive_prob
+    from dist_svgd_torch.serving import PredictiveEngine
+
+    n, f = SERVING["n"], SERVING["features"]
+    rng = np.random.default_rng(SERVING_SEED)
+    parts = rng.normal(size=(n, 1 + f)).astype(np.float32)
+    eng = PredictiveEngine("logreg", parts, max_bucket=256)
+    eng16 = PredictiveEngine("logreg", parts, max_bucket=256, dtype=torch.bfloat16)
+    buckets = eng.warmup()
+    eng16.warmup()
+    dev = eng.device
+    reps = SERVING["bucket_reps"]
+
+    def p50_ms(fn):
+        for _ in range(3):
+            fn()
+        laps = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            laps.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(laps))
+
+    def max_dev(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    def scale(out):
+        return max(float(v.abs().max()) for v in out.values())
+
+    rows, ok16 = [], True
+    for b in buckets:
+        prog, prog16 = eng._kernels[b], eng16._kernels[b]
+        xt = torch.from_numpy(rng.normal(size=(b, f)).astype(np.float32))
+        xd = xt.to(dev)
+        (graph,) = prog._graphs.values()
+        (graph16,) = prog16._graphs.values()
+        got, got16 = prog(xt), prog16(xt)
+        want = {k: v.to("cpu") for k, v in prog._fn(xd).items()}
+        want16 = {k: v.to("cpu") for k, v in prog16._fn(xd).items()}
+        vs_f32 = {k: float((got16[k] - got[k]).abs().max()) for k in got}
+        ok16 = (ok16 and max_dev(got16, want16) <= BF16_ULP * scale(want16)
+                and all(torch.allclose(got16[k], got[k], rtol=r, atol=a)
+                        for k, (r, a) in BF16_VS_F32.items()))
+        flops = 2 * b * n * f + 8 * b * n  # the product, the sigmoid, two reductions
+        b_ms, b_by = bound_ms(flops, 4 * (n * (1 + f) + b * f + 2 * b))
+        rows.append({"bucket": b, "graph_p50_ms": p50_ms(lambda: prog(xt)),
+                     "eager_p50_ms": p50_ms(
+                         lambda: {k: v.to("cpu") for k, v in prog._fn(xt.to(dev)).items()}),
+                     "graph_event_ms": cuda_ms(graph.graph.replay, reps),
+                     "eager_event_ms": cuda_ms(lambda: prog._fn(xd), reps),
+                     "graph_vs_eager_max_abs": max_dev(got, want), "bound_us": 1e3 * b_ms,
+                     "bound_by": b_by,
+                     "bf16_graph_p50_ms": p50_ms(lambda: prog16(xt)),
+                     "bf16_graph_event_ms": cuda_ms(graph16.graph.replay, reps),
+                     "bf16_eager_event_ms": cuda_ms(lambda: prog16._fn(xd), reps),
+                     "bf16_graph_vs_eager_max_abs": max_dev(got16, want16),
+                     "bf16_vs_f32_max_abs": vs_f32})
+    x = rng.normal(size=(256, f)).astype(np.float32)
+    cpu16 = PredictiveEngine("logreg", parts, max_bucket=256, dtype=torch.bfloat16,
+                             device="cpu").predict(x)
+    card16 = eng16.predict(x)
+    bf16_vs_cpu = max(float(np.max(np.abs(card16[k] - cpu16[k]))) for k in cpu16)
+    bf16_cpu_tol = 2 * BF16_ULP * max(float(np.max(np.abs(v))) for v in cpu16.values())
+    served_dev, bitwise = 0.0, True
+    for b in SERVING["served_sizes"]:
+        served = eng.predict(x[:b])["mean"]
+        direct = posterior_predictive_prob(eng.particles, torch.from_numpy(x[:b]).to(dev)
+                                           ).mean(0).cpu().numpy()
+        served_dev = max(served_dev, float(np.max(np.abs(served - direct))))
+        bitwise = bitwise and bool(np.array_equal(served, direct))
+    ok = (served_dev <= SERVED_TOL and all(r["graph_vs_eager_max_abs"] <= SERVED_TOL
+                                           for r in rows)
+          and ok16 and bf16_vs_cpu <= bf16_cpu_tol)
+    emit({"phase": "serve_buckets", "n": n, "d": 1 + f, "buckets": rows,
+          "served_sizes": list(SERVING["served_sizes"]),
+          "served_vs_direct_max_abs_dev": served_dev, "bitwise": bitwise,
+          "tolerance": SERVED_TOL, "bf16_ulp": BF16_ULP, "bf16_vs_f32_tol": BF16_VS_F32,
+          "bf16_card_vs_cpu_max_abs_dev": bf16_vs_cpu, "bf16_card_vs_cpu_tol": bf16_cpu_tol,
+          "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"serve_buckets: served {served_dev}, bf16 vs cpu "
+                             f"{bf16_vs_cpu}, rows {rows}")
+
+
+def profiler_overhead_phase(card):
+    """The dispatch profiler's and the usage meter's serve cost: JAX's
+    closed-loop A/B printed with its rounds and their spread, and the
+    instruments' added time a batch over the closed loop's batch rate held
+    to JAX's gate (3%; serve_bench.measure_profiler_overhead says why)."""
+    from dist_svgd_torch.tools import serve_bench
+
+    row = serve_bench.measure_profiler_overhead(rounds=SERVING["ab_rounds"],
+                                                requests=SERVING["ab_requests"])
+    progs = row["programs"]
+    ok = (row["rps_disabled"] > 0 and row["rps_enabled"] > 0 and row["within_gate"]
+          and row["batches_per_s"] > 0
+          and sum(p["dispatches"] for p in progs.values()) > 0
+          and row["usage_totals"]["requests"] == SERVING["ab_requests"])
+    emit({"phase": "profiler_overhead", **row, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"profiler_overhead: {row}")
+
+
+def serve_hot_reload_phase(root, card):
+    """Direct callers and two batcher lanes predicting on the 10,000 × 55
+    engine while a CheckpointHotReloader swaps in a newer step: no errors,
+    every answer one generation's, the swapped ensemble served after."""
+    import os
+    import threading
+
+    import numpy as np
+
+    from dist_svgd_torch.serving import CheckpointHotReloader, MicroBatcher, PredictiveEngine
+    from dist_svgd_torch.utils.checkpoint import CheckpointManager
+
+    n, f = SERVING["n"], SERVING["features"]
+    rng = np.random.default_rng(SERVING_SEED + 1)
+    gens = [rng.normal(size=(n, 1 + f)).astype(np.float32) for _ in range(2)]
+    mgr = CheckpointManager(os.path.join(root, "reload"), every=1)
+    mgr.save(1, {"particles": gens[0]})
+    eng = PredictiveEngine.from_checkpoint(mgr.root, "logreg", max_bucket=256)
+    eng.warmup()
+    reloader = CheckpointHotReloader(eng, mgr.root)
+    x = rng.normal(size=(16, f)).astype(np.float32)
+    want = [eng.predict(x)["mean"],
+            PredictiveEngine("logreg", gens[1], max_bucket=256).predict(x)["mean"]]
+    bat = MicroBatcher(eng.predict, max_batch=256, lanes=2, max_wait_ms=0.5)
+    results, errors = [], []
+    start = threading.Barrier(SERVING["reload_threads"] + 1)
+    swapped_event = threading.Event()
+
+    def hammer(direct):
+        # predict until the swap, then reload_calls more
+        try:
+            start.wait(timeout=60)
+            after = 0
+            while after < SERVING["reload_calls"]:
+                done = swapped_event.is_set()
+                out = eng.predict(x) if direct else bat.submit(x).result(timeout=60)
+                results.append(out["mean"])
+                after += done
+        except Exception as e:  # surfaced below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=hammer, args=(i % 2 == 0,))
+               for i in range(SERVING["reload_threads"])]
+    for t in threads:
+        t.start()
+    mgr.save(2, {"particles": gens[1]})
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    swapped = reloader.poll_once()
+    reload_s = time.perf_counter() - t0
+    swapped_event.set()
+    for t in threads:
+        t.join()
+    bat.close()
+    devs = [min(float(np.max(np.abs(r - w))) for w in want) for r in results]
+    after = eng.predict(x)["mean"]
+    per_gen = [sum(1 for r in results if np.array_equal(r, w)) for w in want]
+    after_dev = float(np.max(np.abs(after - want[1])))
+    row = {"phase": "serve_hot_reload", "n": n, "d": 1 + f, "threads": len(threads),
+           "predicts": len(results), "errors": errors[:5], "swapped_step": swapped,
+           "reload_wall_s": reload_s, "answers_by_generation_bitwise": per_gen,
+           "max_abs_dev_from_a_generation": max(devs) if devs else None,
+           "after_vs_new_max_abs_dev": after_dev, "generation_id": eng.stats()["generation_id"],
+           "tolerance": SERVED_TOL, "card": card}
+    ok = (not errors and swapped == 2 and len(results) >= len(threads) * SERVING["reload_calls"]
+          and max(devs) <= SERVED_TOL and after_dev <= SERVED_TOL
+          and eng.stats()["generation_id"] == 2)
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"serve_hot_reload: {row}")
+
+
+def serving_phases(card):
+    """Section 19, posterior-predictive serving (the constants above
+    SERVING): serve_covertype, serve_bench, serve_buckets,
+    profiler_overhead and serve_hot_reload.  Each prints its rows and raises
+    when it fails."""
+    import os
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_serving")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    serve_covertype_phase(root, card)
+    serve_bench_phase(card)
+    serve_buckets_phase(card)
+    profiler_overhead_phase(card)
+    serve_hot_reload_phase(root, card)
+
+
 def supervised_phases(init, data, card, ct_ms_per_step):
     """Section 18, the supervised runs (the constants above RESHARD_LANES):
     supervised_covertype, supervised_covertype_sigterm, supervised_guards,
@@ -2505,6 +2924,9 @@ def supervised_phases(init, data, card, ct_ms_per_step):
           and out["resume"]["resumed_from"] == sc["kill_step"]
           and out["resume"]["bitwise_identical"]
           and out["resume"]["max_abs_dev_vs_uninterrupted"] == 0.0
+          and out["serve"]["hot_reload_step"] == sc["niter"]
+          and out["serve"]["cold_start_particles"] == n_used
+          and out["serve"]["served_vs_direct_max_abs_dev"] <= SERVED_TOL
           and launched == only(phi_big_d=expect))
     emit({**row, "expected_phi_big_d": expect, "ok": ok})
     if not ok:
@@ -3063,6 +3485,7 @@ def main():
     lane_rows()
     ring_ot_rows()
     reshard_lane_rows()
+    serving_lane_rows()
 
     # ---- 4. north star ---------------------------------------------------
     ns = NORTH_STAR
@@ -3358,6 +3781,9 @@ def main():
 
     # ---- 18. supervised runs: preemption, guards, reshards, the drill ------
     supervised_phases(init, data, card, ct_ms_per_step["cuda"])
+
+    # ---- 19. serving: engine, batcher, registry, server, profiler --------
+    serving_phases(card)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

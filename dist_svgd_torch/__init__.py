@@ -24,6 +24,12 @@ CPU.
                     bitwise resume, retries, guards, elastic reshards),
                     fault injection and the federation loop (import
                     ``dist_svgd_torch.resilience``);
+- ``serving``     — posterior-predictive serving of a checkpointed
+                    ensemble: the engine (one CUDA graph a bucket on the
+                    card, hot reload), the micro-batcher, the multi-tenant
+                    registry and the HTTP server (import
+                    ``dist_svgd_torch.serving``; the single-device ``Plan``
+                    is ``dist_svgd_torch.parallel.plan``);
 - ``utils``       — devices, datasets, RNG, checkpoint manifest, JAX interop.
 """
 

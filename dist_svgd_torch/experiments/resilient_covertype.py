@@ -1,8 +1,7 @@
 """Resilient Covertype training: kill mid-run → resume, with zero trajectory
 deviation, on the card.
 
-Counterpart of ``experiments/resilient_covertype.py``, stages 1–3 of its
-five:
+Counterpart of ``experiments/resilient_covertype.py``, all five stages:
 
 1. **reference** — an uninterrupted *supervised* run
    (``resilience.RunSupervisor`` driving a sharded minibatched Covertype
@@ -14,15 +13,20 @@ five:
 3. **resume** — a fresh supervisor restores the latest checkpoint and runs
    to completion; the final particle state must be **bitwise identical** to
    the reference run's (``max_abs_dev_vs_uninterrupted`` printed, asserted
-   0.0).
+   0.0);
+4. **serve** — started before 3 resumes: a ``serving.PredictiveEngine``
+   cold-starts from the kill run's checkpoint root (its newest step, the
+   preemption's save), builds its buckets, answers ``--requests`` test
+   rows, and a ``CheckpointHotReloader`` watches that root while the
+   resumed trainer writes into it — train-while-serving;
+5. **hot reload** — one ``poll_once`` after the resume swaps the resumed
+   run's newest checkpoint in; the served means are held against a direct
+   ``posterior_predictive_prob`` call on the final ensemble.
 
-Stages 4–5 (a predictive engine cold-started from the kill run's
-checkpoint root, and its hot reload of the resumed run's checkpoints) need
-the serving layer and wait for it (ROADMAP A9): the JSON line has no
-``serve`` key, and JAX's ``--requests`` (their request count) is not taken.
-``test_acc_final`` is the resumed ensemble's test accuracy
-(``models/logreg.ensemble_test_accuracy``).  JAX's ``--backend`` is
-``--device`` here: the card unless ``--device cpu``.  Run it as
+The JSON line carries JAX's keys, ``serve`` among them
+(``test_acc_final`` inside it: the resumed ensemble's test accuracy).
+JAX's ``--backend`` is ``--device`` here: the card unless ``--device
+cpu``.  Run it as
 
     python -m dist_svgd_torch.experiments.resilient_covertype      # the card
     python -m dist_svgd_torch.experiments.resilient_covertype --device cpu \\
@@ -48,8 +52,13 @@ import numpy as np
 import torch
 
 from dist_svgd_torch.distsampler import DistSampler
-from dist_svgd_torch.models.logreg import ensemble_test_accuracy, make_logreg_split
+from dist_svgd_torch.models.logreg import (
+    ensemble_test_accuracy,
+    make_logreg_split,
+    posterior_predictive_prob,
+)
 from dist_svgd_torch.resilience import FaultPlan, PreemptAt, RunSupervisor
+from dist_svgd_torch.serving import CheckpointHotReloader, PredictiveEngine
 from dist_svgd_torch.utils.datasets import load_covertype
 from dist_svgd_torch.utils.platform import resolve_device
 from dist_svgd_torch.utils.rng import init_particles_per_shard
@@ -85,10 +94,11 @@ def build(nrows=20_000, nproc=4, nparticles=512, batch_size=256, seed=0, device=
 
 def run(nrows=20_000, nproc=4, nparticles=512, niter=60, stepsize=1e-4, batch_size=256,
         checkpoint_every=20, segment_steps=10, kill_step=30, seed=0, root=None,
-        real_signals=False, device=None):
-    """Stages 1–3; returns ``(out, reports)``: ``out`` the JSON line's dict,
-    ``reports`` the three supervisor reports (``reference``, ``kill``,
-    ``resume``).  ``root`` (default: a temporary directory, removed on
+        real_signals=False, device=None, requests=32):
+    """The five stages; returns ``(out, reports)``: ``out`` the JSON line's
+    dict, ``reports`` the three supervisor reports (``reference``,
+    ``kill``, ``resume``) and ``"engine"``, the serving engine of stages
+    4–5.  ``root`` (default: a temporary directory, removed on
     return) holds ``reference/`` and ``killed/``, one checkpoint root each.
     Raises ``AssertionError`` when the resumed run is not bitwise the
     reference."""
@@ -121,7 +131,20 @@ def run(nrows=20_000, nproc=4, nparticles=512, niter=60, stepsize=1e-4, batch_si
         reports["kill"] = sup_kill.run()
         out["kill"] = {k: reports["kill"][k] for k in ("status", "t")}
 
-        # 3. resume → bitwise-identical final state
+        # 4 (starts before 3 — that is the point): serve the preemption
+        # checkpoint while the resumed trainer is still to come.  Cold start
+        # from the kill root's newest step (the signal-triggered save), build
+        # the buckets, attach the watcher with that step as its baseline.
+        x_req = x_test[:requests].cpu().numpy()
+        engine = PredictiveEngine.from_checkpoint(kill_root, "logreg", max_bucket=64,
+                                                  device=x_test.device)
+        engine.warmup()
+        served_before = engine.predict(x_req)["mean"]
+        reloader = CheckpointHotReloader(engine, kill_root)
+        reports["engine"] = engine
+
+        # 3. resume → bitwise-identical final state.  The supervisor writes
+        # its periodic checkpoints into the SAME root the engine watches
         sup_res = RunSupervisor(
             make_sampler(), niter, stepsize, checkpoint_dir=kill_root,
             checkpoint_every=checkpoint_every, segment_steps=segment_steps)
@@ -134,10 +157,29 @@ def run(nrows=20_000, nproc=4, nparticles=512, niter=60, stepsize=1e-4, batch_si
             "max_abs_dev_vs_uninterrupted": max_dev,
             "bitwise_identical": bool(np.array_equal(final_ref, final_res)),
         }
-        out["test_acc_final"] = float(ensemble_test_accuracy(sup_res.particles, x_test,
-                                                             t_test))
         assert out["resume"]["bitwise_identical"], (
             f"resumed trajectory deviates: max abs dev {max_dev}")
+
+        # 5. hot reload: the watcher sees the resumed run's newer
+        # checkpoints and swaps the served ensemble between micro-batches
+        swapped_step = reloader.poll_once()
+        served_after = engine.predict(x_req)["mean"]
+        with torch.no_grad():
+            direct = posterior_predictive_prob(
+                sup_res.particles, x_test[:requests]).mean(0).cpu().numpy()
+        stats = engine.stats()
+        t_req = t_test[:requests].cpu().numpy()
+        out["serve"] = {
+            "cold_start_particles": engine.n_particles,
+            "hot_reload_step": swapped_step,
+            "reloads": stats["reloads"],
+            "ensemble_tag": stats["ensemble_tag"],
+            "served_vs_direct_max_abs_dev": float(np.max(np.abs(served_after - direct))),
+            "served_drift_on_reload": float(np.max(np.abs(served_after - served_before))),
+            "served_test_acc": float(np.mean((served_after > 0.5) == (t_req > 0))),
+            "test_acc_final": float(ensemble_test_accuracy(sup_res.particles, x_test,
+                                                           t_test)),
+        }
     finally:
         if cleanup:
             shutil.rmtree(root, ignore_errors=True)
@@ -168,6 +210,8 @@ def main(argv=None) -> int:
                    help="install real SIGTERM/SIGINT handlers on the kill run instead "
                         "of injecting the preemption")
     p.add_argument("--injected-signals", dest="real_signals", action="store_false")
+    p.add_argument("--requests", type=int, default=32,
+                   help="test rows the engine answers before and after the hot reload")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="default: the card (fails without CUDA)")
     a = p.parse_args(argv)
@@ -175,7 +219,7 @@ def main(argv=None) -> int:
         p.error("--nproc must be in [1, 32]")
     out, _ = run(a.nrows, a.nproc, a.nparticles, a.niter, a.stepsize, a.batch_size,
                  a.checkpoint_every, a.segment_steps, a.kill_step, a.seed, a.root,
-                 a.real_signals, a.device)
+                 a.real_signals, a.device, a.requests)
     print(json.dumps(out), flush=True)
     return 0
 

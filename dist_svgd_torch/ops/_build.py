@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -85,6 +86,24 @@ def library_path(name: str, csrc: Path = CSRC) -> Path:
     return BUILD_DIR / f"lib{name}-{source_digest(name, csrc)}.so"
 
 
+#: Libraries this process compiled (``kernel_build`` events), monotonic.
+_builds = 0
+_builds_lock = threading.Lock()
+
+
+def _note_build() -> None:
+    global _builds
+    with _builds_lock:
+        _builds += 1
+
+
+def builds_total() -> int:
+    """Kernel libraries compiled by this process so far (each also a
+    ``kernel_build`` instant while the tracer is on)."""
+    with _builds_lock:
+        return _builds
+
+
 def build(names: Optional[Iterable[str]] = None, csrc: Path = CSRC) -> Dict[str, BuildResult]:
     """Compile every named source whose library is missing, all in
     parallel; return a :class:`BuildResult` per name.  Raises
@@ -123,6 +142,7 @@ def build(names: Optional[Iterable[str]] = None, csrc: Path = CSRC) -> Dict[str,
             continue
         os.replace(tmp, target)
         results[name] = BuildResult(name, target, seconds, False, log)
+        _note_build()
         _trace.instant("kernel_build", {"kernel": name, "seconds": round(seconds, 3)}
                        if _trace.enabled() else None)
     if failures:

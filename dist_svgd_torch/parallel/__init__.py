@@ -1,4 +1,5 @@
-"""Shard emulation and the exchange strategies."""
+"""Shard emulation, the exchange strategies, and (``parallel.plan``) the
+single-device ``Plan`` the serving programs compile under."""
 
 from dist_svgd_torch.parallel.exchange import (
     ALL_PARTICLES,

@@ -14,17 +14,16 @@ Counterpart of ``dist_svgd_tpu/telemetry`` with the same ``__all__``:
   on the device (KSD, kernel ESS, collapse, shard divergence) as
   ``svgd_diag_*`` gauges;
 - :mod:`~dist_svgd_torch.telemetry.slo` — **declarative SLOs** over the
-  registry (burn rates, gauge ceilings, staleness).
+  registry (burn rates, gauge ceilings, staleness);
+- :mod:`~dist_svgd_torch.telemetry.profile` — the **dispatch profiler**:
+  per-program attribution of every ``Plan`` program's fenced dispatch
+  wall (``svgd_prog_dispatch_*``);
+- :mod:`~dist_svgd_torch.telemetry.usage` — the per-tenant **usage
+  meter** (``svgd_usage_*``) the serving layer feeds.
 
 Not ported yet, and their names raise ``NotImplementedError`` naming
-ROADMAP A9: the dispatch profiler (``DispatchProfiler``,
-``enable_profiler``, ``disable_profiler``, ``get_profiler``,
-``profiler_enabled``), the per-tenant usage meter (``UsageMeter``,
-``enable_usage``, ``disable_usage``, ``get_meter``, ``usage_enabled``,
-``usage_summary``) and the on-disk snapshot ring (``TelemetryHistory``,
-``HistoryRecorder``).  The profiler attributes time to the programs of
-``Plan`` and the meter and the ring serve the serving layer's tools, all
-of which come with A9.
+ROADMAP A9: the on-disk snapshot ring (``TelemetryHistory``,
+``HistoryRecorder``).
 
 Quickstart::
 
@@ -136,23 +135,28 @@ _LAZY = {
     "default_serving_slos": "slo",
     "default_training_slos": "slo",
     "default_streaming_slos": "slo",
+    "DispatchProfiler": "profile",
+    "enable_profiler": "profile",
+    "disable_profiler": "profile",
+    "get_profiler": "profile",
+    "profiler_enabled": "profile",
+    "UsageMeter": "usage",
+    "enable_usage": "usage",
+    "disable_usage": "usage",
+    "get_meter": "usage",
+    "usage_enabled": "usage",
+    "usage_summary": "usage",
 }
 
 #: Names of JAX's ``telemetry`` modules not ported yet, by module.
 _UNPORTED = {
-    "profile.py (the dispatch profiler)": (
-        "DispatchProfiler", "enable_profiler", "disable_profiler", "get_profiler",
-        "profiler_enabled"),
-    "usage.py (per-tenant usage metering)": (
-        "UsageMeter", "enable_usage", "disable_usage", "get_meter", "usage_enabled",
-        "usage_summary"),
     "history.py (the on-disk snapshot ring)": ("TelemetryHistory", "HistoryRecorder"),
 }
 
 
 def __getattr__(name):
     """PEP 562 lazy re-exports (the diagnostics module imports the kernel
-    ops); the unported modules' names raise ``NotImplementedError``."""
+    ops); the unported module's names raise ``NotImplementedError``."""
     for module, names in _UNPORTED.items():
         if name in names:
             raise NotImplementedError(

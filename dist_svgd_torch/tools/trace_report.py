@@ -25,10 +25,14 @@ fires or the restart budget exhausts): the header's reason and context,
 the last posterior-diagnostics report, the metric snapshot, and the ring of
 events leading up to the dump.
 
-``--stitch`` (joining a fleet router's and its replicas' exports) and
-``--programs`` (the dispatch profiler's per-program attribution) read
-exports of the serving layer and the profiler, which are not ported yet:
-both exit 2 with one line naming ROADMAP A9.
+``--programs`` renders the **per-program cost attribution** instead: the
+top programs by fenced dispatch wall (``svgd_prog_dispatch_*``, written by
+``telemetry/profile.py``) from a ``MetricsRegistry.dump()`` JSON file —
+dispatches, total and mean wall, share, rows and bytes.  A telemetry
+history directory as its input needs ``telemetry/history.py``, not ported
+yet: it exits 2 naming ROADMAP A9.  ``--stitch`` (joining a fleet router's
+and its replicas' exports) reads exports of the fleet, not ported either:
+it exits 2 with one line naming ROADMAP A9.
 
 A missing, empty, or corrupt input exits with one line on stderr and a
 nonzero status (2) — no tracebacks from the CLI.
@@ -40,19 +44,23 @@ Usage::
     python -m dist_svgd_torch.tools.trace_report trace.jsonl --top 5
     python -m dist_svgd_torch.tools.trace_report \
         postmortem_001_guard_violation.jsonl --postmortem
+    python -m dist_svgd_torch.tools.trace_report --programs metrics_dump.json
 """
 
 import argparse
 import json
+import os
 import sys
 
 #: The instant the port records for each hand-kernel build
 #: (``ops/_build.py``), bucketed where JAX buckets ``xla_compile``.
 COMPILE_INSTANT = "kernel_build"
 
-#: Options of JAX's tool whose inputs come from modules not ported yet.
-_UNPORTED = {"--stitch": "the fleet router's and replicas' exports (the serving layer)",
-             "--programs": "the dispatch profiler's series (telemetry/profile.py)"}
+#: The dispatch profiler's metric names (telemetry/profile.py), read from
+#: dump documents here.
+_PROG_SECONDS = "svgd_prog_dispatch_seconds"
+_PROG_ROWS = "svgd_prog_dispatch_rows_total"
+_PROG_BYTES = "svgd_prog_dispatch_bytes_total"
 
 
 def _percentile(sorted_vals, q):
@@ -294,6 +302,78 @@ def render_postmortem(header, snapshot, diagnostics, events, top=10):
                        f"{extra if extra else ''}".rstrip())
     return "\n".join(out)
 
+class HistoryInput(ValueError):
+    """A telemetry history directory was given to ``--programs``."""
+
+
+def load_program_dumps(path):
+    """The dump documents behind one ``--programs`` input: a metrics dump
+    JSON file → ``[dump]``.  A telemetry history directory raises
+    :class:`HistoryInput` (its reader is ROADMAP A9's)."""
+    if os.path.isdir(path):
+        raise HistoryInput(
+            f"{path} is a directory: reading a telemetry history needs "
+            "telemetry/history.py, not ported to PyTorch yet (ROADMAP A9)")
+    with open(path) as fh:
+        doc = json.load(fh)
+    if not isinstance(doc, dict) or "metrics" not in doc:
+        raise ValueError("not a MetricsRegistry.dump() document")
+    return [doc]
+
+
+def program_rows(dumps):
+    """Per-label attribution rows summed over ``dumps``, sorted by total
+    dispatch seconds (descending).  Federated ``replica``-labelled
+    series are skipped — the rollup series already carry the total."""
+    agg = {}
+    for dump in dumps:
+        metrics = dump.get("metrics", {})
+        for name, key in ((_PROG_SECONDS, None), (_PROG_ROWS, "rows"),
+                          (_PROG_BYTES, "bytes")):
+            for s in (metrics.get(name) or {}).get("series", []):
+                labels = s.get("labels") or {}
+                if "replica" in labels:
+                    continue
+                label = labels.get("label", "")
+                row = agg.setdefault(label, {
+                    "label": label, "dispatches": 0, "seconds": 0.0,
+                    "rows": 0, "bytes": 0,
+                })
+                if key is None:  # the histogram: sum + count
+                    row["seconds"] += float(s.get("sum", 0.0) or 0.0)
+                    row["dispatches"] += int(s.get("count", 0) or 0)
+                else:
+                    row[key] += int(s.get("value", 0) or 0)
+    rows = sorted(agg.values(), key=lambda r: -r["seconds"])
+    total = sum(r["seconds"] for r in rows)
+    for r in rows:
+        r["mean_ms"] = (1e3 * r["seconds"] / r["dispatches"]
+                        if r["dispatches"] else 0.0)
+        r["share"] = (r["seconds"] / total) if total > 0 else 0.0
+    return {"metric": "program_attribution", "windows": len(dumps),
+            "total_seconds": total, "programs": rows}
+
+
+def render_programs(report, top=10):
+    rows = report["programs"][:top]
+    out = [f"program attribution: {len(report['programs'])} programs, "
+           f"{report['total_seconds']:.4f} s attributed over "
+           f"{report['windows']} window(s)"]
+    if not rows:
+        return (out[0] + " (no svgd_prog_* series — was the dispatch "
+                "profiler enabled?)")
+    label_w = max([len(r["label"]) for r in rows] + [7])
+    out.append(f"{'program':{label_w}s} {'disp':>8s} {'total_s':>10s} "
+               f"{'mean_ms':>9s} {'share':>7s} {'rows':>12s} {'MB':>10s}")
+    for r in rows:
+        out.append(
+            f"{r['label']:{label_w}s} {r['dispatches']:8d} "
+            f"{r['seconds']:10.4f} {r['mean_ms']:9.3f} "
+            f"{100 * r['share']:6.1f}% {r['rows']:12d} "
+            f"{r['bytes'] / 1e6:10.2f}")
+    return "\n".join(out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m dist_svgd_torch.tools.trace_report",
                                  description=__doc__.splitlines()[0])
@@ -311,16 +391,43 @@ def main(argv=None):
     ap.add_argument("--stitch", action="store_true",
                     help="not ported: joins fleet exports (ROADMAP A9)")
     ap.add_argument("--programs", action="store_true",
-                    help="not ported: the dispatch profiler's attribution (ROADMAP A9)")
+                    help="render the dispatch profiler's per-program cost "
+                         "attribution (input: a metrics dump JSON) instead of a "
+                         "span summary")
     args = ap.parse_args(argv)
-    for flag, what in _UNPORTED.items():
-        if getattr(args, flag[2:]):
-            print(f"trace_report: {flag} reads {what}, not ported to PyTorch yet "
-                  "(ROADMAP A9)", file=sys.stderr)
-            return 2
+    if args.stitch:
+        print("trace_report: --stitch reads the fleet router's and replicas' exports "
+              "(the serving fleet), not ported to PyTorch yet (ROADMAP A9)",
+              file=sys.stderr)
+        return 2
+    if args.postmortem and args.programs:
+        ap.error("--postmortem and --programs are mutually exclusive")
     if len(args.trace) != 1:
         ap.error("exactly one trace file expected")
     trace_path = args.trace[0]
+
+    if args.programs:
+        try:
+            report = program_rows(load_program_dumps(trace_path))
+        except HistoryInput as e:
+            print(f"trace_report: --programs {e}", file=sys.stderr)
+            return 2
+        except OSError as e:
+            print(f"trace_report: cannot read {e.filename or trace_path}: "
+                  f"{e.strerror or e}", file=sys.stderr)
+            return 2
+        except (json.JSONDecodeError, UnicodeDecodeError, ValueError,
+                TypeError) as e:
+            print(f"trace_report: {trace_path} is not a metrics dump: {e}",
+                  file=sys.stderr)
+            return 2
+        if args.json:
+            doc = dict(report)
+            doc["programs"] = doc["programs"][:args.top]
+            print(json.dumps(doc))
+        else:
+            print(render_programs(report, top=args.top))
+        return 0
 
     try:
         if args.postmortem:

@@ -9,8 +9,9 @@ Counterpart of ``dist_svgd_tpu/utils/metrics.py``:
   device → host transfer;
 - :class:`StepTimer` — wall-clock laps fenced by ``torch.cuda.synchronize``
   on a CUDA tensor (the card runs asynchronously; a CPU tensor needs no
-  fence), each lap also a completed span of the telemetry tracer while one
-  is enabled (``span_name``);
+  fence; a value the dispatch profiler just fenced is not fenced again),
+  each lap also a completed span of the telemetry tracer while one is
+  enabled (``span_name``);
 - :func:`profiler_trace` — a ``torch.profiler`` trace of the card and the
   host, written as a Chrome trace into a directory.
 """
@@ -27,6 +28,7 @@ from typing import IO, Optional
 import numpy as np
 import torch
 
+from dist_svgd_torch.telemetry import profile as _profile
 from dist_svgd_torch.telemetry import trace as _trace
 
 
@@ -136,7 +138,7 @@ class StepTimer:
 
     def mark(self, value=None) -> float:
         if value is not None:
-            _trace.fence(value)
+            _profile.fence(value)  # once: not again after the dispatch profiler's
         now = time.perf_counter()
         lap = now - self._last
         self._last = now

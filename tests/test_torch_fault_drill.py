@@ -7,8 +7,9 @@ The drill's ``fault_recovery`` row has JAX's keys and passes its own
 correctness gates, with the same kill step, last checkpoint, steps lost and
 checkpoint counts as JAX's row at the same size; the diagnostics A/B row
 has JAX's keys.  The driver's stages 1–3 give JAX's ``status``, ``t``,
-``checkpoints`` and ``resumed_from`` and a bitwise resume; JAX's driver is
-imported from ``experiments/`` and run in process."""
+``checkpoints`` and ``resumed_from`` and a bitwise resume, and its serving
+stages 4–5 JAX's ``serve`` keys, cold-start size and hot-reload step; JAX's
+driver is imported from ``experiments/`` and run in process."""
 
 import contextlib
 import importlib.util
@@ -118,8 +119,10 @@ def test_drill_cli_prints_the_row_and_exits_on_its_gates(tmp_path, capsys):
 
 
 def test_resilient_covertype_stages_equal_jax(tmp_path, jax_driver_line):
-    """Stages 1–3 at the shrunk size: JAX's status, t, checkpoints and
-    resumed_from, a bitwise resume, no serve key, the final accuracy."""
+    """The five stages at the shrunk size: JAX's status, t, checkpoints and
+    resumed_from, a bitwise resume; the serve key with JAX's keys, the kill
+    run's cold start hot-reloaded to the resumed run's last step, served
+    means at the direct call's, the final accuracy."""
     want = jax_driver_line
     out, reports = trc.run(nrows=2000, nproc=2, nparticles=64, niter=12, checkpoint_every=4,
                            segment_steps=2, kill_step=6, root=str(tmp_path / "port"),
@@ -132,16 +135,24 @@ def test_resilient_covertype_stages_equal_jax(tmp_path, jax_driver_line):
         assert {k: out[stage][k] for k in keys} == {k: want[stage][k] for k in keys}, stage
     assert out["kill"] == {"status": "preempted", "t": 6}
     assert out["resume"]["resumed_from"] == 6 and out["resume"]["bitwise_identical"]
-    assert "serve" not in out and 0.0 <= out["test_acc_final"] <= 1.0
+    assert set(out) == set(want) and set(out["serve"]) == set(want["serve"])
+    serve = out["serve"]
+    for key in ("cold_start_particles", "hot_reload_step", "reloads", "ensemble_tag"):
+        assert serve[key] == want["serve"][key], key
+    assert serve["hot_reload_step"] == 12 and serve["reloads"] == 1
+    assert serve["served_vs_direct_max_abs_dev"] <= 1e-6
+    assert 0.0 <= serve["test_acc_final"] <= 1.0 and 0.0 <= serve["served_test_acc"] <= 1.0
+    assert reports["engine"].stats()["ensemble_tag"] == "step_12"
     for key in ("nrows", "nproc", "nparticles", "niter", "checkpoint_every", "segment_steps"):
         assert out[key] == want[key], key
     assert reports["reference"]["steps_run"] == 12 and reports["resume"]["steps_run"] == 6
 
 
 def test_resilient_covertype_cli(tmp_path, capsys):
-    rc = trc.main(DRIVER_ARGS + ["--device", "cpu", "--root", str(tmp_path)])
+    rc = trc.main(DRIVER_ARGS + ["--device", "cpu", "--root", str(tmp_path), "--requests", "8"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["resume"]["bitwise_identical"] and out["root"] == str(tmp_path)
+    assert out["serve"]["hot_reload_step"] == 12
     assert sorted(p.name for p in tmp_path.iterdir()) == ["killed", "reference"]
     with pytest.raises(SystemExit):
         trc.main(["--nproc", "0", "--device", "cpu"])

@@ -40,6 +40,11 @@ def test_no_jax_or_reference_imports():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     assert PORT / "tools" / "cuda_autotune.py" in files
+    for module in ("serving/engine.py", "serving/batcher.py", "serving/registry.py",
+                   "serving/server.py", "serving/__init__.py", "parallel/plan.py",
+                   "telemetry/profile.py", "telemetry/usage.py", "tools/serve_bench.py",
+                   "experiments/serve_covertype.py"):
+        assert PORT / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "dist_svgd_tpu", "tools")]
     assert bad == []
@@ -59,6 +64,26 @@ def test_port_runs_with_jax_blocked():
         "                        exchange_particles=ep, exchange_scores=es,\n"
         "                        include_wasserstein=False, device='cpu')\n"
         "    assert bool(ds.make_step(1e-2).isfinite().all())\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    _run_with_jax_blocked(code)
+
+
+def test_serving_runs_with_jax_blocked():
+    """The serving layer (engine, batcher, registry, server, profiler,
+    usage meter, serve_bench) imports and serves one batch where ``import
+    jax`` fails."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "import numpy as np\n"
+        "from dist_svgd_torch import serving, telemetry\n"
+        "from dist_svgd_torch.tools import serve_bench, trace_report\n"
+        "from dist_svgd_torch.experiments import serve_covertype\n"
+        "eng = serving.PredictiveEngine('logreg', np.ones((8, 3), np.float32), device='cpu')\n"
+        "telemetry.enable_profiler(); telemetry.enable_usage()\n"
+        "with serving.MicroBatcher(eng.predict) as bat:\n"
+        "    assert bat.submit(np.ones((2, 2), np.float32)).result(10)['mean'].shape == (2,)\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )

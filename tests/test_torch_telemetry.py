@@ -367,11 +367,11 @@ def test_fence_waits_only_for_cuda_tensors(monkeypatch):
 def test_package_surface_matches_jax():
     assert ttel.__all__ == jtel.__all__
     for name in ("DiagnosticsConfig", "PosteriorDiagnostics", "ReloadPolicy",
-                 "ensemble_health", "SloEngine", "GaugeCeiling"):
+                 "ensemble_health", "SloEngine", "GaugeCeiling", "DispatchProfiler",
+                 "enable_profiler", "disable_profiler", "get_profiler", "profiler_enabled",
+                 "UsageMeter", "usage_summary"):
         assert getattr(ttel, name).__module__.startswith("dist_svgd_torch.telemetry.")
-    for name in ("DispatchProfiler", "enable_profiler", "disable_profiler", "get_profiler",
-                 "profiler_enabled", "UsageMeter", "usage_summary", "TelemetryHistory",
-                 "HistoryRecorder"):
+    for name in ("TelemetryHistory", "HistoryRecorder"):
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             getattr(ttel, name)
     with pytest.raises(AttributeError):

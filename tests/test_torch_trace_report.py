@@ -7,8 +7,8 @@ by the port's tracer (Chrome export and JSONL) while a flight recorder
 runs; both tools' span summaries of the two files, and both tools'
 postmortem views of the guard trip's bundle, are equal.  The port buckets
 its ``kernel_build`` instants where JAX buckets ``xla_compile``; the CLI's
-exit codes and its refusal of ``--stitch`` and ``--programs`` (exit 2,
-naming ROADMAP A9) are checked too."""
+exit codes and its refusal of ``--stitch`` and of ``--programs`` over a
+history directory (exit 2, naming ROADMAP A9) are checked too."""
 
 import importlib.util
 import json
@@ -140,9 +140,12 @@ def test_cli_rows_equal_jax(traced_run, jtr, capsys):
 
 @pytest.mark.parametrize("flag", ["--stitch", "--programs"])
 def test_unported_options_exit_2_naming_a9(tmp_path, capsys, flag):
+    """``--stitch`` reads the fleet's exports; ``--programs`` over a
+    telemetry history directory needs ``history.py``: both exit 2 naming
+    A9 (``--programs`` over a metrics dump is test_torch_cost_attribution's)."""
     path = tmp_path / "t.json"
     path.write_text('{"traceEvents": []}')
-    assert ttr.main([flag, str(path)]) == 2
+    assert ttr.main([flag, str(tmp_path if flag == "--programs" else path)]) == 2
     err = capsys.readouterr().err.strip()
     assert len(err.splitlines()) == 1 and "ROADMAP A9" in err and flag in err
 
