@@ -391,6 +391,56 @@ CARD_VS_F64_TOL = 1e-5
 BF16_ULP = 2.0 ** -7
 BF16_VS_F32 = {"mean": (5e-2, 2e-2), "var": (2e-1, 2e-2)}
 
+# Section 20 (progressive delivery and telemetry history, after serving):
+# - rollout_drill: dist_svgd_torch/tools/rollout_drill.py at the serving
+#   width (logreg, SERVING["n"] particles × 55, one pinned bucket of
+#   ROLLOUT_DRILL["rows"] rows) and the drill's default durations, every
+#   row_ok gate held (the shadow-overhead one on the mirror's timed share of
+#   the client path; JAX's median pair p99 ratio printed beside it, with each
+#   pair's ratio and their spread);
+# - rollout_offer: serve_covertype's training (ROLLOUT_TRAIN: 20,000 rows,
+#   8 shards, 1,024 particles, B = 256, the bf16x3 φ at (8, 128, 1024, 55))
+#   on the card, 100 steps, then 100 more resumed into the same
+#   CheckpointManager root; a CheckpointHotReloader(rollout=...) offers the
+#   newer step and a replayed trace (ROLLOUT_TRAFFIC) feeds the candidate's
+#   windows until it promotes through every stage of ROLLOUT_PLAN (the
+#   drill's fast plan, with its own divergence line).  The training's
+#   phi_big_d_bf16x3 launches are counted, and one call at its lanes is held
+#   against the plain version within KERNEL_RTOL; the promoted generation serves the newer step's
+#   particles (SERVED_TOL).  Then the newer step, saturated
+#   (BadGenerationAt), is offered and must roll back with no checkpoint read
+#   and the incumbent's bucket graph bitwise unchanged.  The plan's
+#   divergence line is this posterior's: after 200 steps at 1e-4 the
+#   ensemble is still diffuse (served means near 0.5), so a saturated step
+#   lands near, not far past, JAX's 0.05.  0.015 lies between the two
+#   candidates, and the phase holds both sides of it in each run: every
+#   8-row request of the held-out pool diverges from step 100 by at most
+#   line / DIVERGENCE_MARGIN under step 200 and by at least
+#   DIVERGENCE_MARGIN × line under the saturated step (the row prints the
+#   quantiles of both);
+# - cost_drill: dist_svgd_torch/tools/cost_drill.py at its defaults, every
+#   row_ok gate held (attribution coverage, tenant sum, zero captures, the
+#   instruments' share of the dispatch thread); its history ring read back
+#   by trace_report --programs (exit 0, per-program dispatches, rows and
+#   bytes equal to the final dump's, seconds within HISTORY_SUM_RTOL) and by
+#   the anomaly report.  On the card the defaults are the drill's
+#   CARD_TENANTS, JAX's tenants at 256× the particles, so that a dispatch is
+#   compute-dominant as JAX sized it to be (cost_drill's docstring).
+ROLLOUT_DRILL = dict(rows=8, overhead_pairs=4)
+ROLLOUT_TRAIN = dict(nrows=20_000, nproc=8, nparticles=1024, stepsize=1e-4, batch_size=256,
+                     seed=0, niter=100)
+ROLLOUT_PLAN = dict(shadow_fraction=0.25, shadow_min_mirrors=8, shadow_hold_s=0.5,
+                    canary_stages=(0.02, 0.10, 0.50, 1.0), stage_hold_s=0.4,
+                    stage_min_requests=4, max_divergence=0.015, p99_ms=150.0,
+                    breach_streak=2, seed=3)
+DIVERGENCE_MARGIN = 1.5
+ROLLOUT_TRAFFIC = dict(rows=8, base_rps=200.0, duration_s=6.0, control_interval_s=0.15,
+                       timeout_s=60.0)
+ROLLOUT_SEED = 900
+# The ring's windows telescope to the final dump: the summed seconds differ
+# from the dump's by float64 rounding of a few dozen subtractions.
+HISTORY_SUM_RTOL = 1e-9
+
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -2616,6 +2666,7 @@ def serve_bench_phase(card):
             failed.append(variant)
     if failed or any(launched.values()):
         raise AssertionError(f"serve_bench: failed {failed}, kernel launches {launched}")
+    return {variant: row["value"] for variant, row in rows.items()}
 
 
 def serve_buckets_phase(card):
@@ -2806,7 +2857,8 @@ def serving_phases(card):
     """Section 19, posterior-predictive serving (the constants above
     SERVING): serve_covertype, serve_bench, serve_buckets,
     profiler_overhead and serve_hot_reload.  Each prints its rows and raises
-    when it fails."""
+    when it fails; returns serve_bench's rows' requests a second, by
+    variant."""
     import os
     import shutil
 
@@ -2815,10 +2867,278 @@ def serving_phases(card):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     serve_covertype_phase(root, card)
-    serve_bench_phase(card)
+    serving_rps = serve_bench_phase(card)
     serve_buckets_phase(card)
     profiler_overhead_phase(card)
     serve_hot_reload_phase(root, card)
+    return serving_rps
+
+
+def rollout_drill_phase(card, serving_rps):
+    """tools/rollout_drill.py at the serving width and its default
+    durations (the constants above ROLLOUT_DRILL): every row_ok gate held,
+    each pair's shadow p99 ratio (JAX's per-pair overhead, floored at 0,
+    plus 1) and the spread between pairs printed, and beside the gate's
+    share at the drill's rate the share a mirror on a busy dispatch thread
+    would take at each of serve_bench's rates of this run
+    (``serving_rps``)."""
+    from dist_svgd_torch.tools import rollout_drill
+
+    t0 = time.perf_counter()
+    row = rollout_drill.run_drill(n_particles=SERVING["n"], dim=SERVING["features"],
+                                  rows=ROLLOUT_DRILL["rows"],
+                                  overhead_pairs=ROLLOUT_DRILL["overhead_pairs"])
+    wall = time.perf_counter() - t0
+    ok, why = rollout_drill.row_ok(row)
+    pairs = row["overhead_pairs"]
+    ok = ok and row["platform"] == "gpu" and row["sentry_supported"]
+    busy_share = {variant: 1e-6 * row["mirror_us_per_request_busy"] * rps
+                  for variant, rps in serving_rps.items()}
+    emit({"phase": "rollout_drill", **row, "pair_p99_ratios": [1.0 + o for o in pairs],
+          "pair_spread": (max(pairs) - min(pairs)) if pairs else None,
+          "serving_rps": serving_rps, "busy_mirror_share_at_serving_rps": busy_share,
+          "phase_wall_s": wall, "why": why, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"rollout_drill: {why}")
+
+
+def rollout_offer_phase(root, card):
+    """Two generations of serve_covertype's training on the card, the newer
+    one offered by a CheckpointHotReloader(rollout=...) and walked to
+    promotion by replayed traffic; then the newer step saturated, offered
+    and rolled back (the constants above ROLLOUT_DRILL)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch.experiments import covertype
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.parallel.plan import capture_sentry
+    from dist_svgd_torch.resilience import BadGenerationAt
+    from dist_svgd_torch.rollout import RolloutPlan, prediction_divergence
+    from dist_svgd_torch.serving import CheckpointHotReloader, ModelRegistry, PredictiveEngine
+    from dist_svgd_torch.telemetry import MetricsRegistry
+    from dist_svgd_torch.tools.rollout_drill import _drive_until
+    from dist_svgd_torch.tools.workload_replay import (
+        TraceConfig,
+        generate_trace,
+        make_submit,
+        replay,
+        window_metrics,
+    )
+    from dist_svgd_torch.utils.datasets import load_covertype
+
+    reset, read = _serving_counts()
+    ckpt = os.path.join(root, "rollout-ckpt")
+    train = {k: v for k, v in ROLLOUT_TRAIN.items() if k != "niter"}
+    niter = ROLLOUT_TRAIN["niter"]
+    reset()
+    t0 = time.perf_counter()
+    parts1, gen1 = covertype.run(niter=niter, checkpoint_every=niter, checkpoint_dir=ckpt,
+                                 **train)
+    train1_s = time.perf_counter() - t0
+
+    rows, tenant = ROLLOUT_TRAFFIC["rows"], "covertype"
+    x, _ = load_covertype(ROLLOUT_TRAIN["nrows"], seed=ROLLOUT_TRAIN["seed"])
+    held = x[-max(ROLLOUT_TRAIN["nrows"] // 10, 1):].astype(np.float32)
+    pools = {rows: [held[i:i + rows] for i in range(0, len(held) - rows + 1, rows)]}
+    metrics = MetricsRegistry()
+    reg = ModelRegistry(metrics=metrics, max_batch=rows, lanes=1, max_wait_ms=2.0,
+                        max_queue_rows=4096)
+    reg.add_tenant(tenant, "logreg", checkpoint=ckpt, min_bucket=rows, max_bucket=rows)
+    reg.warm()
+    eng = reg.tenant(tenant).engine
+    plan = RolloutPlan(**ROLLOUT_PLAN)
+    ro = reg.begin_rollout(tenant, plan=plan)
+    reloader = CheckpointHotReloader(eng, ckpt, rollout=ro)
+    baseline = reloader.loaded_step
+
+    t0 = time.perf_counter()
+    parts2, gen2 = covertype.run(niter=2 * niter, checkpoint_every=niter, checkpoint_dir=ckpt,
+                                 resume=True, **train)
+    train2_s = time.perf_counter() - t0
+    launched = read()
+
+    t_offer = time.perf_counter()
+    offered = reloader.poll_once()
+    offer_s = time.perf_counter() - t_offer
+    cfg = TraceConfig(duration_s=ROLLOUT_TRAFFIC["duration_s"],
+                      base_rps=ROLLOUT_TRAFFIC["base_rps"], seed=ROLLOUT_SEED,
+                      diurnal_amp=0.0, rows_sizes=(rows,), rows_alpha=0.0, tenants=(tenant,))
+    submit = make_submit(reg.batcher, pools, model_registry=reg)
+    with capture_sentry("rollout_offer window") as sentry:
+        ro.start(ROLLOUT_TRAFFIC["control_interval_s"])
+        records = replay(generate_trace(cfg), submit)
+        tail, met = _drive_until(reg, tenant, pools[rows], lambda: not ro.active,
+                                 timeout_s=ROLLOUT_TRAFFIC["timeout_s"])
+        ro.stop()
+    promote_wall = time.perf_counter() - t_offer
+    st = ro.status()
+    log = list(ro.log)
+    promote = next((r for r in log if r["event"] == "promote"), None)
+    whole = window_metrics(records + tail, 0.0, cfg.duration_s, plan.p99_ms)
+    probe = pools[rows][0]
+    served = {k: np.array(v, copy=True) for k, v in eng.predict(probe).items()}
+    direct = PredictiveEngine("logreg", parts2, min_bucket=rows, max_bucket=rows).predict(probe)
+    served_dev = max(float(np.max(np.abs(served[k] - direct[k]))) for k in direct)
+    stats = eng.stats()
+
+    # a bad candidate (the newer step saturated) under the same plan: rolled
+    # back without a checkpoint read, the incumbent's bucket graph bitwise
+    reloads = []
+    eng.reload = lambda *a, **kw: reloads.append(1)
+    t_bad = time.perf_counter()
+    ro.offer(BadGenerationAt(0, kind="saturate").apply(parts2), tag="bad")
+    ro.start(ROLLOUT_TRAFFIC["control_interval_s"])
+    tail_bad, met_bad = _drive_until(reg, tenant, pools[rows], lambda: not ro.active,
+                                     timeout_s=ROLLOUT_TRAFFIC["timeout_s"])
+    ro.stop()
+    rollback_wall = time.perf_counter() - t_bad
+    del eng.reload
+    after = eng.predict(probe)
+    bitwise = all(np.array_equal(served[k], after[k]) for k in served)
+    log_bad = list(ro.log)
+    bad_offer = next((r for r in log_bad if r["event"] == "offer" and r["tag"] == "bad"), None)
+    rollback = next((r for r in log_bad if r["event"] == "rollback"), None)
+    bad_status = ro.status()
+    reg.close()
+
+    # both sides of the plan's divergence line: each request of the pool
+    # through the incumbent (step 100), the promoted step and the saturated
+    # one, on the card; every divergence of the good step at most
+    # 1 / DIVERGENCE_MARGIN of the line, every one of the bad step at least
+    # DIVERGENCE_MARGIN times it
+    incumbent = PredictiveEngine("logreg", parts1, min_bucket=rows, max_bucket=rows)
+    divs = {}
+    for name, cand in (("good", parts2), ("saturated", BadGenerationAt(0, kind="saturate")
+                                                       .apply(parts2))):
+        ce = PredictiveEngine("logreg", cand, min_bucket=rows, max_bucket=rows)
+        d = np.array([prediction_divergence(ce.predict(q), incumbent.predict(q))
+                      for q in pools[rows]])
+        divs[name] = {"min": float(d.min()), "median": float(np.median(d)),
+                      "p99": float(np.percentile(d, 99)), "max": float(d.max()),
+                      "requests": int(d.size)}
+    line = plan.max_divergence
+    divergence_held = (divs["good"]["max"] * DIVERGENCE_MARGIN <= line
+                       and divs["saturated"]["min"] >= DIVERGENCE_MARGIN * line)
+
+    # the training's φ lane, one call against the plain version
+    S, k, m, d = SERVING_LANES[0][1]
+    y, xs, sc = phi_inputs(S, k, m, d, ROLLOUT_SEED)
+    got = cuda_svgd.phi_big_d_bf16x3_cuda(y, xs, sc, 1.0)
+    torch.cuda.synchronize()
+    want = cuda_svgd.phi_big_d_bf16x3_plain(y, xs, sc, 1.0)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    b_ms, b_by = bound_ms(*phi_work("phi_big_d_bf16x3", S, k, m, d, xs.numel()))
+    lane = {"shape": [S, k, m, d], "bandwidth": 1.0, "max_abs_err": err,
+            "max_abs_plain": scale, "tolerance": KERNEL_RTOL * scale,
+            "ms": cuda_ms(lambda: cuda_svgd.phi_big_d_bf16x3_cuda(y, xs, sc, 1.0),
+                          TIMED_LAUNCHES),
+            "plain_ms": cuda_ms(lambda: cuda_svgd.phi_big_d_bf16x3_plain(y, xs, sc, 1.0),
+                                OTHER_LAUNCHES),
+            "bound_us": 1e3 * b_ms, "bound_by": b_by}
+    del got, want, y, xs, sc
+    others = {name: n for name, n in launched.items() if name != "phi_big_d_bf16x3"}
+    row = {"phase": "rollout_offer", "train": ROLLOUT_TRAIN, "plan": plan.describe(),
+           "traffic": ROLLOUT_TRAFFIC,
+           "generations": [{k: g[k] for k in ("phi_impl", "niter", "resumed_from", "test_acc",
+                                              "wall_s")} for g in (gen1, gen2)],
+           "train_s": [train1_s, train2_s], "baseline_step": baseline, "offered_step": offered,
+           "offer_s": offer_s, "offer_to_promote_s": promote_wall,
+           "promote_s": (promote or {}).get("promote_s"),
+           "stages": [r["fraction"] for r in log if r["event"] == "advance"],
+           "promotions": st["promotions"], "rollbacks": st["rollbacks"],
+           "serving_generation": stats["generation_id"], "ensemble_tag": stats["ensemble_tag"],
+           "served_vs_newer_step_max_abs_dev": served_dev, "tolerance": SERVED_TOL,
+           "traffic_met_promotion": met, "client": {k: whole[k] for k in (
+               "offered", "completed", "shed", "errors", "lost", "p50_ms", "p99_ms")},
+           "mirrors": int(metrics.counter("svgd_rollout_mirrors_total").value(tenant=tenant)),
+           "sentry_compiles": sentry.compiles,
+           "bad": {"rolled_back": rollback is not None, "at_stage": (rollback or {}).get("at_stage"),
+                   "objectives": (rollback or {}).get("objectives"),
+                   "offer_to_rollback_s": rollback_wall,
+                   "controller_rollback_s": (rollback["t"] - bad_offer["t"]
+                                             if rollback and bad_offer else None),
+                   "requests": len(tail_bad), "checkpoint_reloads": len(reloads),
+                   "incumbent_bitwise": bitwise,
+                   "serving_generation": bad_status["serving_generation"]},
+           "divergence": {"line": line, "margin": DIVERGENCE_MARGIN, **divs,
+                          "held": divergence_held},
+           "launches": launched, "lane": lane, "card": card}
+    ok = (gen1["phi_impl"] == gen2["phi_impl"] == "cuda_bf16" and gen2["resumed_from"] == niter
+          and baseline == niter and offered == 2 * niter and promote is not None
+          and st["promotions"] == 1 and st["rollbacks"] == 0
+          and row["stages"] == list(plan.canary_stages) and stats["ensemble_tag"] == f"step_{offered}"
+          and served_dev <= SERVED_TOL and whole["lost"] == whole["errors"] == 0
+          and sentry.compiles == 0 and launched["phi_big_d_bf16x3"] >= 2 * niter
+          and met_bad and rollback is not None and not reloads and bitwise
+          and bad_status["serving_generation"] == stats["generation_id"]
+          and divergence_held
+          and not any(others.values()) and err <= KERNEL_RTOL * scale
+          and bool(np.isfinite(scale)))
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"rollout_offer: {row}")
+    return launched
+
+
+def cost_drill_phase(root, card):
+    """tools/cost_drill.py at its defaults (the card's tenants), every
+    row_ok gate held; its history ring through trace_report --programs and
+    the anomaly report (the constants above ROLLOUT_DRILL say why)."""
+    import contextlib
+    import io
+    import os
+
+    from dist_svgd_torch.tools import anomaly_report, cost_drill, trace_report
+
+    ring = os.path.join(root, "cost-ring")
+    t0 = time.perf_counter()
+    row = cost_drill.run_drill(history_dir=ring)
+    wall = time.perf_counter() - t0
+    _, why = cost_drill.row_ok(row)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = trace_report.main(["--programs", ring, "--json", "--top", "1000"])
+        anomaly_rc = anomaly_report.main([ring, "--rate", "--min-segment", "2", "--json"])
+    summed, anomalies = (json.loads(line) for line in out.getvalue().strip().splitlines())
+    final = trace_report.program_rows([cost_drill._LAST_REGISTRY[0].dump()])
+    counts = [(p["label"], p["dispatches"], p["rows"], p["bytes"]) for p in summed["programs"]]
+    want = [(p["label"], p["dispatches"], p["rows"], p["bytes"]) for p in final["programs"]]
+    seconds_dev = abs(summed["total_seconds"] - final["total_seconds"])
+    sums_equal = (counts == want and len(counts) > 0
+                  and seconds_dev <= HISTORY_SUM_RTOL * final["total_seconds"])
+    ok = (not why and rc == 0 and sums_equal and anomaly_rc in (0, 1)
+          and row["platform"] == "gpu" and row["history_records"] == summed["windows"])
+    emit({"phase": "cost_drill", **row, "tenant_particles": dict(cost_drill.CARD_TENANTS),
+          "why": why, "trace_report_rc": rc, "ring_programs": counts,
+          "ring_total_seconds": summed["total_seconds"],
+          "dump_total_seconds": final["total_seconds"], "seconds_dev": seconds_dev,
+          "anomaly_report_rc": anomaly_rc, "anomalies": anomalies["anomalies"][:5],
+          "phase_wall_s": wall, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"cost_drill: {why}, trace_report rc {rc}, sums {counts} vs {want}")
+
+
+def rollout_phases(card, serving_rps):
+    """Section 20, progressive delivery and telemetry history (the constants
+    above ROLLOUT_DRILL): rollout_drill, rollout_offer and cost_drill.  Each
+    prints its row and raises when it fails; returns rollout_offer's launch
+    counts.  ``serving_rps`` is section 19's serve_bench rates."""
+    import os
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_rollout")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    rollout_drill_phase(card, serving_rps)
+    launched = rollout_offer_phase(root, card)
+    cost_drill_phase(root, card)
+    emit({"phase": "rollout_section", "seconds": time.perf_counter() - t0})
+    return launched
 
 
 def supervised_phases(init, data, card, ct_ms_per_step):
@@ -3783,7 +4103,10 @@ def main():
     supervised_phases(init, data, card, ct_ms_per_step["cuda"])
 
     # ---- 19. serving: engine, batcher, registry, server, profiler --------
-    serving_phases(card)
+    serving_rps = serving_phases(card)
+
+    # ---- 20. progressive delivery and telemetry history ---------------------
+    rollout_phases(card, serving_rps)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

@@ -47,8 +47,9 @@ max_inflight_rows}`` (a live mapping the
 
 The progressive-delivery hook (:meth:`MicroBatcher.set_rollout`): an armed
 controller assigns each arriving request of its tenant a generation and
-flags incumbent requests for shadow mirroring.  The controller itself is
-ROADMAP A9's; the hook is this module's.
+flags incumbent requests for shadow mirroring.  The controller is
+:class:`~dist_svgd_torch.rollout.RolloutController`; the hook is this
+module's.
 """
 
 from __future__ import annotations
@@ -739,7 +740,11 @@ class MicroBatcher:
         t0 = self._clock()
         t_pop = tracer.now() if tracer is not None else 0.0
         queue_wait_ms = (t0 - min(c.req.enqueued for c in batch)) * 1e3
-        x = np.concatenate([c.x for c in batch], axis=0)
+        # a one-chunk batch dispatches its chunk as is: the copy would also
+        # drop the GIL inside the measured dispatch window, where a client
+        # thread's whole submit then runs
+        x = (batch[0].x if len(batch) == 1
+             else np.concatenate([c.x for c in batch], axis=0))
         self._m_lane_inflight.set(rows, batcher=self.metrics_instance,
                                   lane=lane_label, **gl)
         # thread the trace id through the dispatch via the trace context

@@ -22,7 +22,8 @@ Counterpart of ``dist_svgd_tpu/serving/engine.py`` (``bucket_for``,
 - **Hot reload** with ``ReloadPolicy`` admission, an O(1) ``rollback`` to
   the resident previous generation, and a staged candidate generation
   (``stage_candidate`` / ``promote_candidate`` / ``drop_candidate``,
-  ``predict(generation='candidate')``).
+  ``predict(generation='candidate')``) that a rollout controller drives —
+  the hot reloader offers newer steps to one with ``rollout=``.
 
 Padding happens on the host and the padding is sliced off after the fetch:
 the device only ever sees bucket shapes, so mixed request sizes never
@@ -839,8 +840,6 @@ class CheckpointHotReloader:
     Drive it explicitly with :meth:`poll_once` (tests, single-threaded
     drivers) or as a background thread via :meth:`start`/``with`` (the
     poll interval waits on an event, so :meth:`stop` returns promptly).
-    JAX's ``rollout=`` (offering a step to a rollout controller instead of
-    swapping it) comes with the controller, ROADMAP A9.
 
     Args:
         engine: the live :class:`PredictiveEngine`.
@@ -856,18 +855,26 @@ class CheckpointHotReloader:
             root's current latest when the engine wasn't built from a
             manager root.  Pass ``None`` to force the first poll to load
             whatever is restorable, or an explicit step number.
+        rollout: optional progressive-delivery controller
+            (:class:`~dist_svgd_torch.rollout.RolloutController`, duck-typed
+            on ``offer``).  When set, a newer step is **offered as a
+            candidate** instead of swapped directly — the rollout drives
+            it through shadow/canary stages and promotes or rolls back on
+            live SLO windows; the serving watermark is stamped at
+            *promotion*, not at offer.
         logger: optional ``JsonlLogger`` — one record per swap.
     """
 
     def __init__(self, engine: PredictiveEngine, root: str, *,
                  key: str = "particles", interval_s: float = 5.0,
-                 baseline_step="auto", logger=None):
+                 baseline_step="auto", rollout=None, logger=None):
         from dist_svgd_torch.utils.checkpoint import CheckpointManager
 
         self.engine = engine
         self._mgr = CheckpointManager(os.fspath(root))
         self._key = key
         self._interval_s = float(interval_s)
+        self.rollout = rollout
         self._logger = logger
         if baseline_step == "auto":
             baseline_step = getattr(engine, "checkpoint_step", None)
@@ -897,6 +904,21 @@ class CheckpointHotReloader:
                 f"(keys: {sorted(state)})"
             )
         wm = state.get("stream_watermark")
+        if self.rollout is not None:
+            # progressive delivery: the new generation enters a staged
+            # rollout instead of an atomic cutover.  The step is marked
+            # seen either way — a superseded/deferred candidate is a
+            # rollout decision, not a reason to re-offer the same step
+            # forever.  The serving watermark is stamped by the rollout at
+            # PROMOTION (candidate traffic is not "served" freshness-wise)
+            offered = self.rollout.offer(
+                np.asarray(arr), tag=f"step_{step}",
+                watermark=(float(np.asarray(wm)) if wm is not None else None))
+            self.loaded_step = step
+            if self._logger is not None:
+                self._logger.log(event="rollout_offer", step=step,
+                                 accepted=bool(offered))
+            return step if offered else None
         try:
             info = self.engine.reload(np.asarray(arr), tag=f"step_{step}")
         except EnsembleRejected as e:

@@ -28,8 +28,9 @@ Every serving metric the tenants write carries a ``tenant=`` label.  The
 HTTP front end routes ``/predict`` on a ``tenant`` field and serves
 ``/tenants`` + per-tenant ``/healthz`` detail (``serving/server.py``); the
 load generator is ``python -m dist_svgd_torch.tools.serve_bench --tenants
-N``.  Progressive delivery (:meth:`ModelRegistry.begin_rollout`) needs the
-rollout controller and raises ``NotImplementedError`` naming ROADMAP A9.
+N``.  Progressive delivery (:meth:`ModelRegistry.begin_rollout`) arms one
+tenant's :class:`~dist_svgd_torch.rollout.RolloutController` on the shared
+batcher's split/mirror hook.
 """
 
 from __future__ import annotations
@@ -249,6 +250,11 @@ class ModelRegistry:
         self._m_reload_errors = self.metrics.counter(
             "svgd_registry_reload_errors_total",
             "scanner polls that raised for one tenant (others unaffected)")
+        # progressive delivery: at most ONE rollout at a time
+        # rides the shared batcher (its split/mirror hook is a single
+        # seam); guarded by _lock
+        self._rollout = None
+        self._rollout_tenant: Optional[str] = None
 
     # ------------------------------------------------------------------ #
     # tenant lifecycle
@@ -355,6 +361,22 @@ class ModelRegistry:
             # quota off during the drain: its remaining queued work must
             # not be priority-shed on the way out
             self._quotas.pop(name, None)
+        # a rollout targeting the removed tenant ends with it: disarm the
+        # batcher hook BEFORE the drain so no still-arriving request is
+        # hash-split to a candidate that is about to disappear (queued
+        # candidate batches fall back to the incumbent dispatch)
+        rollout = None
+        with self._lock:
+            if self._rollout_tenant == name:
+                rollout = self._rollout
+                self._rollout = None
+                self._rollout_tenant = None
+        if rollout is not None:
+            self.batcher.set_rollout(None)
+            try:
+                rollout.close()
+            except Exception:
+                pass
         if drain:
             # pending = queued + collected-but-unresolved: the tenant must
             # stay routable until its LAST batch resolved, not just until
@@ -416,12 +438,67 @@ class ModelRegistry:
 
     def begin_rollout(self, name: str, *, plan=None, clock=None,
                       controller=None):
-        """Arm a progressive rollout for tenant ``name``: needs JAX's
-        ``rollout/`` controller, which is not ported — raises
-        ``NotImplementedError`` naming ROADMAP A9."""
-        raise NotImplementedError(
-            "ModelRegistry.begin_rollout needs the rollout controller "
-            "(dist_svgd_tpu/rollout/), not ported to PyTorch yet (ROADMAP A9)")
+        """Arm a progressive rollout for tenant ``name`` and return its
+        :class:`~dist_svgd_torch.rollout.RolloutController`.
+
+        Builds a controller over the tenant's engine (or takes a
+        pre-built ``controller`` — drills that inject clocks/plans), arms
+        the shared batcher's split/mirror hook, and leaves offering
+        candidates to the caller (``controller.offer(...)`` — typically
+        the streaming supervisor's publish leg).  At most one rollout
+        rides the batcher at a time; a second ``begin_rollout`` while one
+        is armed raises unless it targets the same tenant (idempotent —
+        returns the armed controller)."""
+        from dist_svgd_torch.rollout import RolloutController
+
+        with self._lock:
+            tenant = self._tenants.get(name)
+            if tenant is None:
+                raise KeyError(f"unknown tenant {name!r}")
+            if tenant.state != "serving":
+                raise KeyError(f"tenant {name!r} is {tenant.state}")
+            if self._rollout is not None:
+                if self._rollout_tenant == name:
+                    return self._rollout
+                raise RuntimeError(
+                    f"a rollout is already armed for tenant "
+                    f"{self._rollout_tenant!r}; end it first")
+            if controller is None:
+                kwargs = {"plan": plan, "metrics": self.metrics,
+                          "logger": self._logger}
+                if clock is not None:
+                    kwargs["clock"] = clock
+                controller = RolloutController(tenant.engine, **kwargs)
+            self._rollout = controller
+            self._rollout_tenant = name
+        self.batcher.set_rollout(controller)
+        return controller
+
+    def end_rollout(self, name: str) -> None:
+        """Disarm tenant ``name``'s rollout (idempotent).  An in-flight
+        candidate is dropped (the incumbent was serving the split's
+        complement all along and takes back 100%)."""
+        with self._lock:
+            if self._rollout_tenant != name:
+                return
+            rollout = self._rollout
+            self._rollout = None
+            self._rollout_tenant = None
+        self.batcher.set_rollout(None)
+        if rollout is not None:
+            try:
+                if rollout.active:
+                    rollout.engine.drop_candidate()
+            finally:
+                rollout.close()
+
+    def rollout_status(self) -> Optional[Dict[str, Any]]:
+        """The armed rollout's controller document (None when idle)."""
+        with self._lock:
+            rollout, tenant = self._rollout, self._rollout_tenant
+        if rollout is None:
+            return None
+        return {"tenant": tenant, **rollout.status()}
 
     # ------------------------------------------------------------------ #
     # request path
@@ -572,6 +649,9 @@ class ModelRegistry:
         refuse further tenant adds.  Engines stay usable directly."""
         with self._lock:
             self._closed = True
+            rollout_tenant = self._rollout_tenant
+        if rollout_tenant is not None:
+            self.end_rollout(rollout_tenant)
         self.stop_scanner()
         self.batcher.close(drain=drain)
 

@@ -19,11 +19,10 @@ Counterpart of ``dist_svgd_tpu/telemetry`` with the same ``__all__``:
   per-program attribution of every ``Plan`` program's fenced dispatch
   wall (``svgd_prog_dispatch_*``);
 - :mod:`~dist_svgd_torch.telemetry.usage` — the per-tenant **usage
-  meter** (``svgd_usage_*``) the serving layer feeds.
-
-Not ported yet, and their names raise ``NotImplementedError`` naming
-ROADMAP A9: the on-disk snapshot ring (``TelemetryHistory``,
-``HistoryRecorder``).
+  meter** (``svgd_usage_*``) the serving layer feeds;
+- :mod:`~dist_svgd_torch.telemetry.history` — **telemetry history**: a
+  bounded on-disk ring of periodic window-delta registry snapshots, in
+  JAX's record format.
 
 Quickstart::
 
@@ -146,22 +145,14 @@ _LAZY = {
     "get_meter": "usage",
     "usage_enabled": "usage",
     "usage_summary": "usage",
-}
-
-#: Names of JAX's ``telemetry`` modules not ported yet, by module.
-_UNPORTED = {
-    "history.py (the on-disk snapshot ring)": ("TelemetryHistory", "HistoryRecorder"),
+    "TelemetryHistory": "history",
+    "HistoryRecorder": "history",
 }
 
 
 def __getattr__(name):
     """PEP 562 lazy re-exports (the diagnostics module imports the kernel
-    ops); the unported module's names raise ``NotImplementedError``."""
-    for module, names in _UNPORTED.items():
-        if name in names:
-            raise NotImplementedError(
-                f"telemetry.{name} (telemetry/{module}) is not ported to PyTorch yet "
-                "(ROADMAP A9)")
+    ops)."""
     submodule = _LAZY.get(name)
     if submodule is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

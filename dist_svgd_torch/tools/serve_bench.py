@@ -120,6 +120,19 @@ def _request_pool(feature_dim, rows_cycle, pool=256, seed=1):
     ]
 
 
+def request_pool_by_size(feature_dim, sizes, per_size=32, seed=1):
+    """Pre-generated request arrays keyed by row count — the shared
+    request-pool plumbing: ``tools/workload_replay.py`` draws heavy-tailed
+    per-event sizes from a trace and picks a pre-built array of exactly
+    that size here, so request generation is never on the replay's timed
+    path (the same discipline ``_request_pool`` gives the fixed-cycle
+    loops).  The same arrays as JAX's on the same arguments."""
+    rng = np.random.default_rng(seed)
+    return {int(r): [rng.normal(size=(int(r), feature_dim))
+                     .astype(np.float32) for _ in range(per_size)]
+            for r in sorted({int(r) for r in sizes})}
+
+
 def closed_loop(submit, pool, clients, requests):
     """`clients` threads, next request only after the last resolved."""
     lock = threading.Lock()

@@ -28,11 +28,11 @@ events leading up to the dump.
 ``--programs`` renders the **per-program cost attribution** instead: the
 top programs by fenced dispatch wall (``svgd_prog_dispatch_*``, written by
 ``telemetry/profile.py``) from a ``MetricsRegistry.dump()`` JSON file —
-dispatches, total and mean wall, share, rows and bytes.  A telemetry
-history directory as its input needs ``telemetry/history.py``, not ported
-yet: it exits 2 naming ROADMAP A9.  ``--stitch`` (joining a fleet router's
-and its replicas' exports) reads exports of the fleet, not ported either:
-it exits 2 with one line naming ROADMAP A9.
+dispatches, total and mean wall, share, rows and bytes — or from a
+telemetry history directory (``telemetry/history.py``'s ring), whose
+records' window deltas it sums.  ``--stitch`` (joining a fleet router's
+and its replicas' exports) reads exports of the fleet, not ported yet: it
+exits 2 with one line naming ROADMAP A9.
 
 A missing, empty, or corrupt input exits with one line on stderr and a
 nonzero status (2) — no tracebacks from the CLI.
@@ -45,6 +45,7 @@ Usage::
     python -m dist_svgd_torch.tools.trace_report \
         postmortem_001_guard_violation.jsonl --postmortem
     python -m dist_svgd_torch.tools.trace_report --programs metrics_dump.json
+    python -m dist_svgd_torch.tools.trace_report --programs history_dir/
 """
 
 import argparse
@@ -302,18 +303,18 @@ def render_postmortem(header, snapshot, diagnostics, events, top=10):
                        f"{extra if extra else ''}".rstrip())
     return "\n".join(out)
 
-class HistoryInput(ValueError):
-    """A telemetry history directory was given to ``--programs``."""
-
 
 def load_program_dumps(path):
-    """The dump documents behind one ``--programs`` input: a metrics dump
-    JSON file → ``[dump]``.  A telemetry history directory raises
-    :class:`HistoryInput` (its reader is ROADMAP A9's)."""
+    """The dump documents behind one ``--programs`` input: a metrics
+    dump JSON file → ``[dump]``; a telemetry history directory → every
+    record's window delta (summed downstream)."""
     if os.path.isdir(path):
-        raise HistoryInput(
-            f"{path} is a directory: reading a telemetry history needs "
-            "telemetry/history.py, not ported to PyTorch yet (ROADMAP A9)")
+        from dist_svgd_torch.telemetry.history import TelemetryHistory
+
+        records = TelemetryHistory(path).records()
+        if not records:
+            raise ValueError("no telemetry history records in directory")
+        return [rec.get("window", {}) for rec in records]
     with open(path) as fh:
         doc = json.load(fh)
     if not isinstance(doc, dict) or "metrics" not in doc:
@@ -392,8 +393,8 @@ def main(argv=None):
                     help="not ported: joins fleet exports (ROADMAP A9)")
     ap.add_argument("--programs", action="store_true",
                     help="render the dispatch profiler's per-program cost "
-                         "attribution (input: a metrics dump JSON) instead of a "
-                         "span summary")
+                         "attribution (input: a metrics dump JSON or a telemetry "
+                         "history directory) instead of a span summary")
     args = ap.parse_args(argv)
     if args.stitch:
         print("trace_report: --stitch reads the fleet router's and replicas' exports "
@@ -409,17 +410,14 @@ def main(argv=None):
     if args.programs:
         try:
             report = program_rows(load_program_dumps(trace_path))
-        except HistoryInput as e:
-            print(f"trace_report: --programs {e}", file=sys.stderr)
-            return 2
         except OSError as e:
             print(f"trace_report: cannot read {e.filename or trace_path}: "
                   f"{e.strerror or e}", file=sys.stderr)
             return 2
         except (json.JSONDecodeError, UnicodeDecodeError, ValueError,
                 TypeError) as e:
-            print(f"trace_report: {trace_path} is not a metrics dump: {e}",
-                  file=sys.stderr)
+            print(f"trace_report: {trace_path} is not a metrics dump or "
+                  f"telemetry history: {e}", file=sys.stderr)
             return 2
         if args.json:
             doc = dict(report)

@@ -448,7 +448,8 @@ def test_model_registry_usage_reads_meter_registry():
 
 def test_trace_report_programs_view(rng, tmp_path, capsys):
     """``--programs`` renders the top-programs table off a saved registry
-    dump, with JAX's tool's rows for the same dump."""
+    dump (and off a history directory's summed windows), with JAX's tool's
+    rows for the same input."""
     import importlib.util
     import os
 
@@ -487,3 +488,12 @@ def test_trace_report_programs_view(rng, tmp_path, capsys):
     assert trace_report.main(["--programs", str(not_dump)]) == 2
     assert trace_report.main(["--programs", str(tmp_path / "missing.json")]) == 2
     assert "ROADMAP A9" not in capsys.readouterr().err
+
+    # history-directory input: the windows sum, as JAX's do
+    from dist_svgd_torch.telemetry.history import HistoryRecorder
+
+    hist_dir = str(tmp_path / "hist")
+    HistoryRecorder(reg, hist_dir, clock=lambda: 0.0).record_once()
+    report = trace_report.program_rows(trace_report.load_program_dumps(hist_dir))
+    assert report["programs"][0]["dispatches"] == 2
+    assert report == jtr.program_rows(jtr.load_program_dumps(hist_dir))

@@ -43,7 +43,10 @@ def test_no_jax_or_reference_imports():
     for module in ("serving/engine.py", "serving/batcher.py", "serving/registry.py",
                    "serving/server.py", "serving/__init__.py", "parallel/plan.py",
                    "telemetry/profile.py", "telemetry/usage.py", "tools/serve_bench.py",
-                   "experiments/serve_covertype.py"):
+                   "experiments/serve_covertype.py", "rollout/__init__.py",
+                   "rollout/controller.py", "telemetry/history.py",
+                   "tools/anomaly_report.py", "tools/workload_replay.py",
+                   "tools/rollout_drill.py", "tools/cost_drill.py"):
         assert PORT / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "dist_svgd_tpu", "tools")]
@@ -311,6 +314,52 @@ def test_resilience_and_fault_drill_run_with_jax_blocked():
         "                            diag_overhead=False, device='cpu')\n"
         "assert row['resumed_bitwise_identical'] and row['nan_rollback_recovered']\n"
         "assert row['retry_backoff_recovered']\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    _run_with_jax_blocked(code)
+
+
+def test_rollout_history_and_drills_run_with_jax_blocked():
+    """A process where ``import jax`` (and JAX's tools) fails walks a
+    candidate through a rollout on a manual clock, records a history ring,
+    reads it back through the anomaly report and ``trace_report
+    --programs``, replays a seeded trace, and runs the cost drill at a
+    shrunk size, on the CPU."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "sys.modules['tools'] = None\n"
+        "import tempfile, numpy as np\n"
+        "from dist_svgd_torch.rollout import RolloutController, RolloutPlan\n"
+        "from dist_svgd_torch.serving import PredictiveEngine\n"
+        "from dist_svgd_torch.telemetry import HistoryRecorder, MetricsRegistry\n"
+        "from dist_svgd_torch.tools import (anomaly_report, cost_drill, rollout_drill,\n"
+        "                                   trace_report, workload_replay)\n"
+        "p = np.random.default_rng(0).normal(size=(8, 3)).astype(np.float32)\n"
+        "eng = PredictiveEngine('logreg', p, min_bucket=4, max_bucket=4, device='cpu')\n"
+        "t = [0.0]\n"
+        "ro = RolloutController(eng, clock=lambda: t[0], plan=RolloutPlan(\n"
+        "    shadow_min_mirrors=1, shadow_hold_s=0.0, canary_stages=(1.0,),\n"
+        "    stage_hold_s=0.0, stage_min_requests=1))\n"
+        "assert ro.offer(p + np.float32(1e-3))\n"
+        "eng.registry.histogram('svgd_rollout_divergence').observe(1e-4)\n"
+        "assert ro.step()['action'] == 'advance'\n"
+        "eng.registry.histogram('svgd_serve_request_latency_seconds').observe(\n"
+        "    1e-3, generation='candidate')\n"
+        "assert ro.step()['action'] == 'promote' and eng.stats()['generation_id'] == 2\n"
+        "ro.close()\n"
+        "root = tempfile.mkdtemp()\n"
+        "rec = HistoryRecorder(MetricsRegistry(), root, clock=lambda: 0.0)\n"
+        "rec.registry.counter('svgd_x_total', 'x').inc(3); rec.record_once()\n"
+        "assert anomaly_report.main([root]) == 0\n"
+        "assert trace_report.main(['--programs', root]) == 0\n"
+        "ev = workload_replay.generate_trace(workload_replay.TraceConfig(duration_s=1.0))\n"
+        "assert len(ev) > 0\n"
+        "row = cost_drill.run_drill(tenants=(('a', 32),), n_features=4, max_batch=4,\n"
+        "                           requests=4, ab_rounds=0, history_windows=1,\n"
+        "                           device='cpu')\n"
+        "assert row['tenant_sum_err_frac'] < 0.01 and row['history_records'] == 2\n"
+        "assert callable(rollout_drill.run_drill)\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )

@@ -3,8 +3,8 @@ registry.py``) against JAX's, case for case with ``tests/test_registry.py``,
 on the CPU: the KernelBucketLRU's bounds and hot-tenant protection (under
 the port's capture sentry), quota shed priorities, tenant lifecycle, the
 shared scanner's isolation, HTTP routing on the tenant field, the
-``serve_multitenant`` row's keys against JAX's, and ``begin_rollout``
-naming ROADMAP A9."""
+``serve_multitenant`` row's keys against JAX's, and ``begin_rollout``'s
+arguments (its lifecycle is ``test_torch_rollout.py``'s)."""
 
 import json
 import os
@@ -264,9 +264,20 @@ def test_registry_validates_names_and_args(rng):
         reg.remove_tenant("ghost")
     with pytest.raises(ValueError, match="watch=True"):
         _add_logreg(reg, "w", rng, watch=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        reg.begin_rollout("t")
+    from dist_svgd_tpu.serving import ModelRegistry as JRegistry
+
+    jreg = JRegistry(max_wait_ms=0.5)
+    try:
+        for r in (reg, jreg):  # JAX's refusal, word for word
+            with pytest.raises(KeyError, match="unknown tenant 'ghost'"):
+                r.begin_rollout("ghost")
+    finally:
+        jreg.close()
+    assert reg.rollout_status() is None
+    ro = reg.begin_rollout("t")
+    assert reg.rollout_status()["tenant"] == "t" and reg.batcher.rollout is ro
     reg.close()
+    assert reg.rollout_status() is None and reg.batcher.rollout is None
     with pytest.raises(RuntimeError, match="closed"):
         _add_logreg(reg, "late", rng)
 

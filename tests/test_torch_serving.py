@@ -498,6 +498,30 @@ def test_batcher_stats_keys_and_coalescing_equal_jax(rng):
         assert ours[key] == theirs[key], key
 
 
+def test_batcher_dispatches_a_one_chunk_batch_without_a_copy(rng):
+    """A batch of one chunk hands the dispatch that chunk itself (a view of
+    the request); a coalesced batch hands it the chunks' concatenation."""
+    seen = []
+
+    def dispatch(x):
+        seen.append(x)
+        return {"val": x.sum(axis=1)}
+
+    bat, _ = make_batcher(dispatch, max_batch=8, max_wait_ms=1.0)
+    whole = rng.normal(size=(8, 2)).astype(np.float32)
+    parts = [rng.normal(size=(3, 2)).astype(np.float32) for _ in range(2)]
+    futs = [bat.submit(whole)] + [bat.submit(p) for p in parts]
+    bat.start()
+    outs = [f.result(timeout=10)["val"] for f in futs]
+    bat.close()
+    assert len(seen) == 2
+    assert np.shares_memory(seen[0], whole)
+    np.testing.assert_array_equal(seen[1], np.concatenate(parts))
+    assert not any(np.shares_memory(seen[1], p) for p in parts)
+    for out, x in zip(outs, [whole] + parts):
+        np.testing.assert_array_equal(out, x.sum(axis=1))
+
+
 # --------------------------------------------------------------------- #
 # the end-to-end acceptance test: train -> checkpoint -> serve
 

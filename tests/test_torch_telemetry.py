@@ -369,11 +369,13 @@ def test_package_surface_matches_jax():
     for name in ("DiagnosticsConfig", "PosteriorDiagnostics", "ReloadPolicy",
                  "ensemble_health", "SloEngine", "GaugeCeiling", "DispatchProfiler",
                  "enable_profiler", "disable_profiler", "get_profiler", "profiler_enabled",
-                 "UsageMeter", "usage_summary"):
+                 "UsageMeter", "usage_summary", "TelemetryHistory", "HistoryRecorder"):
         assert getattr(ttel, name).__module__.startswith("dist_svgd_torch.telemetry.")
     for name in ("TelemetryHistory", "HistoryRecorder"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            getattr(ttel, name)
+        ours, theirs = getattr(ttel, name), getattr(jtel, name)
+        assert ours.__module__ == theirs.__module__.replace("dist_svgd_tpu", "dist_svgd_torch")
+        assert [m for m in vars(ours) if not m.startswith("__")] == [
+            m for m in vars(theirs) if not m.startswith("__")]
     with pytest.raises(AttributeError):
         ttel.no_such_name  # noqa: B018
 

@@ -7,8 +7,9 @@ by the port's tracer (Chrome export and JSONL) while a flight recorder
 runs; both tools' span summaries of the two files, and both tools'
 postmortem views of the guard trip's bundle, are equal.  The port buckets
 its ``kernel_build`` instants where JAX buckets ``xla_compile``; the CLI's
-exit codes and its refusal of ``--stitch`` and of ``--programs`` over a
-history directory (exit 2, naming ROADMAP A9) are checked too."""
+exit codes, its refusal of ``--stitch`` (exit 2, naming ROADMAP A9) and
+``--programs`` over a telemetry history directory (rings of both packages,
+summed as JAX sums them) are checked too."""
 
 import importlib.util
 import json
@@ -138,16 +139,62 @@ def test_cli_rows_equal_jax(traced_run, jtr, capsys):
     assert ours["spans"] == theirs["spans"] and ours["top_self"] == theirs["top_self"]
 
 
-@pytest.mark.parametrize("flag", ["--stitch", "--programs"])
+@pytest.mark.parametrize("flag", ["--stitch"])
 def test_unported_options_exit_2_naming_a9(tmp_path, capsys, flag):
-    """``--stitch`` reads the fleet's exports; ``--programs`` over a
-    telemetry history directory needs ``history.py``: both exit 2 naming
-    A9 (``--programs`` over a metrics dump is test_torch_cost_attribution's)."""
+    """``--stitch`` reads the fleet's exports: it exits 2 naming A9
+    (``--programs`` over a metrics dump is test_torch_cost_attribution's,
+    over a history directory the test below)."""
     path = tmp_path / "t.json"
     path.write_text('{"traceEvents": []}')
-    assert ttr.main([flag, str(tmp_path if flag == "--programs" else path)]) == 2
+    assert ttr.main([flag, str(path)]) == 2
     err = capsys.readouterr().err.strip()
     assert len(err.splitlines()) == 1 and "ROADMAP A9" in err and flag in err
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_programs_over_a_history_dir_equals_jax(tmp_path, jtr, capsys, writer):
+    """``--programs DIR`` sums a telemetry history ring's window deltas:
+    rings the port's and JAX's recorders write from the same dispatch
+    sequence give both tools the same rows, the sums equal the final dump's,
+    and an empty directory exits 2 like JAX's."""
+    if writer == "port":
+        from dist_svgd_torch.telemetry.history import HistoryRecorder
+        from dist_svgd_torch.telemetry.metrics import MetricsRegistry
+    else:
+        from dist_svgd_tpu.telemetry.history import HistoryRecorder
+        from dist_svgd_tpu.telemetry.metrics import MetricsRegistry
+    reg = MetricsRegistry()
+    secs = reg.histogram("svgd_prog_dispatch_seconds", "t")
+    rows = reg.counter("svgd_prog_dispatch_rows_total", "t")
+    nbytes = reg.counter("svgd_prog_dispatch_bytes_total", "t")
+    rec = HistoryRecorder(reg, str(tmp_path / "ring"), clock=lambda: 0.0)
+    rng = np.random.default_rng(5)
+    for window in range(3):
+        for label in ("serve.logreg", "serve.bnn")[: window + 1]:
+            secs.observe(float(rng.uniform(1e-4, 1e-3)), label=label)
+            rows.inc(8, label=label)
+            nbytes.inc(256, label=label)
+        rec.record_once()
+    ring = str(tmp_path / "ring")
+    ours = ttr.program_rows(ttr.load_program_dumps(ring))
+    assert ours == jtr.program_rows(jtr.load_program_dumps(ring))
+    assert ours["windows"] == 3
+    final = ttr.program_rows([reg.dump()])
+    for got, want in zip(ours["programs"], final["programs"]):
+        assert got["label"] == want["label"]
+        assert (got["dispatches"], got["rows"], got["bytes"]) == (
+            want["dispatches"], want["rows"], want["bytes"])
+        assert got["seconds"] == pytest.approx(want["seconds"], rel=1e-12)
+    for tool in (ttr, jtr):
+        assert tool.main(["--programs", ring, "--json"]) == 0
+    doc_ours, doc_theirs = (json.loads(line) for line in
+                            capsys.readouterr().out.strip().splitlines())
+    assert doc_ours == doc_theirs
+    (tmp_path / "empty").mkdir()
+    for tool in (ttr, jtr):
+        assert tool.main(["--programs", str(tmp_path / "empty")]) == 2
+        err = capsys.readouterr().err.strip()
+        assert len(err.splitlines()) == 1 and "no telemetry history records" in err
 
 
 def test_bad_inputs_exit_like_jax(tmp_path, jtr, capsys):
