@@ -64,8 +64,15 @@ its defaults and with an open loop, four lanes, bf16 and three tenants
 (no graph capture or kernel build in any timed window), every bucket's
 CUDA graph against the eager function underneath it, the dispatch
 profiler's A/B cost and a hot reload under concurrent predicts, with both
-big-d φ tiers held at the serving paths' training lanes; it checks that
-each path went through its kernels, and prints one JSON object per phase.  A
+big-d φ tiers held at the serving paths' training lanes — then progressive
+delivery (the rollout and cost drills, a rollout of serve_covertype's
+newer step) and adaptive capacity: ``dist_svgd_torch/tools/
+workload_replay.py``'s serve_storm row (three arms over one seeded
+flash-crowd trace, the autoscale controller in one), a server with the
+controller at ``/autoscale``, and ``dist_svgd_torch/tools/elastic_drill.py``
+at its defaults, with ``phi_small_d`` held at the drill's lanes; it checks
+that each path went through its kernels, and prints one JSON object per
+phase.  A
 phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
 
@@ -326,9 +333,10 @@ JSONL_KEYS = {"ts", "step", "wall_s", "updates_per_sec", "particle_mean_norm",
 # - fault_drill: the port's tools/fault_drill.py at its defaults (GMM,
 #   n = 2048, 4 shards, 48 steps, checkpoints every 16);
 # - the phi_small_d lanes these paths give the kernel (RESHARD_LANES: the
-#   resharded north star at 4 and 5 shards, the drill's GMM lanes), held in
-#   kernel_parity against the plain version and the float64 φ; seeds after
-#   every older row's.
+#   resharded north star at 4 and 5 shards, the fault drill's GMM lanes, and
+#   section 21's elastic drill's at 8, 2 and 1 shards — its 4-shard lanes
+#   are the fault drill's), held in kernel_parity against the plain version
+#   and the float64 φ; seeds after every older row's.
 SUPERVISED_CT = dict(nrows=50_000, nproc=8, nparticles=10_000, batch_size=256, niter=60,
                      checkpoint_every=20, segment_steps=10, kill_step=30)
 # Saves of the warmed config-4 state timed part by part.
@@ -340,7 +348,10 @@ ELASTIC = dict(steps=60, checkpoint_every=10, segment_steps=5, shrink=(15, 4), g
                loss=(55, 1))
 RESHARD_LANES = [((4, 2500, 10_000, 3), "elastic north star 4 shards"),
                  ((5, 2000, 10_000, 3), "elastic north star 5 shards"),
-                 ((4, 512, 2048, 2), "fault drill lanes")]
+                 ((4, 512, 2048, 2), "fault drill lanes"),
+                 ((8, 256, 2048, 2), "elastic drill lanes 8 shards"),
+                 ((2, 1024, 2048, 2), "elastic drill grow base lanes"),
+                 ((1, 2048, 2048, 2), "elastic drill fallback lane")]
 RESHARD_SEED = 700
 
 # Posterior-predictive serving (serving/, parallel/plan.py, the dispatch
@@ -440,6 +451,36 @@ ROLLOUT_SEED = 900
 # The ring's windows telescope to the final dump: the summed seconds differ
 # from the dump's by float64 rounding of a few dozen subtractions.
 HISTORY_SUM_RTOL = 1e-9
+
+# Section 21 (adaptive capacity and the elastic drill, after section 20):
+# - autoscale_storm: tools/workload_replay.py's run_storm() at its defaults
+#   (logreg, 4,000 particles × 55, three tenants — two polite, one hog —
+#   steady, flash-crowd burst and recovery at 5 s each, the burst 2× the
+#   hog's measured row capacity, util 0.45, p99 objective 25 ms; max_batch
+#   256, max_queue_rows 512, 1 lane and a 2 ms window at the base, up to
+#   default_lanes_max() lanes and a 16 ms window, a 0.25 s cadence), all
+#   three arms.  Once the storm's registry is warm, one request a tenant and
+#   bucket size is served through it and held against the engine's eager
+#   function (SERVED_TOL; inputs from STORM_CHECK_SEED).  Gated: storm_ok,
+#   every arm's requests accounted for, no capture or kernel build in the
+#   timed arms, the controller's steps (at least STORM_MIN_STEP_FRAC of the
+#   trace over its cadence) and at least one action; the A/B block and each
+#   arm's polite goodput, breach and recover seconds are printed, not gated
+#   (JAX gates none of them);
+# - autoscale_server: a PredictionServer(autoscale=True) over serve_bench's
+#   default engine (logreg, 10,000 particles × 55) under AUTOSCALE_LOAD
+#   concurrent HTTP requests; /autoscale answers 200 with steps > 0 and the
+#   policy's bounds, and 404 on a server without a controller;
+# - elastic_drill: tools/elastic_drill.py's run_drill() at its defaults (the
+#   GMM, n = 2048, 8 → 4 shards, 48 steps, checkpoints every 16, 4-step
+#   segments, grow 2 → 8, the fallback to 3 landing at 1 shard): drill_ok,
+#   no capture or kernel build after the reshard, the resharded root
+#   served, and phi_small_d — and no other kernel — launched by every
+#   supervised run of the drill.
+STORM_MIN_STEP_FRAC = 0.5
+STORM_INTERVAL_S = 0.25  # run_storm's default cadence, passed explicitly
+STORM_CHECK_SEED = 1000
+AUTOSCALE_LOAD = dict(clients=16, requests=480, rows=(1, 4, 16))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -3141,6 +3182,226 @@ def rollout_phases(card, serving_rps):
     return launched
 
 
+def _storm_registry_check(rows_out):
+    """A ``ModelRegistry.warm`` that, once the registry is warm, serves one
+    request a tenant and bucket size through the registry and holds its
+    outputs against the tenant engine's eager function underneath the
+    bucket's program; the rows land in ``rows_out``.  Returns the original
+    and the checking ``warm``."""
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch.serving.registry import ModelRegistry
+
+    warm = ModelRegistry.warm
+
+    def checked_warm(self, batch_sizes=None):
+        warmed = warm(self, batch_sizes)
+        rng = np.random.default_rng(STORM_CHECK_SEED)
+        for name, buckets in warmed.items():
+            eng = self.tenant(name).engine
+            for b in buckets:
+                x = rng.normal(size=(b, eng.feature_dim)).astype(np.float32)
+                served = self.submit(name, x).result(timeout=60)
+                fn = eng._kernels[b]._fn
+                want = {k: v.cpu().numpy()
+                        for k, v in fn(torch.from_numpy(x).to(eng.device)).items()}
+                dev = max(float(np.max(np.abs(served[k] - want[k]))) for k in want)
+                rows_out.append({"tenant": name, "bucket": b, "max_abs_dev": dev})
+        return warmed
+
+    return warm, checked_warm
+
+
+def autoscale_storm_phase(card):
+    """run_storm() at its defaults on the card, all three arms (the
+    constants above STORM_MIN_STEP_FRAC)."""
+    import os
+
+    from dist_svgd_torch.serving.registry import ModelRegistry
+    from dist_svgd_torch.tools import workload_replay as wr
+
+    checks = []
+    warm, checked_warm = _storm_registry_check(checks)
+    ModelRegistry.warm = checked_warm
+    t0 = time.perf_counter()
+    try:
+        row = wr.run_storm(interval_s=STORM_INTERVAL_S)
+    finally:
+        ModelRegistry.warm = warm
+    wall = time.perf_counter() - t0
+    ok, why = wr.storm_ok(row)
+    events = row["trace"]["events"]
+    accounting = {}
+    for name, arm in row["arms"].items():
+        polite = list(arm["phases"].values())
+        offered = sum(p["offered"] for p in polite) + arm["hog"]["offered"]
+        accounted = (sum(p["completed"] for p in polite) + arm["hog"]["completed"]
+                     + arm["shed"] + arm["errors"] + arm["lost"])
+        accounting[name] = {"offered": offered, "accounted": accounted}
+        if not offered == accounted == events:
+            why.append(f"arm {name}: {offered} offered, {accounted} accounted, "
+                       f"{events} in the trace")
+    ctl = row["arms"]["adaptive"]["controller"]
+    min_steps = STORM_MIN_STEP_FRAC * row["trace"]["duration_s"] / STORM_INTERVAL_S
+    check_dev = max(c["max_abs_dev"] for c in checks) if checks else None
+    if row["sentry_compiles"] != 0 or row["recompiles"] != 0:
+        why.append(f"captures or builds in the timed arms: {row['sentry_compiles']}, "
+                   f"bucket misses {row['recompiles']}")
+    if ctl["steps"] < min_steps:
+        why.append(f"the controller stepped {ctl['steps']} times, under {min_steps}")
+    if ctl["actions"] < 1:
+        why.append("the controller took no action")
+    if not checks or check_dev > SERVED_TOL:
+        why.append(f"registry against eager: {check_dev} over {SERVED_TOL}")
+    if row["platform"] != "gpu":
+        why.append(f"platform {row['platform']}")
+    ok = ok and not why
+    emit({"phase": "autoscale_storm", **row, "accounting": accounting,
+          "registry_checks": len(checks), "registry_vs_eager_max_abs_dev": check_dev,
+          "served_tol": SERVED_TOL, "min_controller_steps": min_steps,
+          "polite": {name: {k: arm[k] for k in ("polite_goodput_rps", "p99_breach_s",
+                                                  "recover_s")}
+                     for name, arm in row["arms"].items()},
+          "default_lanes_max": wr.default_lanes_max(), "host_cpu_count": os.cpu_count(),
+          "phase_wall_s": wall, "why": why, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"autoscale_storm: {why}")
+
+
+def autoscale_server_phase(card):
+    """PredictionServer(autoscale=True) over serve_bench's default engine
+    under a short concurrent HTTP load; /autoscale read back, and 404 from a
+    server without a controller (the constants above STORM_MIN_STEP_FRAC)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from dist_svgd_torch import telemetry
+    from dist_svgd_torch.serving import PredictionServer
+    from dist_svgd_torch.tools import serve_bench
+
+    load = AUTOSCALE_LOAD
+    engine = serve_bench.build_engine(registry=telemetry.MetricsRegistry())
+    engine.warmup()
+    pool = serve_bench._request_pool(engine.feature_dim, load["rows"], pool=64, seed=1)
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, None
+
+    finite, lock = [], threading.Lock()
+
+    def client(i0, url):
+        for i in range(i0, load["requests"], load["clients"]):
+            body = json.dumps({"inputs": pool[i % len(pool)].tolist()}).encode()
+            req = urllib.request.Request(url + "/predict", body,
+                                         {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                out = json.loads(r.read())["outputs"]
+            with lock:
+                finite.append(bool(np.isfinite(np.asarray(out["mean"])).all()))
+
+    t0 = time.perf_counter()
+    srv = PredictionServer(engine, port=0, registry=telemetry.MetricsRegistry(),
+                           autoscale=True).start()
+    try:
+        threads = [threading.Thread(target=client, args=(i, srv.url))
+                   for i in range(load["clients"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        time.sleep(0.5)  # a control step past the load's end
+        code, doc = get(srv.url + "/autoscale")
+        running = srv.autoscale._thread is not None
+    finally:
+        srv.shutdown()
+    stopped = srv.autoscale._thread is None
+    wall = time.perf_counter() - t0
+    plain = PredictionServer(engine, port=0, registry=telemetry.MetricsRegistry()).start()
+    try:
+        code_plain, _ = get(plain.url + "/autoscale")
+    finally:
+        plain.shutdown()
+    want_bounds = {"lanes": [1, 4], "max_wait_ms": [2.0, 16.0]}
+    doc = doc or {}
+    ok = (code == 200 and doc.get("steps", 0) > 0 and doc.get("bounds") == want_bounds
+          and running and stopped and code_plain == 404
+          and len(finite) == load["requests"] and all(finite))
+    emit({"phase": "autoscale_server", "requests": len(finite), "finite": all(finite),
+          "autoscale_status": code, "without_controller_status": code_plain,
+          **{k: doc.get(k) for k in ("steps", "actions", "bounds", "lanes", "max_wait_ms",
+                                     "quota_scale", "p99_target_ms", "last_signals")},
+          "thread_started": running, "thread_stopped": stopped, "wall_s": wall,
+          "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"autoscale_server: {code} {doc} {code_plain}")
+
+
+def elastic_drill_phase(root, card):
+    """elastic_drill.run_drill() at its defaults on the card, the launch
+    counts of each of its supervised runs set to 0 just before the run and
+    read just after (the constants above STORM_MIN_STEP_FRAC)."""
+    import os
+
+    from dist_svgd_torch.tools import elastic_drill
+
+    reset, read = _serving_counts()
+    supervisor = elastic_drill.RunSupervisor
+    per_run = []
+
+    class CountedSupervisor(supervisor):
+        def run(self, *args, **kwargs):
+            reset()
+            try:
+                return super().run(*args, **kwargs)
+            finally:
+                per_run.append(read())
+
+    t0 = time.perf_counter()
+    elastic_drill.RunSupervisor = CountedSupervisor
+    try:
+        row = elastic_drill.run_drill(root=os.path.join(root, "elastic-drill"))
+    finally:
+        elastic_drill.RunSupervisor = supervisor
+    wall = time.perf_counter() - t0
+    small = [c["phi_small_d"] for c in per_run]
+    only_small = all(c == {**dict.fromkeys(c, 0), "phi_small_d": c["phi_small_d"]}
+                     for c in per_run)
+    # warm-up, baseline, shrink, continuation, grow baseline, grow, fallback
+    ok = (elastic_drill.drill_ok(row) and row["post_reshard_recompiles"] == 0
+          and row["serve_ok"] and row["platform"] == "gpu" and len(per_run) == 7
+          and all(n > 0 for n in small) and only_small)
+    emit({"phase": "elastic_drill", **row, "launches_per_run": small,
+          "only_phi_small_d": only_small, "phase_wall_s": wall, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"elastic_drill: {row}, launches {per_run}")
+
+
+def adaptive_phases(card):
+    """Section 21, adaptive capacity and the elastic drill (the constants
+    above STORM_MIN_STEP_FRAC): autoscale_storm, autoscale_server and
+    elastic_drill.  Each prints its row and raises when it fails."""
+    import os
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_adaptive")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    autoscale_storm_phase(card)
+    autoscale_server_phase(card)
+    elastic_drill_phase(root, card)
+    emit({"phase": "adaptive_section", "seconds": time.perf_counter() - t0})
+
+
 def supervised_phases(init, data, card, ct_ms_per_step):
     """Section 18, the supervised runs (the constants above RESHARD_LANES):
     supervised_covertype, supervised_covertype_sigterm, supervised_guards,
@@ -4107,6 +4368,9 @@ def main():
 
     # ---- 20. progressive delivery and telemetry history ---------------------
     rollout_phases(card, serving_rps)
+
+    # ---- 21. adaptive capacity and the elastic drill ------------------------
+    adaptive_phases(card)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

@@ -14,19 +14,25 @@ Counterpart of ``dist_svgd_tpu/serving`` with the same ``__all__``:
 - :mod:`server`   — :class:`PredictionServer`, a stdlib HTTP front end;
 - :mod:`registry` — :class:`ModelRegistry`: many tenants behind one
   process, one batcher, one checkpoint scanner and one
-  :class:`KernelBucketLRU`.
+  :class:`KernelBucketLRU`;
+- :mod:`autoscale` — :class:`AutoscaleController` /
+  :class:`AutoscalePolicy`: the SLO-burn-driven control loop that retunes
+  the batcher's lanes, coalescing window and tenant quotas live.
 
 Not ported yet, and their names raise ``NotImplementedError`` naming
 ROADMAP A9: the serving fleet (``FleetRouter``, ``MetricsFederation``,
 ``ReplicaSet``, ``HttpTransport``, ``FakeTransport``, ``LoopbackReplica``
-— JAX's ``serving/fleet.py``) and the autoscale controller
-(``AutoscaleController``, ``AutoscalePolicy`` — ``serving/autoscale.py``).
+— JAX's ``serving/fleet.py``).
 
 The load generator is ``python -m dist_svgd_torch.tools.serve_bench``; the
 Covertype train → checkpoint → serve demo is ``python -m
 dist_svgd_torch.experiments.serve_covertype``.
 """
 
+from dist_svgd_torch.serving.autoscale import (
+    AutoscaleController,
+    AutoscalePolicy,
+)
 from dist_svgd_torch.serving.batcher import MicroBatcher, Overloaded
 from dist_svgd_torch.serving.engine import (
     CheckpointHotReloader,
@@ -65,7 +71,6 @@ _UNPORTED = {
     "fleet.py (the serving fleet)": (
         "FleetRouter", "MetricsFederation", "ReplicaSet", "HttpTransport",
         "FakeTransport", "LoopbackReplica"),
-    "autoscale.py (the autoscale controller)": ("AutoscaleController", "AutoscalePolicy"),
 }
 
 

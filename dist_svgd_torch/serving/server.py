@@ -21,9 +21,9 @@ and ``main``), with every route:
 - ``GET  /slo``          — the declarative SLO engine's evaluation;
 - ``GET  /usage``        — per-tenant cost accounting
   (``telemetry/usage.py:usage_summary``);
-- ``GET  /autoscale``    — 404, as JAX's answers without a controller: the
-  adaptive-capacity controller is ROADMAP A9's (``autoscale=`` and
-  ``--autoscale`` raise ``NotImplementedError`` naming it).
+- ``GET  /autoscale``    — the adaptive-capacity controller's status
+  (``serving/autoscale.py``: live lanes / coalescing window / quota
+  scale, bounds, streaks, the recent decision log); 404 without one.
 
 ``ThreadingHTTPServer`` runs one thread per in-flight request, parked on
 the batcher's future — the concurrency the micro-batcher coalesces across.
@@ -51,6 +51,7 @@ import torch
 
 import math
 
+from dist_svgd_torch.serving.autoscale import AutoscaleController, AutoscalePolicy
 from dist_svgd_torch.serving.batcher import MicroBatcher, Overloaded
 from dist_svgd_torch.serving.engine import PredictiveEngine
 from dist_svgd_torch.serving.registry import ModelRegistry
@@ -150,12 +151,22 @@ class PredictionServer:
         #: The declarative SLO engine served at ``/slo`` (pass ``slo=`` to
         #: replace the default serve-p99/shed/error objective set).
         self.slo_engine = slo
-        # the adaptive-capacity controller (JAX's serving/autoscale.py) is
-        # ROADMAP A9's: /autoscale answers as JAX's does without one
+        #: Optional :class:`~dist_svgd_torch.serving.autoscale.
+        #: AutoscaleController`.  ``autoscale=True`` builds the default
+        #: controller over this server's batcher (+ registry quotas in
+        #: multi-tenant mode); a controller instance is used as-is.  The
+        #: server starts it with :meth:`start` (unless it already runs)
+        #: and stops it on :meth:`shutdown`; its status is served at
+        #: ``/autoscale``.
+        self.autoscale = None
         if autoscale:
-            raise NotImplementedError(
-                "PredictionServer(autoscale=...): the autoscale controller "
-                "(serving/autoscale.py) is not ported to PyTorch yet (ROADMAP A9)")
+            if autoscale is True:
+                autoscale = AutoscaleController(
+                    self.batcher, metrics=self.registry,
+                    model_registry=self.model_registry,
+                    policy=AutoscalePolicy(p99_target_ms=slo_p99_ms),
+                )
+            self.autoscale = autoscale
         self._started = time.time()
 
         server = self  # close over for the handler class
@@ -230,8 +241,11 @@ class PredictionServer:
                 elif path == "/usage":
                     self._reply(200, server.usage())
                 elif path == "/autoscale":
-                    self._reply(404, {"error": "no autoscale "
-                                      "controller on this server"})
+                    if server.autoscale is None:
+                        self._reply(404, {"error": "no autoscale "
+                                          "controller on this server"})
+                    else:
+                        self._reply(200, server.autoscale.status())
                 else:
                     self._reply(404, {"error": f"no route {self.path}"})
 
@@ -477,6 +491,8 @@ class PredictionServer:
                 target=self._httpd.serve_forever, name="http-serve", daemon=True
             )
             self._serve_thread.start()
+        if self.autoscale is not None and self.autoscale._thread is None:
+            self.autoscale.start()
         return self
 
     def serve_forever(self) -> None:
@@ -503,6 +519,10 @@ class PredictionServer:
         flush the batcher queue (and, in registry mode, stop the
         checkpoint scanner and close the registry)."""
         self.begin_drain()
+        if self.autoscale is not None:
+            # stop retuning first: a controller acting on a draining
+            # batcher would race the close below
+            self.autoscale.stop()
         self._httpd.shutdown()
         self._httpd.server_close()  # joins non-daemon handler threads
         if self._serve_thread is not None:
@@ -567,14 +587,15 @@ def main(argv=None):
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--max-queue-rows", type=int, default=8192)
     ap.add_argument("--autoscale", action="store_true",
-                    help="the SLO-burn-driven capacity controller: not "
-                         "ported (ROADMAP A9)")
-    for flag, kind in (("--autoscale-lanes-max", int),
-                       ("--autoscale-wait-max-ms", float),
-                       ("--autoscale-p99-ms", float),
-                       ("--autoscale-interval-s", float)):
-        ap.add_argument(flag, type=kind, default=None,
-                        help="an --autoscale setting: not ported (ROADMAP A9)")
+                    help="run the SLO-burn-driven capacity controller "
+                         "(serving/autoscale.py): retunes batcher lanes, "
+                         "the coalescing window, and tenant quotas live; "
+                         "status at /autoscale")
+    ap.add_argument("--autoscale-lanes-max", type=int, default=4)
+    ap.add_argument("--autoscale-wait-max-ms", type=float, default=16.0)
+    ap.add_argument("--autoscale-p99-ms", type=float, default=100.0,
+                    help="the latency objective the controller defends")
+    ap.add_argument("--autoscale-interval-s", type=float, default=0.25)
     ap.add_argument("--request-log", default=None,
                     help="JSONL per-request record path (utils/metrics.py)")
     ap.add_argument("--trace-export", default=None, metavar="PATH",
@@ -601,12 +622,6 @@ def main(argv=None):
 
     if (args.checkpoint is None) == (args.tenants_config is None):
         ap.error("pass exactly one of --checkpoint or --tenants-config")
-    autoscale_set = [f"--{k.replace('_', '-')}" for k, v in vars(args).items()
-                     if k.startswith("autoscale") and v not in (None, False)]
-    if autoscale_set:
-        raise NotImplementedError(
-            f"{' '.join(autoscale_set)}: the autoscale controller "
-            "(serving/autoscale.py) is not ported to PyTorch yet (ROADMAP A9)")
     shards = args.shards
     if shards == 0:
         shards = torch.cuda.device_count() if args.device != "cpu" else 1
@@ -665,6 +680,16 @@ def main(argv=None):
         tracer.set_process(
             "replica",
             args.replica_name or f"{args.host}:{args.port}")
+    if args.autoscale:
+        srv.autoscale = AutoscaleController(
+            srv.batcher, metrics=srv.registry,
+            model_registry=srv.model_registry,
+            policy=AutoscalePolicy(
+                lanes_max=args.autoscale_lanes_max,
+                max_wait_ms_max=args.autoscale_wait_max_ms,
+                p99_target_ms=args.autoscale_p99_ms,
+            ),
+        ).start(args.autoscale_interval_s)
     print(json.dumps({"serving": srv.url, **srv.health()}), flush=True)
     try:
         srv.serve_forever()

@@ -1,14 +1,14 @@
 """Trace-driven workload replay: production-shaped traffic against the
-serving stack — the trace core.
+serving stack.
 
-Counterpart of ``tools/workload_replay.py:71-466``: the seeded workload
-model, the open-loop replayer and the window metrics, which the rollout
-drill (``dist_svgd_torch/tools/rollout_drill.py``) replays its phases
-with.  ``tools/serve_bench.py``'s closed/open loops answer "how fast is the
-request path" at a FIXED rate and request shape.  Millions of users do not
-offer fixed-rate traffic: rates swing diurnally, bursts arrive in Poisson
-clumps, request sizes are heavy-tailed, and tenant demand is skewed with
-occasional flash crowds.  This module generates that shape as a **fully
+Counterpart of ``tools/workload_replay.py``: the seeded workload model,
+the open-loop replayer and the window metrics (the rollout drill,
+``dist_svgd_torch/tools/rollout_drill.py``, replays its phases with them),
+and the ``serve_storm`` row.  ``tools/serve_bench.py``'s closed/open loops
+answer "how fast is the request path" at a FIXED rate and request shape.
+Millions of users do not offer fixed-rate traffic: rates swing
+diurnally, bursts arrive in Poisson clumps, request sizes are
+heavy-tailed, and tenant demand is skewed with occasional flash crowds.  This module generates that shape as a **fully
 seeded, deterministic trace** (the same events as JAX's on the same
 config: the draws are numpy's) and replays it open-loop (latency charged
 from the *scheduled* arrival — no coordinated omission) against an
@@ -29,22 +29,55 @@ in-process ``MicroBatcher``+engine / ``ModelRegistry``, or a live
 - :func:`window_metrics`, :func:`p99_breach_seconds`,
   :func:`time_to_recover`, :func:`mirror_counts` — the aggregates;
 - :func:`make_submit` / :func:`make_http_submit` — the in-process and
-  HTTP transports.
+  HTTP transports;
+- :func:`run_storm` / :func:`storm_ok` — the ``serve_storm`` row: one
+  seeded steady → flash-crowd → recovery trace replayed against two static
+  batcher configurations and against the autoscale controller
+  (``serving/autoscale.py``), under ``parallel/plan.py:capture_sentry``;
+- :func:`main` — the ``storm`` / ``trace`` / ``replay`` CLI.
 
-The ``serve_storm`` half — :func:`run_storm` (the autoscale controller's
-A/B against static configurations), :func:`storm_ok`,
-:func:`default_lanes_max`, the fleet transports
-(:func:`build_fake_fleet`, :func:`make_router_submit`) and the CLI
-(:func:`main`) — needs the autoscale controller and the fleet, not ported
-yet: each raises ``NotImplementedError`` naming ROADMAP A9.
+The fleet transports (:func:`build_fake_fleet`, :func:`make_router_submit`,
+``--fleet``) need the serving fleet (``serving/fleet.py``), not ported yet:
+they raise ``NotImplementedError`` naming ROADMAP A9.
+
+Usage (the card unless ``--device cpu``)::
+
+    python -m dist_svgd_torch.tools.workload_replay              # the storm row
+    python -m dist_svgd_torch.tools.workload_replay --mode trace --tenants 3
+    python -m dist_svgd_torch.tools.workload_replay --mode replay [--url URL]
 """
 
+import argparse
 import json
 import math
+import os
+import sys
 import threading
 import time
 
-from dist_svgd_torch.serving.batcher import _percentile
+import numpy as np
+
+from dist_svgd_torch import telemetry
+from dist_svgd_torch.parallel.plan import capture_sentry
+from dist_svgd_torch.serving import (
+    AutoscaleController,
+    AutoscalePolicy,
+    MicroBatcher,
+    ModelRegistry,
+)
+from dist_svgd_torch.serving.batcher import Overloaded, _percentile
+from dist_svgd_torch.tools import serve_bench
+from dist_svgd_torch.utils.platform import resolve_device
+
+#: The storm's settle pauses, JAX's values: after the warm (the warm's
+#: sustained burn must not bill a throttled host into the capacity anchor),
+#: between the capacity probe's samples, after the probes, and before each
+#: arm (the previous arm's drain must not land in this arm's steady phase).
+#: The replay's own pacing is separate and never shortened.
+WARM_SETTLE_S = 4.0
+PROBE_GAP_S = 0.75
+PROBE_SETTLE_S = 2.0
+ARM_SETTLE_S = 1.0
 
 
 # --------------------------------------------------------------------- #
@@ -182,8 +215,6 @@ def generate_trace(cfg: TraceConfig):
     determinism test pins it).  Poisson arrivals use thinning against the
     peak-rate envelope, so the schedule is an exact non-homogeneous
     Poisson draw."""
-    import numpy as np
-
     rng = np.random.default_rng(cfg.seed)
     size_probs = cfg._size_probs()
     size_idx = np.arange(len(cfg.rows_sizes))
@@ -242,8 +273,6 @@ def replay(events, submit, *, clock=time.perf_counter, sleep=time.sleep,
     charged from the *scheduled* arrival, so queue backlog shows up in the
     numbers instead of hiding in the generator (no coordinated omission).
     """
-    from dist_svgd_torch.serving.batcher import Overloaded
-
     lock = threading.Lock()
     records = [None] * len(events)
     pending = []
@@ -418,8 +447,6 @@ def make_http_submit(url, max_workers=32):
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
-    from dist_svgd_torch.serving.batcher import Overloaded
-
     pool = ThreadPoolExecutor(max_workers=max_workers)
 
     def post(ev, x):
@@ -450,43 +477,502 @@ def make_http_submit(url, max_workers=32):
 
 
 # --------------------------------------------------------------------- #
-# the serve_storm half: the autoscale controller and the fleet
+# the fleet transports: ROADMAP A9
 
 
-def _storm_unported(name):
+def _fleet_unported(name):
     raise NotImplementedError(
-        f"workload_replay.{name} belongs to the serve_storm A/B, which needs the "
-        "autoscale controller (serving/autoscale.py) and the serving fleet "
-        "(serving/fleet.py), not ported to PyTorch yet (ROADMAP A9)")
+        f"workload_replay.{name} needs the serving fleet (serving/fleet.py), "
+        "not ported to PyTorch yet (ROADMAP A9)")
 
 
 def make_router_submit(router, max_workers=16):
     """Fleet transport (a ``FleetRouter`` front door): ROADMAP A9."""
-    _storm_unported("make_router_submit")
+    _fleet_unported("make_router_submit")
 
 
 def build_fake_fleet(replicas=3, *, max_replica_rows=64, tenants=(),
                      probe_interval_s=0.2, registry=None):
     """A ``FleetRouter`` over loopback replicas: ROADMAP A9."""
-    _storm_unported("build_fake_fleet")
+    _fleet_unported("build_fake_fleet")
+
+
+# --------------------------------------------------------------------- #
+# the serve_storm row
+
+
+def _saturated_rows_capacity(submit, pool, *, sustainable_frac=0.55,
+                             clients=24, requests=360):
+    """Throughput-anchored capacity probe: a saturated closed loop over
+    the STEADY request mix measures the pipeline's ROW ceiling (total
+    rows served over wall — a count, so host latency jitter cancels out
+    of it), and ``sustainable_frac`` of that ceiling is the anchor every
+    storm rate derives from.  Latency-bounded ramp probes read far apart
+    run to run on a shared host (the p99 jitter floor sits where a health
+    bound has to), and a big-request-only probe over-reads the mixed
+    ceiling (big batches amortise the per-REQUEST host cost that binds
+    the steady mix), so the probe replays the real mix."""
+    def rows_of(item):
+        arr = item[1] if isinstance(item, tuple) else item
+        return arr.shape[0]
+
+    mean_rows = sum(rows_of(it) for it in pool) / len(pool)
+    # the median of five spaced samples: a host's speed swings on a
+    # seconds timescale, and one sample would anchor a whole storm to
+    # whichever extreme it landed on
+    samples = []
+    for i in range(5):
+        closed = serve_bench.closed_loop(submit, pool, clients,
+                                         max(requests // 3, 60))
+        samples.append(closed["rps"])
+        if i < 4:
+            time.sleep(PROBE_GAP_S)
+    samples.sort()
+    return sustainable_frac * samples[2] * mean_rows
 
 
 def default_lanes_max() -> int:
-    """The storm's adaptive-arm lane ceiling: ROADMAP A9."""
-    _storm_unported("default_lanes_max")
+    """Host-derived lane ceiling for the storm's adaptive arm: extra
+    dispatch lanes only help when there are host cores for their threads
+    (each lane is a Python thread that copies in, launches and fetches),
+    so the bound follows the host: half its cores, at most 4."""
+    return max(1, min(4, (os.cpu_count() or 2) // 2))
 
 
-def run_storm(*args, **kwargs):
-    """The ``serve_storm`` row (static arms against the autoscale
-    controller): ROADMAP A9."""
-    _storm_unported("run_storm")
+def run_storm(model="logreg", n_particles=4000, n_features=54, seed=0,
+              steady_s=5.0, burst_s=5.0, recover_s=5.0, burst_mult=2.0,
+              util=0.45, p99_target_ms=25.0, max_batch=256,
+              max_queue_rows=512, base_lanes=1, base_wait_ms=2.0,
+              lanes_max=None, wait_max_ms=16.0, interval_s=0.25,
+              rows_sizes=(1, 2, 4, 8, 16, 32), rows_alpha=1.3,
+              flash_rows_sizes=(16, 32, 64), tenants=3,
+              calib_requests=400, include_static=True, device=None):
+    """Measure the ``serve_storm`` row: a multi-tenant registry (serving
+    on ``device``: the card unless ``'cpu'``) under the identical seeded
+    steady → flash-crowd-burst → recovery trace, replayed against static
+    configurations and against the autoscale controller — one set of
+    warmed engines, every timed arm under ``capture_sentry``.
+
+    The burst is a **flash crowd**: one tenant (``hog``) floods the
+    shared queue with heavy requests (``flash_rows_sizes``) at an offered
+    ROW rate of ``burst_mult ×`` its measured capacity, while the polite
+    tenants keep their steady demand.  A static configuration admits the
+    flood FIFO, so every tenant's queue delay grows to the full bound
+    (``max_queue_rows`` rows of backlog ahead of each arrival); the
+    controller tightens quotas into admission-enforced mode, keeping the
+    hog's queue occupancy — and so everyone's delay — bounded, and sheds
+    the flood at arrival instead of after it has queued.
+
+    Arms: ``static_base`` (server defaults), ``static_burst`` (the
+    controller's upper window/lane bounds held always — pays the
+    coalescing floor at steady), ``adaptive``.  ``value`` /
+    ``storm_goodput_2x`` is the adaptive arm's whole-trace POLITE
+    goodput (non-hog completions within ``p99_target_ms`` per second);
+    ``storm_p99_breach_s`` / ``storm_recover_s`` are judged over the
+    polite completions too.  The A/B block compares against the best
+    static arm per metric.
+    """
+    if tenants < 2:
+        raise ValueError(
+            "run_storm needs >= 2 tenants (a hog and at least one polite "
+            f"tenant), got {tenants}; use --mode replay for single-tenant "
+            "experiments"
+        )
+    dev = resolve_device(device)
+    if lanes_max is None:
+        lanes_max = default_lanes_max()
+    lanes_max = max(lanes_max, base_lanes)
+    duration = steady_s + burst_s + recover_s
+    hog = "hog"
+    polite_names = [f"svc-{i}" for i in range(tenants - 1)]
+    names = polite_names + [hog]
+
+    metrics = telemetry.MetricsRegistry()
+    reg = ModelRegistry(
+        metrics=metrics, max_total_buckets=8 * tenants,
+        max_batch=max_batch, lanes=base_lanes, max_wait_ms=base_wait_ms,
+        max_queue_rows=max_queue_rows)
+    rng = np.random.default_rng(seed)
+    feature_dim = n_features
+    for name in names:
+        parts = rng.normal(size=(n_particles, 1 + feature_dim))
+        reg.add_tenant(name, model, particles=parts.astype(np.float32),
+                       min_bucket=8, max_bucket=max_batch,
+                       quota_rows=max_queue_rows, device=dev)
+    reg.warm()  # every reachable bucket captured, all tenants
+    time.sleep(WARM_SETTLE_S)
+    all_sizes = tuple(sorted(set(rows_sizes) | set(flash_rows_sizes)))
+    pools = serve_bench.request_pool_by_size(
+        feature_dim, all_sizes, per_size=32, seed=seed + 1)
+
+    # TWO anchors, both probed THROUGH the registry, because the two
+    # phases they size are bound by different constraints:
+    # - the STEADY anchor replays the steady reality — tenant-interleaved
+    #   heavy-tailed small requests, whose single-tenant coalescing gives
+    #   run-length-one batches; the steady rate must be sustainable under
+    #   exactly that penalty;
+    # - the HOG anchor is one tenant's flash-size stream — long same-
+    #   tenant runs coalesce into full batches, so 2× THIS ceiling is a
+    #   genuine overload even for the best-batching flood imaginable.
+    size_probs = TraceConfig(rows_sizes=rows_sizes,
+                             rows_alpha=rows_alpha)._size_probs()
+    prng = np.random.default_rng(seed + 7)
+    probe_sizes = [rows_sizes[int(prng.choice(len(rows_sizes),
+                                              p=size_probs))]
+                   for _ in range(96)]
+    steady_pool = [(names[i % len(names)], pools[r][i % len(pools[r])])
+                   for i, r in enumerate(probe_sizes)]
+    probe_requests = max(min(calib_requests, 240), 120)
+    capacity_rows = _saturated_rows_capacity(
+        lambda item: reg.submit(item[0], item[1]), steady_pool,
+        requests=probe_requests)
+    big = max(flash_rows_sizes)
+    hog_pool = [(hog, pools[big][i % len(pools[big])]) for i in range(48)]
+    hog_capacity_rows = _saturated_rows_capacity(
+        lambda item: reg.submit(item[0], item[1]), hog_pool,
+        requests=probe_requests)
+    time.sleep(PROBE_SETTLE_S)
+    mean_rows = sum(r * p for r, p in zip(rows_sizes, size_probs))
+    capacity_rps = capacity_rows / mean_rows
+    mean_flash_rows = sum(flash_rows_sizes) / len(flash_rows_sizes)
+    hog_burst_rps = burst_mult * hog_capacity_rows / mean_flash_rows
+
+    base_rps = util * capacity_rps
+    cfg = TraceConfig(
+        duration_s=duration, base_rps=base_rps, seed=seed,
+        diurnal_amp=0.1, rows_sizes=rows_sizes, rows_alpha=rows_alpha,
+        tenants=tuple(names), tenant_skew=0.5,
+    )
+    # the flash crowd rides a second seeded trace merged in: the hog
+    # offers burst_mult × capacity in ROWS (heavy requests, uniform over
+    # flash_rows_sizes) for exactly the burst window
+    flash_cfg = TraceConfig(
+        duration_s=burst_s, base_rps=hog_burst_rps, seed=seed + 101,
+        diurnal_amp=0.0, rows_sizes=flash_rows_sizes, rows_alpha=0.0,
+        tenants=(hog,),
+    )
+    events = generate_trace(cfg)
+    for ev in generate_trace(flash_cfg):
+        ev.t += steady_s
+        events.append(ev)
+    events.sort(key=lambda e: e.t)
+    submit = make_submit(reg.batcher, pools, model_registry=reg)
+
+    arms = {}
+    if include_static:
+        arms["static_base"] = dict(lanes=base_lanes, wait=base_wait_ms,
+                                   adaptive=False)
+        arms["static_burst"] = dict(lanes=lanes_max, wait=wait_max_ms,
+                                    adaptive=False)
+    arms["adaptive"] = dict(lanes=base_lanes, wait=base_wait_ms,
+                            adaptive=True)
+
+    def lat_stats(records):
+        lats = sorted(r["lat_ms"] for r in records if r["status"] == "ok")
+        return (round(_percentile(lats, 0.50), 3),
+                round(_percentile(lats, 0.99), 3))
+
+    results = {}
+    misses_before = sum(reg.tenant(n).engine.stats()["bucket_misses"]
+                        for n in names)
+    with capture_sentry("serve_storm timed replays") as sentry:
+        for arm_name, arm in arms.items():
+            # ONE registry across arms (fresh engines would capture inside
+            # the sentried window): retune the live knobs between arms
+            # through the same seams the controller uses
+            reg.batcher.set_lanes(arm["lanes"])
+            reg.batcher.set_max_wait_ms(arm["wait"])
+            reg.batcher.set_quota_mode("overflow")
+            for n in names:
+                reg.set_quota(n, max_queue_rows)
+            time.sleep(ARM_SETTLE_S)
+            controller = None
+            if arm["adaptive"]:
+                controller = AutoscaleController(
+                    reg.batcher, metrics=metrics, model_registry=reg,
+                    policy=AutoscalePolicy(
+                        lanes_max=lanes_max, max_wait_ms_max=wait_max_ms,
+                        p99_target_ms=p99_target_ms,
+                        # the tightened per-tenant bound: a hog holds at
+                        # most this share of the queue while overloaded
+                        quota_tighten_frac=0.125,
+                        # fast ramp (a burst eats its phase while a slow
+                        # controller deliberates) but TWO consecutive
+                        # overload windows to act — a single host-stall
+                        # spike in one window must not flap the knobs
+                        cooldown_s=interval_s,
+                        up_consecutive=2,
+                        down_consecutive=max(2, int(0.75 / interval_s)),
+                    ))
+                controller.start(interval_s)
+            try:
+                records = replay(events, submit)
+            finally:
+                if controller is not None:
+                    controller.stop()
+            # drain between arms: the next arm's records must not queue
+            # behind this one's tail
+            deadline = time.monotonic() + 30.0
+            while (reg.batcher.queued_rows() > 0
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            polite = [r for r in records if r["tenant"] != hog]
+            hog_recs = [r for r in records if r["tenant"] == hog]
+            whole = window_metrics(records, 0.0, duration, p99_target_ms)
+            p_burst = window_metrics(polite, steady_s, steady_s + burst_s,
+                                     p99_target_ms)
+            p_burst["p50_ms"], p_burst["p99_ms"] = lat_stats(
+                [r for r in polite if steady_s <= r["t"] < steady_s + burst_s])
+            results[arm_name] = {
+                "lanes": arm["lanes"], "max_wait_ms": arm["wait"],
+                "adaptive": arm["adaptive"],
+                "goodput_rps": whole["goodput_rps"],
+                "polite_goodput_rps": window_metrics(
+                    polite, 0.0, duration, p99_target_ms)["goodput_rps"],
+                "p99_breach_s": p99_breach_seconds(
+                    polite, p99_target_ms, duration),
+                "recover_s": time_to_recover(
+                    polite, steady_s + burst_s, p99_target_ms, duration),
+                "shed": whole["shed"],
+                "errors": whole["errors"],
+                "lost": whole["lost"],
+                "hog": {"offered": len(hog_recs),
+                        "completed": sum(1 for r in hog_recs
+                                         if r["status"] == "ok"),
+                        "shed": sum(1 for r in hog_recs
+                                    if r["status"] == "shed")},
+                "phases": {
+                    "steady": window_metrics(polite, 0.0, steady_s,
+                                             p99_target_ms),
+                    "burst_polite": p_burst,
+                    "recover": window_metrics(polite, steady_s + burst_s,
+                                              duration, p99_target_ms),
+                },
+            }
+            if controller is not None:
+                st = controller.status()
+                results[arm_name]["controller"] = {
+                    "steps": st["steps"], "actions": st["actions"],
+                    "final_lanes": st["lanes"],
+                    "final_max_wait_ms": st["max_wait_ms"],
+                    "final_quota_scale": st["quota_scale"],
+                }
+    recompiles = sum(reg.tenant(n).engine.stats()["bucket_misses"]
+                     for n in names) - misses_before
+    reg.close(drain=True)
+
+    adaptive = results["adaptive"]
+    ab = None
+    if include_static:
+        # the A/B is judged on the POLITE tenants — the traffic the SLO
+        # protects while a hog floods.  Total goodput is reported per arm
+        # but not judged: a static arm fast enough to absorb the flood
+        # "wins" total goodput by serving hostile excess the controller
+        # deliberately refuses at admission.
+        statics = {k: v for k, v in results.items() if not v["adaptive"]}
+        best_goodput = max(v["polite_goodput_rps"] for v in statics.values())
+        best_breach = min(v["p99_breach_s"] for v in statics.values())
+        best_recover = min(v["recover_s"] for v in statics.values())
+        ab = {
+            "best_static_polite_goodput_rps": best_goodput,
+            "best_static_p99_breach_s": best_breach,
+            "best_static_recover_s": best_recover,
+            "goodput_ratio": round(
+                adaptive["polite_goodput_rps"] / best_goodput, 3)
+            if best_goodput else None,
+            "breach_delta_s": round(
+                best_breach - adaptive["p99_breach_s"], 3),
+            "adaptive_wins": bool(
+                adaptive["polite_goodput_rps"] > best_goodput
+                and adaptive["p99_breach_s"] < best_breach),
+        }
+
+    return {
+        "metric": "serve_storm",
+        "unit": "good polite requests/sec over the storm",
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        "model": model,
+        "n_particles": n_particles,
+        "tenants": tenants,
+        "trace": {"events": len(events), "seed": seed,
+                  "duration_s": duration, "steady_s": steady_s,
+                  "burst_s": burst_s, "recover_s": recover_s,
+                  "burst_mult": burst_mult, "util": util,
+                  "base_rps": round(base_rps, 1),
+                  "hog_burst_rps": round(hog_burst_rps, 1),
+                  "rows_sizes": list(rows_sizes),
+                  "flash_rows_sizes": list(flash_rows_sizes),
+                  "rows_alpha": rows_alpha},
+        "capacity_rps": round(capacity_rps, 1),
+        "capacity_rows_per_s": round(capacity_rows, 1),
+        "hog_capacity_rows_per_s": round(hog_capacity_rows, 1),
+        "p99_target_ms": p99_target_ms,
+        "max_batch": max_batch, "max_queue_rows": max_queue_rows,
+        "bounds": {"lanes": [base_lanes, lanes_max],
+                   "max_wait_ms": [base_wait_ms, wait_max_ms]},
+        "value": adaptive["polite_goodput_rps"],
+        "storm_goodput_2x": adaptive["polite_goodput_rps"],
+        "storm_total_goodput_rps": adaptive["goodput_rps"],
+        "storm_p99_breach_s": adaptive["p99_breach_s"],
+        "storm_recover_s": adaptive["recover_s"],
+        "arms": results,
+        "ab": ab,
+        "lost_requests": sum(v["lost"] + v["errors"]
+                             for v in results.values()),
+        "shed_requests": sum(v["shed"] for v in results.values()),
+        "recompiles": recompiles,
+        # the port's sentry counts CUDA-graph captures and hand-kernel
+        # builds, JAX's counts XLA compiles; both are "new programs"
+        "sentry_compiles": sentry.compiles if sentry.supported else None,
+    }
 
 
 def storm_ok(row):
-    """The ``serve_storm`` row's gates: ROADMAP A9."""
-    _storm_unported("storm_ok")
+    """The unconditional ``serve_storm`` correctness gates — reasons a
+    row FAILs regardless of its throughput numbers.  Returns
+    ``(ok, [why...])``."""
+    why = []
+    if row.get("lost_requests"):
+        why.append(f"{row['lost_requests']} non-shed request(s) lost or "
+                   "errored — every admitted request must resolve")
+    if row.get("recompiles"):
+        why.append(f"{row['recompiles']} steady-state bucket recompile(s) "
+                   "in the replay windows")
+    if row.get("sentry_compiles"):
+        why.append(f"{row['sentry_compiles']} CUDA-graph capture(s) or "
+                   "kernel build(s) inside the sentried replay windows")
+    for name, arm in row.get("arms", {}).items():
+        phases = arm["phases"]
+        total = sum(p["offered"] for p in phases.values())
+        accounted = sum(p["completed"] + p["shed"] + p["errors"] + p["lost"]
+                        for p in phases.values())
+        if total != accounted:
+            why.append(f"arm {name}: {total} offered but {accounted} "
+                       "accounted — records leaked")
+    return (not why), why
+
+
+# --------------------------------------------------------------------- #
 
 
 def main(argv=None):
-    """The storm / trace / replay CLI: ROADMAP A9."""
-    _storm_unported("main")
+    ap = argparse.ArgumentParser(
+        prog="python -m dist_svgd_torch.tools.workload_replay",
+        description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("storm", "trace", "replay"),
+                    default="storm")
+    ap.add_argument("--model", choices=("logreg", "bnn", "gmm"),
+                    default="logreg")
+    ap.add_argument("--n-particles", type=int, default=4000)
+    ap.add_argument("--n-features", type=int, default=54)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steady-s", type=float, default=5.0)
+    ap.add_argument("--burst-s", type=float, default=5.0)
+    ap.add_argument("--recover-s", type=float, default=5.0)
+    ap.add_argument("--burst-mult", type=float, default=2.0,
+                    help="burst offered rate as a multiple of the "
+                         "measured base-config capacity")
+    ap.add_argument("--util", type=float, default=0.45,
+                    help="steady offered rate as a fraction of capacity")
+    ap.add_argument("--p99-target-ms", type=float, default=25.0)
+    ap.add_argument("--max-batch", type=int, default=256)
+    ap.add_argument("--max-queue-rows", type=int, default=512)
+    ap.add_argument("--lanes-max", type=int, default=None,
+                    help="adaptive lane ceiling (default: host-derived)")
+    ap.add_argument("--wait-max-ms", type=float, default=16.0)
+    ap.add_argument("--interval-s", type=float, default=0.25,
+                    help="adaptive controller cadence")
+    ap.add_argument("--rows", default="1,2,4,8,16,32",
+                    help="request-size support of the heavy-tailed draw")
+    ap.add_argument("--rows-alpha", type=float, default=1.3)
+    ap.add_argument("--base-rps", type=float, default=200.0,
+                    help="trace/replay modes: baseline rate (storm mode "
+                         "calibrates its own)")
+    ap.add_argument("--duration-s", type=float, default=24.0,
+                    help="trace/replay modes: trace length")
+    ap.add_argument("--tenants", type=int, default=3,
+                    help="storm mode: tenant count (one hog + N-1 polite); "
+                         "trace mode: tenant count for the skewed mix")
+    ap.add_argument("--flash-rows", default="16,32,64",
+                    help="storm mode: the flash crowd's heavy request "
+                         "sizes")
+    ap.add_argument("--url", default=None,
+                    help="replay mode: live serving.server base URL "
+                         "(default replays in-process)")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="replay mode: route through an N-replica "
+                         "in-process fake fleet: not ported (ROADMAP A9)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="default: the card (fails without CUDA)")
+    args = ap.parse_args(argv)
+
+    rows = tuple(int(r) for r in args.rows.split(","))
+    if args.mode == "storm":
+        out = run_storm(
+            model=args.model, n_particles=args.n_particles,
+            n_features=args.n_features, seed=args.seed,
+            steady_s=args.steady_s, burst_s=args.burst_s,
+            recover_s=args.recover_s, burst_mult=args.burst_mult,
+            util=args.util, p99_target_ms=args.p99_target_ms,
+            max_batch=args.max_batch, max_queue_rows=args.max_queue_rows,
+            lanes_max=args.lanes_max, wait_max_ms=args.wait_max_ms,
+            interval_s=args.interval_s, rows_sizes=rows,
+            rows_alpha=args.rows_alpha, tenants=args.tenants,
+            flash_rows_sizes=tuple(
+                int(r) for r in args.flash_rows.split(",")),
+            device=args.device)
+        ok, why = storm_ok(out)
+        out["gates_ok"] = ok
+        if not ok:
+            out["gates_why"] = why
+        print(json.dumps(out), flush=True)
+        return 0 if ok else 1
+    cfg = TraceConfig(
+        duration_s=args.duration_s, base_rps=args.base_rps, seed=args.seed,
+        bursts=((args.steady_s, args.burst_s, args.burst_mult),),
+        rows_sizes=rows, rows_alpha=args.rows_alpha,
+        tenants=tuple(f"t{i}" for i in range(args.tenants)))
+    events = generate_trace(cfg)
+    if args.mode == "trace":
+        print(json.dumps({"config": cfg.to_dict(), "events": len(events),
+                          "head": [{"t": round(e.t, 4), "rows": e.rows,
+                                    "tenant": e.tenant}
+                                   for e in events[:20]]}), flush=True)
+        return 0
+    # replay mode
+    if args.url:
+        pools = serve_bench.request_pool_by_size(
+            args.n_features, rows, per_size=32, seed=args.seed + 1)
+        transport = make_http_submit(args.url)
+        records = replay(events, transport(pools))
+        transport.shutdown(wait=False)
+    elif args.fleet:
+        _fleet_unported("main --fleet")
+    else:
+        engine = serve_bench.build_engine(
+            args.model, args.n_particles, args.n_features, None, args.seed,
+            max_bucket=args.max_batch,
+            registry=telemetry.MetricsRegistry(), device=args.device)
+        engine.warmup()
+        pools = serve_bench.request_pool_by_size(
+            engine.feature_dim, rows, per_size=32, seed=args.seed + 1)
+        bat = MicroBatcher(engine.predict, max_batch=args.max_batch,
+                           max_queue_rows=args.max_queue_rows,
+                           registry=telemetry.MetricsRegistry())
+        try:
+            records = replay(events, make_submit(bat, pools))
+        finally:
+            bat.close(drain=True)
+    print(json.dumps({
+        "metric": "workload_replay",
+        "config": cfg.to_dict(),
+        "whole": window_metrics(records, 0.0, cfg.duration_s,
+                                args.p99_target_ms),
+        "p99_breach_s": p99_breach_seconds(records, args.p99_target_ms,
+                                           cfg.duration_s),
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

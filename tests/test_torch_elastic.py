@@ -12,7 +12,9 @@ final particles at 1e-10 and every ``reshard_events`` value but the walls.
 Then the device-loss divisor and the replicate strategy, back-to-back
 faults, same-count duals, no policy, the shared budget, the elastic
 telemetry and flight record, the RFF bank across a reshard, a corrupt
-manifest, and policy validation."""
+manifest, and policy validation.  After the reshard: no capture or kernel
+build in the steady state, the resharded root served, and the elastic
+drill's row (``tools/elastic_drill.py``) with JAX's keys."""
 
 import os
 
@@ -307,3 +309,77 @@ def test_reshard_policy_validation():
         ReshardPolicy(lambda s: tdt.Sampler(D, gmm_logp, device="cpu")).build(2)
     with pytest.raises(ValueError, match="honour"):
         ReshardPolicy(lambda s: make_dist(2)).build(4)
+
+
+# --------------------------------------------------------------------------
+# after the reshard: steady state, serving, the drill (JAX's
+# tests/test_elastic.py:419-495)
+
+
+def test_post_reshard_zero_steady_state_captures_and_builds(tmp_path):
+    """After the reshard, steady-state segments at the new layout capture
+    no CUDA graph and build no kernel (the port's sentry; JAX's counts XLA
+    compiles)."""
+    from dist_svgd_torch.parallel.plan import capture_sentry
+
+    sup, _ = run_supervised(make_dist(8), tmp_path, "steady", reshard=ReshardPolicy(factory),
+                            faults=FaultPlan(MeshShrinkAt(6, 4)))
+    cont = RunSupervisor(sup.sampler, 16, 0.05, segment_steps=2, sleep=lambda s: None)
+    with capture_sentry("post-reshard steady state") as sentry:
+        assert cont.run()["status"] == "completed"
+    assert sentry.supported
+    assert (sentry.captures, sentry.kernel_builds, sentry.compiles) == (0, 0, 0)
+    assert cont.t == 16 and cont.num_shards == 4
+
+
+def test_serve_from_resharded_checkpoint(tmp_path):
+    """The serving engine cold-starts from a post-reshard manager root (the
+    manifest rides the same dict) and serves the full ensemble."""
+    from dist_svgd_torch.serving.engine import PredictiveEngine
+
+    sup, _ = run_supervised(make_dist(8), tmp_path, "serve", reshard=ReshardPolicy(factory),
+                            faults=FaultPlan(MeshShrinkAt(6, 4)))
+    eng = PredictiveEngine.from_checkpoint(os.path.join(str(tmp_path), "serve"),
+                                           model="gmm", device="cpu")
+    assert eng.n_particles == N and eng.checkpoint_step == 12
+    np.testing.assert_array_equal(eng.particles.numpy(), sup.particles.numpy())
+    out = eng.predict(sup.particles.numpy()[:4])
+    assert np.isfinite(out["log_density"]).all()
+
+
+def _jax_drill_row_keys():
+    """The keys of the row JAX's ``tools/elastic_drill.py:run_drill``
+    returns, read from its source."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "tools", "elastic_drill.py")
+    tree = ast.parse(open(path).read())
+    (fn,) = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "run_drill"]
+    (ret,) = [n for n in ast.walk(fn)
+              if isinstance(n, ast.Return) and isinstance(n.value, ast.Dict)]
+    return {k.value for k in ret.value.keys}
+
+
+def test_elastic_drill_row_schema(tmp_path):
+    from dist_svgd_torch.tools import elastic_drill
+
+    row = elastic_drill.run_drill(
+        n=N, shards_from=8, shards_to=4, num_steps=12, checkpoint_every=4,
+        segment_steps=2, shards_grow_from=2, root=str(tmp_path), device="cpu")
+    assert set(row) == _jax_drill_row_keys()
+    assert row["metric"] == "elastic_resume" and row["platform"] == "cpu"
+    assert row["shards_from"] == 8 and row["shards_to"] == 4
+    assert row["steps_lost"] == 2 and row["post_reshard_recompiles"] == 0
+    assert row["fallback_requested"] == 3 and row["fallback_to_shards"] == 1
+    assert elastic_drill.drill_ok(row), row
+    assert not elastic_drill.drill_ok({**row, "post_reshard_recompiles": 1})
+
+
+@pytest.mark.slow
+def test_elastic_drill_default_shape(tmp_path):
+    from dist_svgd_torch.tools import elastic_drill
+
+    row = elastic_drill.run_drill(n=1024, root=str(tmp_path), device="cpu")
+    assert elastic_drill.drill_ok(row), row
+    assert row["post_reshard_recompiles"] == 0

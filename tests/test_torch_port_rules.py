@@ -364,3 +364,47 @@ def test_rollout_history_and_drills_run_with_jax_blocked():
         "print('ok')\n"
     )
     _run_with_jax_blocked(code)
+
+
+def test_autoscale_storm_and_elastic_drill_run_with_jax_blocked():
+    """A process where ``import jax`` (and JAX's tools) fails steps the
+    autoscale controller to a scale-up on a manual clock, runs the storm's
+    helpers and a two-tenant adaptive-only storm of a few seconds with the
+    settle pauses at 0, and the elastic drill at a shrunk size, on the
+    CPU."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "sys.modules['tools'] = None\n"
+        "import tempfile, numpy as np\n"
+        "from dist_svgd_torch.serving import AutoscaleController, AutoscalePolicy, MicroBatcher\n"
+        "from dist_svgd_torch.telemetry import MetricsRegistry\n"
+        "from dist_svgd_torch.tools import elastic_drill, workload_replay as wr\n"
+        "reg = MetricsRegistry()\n"
+        "bat = MicroBatcher(lambda x: {'y': x}, max_batch=8, max_queue_rows=64,\n"
+        "                   registry=reg, autostart=False)\n"
+        "t = [0.0]\n"
+        "c = AutoscaleController(bat, metrics=reg, clock=lambda: t[0],\n"
+        "                        policy=AutoscalePolicy(p99_target_ms=10.0))\n"
+        "h = reg.histogram('svgd_serve_request_latency_seconds', 't')\n"
+        "for _ in range(50): h.observe(0.5)\n"
+        "t[0] += 2.0\n"
+        "assert c.step()['actions'] == ['lanes 1->2', 'max_wait_ms 2->4']\n"
+        "bat.start(); bat.close(drain=True)\n"
+        "assert wr.storm_ok({'lost_requests': 1})[0] is False\n"
+        "assert 1 <= wr.default_lanes_max() <= 4\n"
+        "for k in ('WARM_SETTLE_S', 'PROBE_GAP_S', 'PROBE_SETTLE_S', 'ARM_SETTLE_S'):\n"
+        "    setattr(wr, k, 0.0)\n"
+        "row = wr.run_storm(n_particles=64, n_features=4, steady_s=0.3, burst_s=0.3,\n"
+        "                   recover_s=0.3, max_batch=16, max_queue_rows=64,\n"
+        "                   rows_sizes=(1, 2), flash_rows_sizes=(8,), tenants=2,\n"
+        "                   calib_requests=60, interval_s=0.1, include_static=False,\n"
+        "                   device='cpu')\n"
+        "assert wr.storm_ok(row)[0] and row['sentry_compiles'] == 0\n"
+        "d = elastic_drill.run_drill(n=32, shards_from=4, shards_to=2, num_steps=12,\n"
+        "                            checkpoint_every=4, segment_steps=2, shards_grow_from=2,\n"
+        "                            root=tempfile.mkdtemp(), device='cpu')\n"
+        "assert elastic_drill.drill_ok(d), d\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    _run_with_jax_blocked(code)

@@ -1036,22 +1036,27 @@ def test_unported_options_raise_naming_their_label(rng):
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         make_plan(2, device="cpu")
     for name in ("FleetRouter", "MetricsFederation", "ReplicaSet", "HttpTransport",
-                 "FakeTransport", "LoopbackReplica", "AutoscaleController",
-                 "AutoscalePolicy"):
+                 "FakeTransport", "LoopbackReplica"):
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             getattr(tserving, name)
     from dist_svgd_tpu import serving as jserving
 
     assert tserving.__all__ == jserving.__all__
+    # the autoscale controller is ported: its names resolve, and the server
+    # builds one over its own batcher
+    from dist_svgd_torch.serving.autoscale import AutoscaleController, AutoscalePolicy
+
+    assert tserving.AutoscaleController is AutoscaleController
+    assert tserving.AutoscalePolicy is AutoscalePolicy
     eng = _engine("logreg", parts)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        PredictionServer(eng, port=0, autoscale=True)
-    for argv, label in ((["--autoscale"], "A9"), (["--autoscale-lanes-max", "8"], "A9"),
-                        (["--autoscale-wait-max-ms", "4"], "A9"),
-                        (["--autoscale-p99-ms", "50"], "A9"),
-                        (["--autoscale-interval-s", "1"], "A9"), (["--shards", "2"], "A10")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {label}"):
-            server.main(["--checkpoint", "x", "--device", "cpu", *argv])
+    srv = PredictionServer(eng, port=0, autoscale=True).start()
+    try:
+        assert isinstance(srv.autoscale, AutoscaleController)
+        assert srv.autoscale.batcher is srv.batcher
+    finally:
+        srv.shutdown()
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        server.main(["--checkpoint", "x", "--device", "cpu", "--shards", "2"])
 
 
 # --------------------------------------------------------------------- #

@@ -6,12 +6,20 @@
 The same config draws the same trace in both packages, event for event
 (arrival times, sizes, tenants, pool picks); the replayer classifies the
 same futures the same way; the window aggregates equal JAX's on the same
-records; ``serve_bench.request_pool_by_size`` builds JAX's arrays.  The
-``serve_storm`` half raises naming ROADMAP A9."""
+records; ``serve_bench.request_pool_by_size`` builds JAX's arrays.
+
+The ``serve_storm`` half: ``storm_ok``, ``default_lanes_max``, the
+two-tenant check and ``main --mode trace`` equal JAX's; with the capacity
+probe patched to the same anchors, ``replay`` swapped for a recorder and
+the settle pauses at 0, ``run_storm`` builds JAX's event list and row; the
+port's tiny storm of ``tests/test_workload_replay.py:180-187`` runs end to
+end.  The fleet transports raise naming ROADMAP A9."""
 
 import importlib.util
+import json
 import os
 import sys
+import time
 from concurrent.futures import Future
 
 import numpy as np
@@ -198,10 +206,195 @@ def test_request_pool_by_size_equals_jax():
             assert a.dtype == np.float32 and a.shape == (r, 5)
 
 
-@pytest.mark.parametrize("name,args", [
-    ("run_storm", ()), ("storm_ok", ({},)), ("default_lanes_max", ()),
-    ("build_fake_fleet", ()), ("make_router_submit", (None,)), ("main", ([],)),
-])
-def test_storm_half_raises_naming_a9(name, args):
+# --------------------------------------------------------------------- #
+# the serve_storm half
+
+
+@pytest.mark.parametrize("name,args", [("build_fake_fleet", ()),
+                                       ("make_router_submit", (None,))])
+def test_fleet_transports_raise_naming_a9(name, args):
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         getattr(wr, name)(*args)
+
+
+def test_replay_through_a_fleet_raises_naming_a9():
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        wr.main(["--mode", "replay", "--fleet", "2", "--device", "cpu",
+                 "--duration-s", "0.2", "--n-particles", "16", "--n-features", "3"])
+
+
+def _row(**kw):
+    phases = {name: {"offered": 10, "completed": 7, "shed": 2, "errors": 1, "lost": 0}
+              for name in ("steady", "burst_polite", "recover")}
+    row = {"lost_requests": 0, "recompiles": 0, "sentry_compiles": 0,
+           "arms": {"adaptive": {"phases": phases}}}
+    row.update(kw)
+    return row
+
+
+LEAKY = {"adaptive": {"phases": {"steady": {"offered": 10, "completed": 7, "shed": 2,
+                                            "errors": 0, "lost": 0}}}}
+
+
+@pytest.mark.parametrize("row", [
+    _row(), _row(sentry_compiles=None), _row(lost_requests=2), _row(recompiles=1),
+    _row(sentry_compiles=3), _row(arms=LEAKY),
+    _row(lost_requests=1, recompiles=2, sentry_compiles=4, arms=LEAKY), {},
+], ids=["good", "unsupported_sentry", "lossy", "recompiling", "sentry", "leaking",
+        "everything", "empty"])
+def test_storm_ok_equals_jax(jwr, row):
+    """The same verdict and reasons as JAX's; the sentry's reason names
+    what the port's sentry counts (captures and kernel builds)."""
+    ok, why = wr.storm_ok(row)
+    jok, jwhy = jwr.storm_ok(row)
+    assert ok == jok and len(why) == len(jwhy)
+    for ours, theirs in zip(why, jwhy):
+        if "sentried replay windows" in theirs:
+            assert ours.split()[0] == theirs.split()[0]
+            assert ours.endswith("inside the sentried replay windows")
+            assert "capture" in ours and "kernel build" in ours
+        else:
+            assert ours == theirs
+
+
+@pytest.mark.parametrize("cpus", [1, 2, 4, 8, 16, None])
+def test_default_lanes_max_equals_jax(jwr, monkeypatch, cpus):
+    monkeypatch.setattr(os, "cpu_count", lambda: cpus)
+    assert wr.default_lanes_max() == jwr.default_lanes_max()
+    assert 1 <= wr.default_lanes_max() <= 4
+
+
+def test_run_storm_requires_two_tenants(jwr):
+    with pytest.raises(ValueError) as ours:
+        wr.run_storm(tenants=1, device="cpu")
+    with pytest.raises(ValueError) as theirs:
+        jwr.run_storm(tenants=1)
+    assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "trace"],
+    ["--mode", "trace", "--tenants", "5", "--seed", "3", "--duration-s", "6",
+     "--base-rps", "80", "--rows", "1,4,16", "--rows-alpha", "0.8", "--burst-mult", "3"],
+])
+def test_main_trace_prints_jax_json(jwr, monkeypatch, capsys, argv):
+    assert wr.main(argv) == 0
+    ours = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["workload_replay.py", *argv])
+    jwr.main()
+    assert json.loads(ours) == json.loads(capsys.readouterr().out)
+
+
+def test_main_replay_in_process(capsys):
+    assert wr.main(["--mode", "replay", "--device", "cpu", "--duration-s", "0.6",
+                    "--base-rps", "60", "--n-particles", "32", "--n-features", "3",
+                    "--max-batch", "16", "--tenants", "0"]) == 0
+    doc = json.loads(capsys.readouterr().out)
+    assert doc["metric"] == "workload_replay"
+    whole = doc["whole"]
+    assert whole["offered"] > 0 and whole["lost"] == whole["errors"] == 0
+    assert whole["completed"] + whole["shed"] == whole["offered"]
+
+
+SETTLES = ("WARM_SETTLE_S", "PROBE_GAP_S", "PROBE_SETTLE_S", "ARM_SETTLE_S")
+#: the tiny storm of tests/test_workload_replay.py:180-187
+STORM_KW = dict(n_particles=256, n_features=8, seed=5, steady_s=1.2, burst_s=1.2,
+                recover_s=1.2, max_batch=32, max_queue_rows=128, rows_sizes=(1, 2, 4),
+                flash_rows_sizes=(8, 16), tenants=2, calib_requests=90, interval_s=0.1)
+
+
+def _synthetic_records(events):
+    """Records a replay could return, a pure function of the events: every
+    status, latencies on both sides of the objective."""
+    out = []
+    for i, ev in enumerate(events):
+        status = ("ok", "ok", "shed", "ok", "error", "ok", "lost")[i % 7]
+        out.append({"t": ev.t, "rows": ev.rows, "tenant": ev.tenant, "status": status,
+                    "lat_ms": float(i % 53) if status == "ok" else None})
+    return out
+
+
+@pytest.fixture(scope="module")
+def storm_pair(jwr):
+    """``run_storm`` of each package with the capacity probe patched to the
+    same two anchors, ``replay`` swapped for a recorder returning the same
+    synthetic records, and the settle sleeps made no-ops; returns each
+    package's (row, events)."""
+    import types
+
+    mp = pytest.MonkeyPatch()
+    out = {}
+    try:
+        for name, mod in (("port", wr), ("jax", jwr)):
+            anchors = iter([1500.0, 9000.0])
+            mp.setattr(mod, "_saturated_rows_capacity",
+                       lambda *a, _it=anchors, **k: next(_it))
+            seen = []
+
+            def recorder(events, submit, _seen=seen, **kw):
+                _seen.append([(e.t, e.rows, e.tenant, e.pick) for e in events])
+                return _synthetic_records(events)
+
+            mp.setattr(mod, "replay", recorder)
+            if mod is wr:
+                for k in SETTLES:
+                    mp.setattr(wr, k, 0.0)
+                row = wr.run_storm(device="cpu", **{**STORM_KW, "tenants": 3})
+            else:
+                mp.setattr(jwr, "time", types.SimpleNamespace(
+                    sleep=lambda s: None, monotonic=time.monotonic,
+                    perf_counter=time.perf_counter))
+                row = jwr.run_storm(**{**STORM_KW, "tenants": 3})
+            out[name] = (row, seen)
+    finally:
+        mp.undo()
+    return out
+
+
+def test_run_storm_events_and_row_equal_jax(storm_pair):
+    """Both packages build the same merged steady + flash event list, arm
+    for arm, and the same row bar the platform, the sentry's count (XLA
+    compiles against captures and builds) and the controller block."""
+    (row, seen), (jrow, jseen) = storm_pair["port"], storm_pair["jax"]
+    assert len(seen) == len(jseen) == 3  # static_base, static_burst, adaptive
+    assert seen == jseen
+    assert all(arm == seen[0] for arm in seen)
+    flash = [e for e in seen[0] if e[1] in (8, 16)]  # the steady sizes are 1, 2, 4
+    assert flash and all(e[2] == "hog" and 1.2 <= e[0] < 2.4 for e in flash)
+    assert row["platform"] == "cpu" and row["sentry_compiles"] == 0
+    assert jrow["sentry_compiles"] in (0, None)
+
+    def strip(r):
+        r = {k: v for k, v in r.items() if k not in ("platform", "sentry_compiles")}
+        r["arms"] = {name: {k: v for k, v in arm.items() if k != "controller"}
+                     for name, arm in r["arms"].items()}
+        return r
+
+    assert strip(row) == strip(jrow)
+    assert set(row["arms"]["adaptive"]["controller"]) == set(
+        jrow["arms"]["adaptive"]["controller"])
+
+
+def test_mini_storm_adaptive_arm_schema_and_gates(storm_pair, monkeypatch):
+    """JAX's tiny adaptive-only storm on the port, end to end on the CPU
+    with the settle pauses at 0 and the replay's pacing real: every
+    admitted request resolves, no capture or build under the sentry, JAX's
+    row schema (~4 s, inside the per-test wall budget)."""
+    for k in SETTLES:
+        monkeypatch.setattr(wr, k, 0.0)
+    row = wr.run_storm(include_static=False, device="cpu", **STORM_KW)
+    ok, why = wr.storm_ok(row)
+    assert ok, why
+    assert row["lost_requests"] == 0 and row["recompiles"] == 0
+    assert row["sentry_compiles"] == 0
+    assert row["ab"] is None
+    jrow = storm_pair["jax"][0]
+    assert set(row) == set(jrow)
+    assert set(row["trace"]) == set(jrow["trace"])
+    arm = row["arms"]["adaptive"]
+    assert set(arm) == set(jrow["arms"]["adaptive"])
+    assert set(arm["phases"]) == {"steady", "burst_polite", "recover"}
+    assert set(arm["phases"]["steady"]) == set(jrow["arms"]["adaptive"]["phases"]["steady"])
+    assert arm["adaptive"] is True and arm["controller"]["steps"] >= 1
+    assert sum(p["offered"] for p in arm["phases"].values()) > 0
+    assert row["trace"]["hog_burst_rps"] > 0
