@@ -70,9 +70,12 @@ newer step) and adaptive capacity: ``dist_svgd_torch/tools/
 workload_replay.py``'s serve_storm row (three arms over one seeded
 flash-crowd trace, the autoscale controller in one), a server with the
 controller at ``/autoscale``, and ``dist_svgd_torch/tools/elastic_drill.py``
-at its defaults, with ``phi_small_d`` held at the drill's lanes; it checks
-that each path went through its kernels, and prints one JSON object per
-phase.  A
+at its defaults, with ``phi_small_d`` held at the drill's lanes — and last
+continuous-ingest training: two small streaming stacks on the card against
+the CPU in float64, ``dist_svgd_torch/experiments/streaming_covertype.py``
+and ``dist_svgd_torch/tools/freshness_drill.py`` at JAX's defaults, with
+``phi_big_d`` and ``phi_small_d`` held at their lanes; it checks that each
+path went through its kernels, and prints one JSON object per phase.  A
 phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
 
@@ -481,6 +484,53 @@ STORM_MIN_STEP_FRAC = 0.5
 STORM_INTERVAL_S = 0.25  # run_storm's default cadence, passed explicitly
 STORM_CHECK_SEED = 1000
 AUTOSCALE_LOAD = dict(clients=16, requests=480, rows=(1, 4, 16))
+
+# Section 22 (continuous-ingest training, after section 21):
+# - streaming_reference: two small streaming stacks (source → buffer → ring
+#   → Sampler → StreamingSupervisor → hot reload into a PredictiveEngine),
+#   each run on the card (phi_impl='cuda', float32) and on the CPU
+#   (phi_impl='torch', float64) from the same numpy initial particles and
+#   minibatch indices (the Sampler's batch index seam), on a manual clock
+#   with no drift guard: a GrowingCorpusStream at dim 3 (d = 4, phi_small_d)
+#   and a CovertypeReplayStream (d = 55, phi_big_d) (STREAM_REFS).  Gated:
+#   the segment records equal (batches, rows, t, watermark, reload_step),
+#   the card's launches one a step of the one kernel, the particles within
+#   SMALL_RTOL of their largest value;
+# - streaming_covertype: the port's experiments/streaming_covertype.py at
+#   JAX's defaults, uncut (6,000 rows, 128 particles, 256 rows a period, a
+#   1,024-row corpus, B = 128, 10 steps a segment, re-fit ×4, 14 warm-up
+#   and 12 segments, a full label flip 2 ordinals after arming).  Gated: 0
+#   dropped, at least one re-fit, the served ensemble more accurate on the
+#   flipped labels than on the stale ones, one reload a segment, slo_status
+#   "ok", phi_big_d launched once a step (the line's t) and no other kernel.
+#   JAX's deterministic CPU line (JAX_STREAM_CT) is printed beside it as a
+#   reference, not a gate: the card's RNG streams are not threefry;
+# - freshness_drill: dist_svgd_torch/tools/freshness_drill.py's run_drill()
+#   at JAX's defaults (256 particles, dim 5, period 0.08 s, 8 warm-up and
+#   18 steady segments, on the real clock), row_ok held whole,
+#   steady_state_recompiles 0, at least one freshness observation, and
+#   phi_small_d — and no other kernel — launched once a step of every
+#   segment of both phases;
+# - the two lanes these paths give the kernels (STREAM_LANES, h = 1 as the
+#   paths' RBF(1.0), y = x as the single-device Sampler passes them), held
+#   in kernel_parity against the plain version and the float64 φ; seeds
+#   from STREAM_SEED (after every older row's).
+STREAM_REFS = [
+    ("growing d=4", dict(source="growing", dim=3, batch_rows=16, corpus_rows=32,
+                         batch_size=8, n=32, steps=3, segments=4, step_size=1e-3, seed=5)),
+    ("covertype d=55", dict(source="covertype", nrows=2048, batch_rows=64, corpus_rows=128,
+                            batch_size=32, n=32, steps=3, segments=4, step_size=1e-4,
+                            seed=0)),
+]
+STREAM_LANES = [("phi_big_d", (1, 128, 128, 55), "streaming_covertype lane h=1"),
+                ("phi_small_d", (1, 256, 256, 6), "freshness drill lane h=1")]
+STREAM_SEED = 1100
+# JAX's experiments/streaming_covertype.py on the CPU at the same defaults:
+# deterministic, reruns bitwise (.claude/skills/verify/SKILL.md, the
+# streaming flow).
+JAX_STREAM_CT = {"ksd_baseline": 71.026, "segments": 21, "t": 330, "refits": 4,
+                 "dropped": 0, "reloads": 21, "served_test_acc": 0.16,
+                 "served_test_acc_flipped_concept": 0.84}
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -3402,6 +3452,241 @@ def adaptive_phases(card):
     emit({"phase": "adaptive_section", "seconds": time.perf_counter() - t0})
 
 
+def stream_lane_rows():
+    """The φ kernels at the lanes the streaming section's paths give them
+    (STREAM_LANES, h = 1, y = x as the single-device Sampler passes its
+    particles): held against the plain version at the full shape and
+    against the float64 φ on every row (k ≤ LANE_ROWS), both within
+    KERNEL_RTOL of their largest value; timed beside the bound.  Raises on a
+    failed row."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_svgd
+    from dist_svgd_torch.ops.kernels import RBF
+    from dist_svgd_torch.ops.svgd import phi
+
+    fns = {"phi_big_d": (cuda_svgd.phi_big_d_cuda, cuda_svgd.phi_big_d_plain),
+           "phi_small_d": (cuda_svgd.phi_small_d_cuda, cuda_svgd.phi_small_d_plain)}
+    h = 1.0
+    for seed, (name, (S, k, m, d), role) in enumerate(STREAM_LANES, start=STREAM_SEED):
+        _, x, s = phi_inputs(S, k, m, d, seed)
+        y = x[None].contiguous()
+        kern_fn, plain_fn = fns[name]
+        kern = lambda: kern_fn(y, x, s, h)  # noqa: E731
+        plain = lambda: plain_fn(y, x, s, h)  # noqa: E731
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        ys = y[:, :LANE_ROWS].contiguous()
+        exact = phi(ys.double(), x.double(), s.double(), RBF(h))
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        vs_f64, f64_scale = (float((got[:, :LANE_ROWS].double() - exact).abs().max()),
+                             float(exact.abs().max()))
+        ok = (bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+              and vs_f64 <= KERNEL_RTOL * f64_scale)
+        b_ms, b_by = bound_ms(*phi_work(name, S, k, m, d, x.numel()))
+        row = {"phase": "kernel_parity", "kernel": name, "role": role,
+               "shape": [S, k, m, d], "bandwidth": h, "reference": "plain and phi f64",
+               "max_abs_err": err, "max_abs_plain": scale, "tolerance": KERNEL_RTOL * scale,
+               "rows": min(k, LANE_ROWS), "max_abs_err_vs_f64": vs_f64,
+               "f64_tolerance": KERNEL_RTOL * f64_scale,
+               "plain_max_abs_err_vs_f64": float(
+                   (want[:, :LANE_ROWS].double() - exact).abs().max()),
+               "ok": ok, "ms": cuda_ms(kern, TIMED_LAUNCHES),
+               "plain_ms": cuda_ms(plain, OTHER_LAUNCHES), "bound_us": 1e3 * b_ms,
+               "bound_by": b_by,
+               "m_splits": cuda_svgd.split_count(name, S, k, m, x.device, d=d)}
+        row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
+        if name == "phi_big_d":
+            row["scratch_bytes"] = check_scratch(name, S, k, m, d, 1)
+        emit(row)
+        del got, want, exact, y, x, s, ys
+        if not ok:
+            raise AssertionError(f"{name} {role}: max|Δ| {err} vs plain, {vs_f64} vs "
+                                 f"the f64 φ, beyond {KERNEL_RTOL} of {scale} / {f64_scale}")
+
+
+def _stream_reference_run(cfg, root, device, phi_impl, dtype, init, indices):
+    """One small streaming stack (STREAM_REFS) on ``device``: ``cfg["segments"]``
+    segments on a manual clock, each published to an engine on the same
+    device.  Returns (segment records, final particles as float64 on the
+    host)."""
+    import numpy as np
+
+    from dist_svgd_torch.models.logreg import make_logreg_split
+    from dist_svgd_torch.ops.kernels import RBF
+    from dist_svgd_torch.sampler import Sampler
+    from dist_svgd_torch.serving import CheckpointHotReloader, PredictiveEngine
+    from dist_svgd_torch.streaming import (
+        CovertypeReplayStream,
+        GrowingCorpusStream,
+        RowRing,
+        StreamBuffer,
+        StreamingSupervisor,
+    )
+    from dist_svgd_torch.telemetry import MetricsRegistry
+    from dist_svgd_torch.tools.freshness_drill import ManualClock
+
+    if cfg["source"] == "covertype":
+        source = CovertypeReplayStream(n_rows=cfg["nrows"], batch_rows=cfg["batch_rows"],
+                                       seed=cfg["seed"], period_s=1.0, start_time=1.0)
+    else:
+        source = GrowingCorpusStream(batch_rows=cfg["batch_rows"], dim=cfg["dim"],
+                                     seed=cfg["seed"], period_s=1.0, start_time=1.0)
+    clock = ManualClock()
+    registry = MetricsRegistry()
+    corpus, dim = cfg["corpus_rows"], source.dim
+    buffer = StreamBuffer(source, 64, registry=registry, clock=clock)
+    likelihood, prior = make_logreg_split()
+    sampler = Sampler(dim + 1, likelihood, kernel=RBF(1.0),
+                      data=(np.zeros((corpus, dim), np.float32), np.ones((corpus,))),
+                      batch_size=cfg["batch_size"], log_prior=prior, phi_impl=phi_impl,
+                      device=device)
+    sampler._batch_index_seam = indices.__getitem__
+    engine = PredictiveEngine("logreg", init.astype(dtype), min_bucket=8, max_bucket=8,
+                              registry=registry, device=device)
+    sup = StreamingSupervisor(
+        sampler, cfg["step_size"], buffer=buffer, ring=RowRing(corpus, dim),
+        steps_per_segment=cfg["steps"], reloader=CheckpointHotReloader(engine, root),
+        checkpoint_dir=root, checkpoint_every=cfg["steps"], segment_steps=cfg["steps"],
+        n=cfg["n"], seed=cfg["seed"], registry=registry, clock=clock,
+        sleep=lambda s: None, initial_particles=init.astype(dtype))
+    segs = []
+    for _ in range(cfg["segments"]):
+        clock.advance(1.0)
+        segs.append(sup.run_segment_once())
+    return segs, sup.particles.double().cpu()
+
+
+def streaming_reference_phase(root, card):
+    """streaming_reference: STREAM_REFS on the card against the CPU (the
+    constants above STREAM_REFS).  Raises on a failed case."""
+    import os
+
+    import numpy as np
+    import torch
+
+    reset, read = _serving_counts()
+    keys = ("batches", "rows", "t", "watermark", "reload_step")
+    for case, cfg in STREAM_REFS:
+        kernel = "phi_big_d" if cfg["source"] == "covertype" else "phi_small_d"
+        d = 55 if cfg["source"] == "covertype" else cfg["dim"] + 1
+        rng = np.random.default_rng(cfg["seed"] + 17)
+        init = 0.3 * rng.normal(size=(cfg["n"], d))
+        steps = cfg["steps"] * cfg["segments"]
+        indices = {t: rng.permutation(cfg["corpus_rows"])[:cfg["batch_size"]]
+                   for t in range(steps)}
+        out = {}
+        for dev_name, impl, dtype in (("cuda", "cuda", np.float32),
+                                      ("cpu", "torch", np.float64)):
+            reset()
+            out[dev_name] = _stream_reference_run(
+                cfg, os.path.join(root, "reference", f"{case}-{dev_name}".replace(" ", "_")),
+                dev_name, impl, dtype, init, indices)
+            if dev_name == "cuda":
+                launches = read()
+        (segs_c, parts_c), (segs_h, parts_h) = out["cuda"], out["cpu"]
+        records_equal = ([{k: s[k] for k in keys} for s in segs_c]
+                         == [{k: s[k] for k in keys} for s in segs_h])
+        rel = float((parts_c - parts_h).abs().max() / parts_h.abs().max())
+        only = launches == {**dict.fromkeys(launches, 0), kernel: steps}
+        ok = (records_equal and only and rel <= SMALL_RTOL
+              and all(s["reload_step"] == s["t"] for s in segs_c)
+              and bool(torch.isfinite(parts_c).all()))
+        emit({"phase": "streaming_reference", "case": case, "d": d, "n": cfg["n"],
+              "segments": cfg["segments"], "steps": steps, "records_equal": records_equal,
+              "records": [{k: s[k] for k in keys} for s in segs_c],
+              "launches": {kernel: launches[kernel]}, "only_one_kernel": only,
+              "max_rel_dev": rel, "bound": SMALL_RTOL, "card": card, "ok": ok})
+        if not ok:
+            raise AssertionError(f"streaming_reference {case}: records equal {records_equal}, "
+                                 f"launches {launches}, rel dev {rel}")
+
+
+def streaming_covertype_phase(root, card):
+    """streaming_covertype: the driver at JAX's defaults (the constants above
+    STREAM_REFS), its launches counted over the whole run."""
+    import os
+
+    from dist_svgd_torch.experiments import streaming_covertype
+
+    reset, read = _serving_counts()
+    reset()
+    t0 = time.perf_counter()
+    out = streaming_covertype.run(root=os.path.join(root, "streaming-covertype"))
+    wall = time.perf_counter() - t0
+    launches = read()
+    st, sv = out["stream"], out["serve"]
+    only = launches == {**dict.fromkeys(launches, 0), "phi_big_d": st["t"]}
+    ok = (st["dropped"] == 0 and st["refits"] >= 1
+          and sv["served_test_acc_flipped_concept"] > sv["served_test_acc"]
+          and sv["reloads"] == st["segments"] and out["slo_status"] == "ok"
+          and st["t"] > 0 and only)
+    emit({"phase": "streaming_covertype", **out, "launches": {"phi_big_d": launches["phi_big_d"]},
+          "only_phi_big_d": only, "wall_s": wall, "ms_per_step": 1e3 * wall / max(st["t"], 1),
+          "jax_cpu_reference": JAX_STREAM_CT, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"streaming_covertype: {out}, launches {launches}")
+
+
+def freshness_drill_phase(root, card):
+    """freshness_drill: run_drill() at JAX's defaults on the card (the
+    constants above STREAM_REFS).  A StreamingSupervisor subclass in the
+    drill's namespace sums the steps of every segment of both phases: the
+    phi_small_d launches the run must show."""
+    import os
+
+    from dist_svgd_torch.tools import freshness_drill
+
+    reset, read = _serving_counts()
+    supervisor = freshness_drill.StreamingSupervisor
+    steps = []
+
+    class CountedSupervisor(supervisor):
+        def run_segment_once(self, *args, **kwargs):
+            seg = super().run_segment_once(*args, **kwargs)
+            steps.append(seg["steps"])
+            return seg
+
+    freshness_drill.StreamingSupervisor = CountedSupervisor
+    reset()
+    t0 = time.perf_counter()
+    try:
+        row = freshness_drill.run_drill(root=os.path.join(root, "freshness-drill"))
+    finally:
+        freshness_drill.StreamingSupervisor = supervisor
+    wall = time.perf_counter() - t0
+    launches = read()
+    gates_ok, why = freshness_drill.row_ok(row)
+    only = launches == {**dict.fromkeys(launches, 0), "phi_small_d": sum(steps)}
+    ok = (gates_ok and row["steady_state_recompiles"] == 0 and row["freshness_count"] >= 1
+          and row["platform"] == "gpu" and only)
+    emit({"phase": "freshness_drill", **row, "row_ok": gates_ok, "why": why,
+          "launches": {"phi_small_d": launches["phi_small_d"]}, "segments_run": len(steps),
+          "steps_run": sum(steps), "only_phi_small_d": only, "phase_wall_s": wall,
+          "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"freshness_drill: {why}, launches {launches}, steps {sum(steps)}")
+
+
+def streaming_phases(card):
+    """Section 22, continuous-ingest training (the constants above
+    STREAM_REFS): streaming_reference, streaming_covertype and
+    freshness_drill.  Each prints its row and raises when it fails."""
+    import os
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_streaming")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    streaming_reference_phase(root, card)
+    streaming_covertype_phase(root, card)
+    freshness_drill_phase(root, card)
+    emit({"phase": "streaming_section", "seconds": time.perf_counter() - t0})
+
+
 def supervised_phases(init, data, card, ct_ms_per_step):
     """Section 18, the supervised runs (the constants above RESHARD_LANES):
     supervised_covertype, supervised_covertype_sigterm, supervised_guards,
@@ -4067,6 +4352,7 @@ def main():
     ring_ot_rows()
     reshard_lane_rows()
     serving_lane_rows()
+    stream_lane_rows()
 
     # ---- 4. north star ---------------------------------------------------
     ns = NORTH_STAR
@@ -4371,6 +4657,9 @@ def main():
 
     # ---- 21. adaptive capacity and the elastic drill ------------------------
     adaptive_phases(card)
+
+    # ---- 22. continuous-ingest training --------------------------------------
+    streaming_phases(card)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

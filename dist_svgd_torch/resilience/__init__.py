@@ -15,9 +15,10 @@ dispatch failure, or NaN blowup loses the whole trajectory.
   policy, and the posterior-drift guards over the diagnostics' reports;
 - :mod:`faults` — deterministic fault injection (raise-on-step-k, NaN into
   the carry, simulated preemption, simulated hard kill, artificial slow
-  dispatch, device loss / mesh shrink / mesh grow / worker loss, and the
-  fleet and stream faults the serving and streaming layers consume once
-  ported, ROADMAP A9) so every recovery path runs on the CPU;
+  dispatch, device loss / mesh shrink / mesh grow / worker loss, the
+  stream faults the streaming sources consume, and the fleet faults the
+  serving fleet consumes once ported, ROADMAP A9) so every recovery path
+  runs on the CPU;
 - :mod:`federation` — :class:`FederationSupervisor`: the coordinator loop
   for W-process jobs, relaunching at W−1 after a whole-worker loss,
   against an injectable launcher;

@@ -313,12 +313,12 @@ class SlowReplicaAt(FleetFault):
 
 # --------------------------------------------------------------------- #
 # stream faults (round 20): deterministic distribution shift injected
-# into a streaming data source, consumed by the streaming source (ported
-# with the streaming layer, ROADMAP A9) rather
-# than the supervisor — the unit of failure is the DATA, and the
-# schedule is keyed by the source's batch ordinal (like FleetFault's
-# request ordinal) so every drift-detection/retrain path runs tier-1 on
-# CPU with no real drift to wait for.
+# into a streaming data source, consumed by the streaming sources
+# (``dist_svgd_torch/streaming/source.py``) rather than the supervisor —
+# the unit of failure is the DATA, and the schedule is keyed by the
+# source's batch ordinal (like FleetFault's request ordinal) so every
+# drift-detection/retrain path runs on the CPU with no real drift to wait
+# for.
 
 
 class DriftAt:

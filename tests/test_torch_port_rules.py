@@ -46,7 +46,9 @@ def test_no_jax_or_reference_imports():
                    "experiments/serve_covertype.py", "rollout/__init__.py",
                    "rollout/controller.py", "telemetry/history.py",
                    "tools/anomaly_report.py", "tools/workload_replay.py",
-                   "tools/rollout_drill.py", "tools/cost_drill.py"):
+                   "tools/rollout_drill.py", "tools/cost_drill.py", "streaming/__init__.py",
+                   "streaming/source.py", "streaming/pipeline.py",
+                   "experiments/streaming_covertype.py", "tools/freshness_drill.py"):
         assert PORT / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "dist_svgd_tpu", "tools")]
@@ -124,6 +126,24 @@ def test_ot_sources_carry_their_notes(name, tpu_kernel):
     assert f'extern "C" int {name}_launch(' in text
     assert '#include "ot_common.cuh"' in text
     assert name in _build.SOURCES
+
+
+def test_streaming_runs_with_jax_blocked():
+    """A process where ``import jax`` fails runs the streaming Covertype
+    driver (stream, ring, supervisor, drift guard, hot reload) on the CPU,
+    and imports the freshness drill."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "from dist_svgd_torch.experiments.streaming_covertype import run\n"
+        "from dist_svgd_torch.tools import freshness_drill\n"
+        "out = run(nrows=1000, nparticles=16, batch_rows=64, corpus_rows=128, batch_size=32,\n"
+        "          steps_per_segment=2, refit_factor=2, segments=2, warmup_segments=2,\n"
+        "          drift_at=0, device='cpu')\n"
+        "assert out['stream']['segments'] == 4 and out['serve']['reloads'] == 4\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    _run_with_jax_blocked(code)
 
 
 def test_port_runs_w2_with_jax_blocked():
