@@ -74,8 +74,16 @@ at its defaults, with ``phi_small_d`` held at the drill's lanes — and last
 continuous-ingest training: two small streaming stacks on the card against
 the CPU in float64, ``dist_svgd_torch/experiments/streaming_covertype.py``
 and ``dist_svgd_torch/tools/freshness_drill.py`` at JAX's defaults, with
-``phi_big_d`` and ``phi_small_d`` held at their lanes; it checks that each
-path went through its kernels, and prints one JSON object per phase.  A
+``phi_big_d`` and ``phi_small_d`` held at their lanes — and the serving
+fleet: ``dist_svgd_torch/tools/fleet_drill.py`` in both modes at JAX's
+defaults (the real one with three replica processes on the card), a
+10,000-particle Covertype checkpoint trained on the card and served by
+three replica processes behind a traced ``FleetRouter`` (every served mean
+against a direct engine, ``/fleet`` read through
+``dist_svgd_torch/tools/fleet_status.py``, the four trace exports stitched
+by ``dist_svgd_torch/tools/trace_report.py``), and the workload replay
+through a fleet; it checks that each path went through its kernels, and
+prints one JSON object per phase.  A
 phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
 
@@ -89,6 +97,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 NORTH_STAR = dict(n=10_000, shards=8, step_size=3e-3, warm_steps=10, steps=500)
 TRAJECTORY_STEPS = 20
@@ -531,6 +540,39 @@ STREAM_SEED = 1100
 JAX_STREAM_CT = {"ksd_baseline": 71.026, "segments": 21, "t": 330, "refits": 4,
                  "dropped": 0, "reloads": 21, "served_test_acc": 0.16,
                  "served_test_acc_flipped_concept": 0.84}
+
+# Section 23, the serving fleet (dist_svgd_torch/serving/fleet.py; ROADMAP
+# A9.3).  Four rows, each printed and raising when a gate fails:
+# - fleet_drill_fake: dist_svgd_torch/tools/fleet_drill.py's run_drill("fake")
+#   at JAX's defaults (200 Hz, 0.6 / 0.8 / 0.8 s), row_ok held whole: 0 lost,
+#   0 misroutes, stitch coverage 1.0 with at least one retry tree, a
+#   monotone federation;
+# - fleet_drill_real: run_drill("real") at JAX's defaults with three port
+#   replica processes on the card (a seeded (64, 3) checkpoint), row_ok held
+#   whole (the killed replica re-admitted, the partitioned one alive on a
+#   direct probe); each replica's spawn-to-healthy wall printed;
+# - fleet_covertype: a 10,000-particle Covertype checkpoint (BASELINE config
+#   4's ensemble, d = 55) trained by experiments/covertype.py at
+#   serve_covertype's other training settings (FLEET_TRAIN; section 19's
+#   checkpoint holds serve_covertype's default 1,024 particles), then
+#   FLEET["replicas"]
+#   ``python -m dist_svgd_torch.serving.server --device cuda`` replicas, each
+#   exporting its trace, behind a FleetRouter over HttpTransport traced as
+#   the router.  The held-out rows go in FLEET["rows"]-row requests from
+#   FLEET["clients"] concurrent clients under FLEET["tenants"] tenants.
+#   Gated: every request served, each served mean within SERVED_TOL of a
+#   card PredictiveEngine on the same rows, more than one replica serving,
+#   /fleet listing every circuit closed, fleet_status's report over two
+#   /fleet scrapes rendered, and after the replicas' graceful exit (SIGINT)
+#   the stitch of the router's and the replicas' exports at coverage 1.0;
+#   the training's φ kernel launched at least once a step;
+# - fleet_replay: dist_svgd_torch/tools/workload_replay.py main --mode
+#   replay --fleet 3 at the replay's defaults: nothing lost, no errors,
+#   every request served or shed.
+FLEET_TRAIN = dict(nrows=20_000, nproc=8, nparticles=10_000, niter=100, stepsize=1e-4,
+                   batch_size=256, seed=0)
+FLEET = dict(replicas=3, clients=16, requests=320, rows=128, tenants=8, status_interval_s=0.5,
+             spawn_timeout_s=240.0)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -3687,6 +3729,279 @@ def streaming_phases(card):
     emit({"phase": "streaming_section", "seconds": time.perf_counter() - t0})
 
 
+def _hist_p50_ms(dump, name):
+    """The p50 (ms) of histogram ``name`` in a registry dump, every series
+    merged (a replica's batcher labels its series by lane)."""
+    from dist_svgd_torch.telemetry import MetricsRegistry
+
+    entry = dump["metrics"].get(name)
+    if not entry or not entry["series"]:
+        return None
+    merged = {"format": dump.get("format"), "metrics": {name: {
+        **entry, "series": [{**s, "labels": {}} for s in entry["series"]]}}}
+    reg = MetricsRegistry()
+    reg.ingest(merged)
+    return reg.get(name).quantile(0.5) * 1e3
+
+
+def fleet_drill_phase(mode, card, device=None):
+    """fleet_drill's run_drill(mode) at JAX's defaults (the constants above
+    FLEET_TRAIN); ``device`` is the real mode's replica device (None: the
+    card)."""
+    from dist_svgd_torch.tools import fleet_drill
+
+    reset, read = _serving_counts()
+    reset()
+    t0 = time.perf_counter()
+    row = fleet_drill.run_drill(mode, device=device)
+    wall = time.perf_counter() - t0
+    launches = read()
+    gates_ok, why = fleet_drill.row_ok(row)
+    ok = gates_ok and row["lost_requests"] == 0 and row["misroutes"] == 0
+    if mode == "fake":
+        ok = (ok and row["trace_stitch_coverage"] == 1.0 and row["stitch_retry_trees"] >= 1
+              and row["federation_monotone"] is True)
+    else:
+        ok = (ok and row["readmit_s"] is not None and row["partition_replica_alive"] is True
+              and len(row["replica_spawn_s"]) == FLEET["replicas"] + 1)
+    emit({"phase": f"fleet_drill_{mode}", **row, "row_ok": gates_ok, "why": why,
+          "launches": {k: v for k, v in launches.items() if v}, "phase_wall_s": wall,
+          "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"fleet_drill_{mode}: {why} {row}")
+
+
+def fleet_covertype_phase(root, card, device="cuda"):
+    """The Covertype fleet on the card (the constants above FLEET_TRAIN):
+    train the 10,000-particle checkpoint, serve it from FLEET["replicas"]
+    replica processes behind a traced FleetRouter, hold every served mean
+    against a direct engine, read /fleet through fleet_status, shut the
+    replicas down gracefully and stitch the four exports."""
+    import os
+    import signal
+    import socket
+    import threading
+
+    import numpy as np
+
+    from dist_svgd_torch import telemetry
+    from dist_svgd_torch.experiments import covertype
+    from dist_svgd_torch.serving import PredictiveEngine, fleet
+    from dist_svgd_torch.tools import fleet_status, trace_report
+    from dist_svgd_torch.utils.datasets import load_covertype
+
+    reset, read = _serving_counts()
+    ckpt = os.path.join(root, "covertype-10k-ckpt")
+    reset()
+    t0 = time.perf_counter()
+    _, train = covertype.run(**FLEET_TRAIN, checkpoint_every=FLEET_TRAIN["niter"],
+                             checkpoint_dir=ckpt, results_dir=os.path.join(root, "results"),
+                             device=device)
+    train_wall = time.perf_counter() - t0
+    train_launches = read()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (here, env.get("PYTHONPATH")) if p)
+    names = [f"r{i}" for i in range(FLEET["replicas"])]
+    addresses, procs, logs, spawn_s = {}, {}, {}, {}
+    for rid in names:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            addresses[rid] = ("127.0.0.1", sock.getsockname()[1])
+    transport = fleet.HttpTransport(addresses)
+    router = None
+    own_tracer = telemetry.get_tracer() is None
+    tracer = telemetry.enable()
+    tracer.set_process("router", "router")
+    try:
+        t_spawn = time.monotonic()
+        for rid in names:
+            host, port = addresses[rid]
+            logs[rid] = open(os.path.join(root, f"{rid}.log"), "wb")
+            procs[rid] = subprocess.Popen(
+                [sys.executable, "-m", "dist_svgd_torch.serving.server", "--checkpoint", ckpt,
+                 "--model", "logreg", "--device", device, "--host", host, "--port", str(port),
+                 "--trace-export", os.path.join(root, f"{rid}.json"), "--replica-name", rid],
+                env=env, stdout=logs[rid], stderr=subprocess.STDOUT)
+        for rid in names:
+            while rid not in spawn_s:
+                try:
+                    if transport.request(rid, "GET", "/healthz", timeout_s=1.0).status == 200:
+                        spawn_s[rid] = time.monotonic() - t_spawn
+                        break
+                except fleet.TransportError:
+                    pass
+                if (procs[rid].poll() is not None
+                        or time.monotonic() - t_spawn > FLEET["spawn_timeout_s"]):
+                    with open(os.path.join(root, f"{rid}.log"), "rb") as fh:
+                        tail = fh.read()[-3000:].decode(errors="replace")
+                    raise AssertionError(f"fleet_covertype: replica {rid} never turned "
+                                         f"healthy:\n{tail}")
+                time.sleep(0.2)
+
+        registry = telemetry.MetricsRegistry()
+        router = fleet.FleetRouter(names, transport=transport, registry=registry,
+                                   probe_interval_s=0.25, port=0).start()
+        nrows = FLEET_TRAIN["nrows"]
+        x, _ = load_covertype(nrows, seed=0)
+        x_test = x[-max(nrows // 10, 1):].astype(np.float32)
+        chunks = [x_test[i:i + FLEET["rows"]] for i in range(0, len(x_test), FLEET["rows"])]
+        bodies = [json.dumps({"inputs": c.tolist()}).encode() for c in chunks]
+        n = FLEET["requests"]
+        results = [None] * n
+
+        def client(ci):
+            for j in range(ci, n, FLEET["clients"]):
+                k = j % len(chunks)
+                a = time.perf_counter()
+                res = router.route(f"t{j % FLEET['tenants']}", bodies[k])
+                wall = time.perf_counter() - a
+                doc = res.json() if res.status == 200 else None
+                mean = (doc or {}).get("outputs", {}).get("mean")
+                results[j] = (k, res.status, res.replica, res.attempts, wall, mean)
+
+        # /fleet is read twice FLEET["status_interval_s"] apart while the
+        # load runs, so fleet_status derives its rates from served traffic
+        polls = {}
+
+        def poll_status():
+            polls["docs"] = fleet_status.collect(router.url, FLEET["status_interval_s"])
+
+        threads = [threading.Thread(target=client, args=(ci,))
+                   for ci in range(FLEET["clients"])]
+        status_thread = threading.Thread(target=poll_status)
+        t_load = time.perf_counter()
+        for th in threads:
+            th.start()
+        status_thread.start()
+        for th in threads:
+            th.join()
+        load_s = time.perf_counter() - t_load
+        status_thread.join()
+
+        engine = PredictiveEngine.from_checkpoint(ckpt, "logreg", max_bucket=FLEET["rows"],
+                                                  device=device)
+        direct = [engine.predict(c)["mean"] for c in chunks]
+        served = [r for r in results if r is not None and r[1] == 200]
+        dev = max(float(np.max(np.abs(np.asarray(r[5], np.float64) - direct[r[0]])))
+                  for r in served) if served else float("inf")
+        walls = sorted(r[4] for r in served)
+        by_replica = {}
+        for r in served:
+            by_replica[r[2]] = by_replica.get(r[2], 0) + 1
+
+        first, second, u1, u2 = polls["docs"]
+        report = fleet_status.build_report(first, second, FLEET["status_interval_s"],
+                                           usage_first=u1, usage_second=u2)
+        rendered = fleet_status.render(report)
+        circuits = {rid: st["state"] for rid, st in second["replicas"].items()}
+        device_p50 = {}
+        for rid in names:
+            dump = transport.request(rid, "GET", "/metrics.dump", timeout_s=5.0).json()
+            device_p50[rid] = _hist_p50_ms(dump, "svgd_serve_device_time_seconds")
+    finally:
+        if router is not None:
+            router.shutdown()
+        tracer = telemetry.disable() if own_tracer else tracer
+        router_path = os.path.join(root, "router.json")
+        tracer.export_chrome(router_path)
+        exits = {}
+        for rid, proc in procs.items():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+            try:
+                exits[rid] = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                exits[rid] = proc.wait(timeout=10)
+        for fh in logs.values():
+            fh.close()
+    stitch = trace_report.stitch_files(
+        [router_path] + [os.path.join(root, f"{rid}.json") for rid in names])
+
+    def pct(q):
+        return walls[min(len(walls) - 1, int(round(q * (len(walls) - 1))))] * 1e3
+
+    phi_launches = {k: v for k, v in train_launches.items() if v}
+    row = {"phase": "fleet_covertype", "replicas": FLEET["replicas"],
+           "particles": FLEET_TRAIN["nparticles"], "d": int(engine.particles.shape[1]),
+           "requests": n, "served": len(served),
+           "statuses": sorted({r[1] for r in results if r is not None}),
+           "rows_a_request": FLEET["rows"], "clients": FLEET["clients"],
+           "tenants": FLEET["tenants"], "rps": len(served) / load_s,
+           "rows_per_s": sum(len(chunks[r[0]]) for r in served) / load_s,
+           "p50_ms": pct(0.5), "p99_ms": pct(0.99),
+           "retried": sum(1 for r in served if r[3] > 1),
+           "served_by": by_replica, "served_vs_direct_max_abs_dev": dev,
+           "served_tol": SERVED_TOL, "circuits": circuits,
+           "fleet_status_healthy": report["healthy"],
+           "fleet_status_lines": len(rendered.splitlines()),
+           "fleet_tenants_rps": {t: v["rps"] for t, v in report["tenants"].items()},
+           "device_p50_ms": device_p50, "spawn_to_healthy_s": spawn_s,
+           "replica_exit_codes": exits, "stitch_coverage": stitch["coverage"],
+           "stitch_served_routes": stitch["served_routes"],
+           "stitch_orphans": stitch["orphan_replica_traces"],
+           "wire_p50_ms": stitch["hops"].get("fleet.wire", {}).get("p50_ms"),
+           "train": {k: train[k] for k in ("phi_impl", "niter", "nparticles", "nproc",
+                                           "test_acc", "wall_s")},
+           "train_launches": phi_launches, "train_phase_wall_s": train_wall,
+           "card": card}
+    ok = (len(served) == n and dev <= SERVED_TOL and len(by_replica) > 1
+          and sorted(circuits.values()) == ["closed"] * FLEET["replicas"]
+          and row["fleet_status_lines"] > 0 and stitch["coverage"] == 1.0
+          and stitch["served_routes"] == n
+          and sum(phi_launches.values()) >= FLEET_TRAIN["niter"])
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"fleet_covertype: {row}")
+
+
+def fleet_replay_phase(card):
+    """workload_replay main --mode replay --fleet 3 at the replay's defaults:
+    its JSON line is read back from stdout."""
+    import contextlib
+    import io
+
+    from dist_svgd_torch.tools import workload_replay
+
+    reset, read = _serving_counts()
+    buf = io.StringIO()
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = workload_replay.main(["--mode", "replay", "--fleet", str(FLEET["replicas"])])
+    wall = time.perf_counter() - t0
+    launches = read()
+    doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+    whole = doc["whole"]
+    ok = (rc == 0 and whole["offered"] > 0 and whole["lost"] == 0 and whole["errors"] == 0
+          and whole["completed"] + whole["shed"] == whole["offered"])
+    emit({"phase": "fleet_replay", "rc": rc, "config": doc["config"], "whole": whole,
+          "p99_breach_s": doc["p99_breach_s"],
+          "launches": {k: v for k, v in launches.items() if v}, "phase_wall_s": wall,
+          "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"fleet_replay: rc {rc}, {whole}")
+
+
+def fleet_phases(root, card):
+    """Section 23, the serving fleet (the constants above FLEET_TRAIN):
+    fleet_drill_fake, fleet_drill_real, fleet_covertype and fleet_replay,
+    under ``root``.  Each prints its row and raises when it fails."""
+    import os
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    fleet_drill_phase("fake", card)
+    fleet_drill_phase("real", card)
+    fleet_covertype_phase(root, card)
+    fleet_replay_phase(card)
+    emit({"phase": "fleet_section", "seconds": time.perf_counter() - t0})
+
+
 def supervised_phases(init, data, card, ct_ms_per_step):
     """Section 18, the supervised runs (the constants above RESHARD_LANES):
     supervised_covertype, supervised_covertype_sigterm, supervised_guards,
@@ -4660,6 +4975,9 @@ def main():
 
     # ---- 22. continuous-ingest training --------------------------------------
     streaming_phases(card)
+
+    # ---- 23. the serving fleet: router, failover, federation, stitching ------
+    fleet_phases(str(Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"), card)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

@@ -17,7 +17,7 @@ dispatch failure, or NaN blowup loses the whole trajectory.
   the carry, simulated preemption, simulated hard kill, artificial slow
   dispatch, device loss / mesh shrink / mesh grow / worker loss, the
   stream faults the streaming sources consume, and the fleet faults the
-  serving fleet consumes once ported, ROADMAP A9) so every recovery path
+  serving fleet's ``FakeTransport`` consumes) so every recovery path
   runs on the CPU;
 - :mod:`federation` — :class:`FederationSupervisor`: the coordinator loop
   for W-process jobs, relaunching at W−1 after a whole-worker loss,

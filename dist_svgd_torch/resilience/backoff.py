@@ -3,8 +3,9 @@
 Counterpart of ``dist_svgd_tpu/resilience/backoff.py``, copied (the port
 imports nothing of the JAX package).  The training
 :class:`~dist_svgd_torch.resilience.supervisor.RunSupervisor` (transient
-dispatch failures) and, once the serving layer is ported, the fleet
-router's failover take their delay schedule from here:
+dispatch failures) and the serving
+:class:`~dist_svgd_torch.serving.fleet.FleetRouter` (replica failover) take
+their delay schedule from here:
 
 - **capped exponential**: ``base_s · factor^(k-1)`` before the k-th
   *consecutive* failure, capped at ``max_s`` (:func:`capped_delay` — the

@@ -233,12 +233,12 @@ class SlowSegmentAt(Fault):
 
 # --------------------------------------------------------------------- #
 # fleet faults: process-level failures of a serving replica, consumed by
-# the serving fleet's injectable FakeTransport (ported with the serving
-# layer, ROADMAP A9) rather than the
-# supervisor — the unit of failure is a whole replica process, and the
-# schedule is keyed by the transport's request ordinal (every probe or
-# forward through the fake increments it) so failover tests are
-# deterministic without real sockets, signals, or sleeps.
+# the serving fleet's injectable FakeTransport
+# (``dist_svgd_torch/serving/fleet.py``) rather than the supervisor — the
+# unit of failure is a whole replica process, and the schedule is keyed by
+# the transport's request ordinal (every probe or forward through the fake
+# increments it) so failover tests are deterministic without real sockets,
+# signals, or sleeps.
 
 
 class FleetFault:

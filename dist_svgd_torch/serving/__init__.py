@@ -17,12 +17,15 @@ Counterpart of ``dist_svgd_tpu/serving`` with the same ``__all__``:
   :class:`KernelBucketLRU`;
 - :mod:`autoscale` — :class:`AutoscaleController` /
   :class:`AutoscalePolicy`: the SLO-burn-driven control loop that retunes
-  the batcher's lanes, coalescing window and tenant quotas live.
+  the batcher's lanes, coalescing window and tenant quotas live;
+- :mod:`fleet`    — the serving fleet: :class:`FleetRouter` (consistent-hash
+  front door with failover, retries, hedging and a 503 degrade) over a
+  :class:`ReplicaSet` of circuit breakers, :class:`MetricsFederation`, and
+  the transports (:class:`HttpTransport`, :class:`FakeTransport` over
+  :class:`LoopbackReplica`).
 
-Not ported yet, and their names raise ``NotImplementedError`` naming
-ROADMAP A9: the serving fleet (``FleetRouter``, ``MetricsFederation``,
-``ReplicaSet``, ``HttpTransport``, ``FakeTransport``, ``LoopbackReplica``
-— JAX's ``serving/fleet.py``).
+The fleet drill is ``python -m dist_svgd_torch.tools.fleet_drill``; a live
+fleet's status renders with ``python -m dist_svgd_torch.tools.fleet_status``.
 
 The load generator is ``python -m dist_svgd_torch.tools.serve_bench``; the
 Covertype train → checkpoint → serve demo is ``python -m
@@ -38,6 +41,14 @@ from dist_svgd_torch.serving.engine import (
     CheckpointHotReloader,
     EnsembleRejected,
     PredictiveEngine,
+)
+from dist_svgd_torch.serving.fleet import (
+    FakeTransport,
+    FleetRouter,
+    HttpTransport,
+    LoopbackReplica,
+    MetricsFederation,
+    ReplicaSet,
 )
 from dist_svgd_torch.serving.registry import (
     KernelBucketLRU,
@@ -65,20 +76,3 @@ __all__ = [
     "FakeTransport",
     "LoopbackReplica",
 ]
-
-#: Names of JAX's ``serving`` modules not ported yet, by module.
-_UNPORTED = {
-    "fleet.py (the serving fleet)": (
-        "FleetRouter", "MetricsFederation", "ReplicaSet", "HttpTransport",
-        "FakeTransport", "LoopbackReplica"),
-}
-
-
-def __getattr__(name):
-    """PEP 562: the unported modules' names raise ``NotImplementedError``."""
-    for module, names in _UNPORTED.items():
-        if name in names:
-            raise NotImplementedError(
-                f"serving.{name} (serving/{module}) is not ported to PyTorch yet "
-                "(ROADMAP A9)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

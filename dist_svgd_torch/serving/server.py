@@ -43,35 +43,23 @@ from __future__ import annotations
 import json
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
-import math
-
 from dist_svgd_torch.serving.autoscale import AutoscaleController, AutoscalePolicy
 from dist_svgd_torch.serving.batcher import MicroBatcher, Overloaded
 from dist_svgd_torch.serving.engine import PredictiveEngine
+from dist_svgd_torch.serving.fleet import (  # noqa: F401 (LISTEN_BACKLOG re-exported)
+    LISTEN_BACKLOG,
+    _HTTPServer,
+    format_retry_after,
+)
 from dist_svgd_torch.serving.registry import ModelRegistry
 from dist_svgd_torch.telemetry import metrics as _metrics
 from dist_svgd_torch.telemetry import trace as _trace
-
-
-#: Pending connections the listening socket holds (``listen`` backlog).
-LISTEN_BACKLOG = 1024
-
-
-class _HTTPServer(ThreadingHTTPServer):
-    request_queue_size = LISTEN_BACKLOG
-
-
-def format_retry_after(seconds: float) -> str:
-    """HTTP ``Retry-After`` delta-seconds (integer per RFC 9110, rounded up
-    and floored at 1 so the client never comes back early) — JAX's
-    ``serving/fleet.py:format_retry_after``."""
-    return str(max(int(math.ceil(seconds)), 1))
 
 
 class PredictionServer:

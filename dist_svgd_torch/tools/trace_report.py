@@ -30,11 +30,25 @@ top programs by fenced dispatch wall (``svgd_prog_dispatch_*``, written by
 ``telemetry/profile.py``) from a ``MetricsRegistry.dump()`` JSON file —
 dispatches, total and mean wall, share, rows and bytes — or from a
 telemetry history directory (``telemetry/history.py``'s ring), whose
-records' window deltas it sums.  ``--stitch`` (joining a fleet router's
-and its replicas' exports) reads exports of the fleet, not ported yet: it
-exits 2 with one line naming ROADMAP A9.
+records' window deltas it sums.
 
-A missing, empty, or corrupt input exits with one line on stderr and a
+``--stitch router.json replica*.json`` joins **multiple per-process
+exports into one tree per request**: every export carries a
+process-identity header (role/name/pid) plus a wall↔monotonic clock
+anchor, and every routed request carries one trace id across the
+``X-Fleet-Trace`` hop — so the fleet router's ``fleet.route ⊃
+fleet.attempt`` lane trees and each replica's ``serve.request ⊃ …`` trees
+reassemble as ``fleet.route ⊃ fleet.attempt ⊃ [fleet.wire gap] ⊃
+serve.request ⊃ …``, with retries/hedges as sibling attempts and the
+derived network/queue gap surfaced as the synthetic ``fleet.wire`` span.
+The report carries per-hop p50/p95/p99, the **stitch coverage** fraction
+(served routes that found their replica tree — the fleet drill gates this
+at 1.0 in fake mode), and the orphan count (replica traces whose router
+export is missing — reported, never crashing).  It reads exports written
+by the port's tracer and by JAX's alike (the same header and span names).
+
+A missing, empty, or corrupt input — including a stitch export without a
+process header or clock anchor — exits with one line on stderr and a
 nonzero status (2) — no tracebacks from the CLI.
 
 Usage::
@@ -44,6 +58,7 @@ Usage::
     python -m dist_svgd_torch.tools.trace_report trace.jsonl --top 5
     python -m dist_svgd_torch.tools.trace_report \
         postmortem_001_guard_violation.jsonl --postmortem
+    python -m dist_svgd_torch.tools.trace_report --stitch router.json r0.json r1.json
     python -m dist_svgd_torch.tools.trace_report --programs metrics_dump.json
     python -m dist_svgd_torch.tools.trace_report --programs history_dir/
 """
@@ -241,6 +256,258 @@ def render(report):
     return "\n".join(out)
 
 
+# --------------------------------------------------------------------- #
+# cross-process stitching
+
+
+def _require_anchor(path, process):
+    """The stitch contract: every export must self-identify and carry the
+    wall↔monotonic anchor — without it cross-process timestamps cannot be
+    aligned, and guessing would silently mis-attribute the wire gap."""
+    if not isinstance(process, dict):
+        raise ValueError(
+            f"{path} carries no process-identity header — re-export it "
+            "with the current tracer (Chrome otherData.process / JSONL "
+            "kind=\"process\" record)")
+    for field in ("anchor_unix_s", "anchor_trace_s"):
+        if not isinstance(process.get(field), (int, float)):
+            raise ValueError(
+                f"{path} has no clock anchor ({field}) in its process "
+                "header — cross-process timestamps cannot be aligned")
+
+
+def stitch_files(paths, wire_span="fleet.wire"):
+    """Join router + replica trace exports into one tree per request.
+
+    ``paths``: one or more router exports (process role ``"router"``) plus
+    any number of replica exports, in any order — files self-identify via
+    their process headers.  Returns the stitch report dict (``main``
+    renders it; ``fleet_drill`` reads ``coverage`` off it):
+
+    - ``coverage`` — fraction of *served* router routes whose serving
+      attempt matched a replica ``serve.request`` tree on the trace id
+      (the fleet drill's fake-mode gate is exactly 1.0);
+    - ``orphan_replica_traces`` — replica-side traces with no router
+      route (a missing/rotated router export): reported, never fatal;
+    - ``hops`` — per-hop duration percentiles across all stitched trees,
+      including the synthetic ``fleet.wire`` span (the attempt wall not
+      covered by the replica's serve span, on the anchor-aligned wall
+      clock: network + replica HTTP queueing);
+    - ``trees`` — one record per served route, retries/hedges as sibling
+      attempts.
+    """
+    exports = []
+    for path in paths:
+        process, spans, _instants = load_export(path)
+        _require_anchor(path, process)
+        exports.append({"path": path, "process": process, "spans": spans})
+    routers = [e for e in exports if e["process"].get("role") == "router"]
+    replicas = [e for e in exports if e["process"].get("role") != "router"]
+    if not routers:
+        raise ValueError(
+            "no export identifies as the router (process role "
+            "\"router\") — pass the router's trace alongside the replicas'")
+
+    def wall_us(export, ts_us):
+        p = export["process"]
+        return (p["anchor_unix_s"] - p["anchor_trace_s"]) * 1e6 + ts_us
+
+    # routes keyed trace -> LIST: a client may replay one X-Fleet-Trace
+    # id across requests (the front door passes it through verbatim), and
+    # collapsing those onto one tree would corrupt attempt/coverage
+    # accounting — each fleet.route span stays its own tree, and its
+    # attempts bind to it by time containment within the route interval
+    routes = {}
+    attempts = {}
+    for e in routers:
+        for s in e["spans"]:
+            trace = s["args"].get("trace")
+            if not trace:
+                continue
+            if s["name"] == "fleet.route":
+                routes.setdefault(trace, []).append(
+                    {"span": s, "export": e})
+            elif s["name"] == "fleet.attempt":
+                attempts.setdefault(trace, []).append(
+                    {"span": s, "export": e})
+    serves = {}
+    for e in replicas:
+        by_tid = {}
+        for s in e["spans"]:
+            by_tid.setdefault(s["tid"], []).append(s)
+        for s in e["spans"]:
+            if s["name"] != "serve.request":
+                continue
+            trace = s["args"].get("trace")
+            if not trace:
+                continue
+            # the tree's children share the lane track and nest inside
+            # the parent interval (lane allocation guarantees no overlap
+            # between trees; the 1 µs epsilon absorbs export rounding)
+            children = [c for c in by_tid[s["tid"]]
+                        if c is not s
+                        and c["ts_us"] >= s["ts_us"] - 1.0
+                        and (c["ts_us"] + c["dur_us"]
+                             <= s["ts_us"] + s["dur_us"] + 1.0)]
+            serves.setdefault(trace, []).append({
+                "span": s, "export": e, "children": children,
+                "replica": (s["args"].get("replica")
+                            or e["process"].get("name"))})
+
+    hop_durs = {}
+
+    def add_hop(name, dur_us):
+        hop_durs.setdefault(name, []).append(dur_us)
+
+    trees = []
+    eligible = 0
+    stitched = 0
+    retry_trees = 0
+    hedged_trees = 0
+    n_routes = sum(len(lst) for lst in routes.values())
+    route_records = sorted(
+        ((trace, r) for trace, lst in routes.items() for r in lst),
+        key=lambda tr: tr[1]["span"]["ts_us"])
+    serve_used: dict = {}
+    for trace, route in route_records:
+        rspan = route["span"]
+        rargs = rspan["args"]
+        if rargs.get("outcome") != "served":
+            continue  # sheds / unroutables / deadlines owe no replica tree
+        eligible += 1
+        add_hop("fleet.route", rspan["dur_us"])
+        rt0 = rspan["ts_us"]
+        rt1 = rt0 + rspan["dur_us"]
+        atts = sorted((a for a in attempts.get(trace, [])
+                       if rt0 - 1.0 <= a["span"]["ts_us"]
+                       and (a["span"]["ts_us"] + a["span"]["dur_us"]
+                            <= rt1 + 1.0)),
+                      key=lambda a: a["span"]["ts_us"])
+        serve_list = sorted(serves.get(trace, []),
+                            key=lambda s: s["span"]["ts_us"])
+        # one consumed-serve-span pool per trace, shared across any
+        # duplicate-id routes, so a serve tree matches exactly one attempt
+        used = serve_used.setdefault(trace, set())
+        tree_attempts = []
+        matched_any = False
+        for a in atts:
+            aspan = a["span"]
+            aargs = aspan["args"]
+            add_hop("fleet.attempt", aspan["dur_us"])
+            rec = {"n": aargs.get("n"), "replica": aargs.get("replica"),
+                   "dur_ms": round(aspan["dur_us"] / 1e3, 4)}
+            if aargs.get("hedged"):
+                rec["hedged"] = True
+            if "error" in aargs:
+                rec["error"] = aargs["error"]
+                tree_attempts.append(rec)
+                continue
+            rec["status"] = aargs.get("status")
+            match = None
+            for i, sv in enumerate(serve_list):
+                if i not in used and sv["replica"] == aargs.get("replica"):
+                    match = (i, sv)
+                    break
+            if match is None:
+                tree_attempts.append(rec)
+                continue
+            i, sv = match
+            used.add(i)
+            matched_any = True
+            sspan = sv["span"]
+            add_hop("serve.request", sspan["dur_us"])
+            for c in sv["children"]:
+                add_hop(c["name"], c["dur_us"])
+            a_start = wall_us(a["export"], aspan["ts_us"])
+            a_end = a_start + aspan["dur_us"]
+            s_start = wall_us(sv["export"], sspan["ts_us"])
+            s_end = s_start + sspan["dur_us"]
+            gap_us = max(s_start - a_start, 0.0) + max(a_end - s_end, 0.0)
+            add_hop(wire_span, gap_us)
+            rec["serve"] = {"replica": sv["replica"],
+                            "dur_ms": round(sspan["dur_us"] / 1e3, 4),
+                            "wire_gap_ms": round(gap_us / 1e3, 4)}
+            tree_attempts.append(rec)
+        if matched_any:
+            stitched += 1
+            if len(atts) > 1:
+                retry_trees += 1
+            if any(t.get("hedged") for t in tree_attempts):
+                hedged_trees += 1
+        trees.append({"trace": trace, "tenant": rargs.get("tenant"),
+                      "status": rargs.get("status"),
+                      "replica": rargs.get("replica"),
+                      "stitched": matched_any,
+                      "attempts": tree_attempts})
+    orphans = sorted(t for t in serves if t not in routes)
+    hops = {}
+    for name, durs in hop_durs.items():
+        durs = sorted(durs)
+        hops[name] = {
+            "count": len(durs),
+            "p50_ms": round(_percentile(durs, 0.50) / 1e3, 4),
+            "p95_ms": round(_percentile(durs, 0.95) / 1e3, 4),
+            "p99_ms": round(_percentile(durs, 0.99) / 1e3, 4),
+            "max_ms": round(durs[-1] / 1e3, 4) if durs else 0.0,
+        }
+    return {
+        "files": [{"path": e["path"],
+                   "role": e["process"].get("role"),
+                   "name": e["process"].get("name")} for e in exports],
+        "router_routes": n_routes,
+        "served_routes": eligible,
+        "stitched": stitched,
+        "coverage": round(stitched / eligible, 6) if eligible else 1.0,
+        "orphan_replica_traces": len(orphans),
+        "retry_trees": retry_trees,
+        "hedged_trees": hedged_trees,
+        "hops": hops,
+        "trees": trees,
+    }
+
+
+def render_stitch(report, top=10):
+    out = [f"stitched {report['stitched']}/{report['served_routes']} served "
+           f"routes (coverage {report['coverage']:.4f}) across "
+           f"{len(report['files'])} exports; "
+           f"{report['orphan_replica_traces']} orphan replica trace(s); "
+           f"{report['retry_trees']} tree(s) with retries, "
+           f"{report['hedged_trees']} hedged"]
+    hops = report["hops"]
+    if hops:
+        name_w = max([len(n) for n in hops] + [4])
+        out.append(f"{'hop':{name_w}s} {'count':>7s} {'p50ms':>9s} "
+                   f"{'p95ms':>9s} {'p99ms':>9s} {'max ms':>9s}")
+        order = ["fleet.route", "fleet.attempt", "fleet.wire",
+                 "serve.request"]
+        names = [n for n in order if n in hops] + sorted(
+            n for n in hops if n not in order)
+        for name in names:
+            h = hops[name]
+            out.append(f"{name:{name_w}s} {h['count']:7d} {h['p50_ms']:9.3f} "
+                       f"{h['p95_ms']:9.3f} {h['p99_ms']:9.3f} "
+                       f"{h['max_ms']:9.3f}")
+    shown = [t for t in report["trees"] if t["stitched"]][:top]
+    for t in shown:
+        out.append(f"trace {t['trace']} tenant={t['tenant']} "
+                   f"status={t['status']}:")
+        for a in t["attempts"]:
+            leg = (f"  attempt {a['n']} -> {a['replica']} "
+                   f"({a['dur_ms']:.3f} ms)")
+            if "error" in a:
+                leg += f" {a['error']}"
+            elif "serve" in a:
+                leg += (f" = {a['status']}; serve.request "
+                        f"{a['serve']['dur_ms']:.3f} ms, wire gap "
+                        f"{a['serve']['wire_gap_ms']:.3f} ms")
+            else:
+                leg += f" = {a.get('status')}"
+            if a.get("hedged"):
+                leg += " [hedged]"
+            out.append(leg)
+    return "\n".join(out)
+
+
 def load_postmortem(path):
     """Parse a flight-recorder bundle (JSONL): returns
     ``(header, metrics_snapshot, diagnostics, events)``.  Raises
@@ -380,31 +647,32 @@ def main(argv=None):
                                  description=__doc__.splitlines()[0])
     ap.add_argument("trace", nargs="+",
                     help="Chrome trace JSON (Tracer.export_chrome), tracer JSONL "
-                         "file, or (with --postmortem) a flight-recorder bundle")
+                         "file, (with --postmortem) a flight-recorder bundle, or "
+                         "(with --stitch) the router export plus every replica "
+                         "export")
     ap.add_argument("--top", type=int, default=10,
                     help="entries in the self-time ranking (or postmortem ring "
-                         "events shown)")
+                         "events / stitched trees shown)")
     ap.add_argument("--json", action="store_true",
                     help="emit the report as one JSON document")
     ap.add_argument("--postmortem", action="store_true",
                     help="render a flight-recorder postmortem bundle instead of a "
                          "span summary")
     ap.add_argument("--stitch", action="store_true",
-                    help="not ported: joins fleet exports (ROADMAP A9)")
+                    help="join router + replica exports into one tree per "
+                         "request on the X-Fleet-Trace ids (files "
+                         "self-identify via their process headers)")
     ap.add_argument("--programs", action="store_true",
                     help="render the dispatch profiler's per-program cost "
                          "attribution (input: a metrics dump JSON or a telemetry "
                          "history directory) instead of a span summary")
     args = ap.parse_args(argv)
-    if args.stitch:
-        print("trace_report: --stitch reads the fleet router's and replicas' exports "
-              "(the serving fleet), not ported to PyTorch yet (ROADMAP A9)",
-              file=sys.stderr)
-        return 2
-    if args.postmortem and args.programs:
-        ap.error("--postmortem and --programs are mutually exclusive")
-    if len(args.trace) != 1:
-        ap.error("exactly one trace file expected")
+    if sum((args.stitch, args.postmortem, args.programs)) > 1:
+        ap.error("--stitch, --postmortem and --programs are mutually "
+                 "exclusive")
+    if not args.stitch and len(args.trace) != 1:
+        ap.error("exactly one trace file expected (pass --stitch to join "
+                 "several exports)")
     trace_path = args.trace[0]
 
     if args.programs:
@@ -428,7 +696,9 @@ def main(argv=None):
         return 0
 
     try:
-        if args.postmortem:
+        if args.stitch:
+            stitch_report = stitch_files(args.trace)
+        elif args.postmortem:
             header, snapshot, diagnostics, events = load_postmortem(trace_path)
         else:
             spans, instants = load_events(trace_path)
@@ -438,13 +708,26 @@ def main(argv=None):
         return 2
     except (json.JSONDecodeError, UnicodeDecodeError, KeyError, ValueError,
             TypeError) as e:
-        # corrupt/truncated JSON, a non-trace file, a malformed record: one
-        # clear line, no traceback
-        kind = "postmortem bundle" if args.postmortem else "trace file"
-        print(f"trace_report: {trace_path} is not a readable {kind}: {e}",
-              file=sys.stderr)
+        # corrupt/truncated JSON, a non-trace file, a malformed record, a
+        # stitch export missing its process/anchor header: one clear line,
+        # no traceback
+        if args.stitch:
+            print(f"trace_report: inputs are not a stitchable export set: {e}",
+                  file=sys.stderr)
+        else:
+            kind = "postmortem bundle" if args.postmortem else "trace file"
+            print(f"trace_report: {trace_path} is not a readable {kind}: {e}",
+                  file=sys.stderr)
         return 2
 
+    if args.stitch:
+        if args.json:
+            doc = dict(stitch_report)
+            doc["trees"] = doc["trees"][:args.top]
+            print(json.dumps(doc))
+        else:
+            print(render_stitch(stitch_report, top=args.top))
+        return 0
     if args.postmortem:
         if args.json:
             print(json.dumps({"header": header, "metrics": snapshot,

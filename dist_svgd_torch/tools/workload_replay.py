@@ -12,8 +12,8 @@ heavy-tailed, and tenant demand is skewed with occasional flash crowds.  This mo
 seeded, deterministic trace** (the same events as JAX's on the same
 config: the draws are numpy's) and replays it open-loop (latency charged
 from the *scheduled* arrival — no coordinated omission) against an
-in-process ``MicroBatcher``+engine / ``ModelRegistry``, or a live
-``serving.server`` URL:
+in-process ``MicroBatcher``+engine / ``ModelRegistry``, a live
+``serving.server`` URL, or a ``FleetRouter`` front door:
 
 - :class:`TraceConfig` / :func:`generate_trace` — the workload model:
   a sinusoidal diurnal envelope × scheduled burst multipliers drives a
@@ -28,23 +28,21 @@ in-process ``MicroBatcher``+engine / ``ModelRegistry``, or a live
   with latency measured from the scheduled arrival;
 - :func:`window_metrics`, :func:`p99_breach_seconds`,
   :func:`time_to_recover`, :func:`mirror_counts` — the aggregates;
-- :func:`make_submit` / :func:`make_http_submit` — the in-process and
-  HTTP transports;
+- :func:`make_submit` / :func:`make_http_submit` /
+  :func:`make_router_submit` — the in-process, HTTP and fleet transports
+  (:func:`build_fake_fleet` puts a ``FleetRouter`` over loopback
+  replicas);
 - :func:`run_storm` / :func:`storm_ok` — the ``serve_storm`` row: one
   seeded steady → flash-crowd → recovery trace replayed against two static
   batcher configurations and against the autoscale controller
   (``serving/autoscale.py``), under ``parallel/plan.py:capture_sentry``;
 - :func:`main` — the ``storm`` / ``trace`` / ``replay`` CLI.
 
-The fleet transports (:func:`build_fake_fleet`, :func:`make_router_submit`,
-``--fleet``) need the serving fleet (``serving/fleet.py``), not ported yet:
-they raise ``NotImplementedError`` naming ROADMAP A9.
-
 Usage (the card unless ``--device cpu``)::
 
     python -m dist_svgd_torch.tools.workload_replay              # the storm row
     python -m dist_svgd_torch.tools.workload_replay --mode trace --tenants 3
-    python -m dist_svgd_torch.tools.workload_replay --mode replay [--url URL]
+    python -m dist_svgd_torch.tools.workload_replay --mode replay [--url URL | --fleet N]
 """
 
 import argparse
@@ -65,6 +63,7 @@ from dist_svgd_torch.serving import (
     MicroBatcher,
     ModelRegistry,
 )
+from dist_svgd_torch.serving import fleet as fleet_mod
 from dist_svgd_torch.serving.batcher import Overloaded, _percentile
 from dist_svgd_torch.tools import serve_bench
 from dist_svgd_torch.utils.platform import resolve_device
@@ -477,24 +476,92 @@ def make_http_submit(url, max_workers=32):
 
 
 # --------------------------------------------------------------------- #
-# the fleet transports: ROADMAP A9
-
-
-def _fleet_unported(name):
-    raise NotImplementedError(
-        f"workload_replay.{name} needs the serving fleet (serving/fleet.py), "
-        "not ported to PyTorch yet (ROADMAP A9)")
+# the fleet transports
 
 
 def make_router_submit(router, max_workers=16):
-    """Fleet transport (a ``FleetRouter`` front door): ROADMAP A9."""
-    _fleet_unported("make_router_submit")
+    """Fleet transport for replay: each event goes through the
+    ``FleetRouter`` front door (health-gated failover, retries, bounded
+    load) on a pool thread.  ``route`` never raises — a fleet-level 429
+    (every admitted replica shedding) re-raises as ``Overloaded`` so
+    ``replay`` books it shed, any other non-200 raises so it books an
+    error; an admitted request must resolve."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_workers=max_workers)
+
+    def post(ev, x):
+        doc = {"inputs": x.tolist()}
+        if ev.tenant is not None:
+            doc["tenant"] = ev.tenant
+        res = router.route(ev.tenant or "default",
+                           json.dumps(doc).encode())
+        if res.status == 429:
+            raise Overloaded("shed by fleet (429)")
+        if res.status != 200:
+            raise RuntimeError(
+                f"fleet answered {res.status} ({res.outcome})")
+        body = res.json()
+        return body.get("outputs") if isinstance(body, dict) else None
+
+    def make(pools):
+        def submit(ev):
+            p = pools[ev.rows]
+            return pool.submit(post, ev, p[ev.pick % len(p)])
+
+        return submit
+
+    make.shutdown = pool.shutdown
+    return make
 
 
 def build_fake_fleet(replicas=3, *, max_replica_rows=64, tenants=(),
                      probe_interval_s=0.2, registry=None):
-    """A ``FleetRouter`` over loopback replicas: ROADMAP A9."""
-    _fleet_unported("build_fake_fleet")
+    """A ``FleetRouter`` over in-process ``LoopbackReplica`` stand-ins
+    with a bounded per-replica row budget — the CPU-test seam for
+    replaying a trace through the fleet front door with no sockets or
+    subprocesses (the same fake-transport split
+    ``dist_svgd_torch/tools/fleet_drill.py`` uses).  Each replica sheds
+    (429) past ``max_replica_rows`` concurrently in-flight rows, so a flash
+    crowd produces real fleet-level sheds while every admitted request
+    still resolves.  Returns ``(router, close)``."""
+    names = [f"r{i}" for i in range(int(replicas))]
+    transport = fleet_mod.FakeTransport({})
+    lock = threading.Lock()
+    inflight = {n: 0 for n in names}
+
+    def make_predict(name):
+        def predict(inputs, tenant, headers):
+            rows = len(inputs)
+            with lock:
+                if inflight[name] + rows > max_replica_rows:
+                    raise fleet_mod.Shed("replica row budget full",
+                                         retry_after_s=0.05)
+                inflight[name] += rows
+            try:
+                time.sleep(0.0005)  # a realistic (tiny) dispatch floor
+                return {"mean": [0.0] * rows}
+            finally:
+                with lock:
+                    inflight[name] -= rows
+
+        return predict
+
+    for n in names:
+        transport.set_replica(n, fleet_mod.LoopbackReplica(
+            n, predict_fn=make_predict(n), tenants=list(tenants),
+            registry=telemetry.MetricsRegistry()))
+    reg = registry if registry is not None else telemetry.MetricsRegistry()
+    replica_set = fleet_mod.ReplicaSet(
+        names, transport, probe_interval_s=probe_interval_s,
+        probe_timeout_s=0.2, fail_threshold=2, passive_fail_threshold=3,
+        open_cooldown_s=0.5, registry=reg)
+    router = fleet_mod.FleetRouter(
+        names, transport=transport, replica_set=replica_set,
+        max_retries=1, per_try_timeout_s=0.5, default_deadline_s=5.0,
+        registry=reg)
+    router.start()
+    return router, router.shutdown
 
 
 # --------------------------------------------------------------------- #
@@ -901,7 +968,8 @@ def main(argv=None):
                          "(default replays in-process)")
     ap.add_argument("--fleet", type=int, default=0,
                     help="replay mode: route through an N-replica "
-                         "in-process fake fleet: not ported (ROADMAP A9)")
+                         "in-process fake fleet (FleetRouter front door) "
+                         "instead of one batcher")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: the card (fails without CUDA)")
     args = ap.parse_args(argv)
@@ -947,7 +1015,16 @@ def main(argv=None):
         records = replay(events, transport(pools))
         transport.shutdown(wait=False)
     elif args.fleet:
-        _fleet_unported("main --fleet")
+        pools = serve_bench.request_pool_by_size(
+            args.n_features, rows, per_size=32, seed=args.seed + 1)
+        router, close_fleet = build_fake_fleet(
+            args.fleet, tenants=tuple(f"t{i}" for i in range(args.tenants)))
+        transport = make_router_submit(router)
+        try:
+            records = replay(events, transport(pools))
+        finally:
+            transport.shutdown(wait=False)
+            close_fleet()
     else:
         engine = serve_bench.build_engine(
             args.model, args.n_particles, args.n_features, None, args.seed,

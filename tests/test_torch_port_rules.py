@@ -48,7 +48,9 @@ def test_no_jax_or_reference_imports():
                    "tools/anomaly_report.py", "tools/workload_replay.py",
                    "tools/rollout_drill.py", "tools/cost_drill.py", "streaming/__init__.py",
                    "streaming/source.py", "streaming/pipeline.py",
-                   "experiments/streaming_covertype.py", "tools/freshness_drill.py"):
+                   "experiments/streaming_covertype.py", "tools/freshness_drill.py",
+                   "serving/fleet.py", "tools/fleet_drill.py", "tools/fleet_status.py",
+                   "tools/trace_report.py"):
         assert PORT / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "dist_svgd_tpu", "tools")]
@@ -144,6 +146,28 @@ def test_streaming_runs_with_jax_blocked():
         "print('ok')\n"
     )
     _run_with_jax_blocked(code)
+
+
+def test_fleet_runs_with_jax_blocked():
+    """A process where ``import jax`` fails runs the fake fleet drill (at
+    shrunk phases), stitches its exports, and imports the fleet status
+    tool; no port module names ROADMAP A9 in a ``NotImplementedError``."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "from dist_svgd_torch.serving import FleetRouter, fleet\n"
+        "from dist_svgd_torch.tools import fleet_drill, fleet_status, trace_report\n"
+        "row = fleet_drill.run_drill('fake', steady_s=0.2, kill_s=0.3, partition_s=0.3)\n"
+        "ok, why = fleet_drill.row_ok(row)\n"
+        "assert ok, why\n"
+        "assert row['trace_stitch_coverage'] == 1.0 and row['lost_requests'] == 0\n"
+        "assert FleetRouter is fleet.FleetRouter\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    _run_with_jax_blocked(code)
+    named = [str(f.relative_to(ROOT)) for f in sorted(PORT.rglob("*.py"))
+             if "ROADMAP A9" in f.read_text()]
+    assert named == []
 
 
 def test_port_runs_w2_with_jax_blocked():

@@ -9,8 +9,8 @@ port's own f32 at JAX's tolerances (``tests/test_plan.py``).  Padding is
 bitwise-invisible on the CPU: a served row equals a direct
 ``posterior_predictive_prob`` call on the same rows.  The batcher's edge
 cases run through its injectable clock; the HTTP server, the hot reloader,
-the candidate generation and the ``NotImplementedError`` sites (ROADMAP A9
-and A10) are checked too."""
+the candidate generation and the ``NotImplementedError`` sites (ROADMAP
+A10) are checked too."""
 
 import json
 import math
@@ -1035,10 +1035,13 @@ def test_unported_options_raise_naming_their_label(rng):
         Plan(object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         make_plan(2, device="cpu")
+    # the serving fleet is ported: its six names resolve to the port's classes
+    from dist_svgd_torch.serving import fleet as tfleet
+
     for name in ("FleetRouter", "MetricsFederation", "ReplicaSet", "HttpTransport",
                  "FakeTransport", "LoopbackReplica"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            getattr(tserving, name)
+        assert getattr(tserving, name) is getattr(tfleet, name)
+        assert getattr(tserving, name).__module__ == "dist_svgd_torch.serving.fleet"
     from dist_svgd_tpu import serving as jserving
 
     assert tserving.__all__ == jserving.__all__

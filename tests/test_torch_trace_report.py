@@ -7,9 +7,15 @@ by the port's tracer (Chrome export and JSONL) while a flight recorder
 runs; both tools' span summaries of the two files, and both tools'
 postmortem views of the guard trip's bundle, are equal.  The port buckets
 its ``kernel_build`` instants where JAX buckets ``xla_compile``; the CLI's
-exit codes, its refusal of ``--stitch`` (exit 2, naming ROADMAP A9) and
-``--programs`` over a telemetry history directory (rings of both packages,
-summed as JAX sums them) are checked too."""
+exit codes and ``--programs`` over a telemetry history directory (rings of
+both packages, summed as JAX sums them) are checked too.
+
+``--stitch``: a two-replica loopback fleet routes under a global tracer
+and every process's trace is exported — all by the port, all by JAX, or the
+port's router over JAX's replicas — and both tools' stitch reports of the
+same files are equal: the golden tree with retry siblings, duplicate
+client trace ids, an orphan replica trace, the exit 2 of a missing anchor
+or a missing router export, and the CLI's JSON and table."""
 
 import importlib.util
 import json
@@ -139,16 +145,170 @@ def test_cli_rows_equal_jax(traced_run, jtr, capsys):
     assert ours["spans"] == theirs["spans"] and ours["top_self"] == theirs["top_self"]
 
 
-@pytest.mark.parametrize("flag", ["--stitch"])
-def test_unported_options_exit_2_naming_a9(tmp_path, capsys, flag):
-    """``--stitch`` reads the fleet's exports: it exits 2 naming A9
-    (``--programs`` over a metrics dump is test_torch_cost_attribution's,
-    over a history directory the test below)."""
+# --------------------------------------------------------------------- #
+# --stitch: exports of a fleet, written by either package's tracer
+
+
+def _stitch_side(pkg):
+    if pkg == "port":
+        from dist_svgd_torch.serving import fleet
+        from dist_svgd_torch.telemetry import metrics, trace
+    else:
+        from dist_svgd_tpu.serving import fleet
+        from dist_svgd_tpu.telemetry import metrics, trace
+    return fleet, trace, metrics.MetricsRegistry
+
+
+#: Who writes the router's export and who the replicas': one package each
+#: side, or the port's router over JAX's replicas.
+WRITERS = {"port": ("port", "port"), "jax": ("jax", "jax"), "mixed": ("port", "jax")}
+
+
+def _run_fleet_and_export(tmp_path, writer, n_requests=6, kill_one=True, trace=None):
+    """Route through a 2-replica loopback fleet under the router side's
+    global tracer (JAX's ``tests/test_trace_stitch.py`` fleet), export the
+    router's and each replica's trace; returns (paths, served routes)."""
+    rfleet, rtrace, rreg = _stitch_side(WRITERS[writer][0])
+    pfleet, ptrace, preg = _stitch_side(WRITERS[writer][1])
+    tracer = rtrace.enable()
+    tracer.set_process("router", "router")
+    rep_tracers = {r: ptrace.Tracer(registry=preg()) for r in ("ra", "rb")}
+    reps = {r: pfleet.LoopbackReplica(r, tenants=["t0"], tracer=rep_tracers[r])
+            for r in ("ra", "rb")}
+    transport = rfleet.FakeTransport(reps)
+    router = rfleet.FleetRouter(list(reps), transport=transport, registry=rreg(),
+                                probe_interval_s=10.0)
+    body = json.dumps({"inputs": [[0.1, 0.2]], "tenant": "t0"}).encode()
+    served = 0
+    try:
+        for _ in range(n_requests):
+            served += router.route("t0", body, trace=trace).status == 200
+        if kill_one:
+            victim = router.route("t0", body).replica
+            served += 1
+            transport.kill(victim)
+            res = router.route("t0", body)  # retries to the survivor
+            assert res.status == 200 and res.attempts > 1
+            served += 1
+    finally:
+        router.shutdown()
+        tracer = rtrace.disable()
+    paths = [str(tmp_path / "router.json")]
+    tracer.export_chrome(paths[0])
+    for r, rt in rep_tracers.items():
+        paths.append(str(tmp_path / f"{r}.json"))
+        rt.export_chrome(paths[-1])
+    return paths, served
+
+
+def _stitched(tool, argv, capsys):
+    rc = tool.main(argv)
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+@pytest.mark.parametrize("writer", sorted(WRITERS))
+def test_stitch_golden_tree_with_retry_siblings_equals_jax(tmp_path, jtr, writer):
+    paths, served = _run_fleet_and_export(tmp_path, writer)
+    report = ttr.stitch_files(paths)
+    assert report == jtr.stitch_files(paths)
+    assert report["served_routes"] == served and report["coverage"] == 1.0
+    assert report["orphan_replica_traces"] == 0
+    retry = [t for t in report["trees"] if len(t["attempts"]) > 1]
+    assert report["retry_trees"] >= 1 and retry
+    attempts = retry[0]["attempts"]
+    assert any("error" in a for a in attempts)
+    serving = [a for a in attempts if "serve" in a]
+    assert serving and serving[0]["serve"]["wire_gap_ms"] >= 0.0
+    for hop in ("fleet.route", "fleet.attempt", "fleet.wire", "serve.request",
+                "serve.dispatch"):
+        assert report["hops"][hop]["count"] >= 1, hop
+    assert ttr.render_stitch(report, top=3) == jtr.render_stitch(report, top=3)
+
+
+@pytest.mark.parametrize("writer", sorted(WRITERS))
+def test_stitch_duplicate_client_trace_ids_equal_jax(tmp_path, jtr, writer):
+    """A client replaying one ``X-Fleet-Trace`` id yields one tree a route,
+    never a merged pseudo-retry tree."""
+    paths, _ = _run_fleet_and_export(tmp_path, writer, n_requests=3, kill_one=False,
+                                     trace="5717CKed00000bad")
+    report = ttr.stitch_files(paths)
+    assert report == jtr.stitch_files(paths)
+    assert report["router_routes"] == report["served_routes"] == 3
+    assert report["coverage"] == 1.0 and report["retry_trees"] == 0
+    assert all(len(t["attempts"]) == 1 for t in report["trees"])
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_stitch_orphan_replica_spans_equal_jax(tmp_path, jtr, writer):
+    paths, _ = _run_fleet_and_export(tmp_path, writer, kill_one=False)
+    _, trace, registry = _stitch_side(writer)
+    stray = trace.Tracer(registry=registry())
+    stray.set_process("replica", "stray")
+    stray.lane_tree("serve.request", 0.0, 0.001,
+                    {"trace": "dead000000000009", "replica": "stray"})
+    paths.append(str(tmp_path / "stray.json"))
+    stray.export_chrome(paths[-1])
+    report = ttr.stitch_files(paths)
+    assert report == jtr.stitch_files(paths)
+    assert report["coverage"] == 1.0 and report["orphan_replica_traces"] == 1
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_stitch_missing_anchor_exits_2_like_jax(tmp_path, jtr, capsys, writer):
+    paths, _ = _run_fleet_and_export(tmp_path, writer, kill_one=False)
+    legacy = tmp_path / "legacy.json"
+    doc = json.loads(Path(paths[1]).read_text())
+    del doc["otherData"]
+    legacy.write_text(json.dumps(doc))
+    doc = json.loads(Path(paths[1]).read_text())
+    del doc["otherData"]["process"]["anchor_unix_s"]
+    no_anchor = tmp_path / "no_anchor.json"
+    no_anchor.write_text(json.dumps(doc))
+    for bad, says in ((legacy, "process-identity header"), (no_anchor, "clock anchor")):
+        argv = ["--stitch", paths[0], str(bad)]
+        ours, theirs = _stitched(ttr, argv, capsys), _stitched(jtr, argv, capsys)
+        assert ours == theirs
+        rc, _, err = ours
+        assert rc == 2 and err.count("\n") == 1 and says in err
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_stitch_without_a_router_export_exits_2_like_jax(tmp_path, jtr, capsys, writer):
+    paths, _ = _run_fleet_and_export(tmp_path, writer, kill_one=False)
+    for argv in (["--stitch", paths[1], paths[2]],
+                 ["--stitch", paths[0], str(tmp_path / "missing.json")]):
+        ours, theirs = _stitched(ttr, argv, capsys), _stitched(jtr, argv, capsys)
+        assert ours == theirs
+        assert ours[0] == 2 and ours[2].count("\n") == 1
+    assert "router" in _stitched(ttr, ["--stitch", paths[1], paths[2]], capsys)[2]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_stitch_cli_json_and_human_equal_jax(tmp_path, jtr, capsys, writer):
+    paths, _ = _run_fleet_and_export(tmp_path, writer)
+    for argv in (["--stitch"] + paths + ["--json", "--top", "2"], ["--stitch"] + paths):
+        ours, theirs = _stitched(ttr, argv, capsys), _stitched(jtr, argv, capsys)
+        assert ours == theirs and ours[0] == 0
+    doc = json.loads(_stitched(ttr, ["--stitch"] + paths + ["--json", "--top", "2"],
+                               capsys)[1])
+    assert doc["coverage"] == 1.0 and len(doc["trees"]) <= 2
+    out = _stitched(ttr, ["--stitch"] + paths, capsys)[1]
+    assert "coverage 1.0000" in out and "fleet.wire" in out
+    # a router export still summarises as one trace file
+    rc, out, _ = _stitched(ttr, [paths[0], "--json"], capsys)
+    assert rc == 0 and "fleet.route" in json.loads(out)["spans"]
+
+
+def test_stitch_excludes_the_other_modes(tmp_path, capsys):
     path = tmp_path / "t.json"
     path.write_text('{"traceEvents": []}')
-    assert ttr.main([flag, str(path)]) == 2
-    err = capsys.readouterr().err.strip()
-    assert len(err.splitlines()) == 1 and "ROADMAP A9" in err and flag in err
+    for argv in (["--stitch", "--postmortem", str(path)],
+                 ["--stitch", "--programs", str(path)]):
+        with pytest.raises(SystemExit) as ei:
+            ttr.main(argv)
+        assert ei.value.code == 2
+        assert "mutually exclusive" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])

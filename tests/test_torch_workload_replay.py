@@ -13,7 +13,9 @@ two-tenant check and ``main --mode trace`` equal JAX's; with the capacity
 probe patched to the same anchors, ``replay`` swapped for a recorder and
 the settle pauses at 0, ``run_storm`` builds JAX's event list and row; the
 port's tiny storm of ``tests/test_workload_replay.py:180-187`` runs end to
-end.  The fleet transports raise naming ROADMAP A9."""
+end.  The fleet transports: a flash crowd replayed through the port's
+``FleetRouter`` sheds and loses nothing, as JAX's does; fleet statuses book
+as JAX books them; ``main --mode replay --fleet N`` runs."""
 
 import importlib.util
 import json
@@ -192,7 +194,7 @@ def test_window_metrics_and_breach_and_recover(jwr):
 
 
 # --------------------------------------------------------------------- #
-# the request pools, and what stays unported
+# the request pools
 
 
 def test_request_pool_by_size_equals_jax():
@@ -210,17 +212,72 @@ def test_request_pool_by_size_equals_jax():
 # the serve_storm half
 
 
-@pytest.mark.parametrize("name,args", [("build_fake_fleet", ()),
-                                       ("make_router_submit", (None,))])
-def test_fleet_transports_raise_naming_a9(name, args):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        getattr(wr, name)(*args)
+# --------------------------------------------------------------------- #
+# the fleet transports
 
 
-def test_replay_through_a_fleet_raises_naming_a9():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        wr.main(["--mode", "replay", "--fleet", "2", "--device", "cpu",
-                 "--duration-s", "0.2", "--n-particles", "16", "--n-features", "3"])
+def test_fleet_replay_flash_crowd_sheds_without_losses():
+    """``tests/test_workload_replay.py``'s flash crowd through the port's
+    ``FleetRouter`` (fake transport, bounded per-replica row budgets): the
+    overload surfaces as fleet-level 429s booked ``shed`` — never lost or
+    errored."""
+    router, close = wr.build_fake_fleet(2, max_replica_rows=8, tenants=("t0", "t1"))
+    cfg = wr.TraceConfig(duration_s=1.2, base_rps=150.0, seed=3,
+                         bursts=((0.2, 0.6, 8.0),), rows_sizes=(4, 8),
+                         tenants=("t0", "t1"))
+    events = wr.generate_trace(cfg)
+    pools = {r: [np.zeros((r, 4), dtype=np.float32)] for r in (4, 8)}
+    transport = wr.make_router_submit(router)
+    try:
+        records = wr.replay(events, transport(pools))
+    finally:
+        transport.shutdown(wait=False)
+        close()
+    m = wr.window_metrics(records, 0.0, cfg.duration_s, good_ms=1000.0)
+    assert m["offered"] > 50
+    assert m["shed"] > 0
+    assert m["lost"] == 0 and m["errors"] == 0
+    assert m["completed"] + m["shed"] == m["offered"]
+
+
+def test_router_submit_books_statuses_like_jax(jwr):
+    """A fleet 429 books ``shed``, any other non-200 an error, a 200 its
+    outputs — in both packages, over a router stub answering by pick."""
+    from dist_svgd_tpu.serving.fleet import RouteResult as JRouteResult
+
+    from dist_svgd_torch.serving.fleet import RouteResult
+
+    def run(mod, result_cls):
+        class Stub:
+            def route(self, tenant, body):
+                pick = json.loads(body)["inputs"][0][0]
+                status = {0: 200, 1: 429, 2: 503, 3: 504}[int(pick)]
+                payload = {"outputs": {"mean": [pick]}} if status == 200 else {}
+                return result_cls(status, {}, json.dumps(payload).encode(),
+                                  outcome="served" if status == 200 else "x")
+
+        make = mod.make_router_submit(Stub(), max_workers=2)
+        pools = {1: [np.full((1, 2), float(i), dtype=np.float32) for i in range(4)]}
+        events = [mod.ReplayEvent(0.001 * i, 1, "t0", i) for i in range(4)]
+        try:
+            return mod.replay(events, make(pools), drain_timeout_s=5.0)
+        finally:
+            make.shutdown(wait=True)
+
+    ours, theirs = run(wr, RouteResult), run(jwr, JRouteResult)
+    assert [r["status"] for r in ours] == [r["status"] for r in theirs] == [
+        "ok", "shed", "error", "error"]
+    assert [r.get("error") for r in ours] == [r.get("error") for r in theirs]
+
+
+def test_main_replay_through_a_fleet(capsys):
+    assert wr.main(["--mode", "replay", "--fleet", "3", "--duration-s", "0.6",
+                    "--base-rps", "80", "--n-features", "3", "--tenants", "4"]) == 0
+    doc = json.loads(capsys.readouterr().out)
+    assert doc["metric"] == "workload_replay"
+    whole = doc["whole"]
+    assert whole["offered"] > 0 and whole["lost"] == whole["errors"] == 0
+    assert whole["completed"] + whole["shed"] == whole["offered"]
 
 
 def _row(**kw):
