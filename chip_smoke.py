@@ -82,7 +82,13 @@ three replica processes behind a traced ``FleetRouter`` (every served mean
 against a direct engine, ``/fleet`` read through
 ``dist_svgd_torch/tools/fleet_status.py``, the four trace exports stitched
 by ``dist_svgd_torch/tools/trace_report.py``), and the workload replay
-through a fleet; it checks that each path went through its kernels, and
+through a fleet — and last the process mesh: ``DistSampler(mesh=...)``
+across worker processes of this script joined by ``torch.distributed`` on
+the one card (the north star at W = 1 on NCCL and W = 2 and 4 on gloo,
+splice, the ring and the W2 north star at W = 2, a W = 4 save resumed at
+W = 2, each against the single-process run, with the kernels held at the
+per-rank lanes) and ``dist_svgd_torch/tools/multihost_train.py``'s real
+kill-one drill; it checks that each path went through its kernels, and
 prints one JSON object per phase.  A
 phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
@@ -573,6 +579,65 @@ FLEET_TRAIN = dict(nrows=20_000, nproc=8, nparticles=10_000, niter=100, stepsize
                    batch_size=256, seed=0)
 FLEET = dict(replicas=3, clients=16, requests=320, rows=128, tenants=8, status_interval_s=0.5,
              spawn_timeout_s=240.0)
+
+# Section 24, the process mesh (multihost_phases): DistSampler(mesh=...)
+# across worker processes of this script (python3 chip_smoke.py
+# --multihost-worker SPEC), each rank a torch.distributed process on the one
+# card.  NCCL takes one rank a card, so the multi-process arms run gloo,
+# chosen explicitly, every rank on cuda:0 and every collective staged
+# through host memory (the mesh counts the bytes); NCCL runs the W = 1 arm
+# through the same ParticleMesh code path.  MULTIHOST_ARMS are the
+# federations, in order (W, backend, legs); MH_LEGS the legs' configs:
+# - north_star: banana fold 42, n = 10,000, 8 shards, all_particles, the
+#   gather, from section 4's initial particles; MULTIHOST["warm_steps"]
+#   then MULTIHOST["steps"] timed.  Gated at W = 1 (NCCL), 2 and 4 (gloo):
+#   phi_small_d launched once a step on every rank and no other φ kernel,
+#   host-staged bytes under gloo and none under NCCL, and the final
+#   particles within TRAJ_RTOL · max|θ| of the single-process run on the
+#   card (the φ kernels' m-split follows the lane count, so an (8/W)-lane
+#   launch may sum in another order than the 8-lane one);
+# - splice: d = 61 (phi_big_d once a step a rank), W = 2, the same gate;
+# - ring: the ring in all_scores at the north star, W = 2: phi_small_d once a
+#   hop (8 a step) on every rank, the ring sends a step, summed over the
+#   ranks, equal to ring_hops_per_step's rotations times the process
+#   boundaries a hop crosses, and the same deviation gate;
+# - w2: the W2 north star on the fused route (sinkhorn_tol None and
+#   MULTIHOST["w2_iters"] iterations, as section 9), W = 2: ot_ctransform
+#   at least twice and ot_kexp at least once a step a rank, phi_small_d
+#   once, and the same deviation gate;
+# - restore_save / restore_resume: the w2 leg saved per rank at
+#   MULTIHOST["save_at"] at W = 4 and run on MULTIHOST["after_save"] steps;
+#   a W = 2 federation assembles the four blocks, resumes, and runs the same
+#   steps: within TRAJ_RTOL of the uninterrupted W = 4 run.
+# Each multi-process leg also holds its kernels at the per-rank lanes
+# (MH_LANES, L = 8/W lanes, W ranks timing at once on the card) against
+# their plain versions, as section 3 does.  Then multihost_drill:
+# dist_svgd_torch/tools/multihost_train.py --mode real --processes 4
+# --backend gloo on the card: one SIGKILL, one restart at W = 3, row_ok.
+MULTIHOST = dict(n=10_000, shards=8, warm_steps=5, steps=100, leg_steps=20, save_at=10,
+                 after_save=10, w2_iters=50, w2_h=10.0, step_size=3e-3, timeout_s=300,
+                 drill_deadline_s=300)
+MULTIHOST_ARMS = [(4, "gloo", ("north_star", "restore_save")),
+                  (2, "gloo", ("north_star", "splice", "ring", "w2", "restore_resume")),
+                  (1, "nccl", ("north_star",))]
+MH_LEGS = {
+    "north_star": dict(dataset="banana", fold=42, steps="steps"),
+    "splice": dict(dataset="splice", fold=1, steps="leg_steps"),
+    "ring": dict(dataset="banana", fold=42, steps="leg_steps", exchange_scores=True,
+                 exchange_impl="ring"),
+    "w2": dict(dataset="banana", fold=42, steps="leg_steps", w2=True),
+    "restore_save": dict(dataset="banana", fold=42, steps="after_save", w2=True),
+    "restore_resume": dict(dataset="banana", fold=42, steps="after_save", w2=True),
+}
+# (kernel, lanes' shape at L = 1, bandwidth, shared x) a leg's path gives.
+MH_LANES = {
+    "north_star": [("phi_small_d", (1, 1250, 10_000, 3), 1.0, True)],
+    "splice": [("phi_big_d", (1, 1250, 10_000, 61), 122.0, True)],
+    "ring": [("phi_small_d", (1, 1250, 1250, 3), 1.0, False)],
+    "w2": [("ot_ctransform", (1, 1250, 10_000, 3), None, None),
+           ("ot_kexp", (1, 1250, 10_000, 3), None, None)],
+}
+MH_SEED = 1200
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -1613,7 +1678,7 @@ def resumable_phases(data, init, x_test, t_test):
     from dist_svgd_torch.experiments import covertype as cov
     from dist_svgd_torch.models.logreg import ensemble_test_accuracy, logreg_logp
     from dist_svgd_torch.ops import cuda_ot, cuda_svgd
-    from dist_svgd_torch.parallel import exchange
+    from dist_svgd_torch.parallel.mesh import ParticleMesh
     from dist_svgd_torch.tools import large_n
     from dist_svgd_torch.utils import checkpoint as ckpt
     from dist_svgd_torch.utils.rng import init_particles_per_shard
@@ -1791,15 +1856,16 @@ def resumable_phases(data, init, x_test, t_test):
     torch.cuda.empty_cache()
 
     # ---- Covertype lagged (--exchange-every 4), both tiers -------------------
+    # the exchange gathers through its mesh (parallel/mesh.py:ParticleMesh)
     gathers = {"n": 0}
-    real_gather = exchange.all_gather
+    real_gather = ParticleMesh.all_gather
 
-    def counting_gather(blocks):
+    def counting_gather(mesh, blocks):
         gathers["n"] += 1
-        return real_gather(blocks)
+        return real_gather(mesh, blocks)
 
     cl = CT_LAGGED
-    exchange.all_gather = counting_gather
+    ParticleMesh.all_gather = counting_gather
     try:
         for tier, kernel in (("cuda_bf16", "phi_big_d_bf16x3"), ("cuda", "phi_big_d")):
             gathers["n"] = 0
@@ -1817,7 +1883,7 @@ def resumable_phases(data, init, x_test, t_test):
             if not ok:
                 raise AssertionError(f"covertype lagged {tier}: {launched} {gathers}")
     finally:
-        exchange.all_gather = real_gather
+        ParticleMesh.all_gather = real_gather
 
     # ---- Covertype cadences and a resume ----------------------------------
     cc = CT_CADENCES
@@ -4002,6 +4068,394 @@ def fleet_phases(root, card):
     emit({"phase": "fleet_section", "seconds": time.perf_counter() - t0})
 
 
+def _mh_sampler(leg, mesh, device):
+    """``(sampler, steps, h)`` of a section-24 leg (MH_LEGS) on ``mesh``
+    (``None``: the single-process emulation) — every rank builds the global
+    initial particles and takes its rows."""
+    import torch
+
+    from dist_svgd_torch import DistSampler
+    from dist_svgd_torch.models.logreg import logreg_logp
+    from dist_svgd_torch.utils.datasets import load_benchmark
+    from dist_svgd_torch.utils.rng import init_particles_per_shard
+
+    cfg, mh = MH_LEGS[leg], MULTIHOST
+    fold = load_benchmark(cfg["dataset"], cfg["fold"])
+    data = (torch.as_tensor(fold.x_train), torch.as_tensor(fold.t_train.reshape(-1)))
+    d = 1 + fold.x_train.shape[1]
+    particles = init_particles_per_shard(0, mh["n"], d, mh["shards"])
+    if mesh is not None:  # (a mesh-less run needs no multihost: any tree can time it)
+        from dist_svgd_torch.parallel import multihost
+
+        start, count = multihost.process_local_rows(mh["n"], mesh)
+        particles = multihost.make_global_particles(particles[start:start + count], mesh,
+                                                    n_global=mh["n"])
+    kw = dict(include_wasserstein=False)
+    if cfg.get("w2"):
+        kw = dict(include_wasserstein=True, wasserstein_solver="sinkhorn", sinkhorn_tol=None,
+                  sinkhorn_iters=mh["w2_iters"])
+    if mesh is not None:
+        kw["mesh"] = mesh
+    ds = DistSampler(mh["shards"], logreg_logp, None, particles, data=data,
+                     exchange_particles=True, exchange_scores=cfg.get("exchange_scores", False),
+                     exchange_impl=cfg.get("exchange_impl", "gather"), device=device, **kw)
+    return ds, mh[cfg["steps"]], (mh["w2_h"] if cfg.get("w2") else 1.0)
+
+
+def _mh_lane_rows(leg, mesh, dist):
+    """The leg's kernels at this rank's lanes (MH_LANES with L = 8/W), every
+    rank at once: held against the plain version, timed, beside the bound."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_ot, cuda_svgd
+
+    fns = {"phi_small_d": (cuda_svgd.phi_small_d_cuda, cuda_svgd.phi_small_d_plain),
+           "phi_big_d": (cuda_svgd.phi_big_d_cuda, cuda_svgd.phi_big_d_plain),
+           "ot_ctransform": (cuda_ot.ctransform_reduce_cuda, cuda_ot.ctransform_reduce_plain),
+           "ot_kexp": (cuda_ot.kexp_cuda, cuda_ot.kexp_plain)}
+    rows = []
+    for i, (name, (_, k, m, d), h, shared) in enumerate(MH_LANES.get(leg, [])):
+        S = mesh.shards_per_process
+        kern, plain = fns[name]
+        seed = MH_SEED + 10 * i + S
+        if name.startswith("phi"):
+            y, x, s = phi_inputs(S, k, m, d, seed, shared)
+            args = (y, x, s, h)
+            got, want = kern(*args), plain(*args)
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            tol = KERNEL_RTOL * scale
+            ok = bool(torch.isfinite(got).all()) and err <= tol
+            work = phi_work(name, S, k, m, d, x.numel())
+        else:
+            rows_, cols, f, gpot, p, _ = ot_inputs(S, k, m, d, seed)
+            args = (rows_, cols, p, True) if name == "ot_ctransform" else (rows_, cols, f, gpot)
+            got, want = kern(*args), plain(*args)
+            ok, err, tol, scale = ot_check(name, got, want, soft=name == "ot_ctransform")
+            work = ot_work(name, S, k, m, d)
+        del got, want
+        dist.barrier()  # the W ranks time at once: W processes share the card
+        ms = cuda_ms(lambda: kern(*args), TIMED_LAUNCHES)
+        dist.barrier()
+        plain_ms = cuda_ms(lambda: plain(*args), OTHER_LAUNCHES)
+        b_ms, b_by = bound_ms(*work)
+        rows.append({"kernel": name, "shape": [S, k, m, d], "bandwidth": h, "ok": ok,
+                     "max_abs_err": err, "max_abs_plain": scale, "tolerance": tol, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def multihost_worker(spec):
+    """One rank of a section-24 federation (``--multihost-worker SPEC``):
+    join the group, run the legs, write ``rank<r>.json`` and each leg's rows
+    under ``spec['out']``; returns the exit code."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dist_svgd_torch.ops import cuda_ot, cuda_svgd
+    from dist_svgd_torch.parallel import multihost
+    from dist_svgd_torch.utils import checkpoint as ckpt
+
+    rank, W, device = spec["rank"], spec["processes"], spec["device"]
+    out, restore_dir = Path(spec["out"]), Path(spec["restore_dir"])
+    MULTIHOST.update(spec["config"])  # the launcher's sizes
+    if device == "cpu":
+        torch.set_num_threads(1)
+    multihost.initialize(spec["coordinator"], W, rank, backend=spec["backend"],
+                         timeout_s=MULTIHOST["timeout_s"], device=device)
+    try:
+        mesh = multihost.make_particle_mesh(MULTIHOST["shards"], device=device)
+        on_card = mesh.device.type == "cuda"
+        legs = {}
+        for leg in spec["legs"]:
+            ds, steps, h = _mh_sampler(leg, mesh, device)
+            if leg == "restore_resume":
+                ds.load_state_dict(ckpt.assemble_full_state(
+                    sorted(str(p) for p in restore_dir.glob("rank_*"))))
+            elif leg == "restore_save":
+                ds.run_steps(MULTIHOST["save_at"], MULTIHOST["step_size"], h=h)
+                ckpt.save_state(str(restore_dir / f"rank_{rank}"), ds.state_dict())
+            else:
+                ds.run_steps(MULTIHOST["warm_steps"], MULTIHOST["step_size"], h=h)
+            if on_card:
+                torch.cuda.synchronize()
+            dist.barrier()
+            cuda_svgd.reset_launch_counts()
+            cuda_ot.reset_launch_counts()
+            mesh.reset_counts()
+            t0 = time.perf_counter()
+            ds.run_steps(steps, MULTIHOST["step_size"], h=h)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in {**cuda_svgd.launch_counts,
+                                          **cuda_ot.launch_counts}.items() if v}
+            counts = mesh.counts()
+            rows, start = multihost.host_addressable_block(ds.particles)
+            np.save(out / f"{leg}_rows_{rank}.npy", rows)
+            legs[leg] = {"steps": steps, "t": ds.t, "ms_per_step": 1e3 * wall / steps,
+                         "launches": launches, "mesh": counts, "row_start": start,
+                         "finite": bool(np.isfinite(rows).all()),
+                         "lanes": (_mh_lane_rows(leg, mesh, dist)
+                                   if on_card and mesh.multiprocess else [])}
+            del ds
+        with open(out / f"rank{rank}.json", "w") as fh:
+            json.dump({"rank": rank, "backend": mesh.backend, "device": str(mesh.device),
+                       "shards_per_process": mesh.shards_per_process,
+                       "stages_through_host": mesh.stages_through_host, "legs": legs}, fh)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def _mh_federation(W, backend, legs, out, restore_dir, device):
+    """Run one federation of W worker ranks to its end (killing any rank
+    left when it fails or times out); returns the ranks' reports."""
+    import os
+    import socket
+
+    out.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = Path(__file__).resolve()
+    env = dict(os.environ)
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    procs, logs = [], []
+    try:
+        for r in range(W):
+            spec = {"rank": r, "processes": W, "backend": backend, "device": device,
+                    "coordinator": f"127.0.0.1:{port}", "legs": list(legs), "out": str(out),
+                    "restore_dir": str(restore_dir), "config": MULTIHOST}
+            log = open(out / f"rank{r}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(here), "--multihost-worker", json.dumps(spec)],
+                cwd=here.parent, env=env, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MULTIHOST["timeout_s"]
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:  # a rank that failed or hung leaves its peers blocked
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = {r: (out / f"rank{r}.log").read_text()[-2000:] for r in bad}
+        raise AssertionError(f"multihost W={W} {backend}: ranks {bad} failed: {tails}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(W)]
+
+
+def _mh_gathered(out, reports, leg):
+    """The global particles of a leg from its ranks' row files."""
+    import numpy as np
+
+    parts = sorted((rep["legs"][leg]["row_start"], np.load(out / f"{leg}_rows_{rep['rank']}.npy"))
+                   for rep in reports)
+    return np.concatenate([rows for _, rows in parts])
+
+
+def _mh_dev(got, want):
+    import numpy as np
+
+    dev = float(np.abs(got - want).max())
+    rel = dev / float(np.abs(want).max())
+    return {"max_abs_dev": dev, "rel_dev": rel, "bound": TRAJ_RTOL,
+            "dev_ok": bool(np.isfinite(got).all() and rel <= TRAJ_RTOL)}
+
+
+def _mh_arm(W, backend, reports, leg, out, ref):
+    """A leg's row fields for one federation, against the single-process
+    run ``ref`` (``None``: no comparison)."""
+    import numpy as np
+
+    legs = [rep["legs"][leg] for rep in reports]
+    ms = [lg["ms_per_step"] for lg in legs]
+    arm = {"processes": W, "backend": reports[0]["backend"], "device": reports[0]["device"],
+           "stages_through_host": reports[0]["stages_through_host"],
+           "steps": legs[0]["steps"], "ms_per_step_median": float(np.median(ms)),
+           "ms_per_step_spread": max(ms) - min(ms), "ms_per_step_ranks": ms,
+           "launches_per_rank": [lg["launches"] for lg in legs],
+           "staged_bytes_per_step": [lg["mesh"]["staged_bytes"] / lg["steps"] for lg in legs],
+           "collectives_per_step": [lg["mesh"]["collectives"] / lg["steps"] for lg in legs],
+           "sends_per_step": sum(lg["mesh"]["sends"] for lg in legs) / legs[0]["steps"]}
+    if ref is not None:
+        arm.update(_mh_dev(_mh_gathered(out, reports, leg), ref))
+    return arm
+
+
+def _mh_reference(leg, device):
+    """The leg's single-process run on the card (all 8 shards in one lane
+    stack): final particles after its warm and timed steps, and ms a step."""
+    import torch
+
+    ds, steps, h = _mh_sampler(leg, None, device)
+    ds.run_steps(MULTIHOST["warm_steps"], MULTIHOST["step_size"], h=h)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds.run_steps(steps, MULTIHOST["step_size"], h=h)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return ds.particles.cpu().numpy(), 1e3 * (time.perf_counter() - t0) / steps
+
+
+def _mh_launch_gate(arm, want):
+    """Every rank launched exactly ``want`` (kernel → count, or a callable
+    of the count) and no other φ kernel."""
+    for launched in arm["launches_per_rank"]:
+        for name, n in want.items():
+            if not (n(launched.get(name, 0)) if callable(n) else launched.get(name, 0) == n):
+                return False
+        if any(k.startswith("phi") and k not in want for k in launched):
+            return False
+    return True
+
+
+def multihost_drill_phase(card, device="cuda"):
+    """dist_svgd_torch/tools/multihost_train.py --mode real --processes 4
+    --backend gloo: one SIGKILL, one restart at W = 3, row_ok."""
+    import os
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_multihost" / "drill"
+    env = dict(os.environ)
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dist_svgd_torch.tools.multihost_train", "--mode", "real",
+         "--processes", "4", "--backend", "gloo", "--device", device, "--root", str(root),
+         "--deadline-s", str(MULTIHOST["drill_deadline_s"])],
+        cwd=Path(__file__).resolve().parent, env=env, capture_output=True, text=True,
+        timeout=MULTIHOST["drill_deadline_s"] + 120)
+    lines = proc.stdout.strip().splitlines()
+    row = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+    launched = [sum(v.get(k, 0) for k in v) for v in row.get("worker_phi_launches", [])]
+    ok = bool(proc.returncode == 0 and row.get("ok") and row.get("federation_restarts") == 1
+              and row.get("federation_final_processes") == 3
+              and (device != "cuda" or (launched and all(launched))))
+    emit({"phase": "multihost_drill", "card": card, "rc": proc.returncode,
+          "seconds": time.perf_counter() - t0, **{k: v for k, v in row.items()}, "ok": ok})
+    if not ok:
+        raise AssertionError(f"multihost drill: rc={proc.returncode} row={row} "
+                             f"stderr={proc.stderr[-2000:]}")
+
+
+def multihost_phases(card, device="cuda"):
+    """Section 24, the process mesh (the constants above MULTIHOST): the
+    federations of MULTIHOST_ARMS, the single-process references on the
+    same card, the rows multihost_north_star, multihost_splice,
+    multihost_ring, multihost_w2, multihost_restore and multihost_lanes,
+    then multihost_drill.  Each prints its row and raises when it fails."""
+    import shutil
+
+    from dist_svgd_torch.parallel import multihost
+    from dist_svgd_torch.parallel.exchange import ring_hops_per_step
+    from dist_svgd_torch.parallel.mesh import ParticleMesh
+
+    t_section = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_multihost"
+    shutil.rmtree(root, ignore_errors=True)
+    restore_dir = root / "restore"
+    restore_dir.mkdir(parents=True)
+    feds = {}
+    for W, backend, legs in MULTIHOST_ARMS:
+        t0 = time.perf_counter()
+        out = root / f"w{W}_{backend}"
+        feds[W] = (backend, out, _mh_federation(W, backend, legs, out, restore_dir, device))
+        emit({"phase": "multihost_federation", "processes": W, "backend": backend,
+              "legs": list(legs), "seconds": time.perf_counter() - t0})
+    refs = {leg: _mh_reference(leg, device) for leg in ("north_star", "splice", "ring", "w2")}
+    on_card = device == "cuda"
+    steps = {leg: MULTIHOST[MH_LEGS[leg]["steps"]] for leg in MH_LEGS}
+
+    def arm(W, leg):
+        backend, out, reports = feds[W]
+        return _mh_arm(W, backend, reports, leg, out, refs[leg][0])
+
+    failed = []
+
+    # north star at W = 1 (NCCL), 2 and 4 (gloo)
+    arms = [arm(W, "north_star") for W in (1, 2, 4)]
+    for a in arms:
+        staged_ok = (all(b > 0 for b in a["staged_bytes_per_step"]) if a["stages_through_host"]
+                     else all(b == 0 for b in a["staged_bytes_per_step"]))
+        a["launch_ok"] = not on_card or _mh_launch_gate(a, {"phi_small_d": steps["north_star"]})
+        a["ok"] = bool(a["dev_ok"] and a["launch_ok"] and staged_ok
+                       and (a["processes"] > 1 or a["backend"] == "nccl"))
+    emit({"phase": "multihost_north_star", "card": card, "dataset": "banana", "fold": 42,
+          "n": MULTIHOST["n"], "shards": MULTIHOST["shards"], "mode": "all_particles",
+          "emulated_ms_per_step": refs["north_star"][1], "arms": arms,
+          "ok": all(a["ok"] for a in arms)})
+    failed += [f"north_star W={a['processes']}" for a in arms if not a["ok"]]
+
+    a = arm(2, "splice")
+    a["ok"] = bool(a["dev_ok"] and (not on_card or _mh_launch_gate(
+        a, {"phi_big_d": steps["splice"]})))
+    emit({"phase": "multihost_splice", "card": card, "dataset": "splice", "fold": 1, "d": 61,
+          "emulated_ms_per_step": refs["splice"][1], **a})
+    failed += ["splice"] if not a["ok"] else []
+
+    a = arm(2, "ring")
+    hops = ring_hops_per_step("all_scores", MULTIHOST["shards"])
+    crossings = multihost.dcn_boundary_crossings(
+        ParticleMesh(MULTIHOST["shards"], world_size=2, distributed=True))
+    want_sends = hops["hops"] * hops["arrays_per_hop"] * crossings
+    a["ok"] = bool(a["dev_ok"] and a["sends_per_step"] == want_sends and (
+        not on_card or _mh_launch_gate(a, {"phi_small_d": MULTIHOST["shards"]
+                                           * steps["ring"]})))
+    emit({"phase": "multihost_ring", "card": card, "mode": "all_scores",
+          "ring_hops_per_step": hops, "dcn_crossings_per_hop": crossings,
+          "expected_sends_per_step": want_sends, "emulated_ms_per_step": refs["ring"][1], **a})
+    failed += ["ring"] if not a["ok"] else []
+
+    a = arm(2, "w2")
+    n_w2 = steps["w2"]
+    a["ok"] = bool(a["dev_ok"] and (not on_card or _mh_launch_gate(
+        a, {"phi_small_d": n_w2, "ot_ctransform": lambda c: c >= 2 * n_w2,
+            "ot_kexp": lambda c: c >= n_w2, "ot_kmat_vec": 0, "ot_plan_grad": 0})))
+    emit({"phase": "multihost_w2", "card": card, "route": "fused", "h": MULTIHOST["w2_h"],
+          "sinkhorn_iters": MULTIHOST["w2_iters"], "emulated_ms_per_step": refs["w2"][1], **a})
+    failed += ["w2"] if not a["ok"] else []
+
+    _, out4, reports4 = feds[4]
+    _, out2, reports2 = feds[2]
+    want = _mh_gathered(out4, reports4, "restore_save")
+    got = _mh_gathered(out2, reports2, "restore_resume")
+    t_got = {rep["legs"]["restore_resume"]["t"] for rep in reports2}
+    row = {"phase": "multihost_restore", "card": card, "saved_by": 4, "resumed_by": 2,
+           "save_at": MULTIHOST["save_at"], "t": sorted(t_got), **_mh_dev(got, want)}
+    row["ok"] = bool(row["dev_ok"]
+                     and t_got == {MULTIHOST["save_at"] + MULTIHOST["after_save"]})
+    emit(row)
+    failed += ["restore"] if not row["ok"] else []
+
+    for W, (backend, _, reports) in feds.items():
+        for leg in MH_LANES:
+            if leg not in reports[0]["legs"] or not reports[0]["legs"][leg]["lanes"]:
+                continue
+            for i, lane in enumerate(reports[0]["legs"][leg]["lanes"]):
+                per_rank = [rep["legs"][leg]["lanes"][i] for rep in reports]
+                lane_ok = all(r["ok"] for r in per_rank)
+                emit({"phase": "multihost_lanes", "card": card, "processes": W,
+                      "backend": backend, "leg": leg, "kernel": lane["kernel"],
+                      "shape": lane["shape"], "bandwidth": lane["bandwidth"],
+                      "ms_ranks": [r["ms"] for r in per_rank],
+                      "plain_ms_ranks": [r["plain_ms"] for r in per_rank],
+                      "max_abs_err": max(r["max_abs_err"] for r in per_rank),
+                      "tolerance": lane["tolerance"], "bound_ms": lane["bound_ms"],
+                      "bound_by": lane["bound_by"], "ok": lane_ok})
+                failed += [f"lanes {leg} {lane['kernel']} W={W}"] if not lane_ok else []
+    if failed:
+        raise AssertionError(f"multihost phases failed: {failed}")
+    multihost_drill_phase(card, device)
+    emit({"phase": "multihost_section", "seconds": time.perf_counter() - t_section})
+
+
 def supervised_phases(init, data, card, ct_ms_per_step):
     """Section 18, the supervised runs (the constants above RESHARD_LANES):
     supervised_covertype, supervised_covertype_sigterm, supervised_guards,
@@ -4979,6 +5433,9 @@ def main():
     # ---- 23. the serving fleet: router, failover, federation, stitching ------
     fleet_phases(str(Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"), card)
 
+    # ---- 24. the process mesh: DistSampler across processes, the drill --------
+    multihost_phases(card)
+
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it
     # 200 times too, checked above)
@@ -5008,4 +5465,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:  # one rank of a section-24 federation
+        sys.exit(multihost_worker(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -1,10 +1,14 @@
-"""Sharded SVGD sampler on one card.
+"""Sharded SVGD sampler, on one card or across processes.
 
 Counterpart of ``dist_svgd_tpu/distsampler.py:DistSampler``.  The global
 ``(n, d)`` particle array is split into S equal blocks, the shards; one
-batched step moves every block (``parallel/exchange.py``), with the S shards
-emulated on one device as a leading batch axis — as the JAX package
-emulates them on one chip under ``vmap``.
+batched step moves a process's blocks (``parallel/exchange.py``) as a
+leading lane axis.  Without a mesh one process holds all S — as the JAX
+package emulates them on one chip under ``vmap``; with a
+:class:`~dist_svgd_torch.parallel.mesh.ParticleMesh` over W processes
+(``parallel/multihost.py:make_particle_mesh``) each holds its S/W and the
+exchange's collectives cross processes, the same trajectory as JAX's
+``DistSampler`` on ``make_particle_mesh(S)``.
 
 Ported: the constructor with the JAX signature and defaults, the
 drop-remainder policy (particles and data rows), the importance scale
@@ -30,9 +34,14 @@ stream's seed, the W2 snapshots and duals, the kernel approximation's
 identity and the topology manifest, with the W2 snapshots resharded when a
 save's shard count differs, and the sub-quadratic φ (``kernel_approx``,
 ``ops/approx.py``) with its crossover pinned once from the global shape and
-its residual probe (:meth:`DistSampler.approx_residual`).  An explicit mesh
-raises ``NotImplementedError`` naming ROADMAP A10, so a call that runs here
-means what it means in JAX.
+its residual probe (:meth:`DistSampler.approx_residual`).
+
+Under a mesh over several processes the particles come in and go out as
+this process's rows (:class:`~dist_svgd_torch.parallel.mesh.GlobalRows`),
+``state_dict`` saves this process's block with ``<key>_start`` offsets and
+the process layout stamped in the manifest, and the Gauss–Seidel sweep,
+``kernel_approx`` and the chunked ``run_steps`` raise
+``NotImplementedError`` naming ROADMAP A10.
 
 A "dispatch" of the chunked executor is one host-driven segment of JAX's
 plan (a chunk of steps, a chunk of ring hops, a dual-advance chunk of a
@@ -70,6 +79,7 @@ from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth
 from dist_svgd_torch.parallel.exchange import (
     ALL_PARTICLES,
     ALL_SCORES,
+    MULTIPROCESS_GS,
     PARTITIONS,
     make_chunked_ring_step_fns,
     make_shard_step,
@@ -80,7 +90,7 @@ from dist_svgd_torch.parallel.exchange import (
     w2_block_pairing,
     w2_snapshot,
 )
-from dist_svgd_torch.parallel.mesh import merge, split
+from dist_svgd_torch.parallel.mesh import GlobalRows, ParticleMesh, merge, split
 from dist_svgd_torch.telemetry import trace as _trace
 from dist_svgd_torch.utils import checkpoint as _ckpt
 from dist_svgd_torch.utils import history as _history
@@ -224,8 +234,16 @@ class DistSampler:
             S shards, pick the same backend; the pin rides ``state_dict``.
             ``'torch'`` forces the approximation; the kernel tiers are
             refused.  Jacobi only.
-        device: ``None`` → the card (raises without CUDA); ``'cpu'`` for the
-            plain path.
+        mesh: ``None`` / ``'auto'`` (one process holds every shard) or a
+            :class:`~dist_svgd_torch.parallel.mesh.ParticleMesh` of
+            ``num_shards`` shards (``parallel.multihost.make_particle_mesh``);
+            any other object raises ``TypeError``.  Under a mesh over W
+            processes ``particles`` is this process's
+            :class:`~dist_svgd_torch.parallel.mesh.GlobalRows` (or the full
+            array, every process the same), and the particles go out in the
+            same form.
+        device: ``None`` → the mesh's device, else the card (raises without
+            CUDA); ``'cpu'`` for the plain path.
         donate_carries: accepted for signature parity; it has no effect
             without a compiled scan.  Every other option outside the port
             raises ``NotImplementedError``.
@@ -305,10 +323,27 @@ class DistSampler:
             raise ValueError("shard_data is unsupported in partitions mode")
         if isinstance(seed, bool) or not isinstance(seed, (int, np.integer)):
             raise ValueError(f"seed must be an int (the minibatch stream's root), got {seed!r}")
-        if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
-            raise _not_ported(
-                "an explicit mesh (the torch.distributed backend; the port "
-                "emulates the shards on one device)", "A10")
+        self._explicit_mesh = isinstance(mesh, ParticleMesh)
+        if self._explicit_mesh:
+            if mesh.num_shards != int(num_shards):
+                raise ValueError(f"the mesh has {mesh.num_shards} shards but num_shards is "
+                                 f"{num_shards}")
+        elif mesh is None or (isinstance(mesh, str) and mesh == "auto"):
+            mesh = ParticleMesh(int(num_shards))
+        else:
+            raise TypeError("mesh must be a ParticleMesh (parallel.multihost."
+                            f"make_particle_mesh), None or 'auto', got {type(mesh).__name__}")
+        if mesh.multiprocess:
+            if update_rule == "gauss_seidel":
+                raise NotImplementedError(MULTIPROCESS_GS)
+            if kernel_approx is not None:
+                raise _not_ported("kernel_approx under a mesh over several processes", "A10")
+        if device is None and mesh.device is not None:
+            device = mesh.device
+        elif (device is not None and mesh.device is not None
+              and torch.device(device).type != mesh.device.type):
+            raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+        self._mesh = mesh
 
         self._device = resolve_device(device)
         self._num_shards = int(num_shards)
@@ -326,22 +361,41 @@ class DistSampler:
         #: inject the JAX stream's indices through it).
         self._batch_index_seam = None
 
-        particles = torch.as_tensor(particles, device=self._device)
+        block = particles if isinstance(particles, GlobalRows) else None
+        particles = torch.as_tensor(block.rows if block is not None else particles,
+                                    device=self._device)
         if not particles.is_floating_point() or particles.dim() != 2:
             raise ValueError(
                 f"particles must be a floating (n, d) array, got "
                 f"{particles.dtype} {tuple(particles.shape)}")
+        L = mesh.shards_per_process
+        if block is not None:
+            if block.n_global % self._num_shards:
+                raise ValueError(f"{block.n_global} global rows are not divisible into "
+                                 f"{self._num_shards} shards")
+            n, self._d = block.n_global, particles.shape[1]
+            s = n // self._num_shards
+            if block.start != mesh.first_shard * s or particles.shape[0] != L * s:
+                raise ValueError(
+                    f"particles hold rows {block.start}..{block.start + particles.shape[0]} "
+                    f"but this process's shards own rows {mesh.first_shard * s}.."
+                    f"{(mesh.first_shard + L) * s} of {n}")
+        else:
+            n, self._d = particles.shape
         if isinstance(kernel, str) and kernel == "median":
-            kernel = RBF(float(median_bandwidth(particles)))
+            everyone = particles if block is None else mesh.all_gather(split(particles, L))
+            kernel = RBF(float(median_bandwidth(everyone)))
         elif isinstance(kernel, str) and kernel == "median_step":
             kernel = AdaptiveRBF()
         self._kernel = kernel if kernel is not None else RBF(1.0)
 
-        n, self._d = particles.shape
         self._particles_per_shard = n // self._num_shards
         # drop-remainder policy (reference dsvgd/distsampler.py:42-45)
         self._num_particles = self._particles_per_shard * self._num_shards
-        self._particles = particles[: self._num_particles].clone()
+        if block is None:  # every process holds the full set: keep its own rows
+            s = self._particles_per_shard
+            particles = particles[mesh.first_shard * s:(mesh.first_shard + L) * s]
+        self._particles = particles.clone()
 
         def to_device(a):
             a = torch.as_tensor(a, device=self._device)
@@ -430,6 +484,7 @@ class DistSampler:
             score_scale=self._score_scale,
             update_rule=self._update_rule,
             ring=self._exchange_impl == "ring",
+            mesh=self._mesh,
             **self._phi_kwargs(),
             **self._data_kwargs(),
         )
@@ -444,15 +499,18 @@ class DistSampler:
                     log_prior=self._log_prior, n_local_data=self._rows_per_shard)
 
     def _batch_indices(self, t: int):
-        """Step ``t``'s ``(S, B)`` minibatch indices, or ``None`` for a
-        full-batch run."""
+        """Step ``t``'s ``(L, B)`` minibatch indices of the local lanes, or
+        ``None`` for a full-batch run: the draw of all S shards, keyed by
+        ``(seed, t)`` and the global shard, never by the process layout."""
         if self._batch_size is None:
             return None
         if self._batch_index_seam is not None:
-            return torch.as_tensor(self._batch_index_seam(t), dtype=torch.int64,
-                                   device=self._device)
-        return minibatch_indices(self._seed, t, self._num_shards, self._rows_per_shard,
-                                 self._batch_size, self._device)
+            idx = torch.as_tensor(self._batch_index_seam(t), dtype=torch.int64,
+                                  device=self._device)
+        else:
+            idx = minibatch_indices(self._seed, t, self._num_shards, self._rows_per_shard,
+                                    self._batch_size, self._device)
+        return self._mesh.local_lanes(idx)
 
     def _resolve_w2_pairing(self, w2_pairing: str) -> str:
         """The JAX constructor's pairing resolution (``'auto'`` routing,
@@ -487,9 +545,14 @@ class DistSampler:
     # State views
 
     @property
-    def particles(self) -> torch.Tensor:
-        """Global ``(n, d)`` particle tensor, logical block order."""
-        return self._particles
+    def particles(self):
+        """Global ``(n, d)`` particle tensor, logical block order; under an
+        explicit mesh this process's rows of it
+        (:class:`~dist_svgd_torch.parallel.mesh.GlobalRows`)."""
+        if not self._explicit_mesh:
+            return self._particles
+        s = self._particles_per_shard
+        return GlobalRows(self._particles, self._mesh.first_shard * s, self._num_particles)
 
     @property
     def t(self) -> int:
@@ -576,22 +639,27 @@ class DistSampler:
     def owned_block(self, rank: int) -> torch.Tensor:
         """The block now updated against data shard ``rank`` — the
         reference's per-rank ``.particles`` view with the ring's rotating
-        ownership (dsvgd/distsampler.py:53-56, 148-150)."""
+        ownership (dsvgd/distsampler.py:53-56, 148-150); this process's
+        blocks only under a multi-process mesh."""
         s = self._particles_per_shard
-        b = self.owned_block_index(rank)
+        b = self.owned_block_index(rank) - self._mesh.first_shard
+        if not 0 <= b < self._mesh.shards_per_process:
+            raise ValueError(f"block {b + self._mesh.first_shard} is another process's")
         return self._particles[b * s:(b + 1) * s]
 
-    def _prev_shape(self) -> tuple:
-        """Shape of the ``previous`` snapshot stack: block-sized under block
+    def _prev_shape(self, lanes: Optional[int] = None) -> tuple:
+        """Shape of this process's ``previous`` snapshot stack (``lanes``
+        rows of it; all S for the global stack): block-sized under block
         pairing, global-sized under the mixed-snapshot pairing."""
+        lanes = self._mesh.shards_per_process if lanes is None else lanes
         if self._block_w2:
-            return (self._num_shards, self._particles_per_shard, self._d)
-        return (self._num_shards, self._num_particles, self._d)
+            return (lanes, self._particles_per_shard, self._d)
+        return (lanes, self._num_particles, self._d)
 
-    def _g_shape(self) -> tuple:
+    def _g_shape(self, lanes: Optional[int] = None) -> tuple:
         """Shape of the carried Sinkhorn dual stack: one ``g`` per shard over
         its ``previous`` measure."""
-        return self._prev_shape()[:2]
+        return self._prev_shape(lanes)[:2]
 
     # ------------------------------------------------------------------ #
     # Checkpoint / resume
@@ -606,14 +674,22 @@ class DistSampler:
         ``approx_rff_redraw`` and the bank stream's seed
         ``approx_bank_seed`` (JAX saves its threefry ``approx_bank_key``),
         for Nyström ``approx_landmark_idx`` — in the JAX ``state_dict``'s
-        keys and numpy encoding."""
+        keys and numpy encoding.
+
+        Under a mesh over several processes each process's dict holds its
+        own rows of ``particles``, ``previous`` and ``w2_g`` with their
+        ``<key>_start`` offsets (JAX's per-process saves), and the manifest
+        carries the process layout (``mesh_process_layout``); another
+        process count restores the saves through
+        :func:`~dist_svgd_torch.utils.checkpoint.assemble_full_state`."""
 
         def host(t):
             return None if t is None else t.detach().cpu().numpy()
 
+        first = self._mesh.first_shard
         state = {
             "particles": host(self._particles),
-            "particles_start": np.asarray(0, dtype=np.int64),
+            "particles_start": np.asarray(first * self._particles_per_shard, dtype=np.int64),
             "t": np.asarray(self._t, dtype=np.int64),
             "rng_batch_seed": np.asarray(self._seed, dtype=np.int64),
             "w2_pairing": np.asarray(W2_PAIRING_CODES.index(self._w2_pairing),
@@ -622,11 +698,13 @@ class DistSampler:
             "w2_g": host(self._w2_g),
         }
         if self._previous is not None:
-            state["previous_start"] = np.asarray(0, dtype=np.int64)
+            state["previous_start"] = np.asarray(first, dtype=np.int64)
         if self._w2_g is not None:
-            state["w2_g_start"] = np.asarray(0, dtype=np.int64)
+            state["w2_g_start"] = np.asarray(first, dtype=np.int64)
+        W, L = self._mesh.process_count, self._mesh.shards_per_process
         state.update(_ckpt.topology_manifest(
-            self._num_shards, self._num_particles, self._d, self._rows_per_shard))
+            self._num_shards, self._num_particles, self._d, self._rows_per_shard,
+            process_count=W, granule_shards=(L,) * W))
         if self._approx is not None:
             # layout-free: reshard_state passes these through verbatim
             state["approx_method"] = np.asarray(
@@ -673,10 +751,28 @@ class DistSampler:
         RFF resume is the saved run's trajectory.  A JAX save carries its
         bank as a threefry ``approx_bank_key``, which no torch stream can
         follow: it resumes on this sampler's own bank (the precedent of
-        ``rng_batch_key``), and JAX, given a port save, keeps its own."""
-        _ckpt.check_topology(
+        ``rng_batch_key``), and JAX, given a port save, keeps its own.
+
+        Under a mesh over several processes ``state`` is this process's own
+        save (its block at its offset) or a full-global state (an
+        assembled save of another process count), from which it takes its
+        rows; any other block raises ``ValueError`` ("matches neither"),
+        and a save at another shard count ``TopologyMismatch`` (reshard
+        the assembled state first)."""
+        man = _ckpt.check_topology(
             state, {"n_particles": self._num_particles, "d": self._d})
         self._check_approx_identity(state)
+        if self._mesh.multiprocess:
+            if man is not None and man["n_shards"] != self._num_shards:
+                raise _ckpt.TopologyMismatch(
+                    f"checkpoint was saved at {man['n_shards']} shards but this "
+                    f"multi-process mesh runs {self._num_shards}: per-process blocks "
+                    "cannot reshard in place — assemble the full state "
+                    "(utils.checkpoint.assemble_full_state) and convert it with "
+                    f"utils.checkpoint.reshard_state(state, {self._num_shards}) first")
+            self._load_process_block(state)
+            self._adopt_scalars(state)
+            return
         if int(np.asarray(state.get("particles_start", 0))) != 0:
             raise ValueError(
                 "checkpoint holds one process's particle block (particles_start "
@@ -711,10 +807,52 @@ class DistSampler:
         self._particles = particles.to(device=self._device,
                                        dtype=self._particles.dtype).clone()
         self._previous, self._w2_g = previous, w2_g
+        self._adopt_scalars(state)
+
+    def _adopt_scalars(self, state: dict) -> None:
+        """The step counter, the minibatch stream's seed and the
+        approximation's saved identity of a restore."""
         self._t = int(np.asarray(state["t"]))
         if state.get("rng_batch_seed") is not None:
             self._seed = int(np.asarray(state["rng_batch_seed"]))
         self._adopt_approx_state(state)
+
+    def _process_rows(self, name: str, value, start: int, per_shard: tuple):
+        """This process's rows of a state entry laid out over the S shards
+        (``per_shard`` rows of shape a shard): the entry is either the
+        global array (``start`` 0) or this process's block at its offset."""
+        rows = np.asarray(value)
+        S, L, first = self._num_shards, self._mesh.shards_per_process, self._mesh.first_shard
+        k = per_shard[0]
+        want, local = (S * k, *per_shard[1:]), (L * k, *per_shard[1:])
+        if rows.shape == want and start == 0:
+            rows = rows[first * k:(first + L) * k]
+        elif not (rows.shape == local and start == first * k):
+            raise ValueError(
+                f"checkpoint {name} {rows.shape} (start {start}) matches neither the global "
+                f"{want} nor this process's block {local} at row {first * k} — was it saved "
+                "by a different process or mesh layout?")
+        return torch.from_numpy(np.array(rows)).to(device=self._device,
+                                                   dtype=self._particles.dtype)
+
+    def _load_process_block(self, state: dict) -> None:
+        """A multi-process restore: this process's rows of the particles,
+        the W2 snapshots and the duals (:meth:`load_state_dict`)."""
+        s = self._particles_per_shard
+
+        def start_of(key):
+            return int(np.asarray(state.get(f"{key}_start", 0)))
+
+        particles = self._process_rows("particles", state["particles"],
+                                       start_of("particles"), (s, self._d))
+        previous = w2_g = None
+        if state.get("previous") is not None:
+            previous = self._process_rows("previous", state["previous"], start_of("previous"),
+                                          self._prev_shape(1))
+        if state.get("w2_g") is not None:
+            w2_g = self._process_rows("w2_g", state["w2_g"], start_of("w2_g"),
+                                      self._g_shape(1))
+        self._particles, self._previous, self._w2_g = particles, previous, w2_g
 
     def _check_approx_identity(self, state: dict) -> None:
         """JAX's refusals: the approximation's presence, method, dial and
@@ -794,13 +932,13 @@ class DistSampler:
                 w2_pairing=self._w2_pairing, **self._phi_kwargs(),
                 wasserstein_solver=self._wasserstein_solver,
                 update_rule=self._update_rule, ring=self._exchange_impl == "ring",
-                sinkhorn_impl=self._sinkhorn_impl, **self._sinkhorn,
+                sinkhorn_impl=self._sinkhorn_impl, mesh=self._mesh, **self._sinkhorn,
                 **self._data_kwargs())
         return self._w2_step
 
     def _advance(self, step_size: float, h: float) -> None:
         self._t += 1
-        blocks = split(self._particles, self._num_shards)
+        blocks = split(self._particles, self._mesh.shards_per_process)
         idx = self._batch_indices(self._t)
         with torch.no_grad():
             if self._include_wasserstein:
@@ -819,9 +957,9 @@ class DistSampler:
         if macro is None:
             macro = self._lagged[record] = make_shard_step_lagged(
                 self._logp, self._kernel, self._num_shards, self._score_scale,
-                self._exchange_every, record=record, **self._phi_kwargs(),
+                self._exchange_every, record=record, mesh=self._mesh, **self._phi_kwargs(),
                 **self._data_kwargs())
-        blocks = split(self._particles, self._num_shards)
+        blocks = split(self._particles, self._mesh.shards_per_process)
         with torch.no_grad():
             out = macro(blocks, self._data_stacked, self._t + 1, step_size,
                         self._batch_indices)
@@ -829,12 +967,13 @@ class DistSampler:
         if record:
             blocks, hist = out
             self._particles = merge(blocks)
-            return list(hist.reshape(self._exchange_every, self._num_particles, self._d))
+            return list(hist.reshape(self._exchange_every, -1, self._d))
         self._particles = merge(out)
         return None
 
-    def make_step(self, step_size: float, h: float = 1.0) -> torch.Tensor:
-        """Perform one distributed SVGD step; returns the global particles.
+    def make_step(self, step_size: float, h: float = 1.0):
+        """Perform one distributed SVGD step; returns the global particles
+        (:attr:`particles`: this process's rows under an explicit mesh).
         ``h`` weights the W2 term (reference ``δ += h·w_grad``).  The lagged
         exchange refuses it (``ValueError``): drive it through
         :meth:`run_steps`."""
@@ -844,7 +983,7 @@ class DistSampler:
                 "it through run_steps(num_steps) with num_steps a multiple of "
                 "exchange_every")
         self._advance(step_size, h)
-        return self._particles
+        return self.particles
 
     def run_steps(
         self,
@@ -888,7 +1027,12 @@ class DistSampler:
         fences each dispatch (``torch.cuda.synchronize`` on the card) and
         records the longest.  Each call writes :attr:`last_run_stats`
         (``execution``, ``num_dispatches``, ``dispatches_per_step``,
-        ``max_dispatch_wall_s``, the resolved knobs and ``w2_pairing``)."""
+        ``max_dispatch_wall_s``, the resolved knobs and ``w2_pairing``).
+
+        Under an explicit mesh the final particles are :attr:`particles`
+        (this process's rows) and the history this process's rows of each
+        snapshot; over several processes the chunked execution raises
+        ``NotImplementedError`` (ROADMAP A10)."""
         if self._include_wasserstein:
             if self._wasserstein_solver != "sinkhorn" or (
                     self._exchange_impl == "ring" and self._mode != PARTITIONS
@@ -911,11 +1055,15 @@ class DistSampler:
             raise ValueError(
                 "pass either dispatch_budget (auto-chunking) or explicit "
                 "hops_per_dispatch / max_passes_per_dispatch, not both")
+        if self._mesh.multiprocess and (dispatch_budget is not None or explicit):
+            raise _not_ported("run_steps' chunked execution (dispatch_budget, "
+                              "hops_per_dispatch, max_passes_per_dispatch) under a mesh "
+                              "over several processes", "A10")
         if dispatch_budget is None and not explicit:
             with _trace.span("train.step_chunk",
                              {"steps": num_steps, "execution": "monolithic"}
                              if _trace.enabled() else None):
-                return self._run_eager(num_steps, step_size, record, h)
+                return self._result(self._run_eager(num_steps, step_size, record, h), record)
         if explicit:
             plan = {"execution": "intra_step", "hops_per_dispatch": hops_per_dispatch,
                     "max_passes_per_dispatch": max_passes_per_dispatch}
@@ -930,15 +1078,20 @@ class DistSampler:
                 "monolithic", num_steps, rec["count"], rec["max_wall"],
                 dispatch_budget_s=dispatch_budget,
                 record_chunks_to_host=self.last_run_stats["record_chunks_to_host"])
-            return out
-        if plan["execution"] == "scan_chunks":
-            return self._run_steps_scan_chunks(num_steps, step_size, record, h,
-                                               plan["steps_per_dispatch"], time_dispatches,
-                                               dispatch_budget)
-        return self._run_steps_intra(num_steps, step_size, record, h,
-                                     plan.get("hops_per_dispatch"),
-                                     plan.get("max_passes_per_dispatch"), time_dispatches,
-                                     dispatch_budget)
+        elif plan["execution"] == "scan_chunks":
+            out = self._run_steps_scan_chunks(num_steps, step_size, record, h,
+                                              plan["steps_per_dispatch"], time_dispatches,
+                                              dispatch_budget)
+        else:
+            out = self._run_steps_intra(num_steps, step_size, record, h,
+                                        plan.get("hops_per_dispatch"),
+                                        plan.get("max_passes_per_dispatch"), time_dispatches,
+                                        dispatch_budget)
+        return self._result(out, record)
+
+    def _result(self, out, record: bool):
+        """A run's return value in :attr:`particles`' form."""
+        return (self.particles, out[1]) if record else self.particles
 
     def _record_chunk(self) -> int:
         """Snapshots a history chunk holds on the device

@@ -1,5 +1,5 @@
 """The three particle/score exchange strategies, as one batched step over
-the emulated shard axis.
+this process's lanes of the shard axis.
 
 Counterpart of ``dist_svgd_tpu/parallel/exchange.py``: the gather and the
 ring implementations of the ``all_*`` exchanges, the Jacobi update, the
@@ -30,10 +30,11 @@ reference's snapshot semantics (``dist_svgd_tpu/parallel/exchange.py``).
 
 **Ring execution** (``ring=True``, the ``all_*`` modes): instead of
 gathering the ``(n, d)`` set, the blocks travel hop by hop around the shards
-— JAX's ``ppermute`` from rank ``j`` to ``j + 1``, here
-``torch.roll(stack, 1, dims=0)`` over the ``(S, s, d)`` block stack — and
-each hop adds the visiting block's φ contribution to a running ``(S, s, d)``
-accumulator: one φ call a hop for all S shards, each lane against its own
+— JAX's ``ppermute`` from rank ``j`` to ``j + 1``, here the mesh's roll of
+the ``(L, s, d)`` block stack (``torch.roll`` on one process, plus a
+send/recv pair at each process boundary across several) — and each hop
+adds the visiting block's φ contribution to a running ``(L, s, d)``
+accumulator: one φ call a hop for all local lanes, each against its own
 visiting block.  ``all_particles`` is one pass, each shard scoring the
 visiting block on its own data; ``all_scores`` first carries each block
 once around the ring summing the shards' likelihood scores (the psum), then
@@ -48,6 +49,17 @@ landmarks), the lagged views and the W2 step all use one backend.  A φ that
 redraws its bank every step (``rff_redraw='step'``) is bound to the step's
 index with :func:`~dist_svgd_torch.ops.approx.bind_phi_step` where the step
 knows it — the ``t`` its minibatch is keyed by.
+
+**The mesh** (``parallel/mesh.py:ParticleMesh``): every builder takes one
+(``mesh=None`` is the single-process emulation of all S shards).  A step
+moves this process's ``L`` lanes — shards ``[first, first + L)`` — and every
+exchange goes through the mesh: the gather and the psum, each ring hop's
+rotation (:func:`_ring_rotate`), the ring's median-bandwidth subsample, the
+lagged gather and the W2 snapshot's gather and block-pairing roll.  The
+data slices and the ``partitions`` rotation ``(r + t) mod S`` are keyed by
+the global shard index ``r``, so a lane takes its own shard's slice
+whichever process holds it.  The Gauss–Seidel sweep and the chunked ring
+pieces run on a single process only.
 """
 
 from __future__ import annotations
@@ -60,13 +72,17 @@ from dist_svgd_torch.ops.approx import bind_phi_step
 from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth_approx_masked
 from dist_svgd_torch.ops.ot import wasserstein_grad_lp, wasserstein_grad_sinkhorn
-from dist_svgd_torch.parallel.mesh import all_gather, psum, split
+from dist_svgd_torch.parallel.mesh import ParticleMesh, all_gather, psum, split
 
 ALL_PARTICLES = "all_particles"
 ALL_SCORES = "all_scores"
 PARTITIONS = "partitions"
 
 MODES = (ALL_PARTICLES, ALL_SCORES, PARTITIONS)
+
+#: The refusal of the Gauss–Seidel sweep under a multi-process mesh.
+MULTIPROCESS_GS = ("update_rule='gauss_seidel' under a mesh over several processes is not "
+                   "ported to PyTorch yet (ROADMAP A10): the sweep runs on one process")
 
 
 def tree_map(fn: Callable, data):
@@ -89,10 +105,21 @@ def stack_shards(data, num_shards: int, n_local_data: int):
     return tree_map(lambda a: split(a[:keep], num_shards), data)
 
 
-def _shard_data_resolver(mode: str, num_shards: int, shard_data: bool = False):
-    """``resolve(stacked, t) -> per-shard data``: the identity, except in
-    ``partitions`` mode where shard ``r`` takes data slice ``(r + t) mod S``
-    — the one place the rotation lives.
+def _local_mesh(mesh: Optional[ParticleMesh], num_shards: int) -> ParticleMesh:
+    """``mesh``, or the single-process emulation of ``num_shards`` shards."""
+    if mesh is None:
+        return ParticleMesh(num_shards)
+    if mesh.num_shards != num_shards:
+        raise ValueError(f"mesh of {mesh.num_shards} shards for a {num_shards}-shard step")
+    return mesh
+
+
+def _shard_data_resolver(mode: str, num_shards: int, shard_data: bool = False,
+                         mesh: Optional[ParticleMesh] = None):
+    """``resolve(stacked, t) -> per-lane data``: each local lane's own
+    shard's slice of the ``(S, ...)`` stack, except in ``partitions`` mode
+    where shard ``r`` takes data slice ``(r + t) mod S`` — the one place the
+    rotation lives (``r`` global: the mesh's lanes).
 
     Under the emulation the stacked per-shard layout already is what
     ``shard_data=True`` means (each shard holds only its own slice), so the
@@ -100,12 +127,15 @@ def _shard_data_resolver(mode: str, num_shards: int, shard_data: bool = False):
     its rotating data rank needs every slice."""
     if shard_data and mode == PARTITIONS:
         raise ValueError("shard_data is unsupported in partitions mode")
+    mesh = _local_mesh(mesh, num_shards)
 
     def resolve(stacked, t: int):
-        if mode != PARTITIONS or stacked is None:
+        if stacked is None:
             return stacked
+        if mode != PARTITIONS:
+            return tree_map(mesh.local_lanes, stacked)
         def rotate(a):
-            idx = (torch.arange(num_shards, device=a.device) + t) % num_shards
+            idx = (mesh.lanes(a.device) + t) % num_shards
             return a[idx]
         return tree_map(rotate, stacked)
 
@@ -135,13 +165,15 @@ def ring_hops_per_step(mode: str, num_shards: int) -> dict:
     raise ValueError(f"unknown exchange mode {mode!r}")
 
 
-def _ring_rotate(stack: torch.Tensor) -> torch.Tensor:
+def _ring_rotate(stack: torch.Tensor, mesh: ParticleMesh) -> torch.Tensor:
     """One ring hop: shard ``j``'s entry moves to shard ``j + 1`` (JAX's
-    ``_ring_perm``, the reference's direction)."""
-    return torch.roll(stack, 1, dims=0)
+    ``_ring_perm``, the reference's direction), across processes through the
+    mesh."""
+    return mesh.roll(stack, 1)
 
 
-def _ring_local_hops(blocks, carry, score_of, phi_fn, num_hops: int, rotate_last: bool):
+def _ring_local_hops(blocks, carry, score_of, phi_fn, num_hops: int, rotate_last: bool,
+                     mesh: ParticleMesh):
     """Advance ``num_hops`` (accumulate, rotate) hops of the single-pass
     (``all_particles``) ring φ from the carry ``(visiting, acc)`` — the
     resumable state of the hop loop, so a pass runs whole or split at any
@@ -153,21 +185,21 @@ def _ring_local_hops(blocks, carry, score_of, phi_fn, num_hops: int, rotate_last
     for i in range(num_hops):
         acc = acc + phi_fn(blocks, visiting, score_of(visiting))
         if rotate_last or i < num_hops - 1:
-            visiting = _ring_rotate(visiting)
+            visiting = _ring_rotate(visiting, mesh)
     return visiting, acc
 
 
-def _ring_phi_local_scores(blocks, score_of, phi_fn, num_shards: int):
+def _ring_phi_local_scores(blocks, score_of, phi_fn, num_shards: int, mesh: ParticleMesh):
     """Single-pass ring φ with ``all_particles`` semantics: each visiting
     block scored by the shard it visits (``score_of``, per lane); each hop's
     φ is normalised by the block size, so the hop sum over S is the global
     mean."""
     _, acc = _ring_local_hops(blocks, (blocks, torch.zeros_like(blocks)), score_of, phi_fn,
-                              num_shards, rotate_last=False)
+                              num_shards, rotate_last=False, mesh=mesh)
     return acc / num_shards
 
 
-def _ring_exact_score_hops(carry, lik_score_of, num_hops: int):
+def _ring_exact_score_hops(carry, lik_score_of, num_hops: int, mesh: ParticleMesh):
     """Advance ``num_hops`` hops of the ``all_scores`` score pass from the
     carry ``(visiting, vscores)``: each hop adds the visited shard's
     likelihood score of the visiting block to its travelling sum, then
@@ -175,11 +207,12 @@ def _ring_exact_score_hops(carry, lik_score_of, num_hops: int):
     visiting, vscores = carry
     for _ in range(num_hops):
         vscores = vscores + lik_score_of(visiting)
-        visiting, vscores = _ring_rotate(visiting), _ring_rotate(vscores)
+        visiting, vscores = _ring_rotate(visiting, mesh), _ring_rotate(vscores, mesh)
     return visiting, vscores
 
 
-def _ring_exact_phi_hops(blocks, carry, phi_fn, num_hops: int, rotate_last: bool):
+def _ring_exact_phi_hops(blocks, carry, phi_fn, num_hops: int, rotate_last: bool,
+                         mesh: ParticleMesh):
     """Advance ``num_hops`` hops of the ``all_scores`` φ pass from the carry
     ``(visiting, vscores, acc)``: the (block, score) pairs rotate and the
     accumulator grows; ``rotate_last=False`` as in :func:`_ring_local_hops`."""
@@ -187,51 +220,59 @@ def _ring_exact_phi_hops(blocks, carry, phi_fn, num_hops: int, rotate_last: bool
     for i in range(num_hops):
         acc = acc + phi_fn(blocks, visiting, vscores)
         if rotate_last or i < num_hops - 1:
-            visiting, vscores = _ring_rotate(visiting), _ring_rotate(vscores)
+            visiting, vscores = _ring_rotate(visiting, mesh), _ring_rotate(vscores, mesh)
     return visiting, vscores, acc
 
 
-def _ring_phi_exact_scores(blocks, lik_score_of, prior_of, phi_fn, num_shards: int):
+def _ring_phi_exact_scores(blocks, lik_score_of, prior_of, phi_fn, num_shards: int,
+                           mesh: ParticleMesh):
     """Two-pass ring φ with ``all_scores`` semantics: the score pass brings
     every block home with the shards' summed likelihood score, the prior is
     added once (``prior_of(visiting, vscores)``), then the φ pass."""
     visiting, vscores = _ring_exact_score_hops(
-        (blocks, torch.zeros_like(blocks)), lik_score_of, num_shards)
+        (blocks, torch.zeros_like(blocks)), lik_score_of, num_shards, mesh)
     vscores = prior_of(visiting, vscores)
     _, _, acc = _ring_exact_phi_hops(blocks, (visiting, vscores, torch.zeros_like(blocks)),
-                                     phi_fn, num_shards, rotate_last=False)
+                                     phi_fn, num_shards, rotate_last=False, mesh=mesh)
     return acc / num_shards
 
 
-def _ring_median_bandwidth(blocks: torch.Tensor, max_points: int) -> torch.Tensor:
+def _ring_median_bandwidth(blocks: torch.Tensor, max_points: int,
+                           mesh: Optional[ParticleMesh] = None) -> torch.Tensor:
     """The gather path's per-step median bandwidth without the gathered
     set: ``median_bandwidth_approx`` of the global array subsamples rows
     ``global[::stride]``, and shard ``r`` holds those whose global index
     ``r·s + j`` is a stride multiple.  Each shard's ragged slice, padded to
-    ``cap`` rows and masked, is gathered (``(S·cap, d)``) and the masked
-    median over it equals the gather's estimate exactly."""
-    S, s, _ = blocks.shape
+    ``cap`` rows and masked, is gathered through the mesh (``(S·cap, d)``,
+    the mask riding as one more column) and the masked median over it
+    equals the gather's estimate exactly."""
+    L, s, _ = blocks.shape
+    mesh = mesh if mesh is not None else ParticleMesh(L)
+    S = mesh.num_shards
     n = s * S
     stride = -(-n // max_points) if n > max_points else 1
     p = -(-n // stride)    # the global subsample's size
     cap = -(-s // stride)  # the most rows one shard contributes
-    lanes = torch.arange(S, device=blocks.device)
-    off = (-lanes * s) % stride  # each shard's first stride-multiple row
+    local = torch.arange(L, device=blocks.device)
+    off = (-mesh.lanes(blocks.device) * s) % stride  # each shard's first stride-multiple row
     idx = off[:, None] + stride * torch.arange(cap, device=blocks.device)[None]
     valid = idx < s
-    rows = blocks[lanes[:, None], idx.clamp(max=s - 1)]
+    rows = blocks[local[:, None], idx.clamp(max=s - 1)]
     rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
-    return median_bandwidth_approx_masked(rows.reshape(S * cap, -1), valid.reshape(-1), p, n)
+    both = mesh.gather_lanes(torch.cat([rows, valid[..., None].to(rows.dtype)], dim=-1))
+    return median_bandwidth_approx_masked(both[..., :-1].reshape(S * cap, -1),
+                                          both[..., -1].reshape(-1) > 0, p, n)
 
 
-def _builder_prelude(logp, kernel, phi_impl: str, num_shards: int, log_prior=None,
+def _builder_prelude(logp, kernel, phi_impl: str, num_lanes: int, log_prior=None,
                      batch_size: Optional[int] = None, n_local_data: int = 0,
                      kernel_approx=None):
-    """``(phi_fn, shared_scores, own_scores, prior_scores)``:
+    """``(phi_fn, shared_scores, own_scores, prior_scores)`` for a step over
+    ``num_lanes`` local lanes:
 
-    - ``shared_scores(thetas (n, d), data) -> (S, n, d)`` — every shard
+    - ``shared_scores(thetas (n, d), data) -> (L, n, d)`` — every lane
       scores the same set on its own slice (the gather modes);
-    - ``own_scores(blocks (S, s, d), data) -> (S, s, d)`` — each shard
+    - ``own_scores(blocks (L, s, d), data) -> (L, s, d)`` — each lane
       scores its own block (``partitions``);
     - ``prior_scores(thetas)`` — the gradient of ``log_prior`` row by row,
       ``None`` without a separate prior.
@@ -251,7 +292,7 @@ def _builder_prelude(logp, kernel, phi_impl: str, num_shards: int, log_prior=Non
 
     def shared_scores(thetas, data):
         if data is None:
-            return score(thetas, None).expand(num_shards, *thetas.shape)
+            return score(thetas, None).expand(num_lanes, *thetas.shape)
         return per_shard_shared(thetas, data)
 
     def own_scores(blocks, data):
@@ -271,7 +312,7 @@ def _with_prior(prior_scores, scores, thetas):
 
 
 def _step_data(mode: str, num_shards: int, shard_data: bool, batch_size: Optional[int],
-               n_local_data: int):
+               n_local_data: int, mesh: Optional[ParticleMesh] = None):
     """``(local, lik)``: ``local(data, t, idx)`` is each shard's data for
     step ``t`` — its slice after the ``partitions`` rotation, then its
     minibatch rows ``idx[r]`` (the draw is keyed by the shard, not the data
@@ -279,14 +320,14 @@ def _step_data(mode: str, num_shards: int, shard_data: bool, batch_size: Optiona
     ``n_local_data / B``.  One definition for the gather core, the ring and
     its hop chunks, so every piece of a step sees the step's one
     minibatch."""
-    resolve_data = _shard_data_resolver(mode, num_shards, shard_data)
+    resolve_data = _shard_data_resolver(mode, num_shards, shard_data, mesh)
     mb_scale = n_local_data / batch_size if batch_size is not None else None
 
     def local(data, t: int, idx: Optional[torch.Tensor]):
         data_local = resolve_data(data, t)
         if mb_scale is not None:
             if idx is None:
-                raise ValueError("a minibatched step needs the step's (S, B) indices")
+                raise ValueError("a minibatched step needs the step's (L, B) indices")
             data_local = take_minibatch(data_local, idx)
         return data_local
 
@@ -299,11 +340,11 @@ def _step_data(mode: str, num_shards: int, shard_data: bool, batch_size: Optiona
 def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
                 phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
                 log_prior=None, n_local_data: int = 0, ring: bool = False,
-                kernel_approx=None):
+                kernel_approx=None, mesh: Optional[ParticleMesh] = None):
     """``core(blocks, data, t, idx) -> delta``: exchange, scores and φ for
-    all shards at once (``blocks`` is ``(S, s, d)``, ``data`` the
-    :func:`stack_shards` layout, ``idx`` the step's ``(S, B)`` minibatch
-    indices or ``None``).
+    all local lanes at once (``blocks`` is ``(L, s, d)``, ``data`` the
+    :func:`stack_shards` layout of all S shards, ``idx`` the step's
+    ``(L, B)`` minibatch indices or ``None``).
 
     With a minibatch, each shard scores the rows ``idx[r]`` of its own data
     (after the ``partitions`` rotation — the draw is keyed by the shard, not
@@ -320,12 +361,13 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
     hop sum, JAX ``:538-546``)."""
     if mode not in MODES:
         raise ValueError(f"unknown exchange mode {mode!r}")
+    mesh = _local_mesh(mesh, num_shards)
     ring = ring and mode != PARTITIONS
     ring_adaptive = ring and isinstance(kernel, AdaptiveRBF)
     phi_base, shared_scores, own_scores, prior_scores = _builder_prelude(
-        logp, RBF(1.0) if ring_adaptive else kernel, phi_impl, num_shards, log_prior,
-        batch_size, n_local_data, kernel_approx)
-    local, lik = _step_data(mode, num_shards, shard_data, batch_size, n_local_data)
+        logp, RBF(1.0) if ring_adaptive else kernel, phi_impl, mesh.shards_per_process,
+        log_prior, batch_size, n_local_data, kernel_approx)
+    local, lik = _step_data(mode, num_shards, shard_data, batch_size, n_local_data, mesh)
 
     def with_prior(scores, thetas):
         return _with_prior(prior_scores, scores, thetas)
@@ -339,20 +381,20 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
         if ring:
             hop_phi = phi_fn
             if ring_adaptive:
-                sh = torch.sqrt(_ring_median_bandwidth(blocks, kernel.max_points)
+                sh = torch.sqrt(_ring_median_bandwidth(blocks, kernel.max_points, mesh)
                                 .to(blocks.dtype))
                 hop_phi = lambda y, x, s_: phi_fn(y / sh, x / sh, s_ * sh) / sh  # noqa: E731
             if mode == ALL_SCORES:
                 return _ring_phi_exact_scores(
                     blocks, lambda v: lik(own_scores(v, data_local)),
-                    lambda v, vs: with_prior(vs, v), hop_phi, num_shards)
+                    lambda v, vs: with_prior(vs, v), hop_phi, num_shards, mesh)
             return _ring_phi_local_scores(
                 blocks, lambda v: with_prior(score_scale * lik(own_scores(v, data_local)), v),
-                hop_phi, num_shards)
-        interacting = all_gather(blocks)
-        local_scores = lik(shared_scores(interacting, data_local))  # (S, n, d)
+                hop_phi, num_shards, mesh)
+        interacting = mesh.all_gather(blocks)
+        local_scores = lik(shared_scores(interacting, data_local))  # (L, n, d)
         if mode == ALL_SCORES:
-            scores = with_prior(psum(local_scores), interacting).expand_as(local_scores)
+            scores = with_prior(mesh.psum(local_scores), interacting).expand_as(local_scores)
         else:
             scores = with_prior(score_scale * local_scores, interacting)
         return phi_fn(blocks, interacting, scores)
@@ -393,6 +435,7 @@ def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_s
             "kernel='median_step' resolves per step from a gathered subsample the "
             "bounded-dispatch chain does not carry — use kernel='median' (resolved "
             "once at construction) instead")
+    mesh = ParticleMesh(num_shards)  # a single process's pieces
     phi_fn, _, own_scores, prior_scores = _builder_prelude(
         logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data,
         kernel_approx)
@@ -410,20 +453,20 @@ def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_s
             score_of = lambda v: _with_prior(  # noqa: E731
                 prior_scores, score_scale * lik(own_scores(v, data_local)), v)
             return _ring_local_hops(blocks, (visiting, acc), score_of,
-                                    bind_phi_step(phi_fn, t), num_hops, rotate_last)
+                                    bind_phi_step(phi_fn, t), num_hops, rotate_last, mesh)
         return fn
 
     def score_hops(num_hops: int):
         def fn(visiting, vscores, data, t, idx=None):
             data_local = local(data, t, idx)
             return _ring_exact_score_hops(
-                (visiting, vscores), lambda v: lik(own_scores(v, data_local)), num_hops)
+                (visiting, vscores), lambda v: lik(own_scores(v, data_local)), num_hops, mesh)
         return fn
 
     def exact_phi_hops(num_hops: int, rotate_last: bool):
         def fn(blocks, visiting, vscores, acc):
             return _ring_exact_phi_hops(blocks, (visiting, vscores, acc), phi_fn, num_hops,
-                                        rotate_last)
+                                        rotate_last, mesh)
         return fn
 
     def add_prior(visiting, vscores):
@@ -443,40 +486,43 @@ def make_shard_step_lagged(logp, kernel, num_shards: int, score_scale: float,
                            exchange_every: int, phi_impl: str = "auto",
                            shard_data: bool = False, batch_size: Optional[int] = None,
                            log_prior=None, n_local_data: int = 0, record: bool = False,
-                           kernel_approx=None):
+                           kernel_approx=None, mesh: Optional[ParticleMesh] = None):
     """The lagged (stale) ``all_particles`` exchange: one gather a
     macro-step of ``exchange_every`` SVGD steps (JAX
     ``make_shard_step_lagged``, "lagged-remote, live-local").  At the
     macro-step's start each shard takes the gathered set; for each sub-step
     its interaction set is that stale snapshot with its **own block patched
-    live** — a per-lane view ``(S, n, d)`` — scored afresh on its data, and
-    φ runs all S views in one call.
+    live** — a per-lane view ``(L, n, d)`` — scored afresh on its data, and
+    φ runs all L views in one call; the gather goes through the mesh.
 
     Returns ``macro(blocks, data, t, step_size, idx_of) -> new_blocks``
     (``(new_blocks, hist)`` with ``record=True``, ``hist`` the
-    ``(exchange_every, S, s, d)`` pre-update blocks of each sub-step);
+    ``(exchange_every, L, s, d)`` pre-update blocks of each sub-step);
     ``t`` is the first sub-step's 1-based counter and ``idx_of(u)`` the
-    ``(S, B)`` minibatch indices of absolute step ``u`` (``None`` without a
+    ``(L, B)`` minibatch indices of absolute step ``u`` (``None`` without a
     minibatch).  The port's stream is keyed by ``(seed, u)``, so sub-step
     ``i`` draws from ``(seed, t + i)``; JAX folds ``(key_t, i)`` and then
     the shard instead — the same structure, another stream (parity tests
     inject JAX's indices through the samplers' ``_batch_index_seam``)."""
     if exchange_every < 1:
         raise ValueError(f"exchange_every must be >= 1, got {exchange_every}")
+    mesh = _local_mesh(mesh, num_shards)
     phi_fn, _, own_scores, prior_scores = _builder_prelude(
-        logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data,
-        kernel_approx)
-    local, lik = _step_data(ALL_PARTICLES, num_shards, shard_data, batch_size, n_local_data)
+        logp, kernel, phi_impl, mesh.shards_per_process, log_prior, batch_size,
+        n_local_data, kernel_approx)
+    local, lik = _step_data(ALL_PARTICLES, num_shards, shard_data, batch_size, n_local_data,
+                            mesh)
 
     def macro(blocks, data, t: int, step_size: float, idx_of):
-        S, s, d = blocks.shape
-        stale = all_gather(blocks)  # the one gather of the macro-step
-        lanes = torch.arange(S, device=blocks.device)
+        L, s, d = blocks.shape
+        stale = mesh.all_gather(blocks)  # the one gather of the macro-step
+        local_lanes = torch.arange(L, device=blocks.device)
+        lanes = mesh.lanes(blocks.device)
         hist = []
         blk = blocks
         for i in range(exchange_every):
-            view = stale.expand(S, *stale.shape).clone()
-            view.view(S, S, s, d)[lanes, lanes] = blk  # own block live
+            view = stale.expand(L, *stale.shape).clone()
+            view.view(L, num_shards, s, d)[local_lanes, lanes] = blk  # own block live
             data_local = local(data, t + i, idx_of(t + i))
             scores = _with_prior(prior_scores, score_scale * lik(own_scores(view, data_local)),
                                  view)
@@ -494,7 +540,7 @@ def make_shard_step_lagged(logp, kernel, num_shards: int, score_scale: float,
 def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
                    phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
                    log_prior=None, n_local_data: int = 0, ring: bool = False,
-                   kernel_approx=None):
+                   kernel_approx=None, mesh: Optional[ParticleMesh] = None):
     """The reference's literal Gauss–Seidel step, all shards at once (JAX
     ``parallel/exchange.py:_build_gs_step``; reference
     dsvgd/distsampler.py:194-200, ``tests/_oracle.py``).
@@ -513,11 +559,14 @@ def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
     pre-sweep blocks) is applied row by row, ``δ_i = φ + h·w_grad_i``.
 
     Minibatches, the ring and ``kernel_approx`` are refused (``ValueError``),
-    as in JAX.
+    as in JAX; so is a mesh over several processes (``NotImplementedError``,
+    ROADMAP A10: the sweep runs on the single-process emulation).
     Returns ``gs(blocks, data, t, step_size, w_grad=None, h=1.0) ->
     new_blocks``."""
     if mode not in MODES:
         raise ValueError(f"unknown exchange mode {mode!r}")
+    if mesh is not None and mesh.multiprocess:
+        raise NotImplementedError(MULTIPROCESS_GS)
     if ring:
         raise ValueError("update_rule='gauss_seidel' requires exchange_impl='gather' "
                          "(the sweep mutates a materialised local view)")
@@ -576,6 +625,7 @@ def make_shard_step(
     update_rule: str = "jacobi",
     ring: bool = False,
     kernel_approx=None,
+    mesh: Optional[ParticleMesh] = None,
 ) -> Callable:
     """Build the batched SVGD step for one exchange strategy.
 
@@ -605,24 +655,27 @@ def make_shard_step(
         kernel_approx: the sub-quadratic φ (``ops/approx.py``; Jacobi
             only), resolved with ``phi_impl`` by
             :func:`~dist_svgd_torch.ops.cuda_svgd.resolve_phi_fn`.
+        mesh: the :class:`~dist_svgd_torch.parallel.mesh.ParticleMesh` whose
+            local lanes the step moves (``None``: all S, one process).
 
     Returns ``step(blocks, data, t, step_size, idx=None, w_grad=None,
-    h=1.0) -> new_blocks``: one update of all ``(S, s, d)`` blocks; ``t`` is
+    h=1.0) -> new_blocks``: one update of the local ``(L, s, d)`` blocks; ``t`` is
     the 1-based step counter that drives the ``partitions`` rotation;
-    ``idx`` the step's ``(S, B)`` minibatch indices; ``w_grad`` a W2
+    ``idx`` the step's ``(L, B)`` minibatch indices; ``w_grad`` a W2
     gradient solved outside the step (the chunked executor's), added as
     ``δ + h·w_grad``.
     """
     if update_rule == "gauss_seidel":
         gs = _build_gs_step(logp, kernel, mode, num_shards, score_scale, phi_impl,
                             shard_data, batch_size, log_prior, n_local_data, ring,
-                            kernel_approx)
+                            kernel_approx, mesh)
         return (lambda blocks, data, t, step_size, idx=None, w_grad=None, h=1.0:
                 gs(blocks, data, t, step_size, w_grad, h))
     if update_rule != "jacobi":
         raise ValueError(f"unknown update_rule {update_rule!r}")
     core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
-                       shard_data, batch_size, log_prior, n_local_data, ring, kernel_approx)
+                       shard_data, batch_size, log_prior, n_local_data, ring, kernel_approx,
+                       mesh)
 
     def step(blocks, data, t: int, step_size: float, idx=None, w_grad=None, h: float = 1.0):
         delta = core(blocks, data, t, idx)
@@ -662,6 +715,7 @@ def make_shard_step_sinkhorn_w2(
     update_rule: str = "jacobi",
     ring: bool = False,
     kernel_approx=None,
+    mesh: Optional[ParticleMesh] = None,
 ) -> Callable:
     """The batched SVGD step with the Wasserstein/JKO term, solved inside the
     step from carried snapshot state (gather implementation).
@@ -674,11 +728,11 @@ def make_shard_step_sinkhorn_w2(
 
     - global pairing (exchanged modes): shard ``r``'s next snapshot is the
       pre-update gathered set with only its own block post-update — the
-      reference's warty mixed snapshot, ``(S, n, d)``;
+      reference's warty mixed snapshot, ``(L, n, d)`` on a process;
     - block pairing (``partitions``, or ``w2_pairing='block'`` in exchanged
       modes; S > 1): the snapshot is the shard's own post-update block,
-      ``(S, n/S, d)``, and block ``b`` pairs with the snapshot of block
-      ``(b + 1) mod S`` — JAX's ``ppermute``, a roll over the lane axis.
+      ``(L, n/S, d)``, and block ``b`` pairs with the snapshot of block
+      ``(b + 1) mod S`` — JAX's ``ppermute``, the mesh's roll by −1.
 
     ``wasserstein_solver='sinkhorn'`` solves all lanes at once
     (:func:`~dist_svgd_torch.ops.ot.wasserstein_grad_sinkhorn`, route
@@ -706,14 +760,15 @@ def make_shard_step_sinkhorn_w2(
         raise ValueError(f"unknown w2_pairing {w2_pairing!r}")
     if wasserstein_solver not in ("lp", "sinkhorn"):
         raise ValueError(f"unknown wasserstein_solver {wasserstein_solver!r}")
+    mesh = _local_mesh(mesh, num_shards)
     if update_rule == "gauss_seidel":
         gs = _build_gs_step(logp, kernel, mode, num_shards, score_scale, phi_impl,
                             shard_data, batch_size, log_prior, n_local_data, ring,
-                            kernel_approx)
+                            kernel_approx, mesh)
     elif update_rule == "jacobi":
         core = _build_core(logp, kernel, mode, num_shards, score_scale, phi_impl,
                            shard_data, batch_size, log_prior, n_local_data, ring,
-                           kernel_approx)
+                           kernel_approx, mesh)
     else:
         raise ValueError(f"unknown update_rule {update_rule!r}")
     block_pair = w2_block_pairing(mode, w2_pairing, num_shards)
@@ -734,7 +789,7 @@ def make_shard_step_sinkhorn_w2(
     def step(blocks, prev, g_dual, data, t: int, step_size: float, h: float, idx=None):
         w_grad, g_out = None, g_dual
         if prev is not None:
-            prev_for = torch.roll(prev, -1, dims=0) if block_pair else prev
+            prev_for = mesh.roll(prev, -1) if block_pair else prev
             w_grad, g_out = solve(blocks, prev_for, g_dual)
         if update_rule == "gauss_seidel":
             new = gs(blocks, data, t, step_size, w_grad, h)
@@ -743,20 +798,22 @@ def make_shard_step_sinkhorn_w2(
             if w_grad is not None:
                 delta = delta + h * w_grad
             new = blocks + step_size * delta
-        return new, w2_snapshot(blocks, new, block_pair), g_out
+        return new, w2_snapshot(blocks, new, block_pair, mesh), g_out
 
     return step
 
 
-def w2_snapshot(blocks: torch.Tensor, new: torch.Tensor, block_pair: bool) -> torch.Tensor:
+def w2_snapshot(blocks: torch.Tensor, new: torch.Tensor, block_pair: bool,
+                mesh: Optional[ParticleMesh] = None) -> torch.Tensor:
     """The next W2 ``previous`` stack from a step's pre-update ``blocks``
     and post-update ``new``: the own post-update block under block pairing,
-    else each shard's mixed snapshot — the pre-update gathered set with
-    only its own block post-update, ``(S, n, d)``."""
+    else each lane's mixed snapshot — the pre-update gathered set with
+    only its own block post-update, ``(L, n, d)``."""
     if block_pair:
         return new
-    S, s, d = blocks.shape
-    new_prev = all_gather(blocks).repeat(S, 1, 1)  # (S, n, d)
-    lanes = torch.arange(S, device=blocks.device)
-    new_prev.view(S, S, s, d)[lanes, lanes] = new  # own block post-update
+    L, s, d = blocks.shape
+    mesh = mesh if mesh is not None else ParticleMesh(L)
+    new_prev = mesh.all_gather(blocks).repeat(L, 1, 1)  # (L, n, d)
+    local = torch.arange(L, device=blocks.device)
+    new_prev.view(L, mesh.num_shards, s, d)[local, mesh.lanes(blocks.device)] = new
     return new_prev

@@ -8,7 +8,7 @@ in its single-device half, and of the part of
 (:class:`ProgramEntry`, :class:`ProgramRegistry`).  The mesh half — a plan
 over more than one device, ``make_plan(n > 1)``, particle-sharded
 placement — is not ported and raises ``NotImplementedError`` naming ROADMAP
-A10; the port's samplers keep their own dispatch.
+A10.2; the port's samplers keep their own dispatch.
 
 :meth:`Plan.compile` is the counterpart of a ``jax.jit`` trace:
 
@@ -61,7 +61,7 @@ __all__ = ["Plan", "Program", "ProgramEntry", "ProgramRegistry", "capture_sentry
 #: calls allocate library workspaces, which a capture must not do).
 WARMUP_CALLS = 2
 
-_A10 = "ROADMAP A10"
+_A10 = "ROADMAP A10.2"
 
 
 def _as_tuple(x) -> tuple:
@@ -363,7 +363,7 @@ class Plan:
 
     Args:
         mesh: must be ``None`` — a mesh (more than one device) is ROADMAP
-            A10's and raises ``NotImplementedError``.
+            A10.2's and raises ``NotImplementedError``.
         device: the plan's device; ``None`` is the card (raising without
             CUDA), ``'cpu'`` the plain eager path.
     """
@@ -427,7 +427,7 @@ class Plan:
 
 def make_plan(num_shards: Optional[int] = None, *, device=None) -> Plan:
     """A single-device :class:`Plan` on ``device`` (``num_shards`` ``None``
-    or 1).  More shards raise ``NotImplementedError`` naming ROADMAP A10."""
+    or 1).  More shards raise ``NotImplementedError`` naming ROADMAP A10.2."""
     if num_shards is not None and num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
     if num_shards is not None and num_shards > 1:

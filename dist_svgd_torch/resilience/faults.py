@@ -185,9 +185,11 @@ class WorkerLossAt(Fault):
     granule layout (``make_particle_mesh``'s contract), so the supervisor's
     :class:`~dist_svgd_torch.resilience.supervisor.ReshardPolicy` resumes the
     run at the W−1 federation's shard count on the same absolute step grid.
-    JAX's ``tools/multihost_train.py`` fires this in its fake mode; the
-    port's multi-host launcher waits for the ``torch.distributed`` backend
-    (ROADMAP A10)."""
+    It is the in-process form of the loss that
+    ``dist_svgd_torch/tools/multihost_train.py --mode real`` delivers as a
+    real SIGKILL to one of its ``torch.distributed`` workers, after which
+    :class:`~dist_svgd_torch.resilience.federation.FederationSupervisor`
+    relaunches the survivors at W−1 with ``--resume``."""
 
     def __init__(self, step: int, processes: int, lost: int = 1):
         super().__init__(step)

@@ -2,10 +2,11 @@
 across whole-worker losses.
 
 Counterpart of ``dist_svgd_tpu/resilience/federation.py`` on the port's
-telemetry (the coordinator loop is plain Python).  The real launcher — the
-multi-host training tool that spawns ``torch.distributed`` workers and
-delivers an actual ``SIGKILL`` — waits for the multi-host backend (ROADMAP
-A10); the loop takes an injectable launcher, so it is whole without it.
+telemetry (the coordinator loop is plain Python).  The real launcher is
+``dist_svgd_torch/tools/multihost_train.py --mode real``: it spawns
+``dist_svgd_torch/tools/multihost_worker.py`` processes that join one
+``torch.distributed`` group, holds each in a :class:`SubprocessWorker`, and
+delivers an actual ``SIGKILL``.
 
 :class:`~dist_svgd_torch.resilience.supervisor.RunSupervisor` recovers
 *in-process* faults; a multi-host federation adds the failure unit nothing
@@ -84,7 +85,10 @@ class FakeWorker:
 
 
 class SubprocessWorker:
-    """Real-mode handle over a ``subprocess.Popen`` worker."""
+    """Real-mode handle over a ``subprocess.Popen`` worker: the launcher's
+    handle of one ``torch.distributed`` rank (``tools/multihost_train.py``).
+    :meth:`kill` delivers SIGKILL; a worker killed by a signal polls as the
+    negative signal number."""
 
     def __init__(self, name: str, popen):
         self.name = str(name)

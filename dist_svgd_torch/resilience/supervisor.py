@@ -199,12 +199,12 @@ class ReshardPolicy:
 
 
 def _sampler_process_count(sampler) -> int:
-    """Process count of a sampler's mesh — the process dimension the
-    elastic metrics and flight records carry so a multi-host transition is
-    distinguishable from a same-host shard shrink in the telemetry.  The
-    port emulates every shard on one card and has no multi-process mesh
-    yet (ROADMAP A10): always 1."""
-    return 1
+    """Process count of a sampler's mesh (1 for a meshless or single-process
+    one) — the process dimension the elastic metrics and flight records
+    carry so a multi-host transition is distinguishable from a same-host
+    shard shrink in the telemetry."""
+    mesh = getattr(sampler, "_mesh", None)
+    return int(getattr(mesh, "process_count", 1))
 
 
 # --------------------------------------------------------------------- #
@@ -226,7 +226,8 @@ class _DistHarness:
 
     @property
     def particles(self):
-        return self._s.particles
+        """This process's particle rows (all of them on one process)."""
+        return self._s._particles
 
     @property
     def num_shards(self) -> int:

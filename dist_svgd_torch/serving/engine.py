@@ -34,7 +34,7 @@ from the direct call's).
 
 The engine runs on the card unless ``device='cpu'`` (or a CPU ``plan``) is
 passed.  A ``mesh=``, or a plan over more than one device, raises
-``NotImplementedError`` naming ROADMAP A10.
+``NotImplementedError`` naming ROADMAP A10.2.
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ class PredictiveEngine:
         plan / mesh: the :class:`~dist_svgd_torch.parallel.plan.Plan` the
             bucket programs compile under (default: a single-device plan on
             ``device``).  ``mesh``, or a plan over more than one device,
-            raises ``NotImplementedError`` (ROADMAP A10).
+            raises ``NotImplementedError`` (ROADMAP A10.2).
         dtype: opt-in low-precision serve path (``torch.bfloat16`` or
             ``'bfloat16'``): the ensemble is stored and the programs
             compute in this dtype; request/response surfaces stay f32.
@@ -181,7 +181,7 @@ class PredictiveEngine:
         if plan is not None and plan.num_shards > 1:
             raise NotImplementedError(
                 "a plan over more than one device is not ported to PyTorch yet "
-                "(ROADMAP A10)")
+                "(ROADMAP A10.2)")
         if plan is not None and device is not None and torch.device(device) != plan.device:
             raise ValueError(f"device {device} differs from the plan's {plan.device}")
         self._plan = plan if plan is not None else Plan(mesh, device=device)

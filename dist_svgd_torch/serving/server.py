@@ -564,7 +564,7 @@ def main(argv=None):
     ap.add_argument("--shards", type=int, default=1,
                     help="devices to shard the served ensemble across (0 = "
                          "every visible device); more than one is not "
-                         "ported (ROADMAP A10)")
+                         "ported (ROADMAP A10.2)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: the card (fails without CUDA)")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
@@ -616,7 +616,7 @@ def main(argv=None):
     if shards > 1:
         raise NotImplementedError(
             f"--shards {shards}: serving across more than one device is not ported "
-            "to PyTorch yet (ROADMAP A10)")
+            "to PyTorch yet (ROADMAP A10.2)")
     logger = JsonlLogger(path=args.request_log) if args.request_log else None
     if args.tenants_config:
         with open(args.tenants_config) as fh:

@@ -27,7 +27,7 @@ points the closed loop at a live ``serving.server`` instead.
 ``--lanes N`` runs N batcher worker lanes over the shared engine;
 ``--dtype bfloat16`` serves the low-precision programs and stamps the
 same-session ``dtype_speedup`` against an f32 reference loop.
-``--devices N`` (N > 1) shards across devices: ROADMAP A10, not ported
+``--devices N`` (N > 1) shards across devices: ROADMAP A10.2, not ported
 (``NotImplementedError``).
 
 Multi-tenant registry: ``--tenants N`` hosts N heterogeneous tenants (mixed
@@ -82,7 +82,7 @@ def _check_devices(devices):
     if devices and devices > 1:
         raise NotImplementedError(
             f"--devices {devices}: serving across more than one device is not "
-            "ported to PyTorch yet (ROADMAP A10)")
+            "ported to PyTorch yet (ROADMAP A10.2)")
 
 
 def build_engine(model="logreg", n_particles=10_000, n_features=54,
@@ -91,7 +91,7 @@ def build_engine(model="logreg", n_particles=10_000, n_features=54,
     """Checkpointed ensemble when given, else a seeded synthetic one —
     serving throughput depends on shapes, not on convergence.  ``dtype``
     opts into the low-precision serve programs; ``devices > 1`` raises
-    (ROADMAP A10)."""
+    (ROADMAP A10.2)."""
     _check_devices(devices)
     kw = dict(max_bucket=max_bucket, registry=registry, dtype=dtype, device=device)
     if checkpoint:
@@ -799,7 +799,7 @@ def main(argv=None):
                          "multi-host save); default is a seeded synthetic one")
     ap.add_argument("--devices", type=int, default=1,
                     help="shard the served ensemble across this many devices: "
-                         "more than one is not ported (ROADMAP A10)")
+                         "more than one is not ported (ROADMAP A10.2)")
     ap.add_argument("--tenants", type=int, default=0,
                     help="host this many mixed-shape tenants behind one "
                          "ModelRegistry and emit the serve_multitenant "

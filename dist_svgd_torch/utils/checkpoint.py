@@ -19,12 +19,10 @@ across):
   sampler ``state_dict``, checked before any tensor op
   (:func:`check_topology`, :class:`TopologyMismatch`), and the reshard of a
   save to another shard count: :func:`reshard_previous_stack` for the W2
-  snapshot stack, :func:`reshard_state` for a whole state, and
-  :func:`assemble_full_state` for the per-process blocks of one save.
-
-JAX's ``split_state_for_processes`` (per-process blocks of a full state,
-the multi-process emulation seam) waits for the ``torch.distributed``
-backend (ROADMAP A10) and is not here.
+  snapshot stack, :func:`reshard_state` for a whole state,
+  :func:`assemble_full_state` for the per-process blocks of one save, and
+  :func:`split_state_for_processes`, the other way: the per-process blocks
+  a W-process ``DistSampler`` would save, cut from a full state.
 """
 
 from __future__ import annotations
@@ -411,6 +409,63 @@ def assemble_full_state(paths, expect_topology: Optional[Dict[str, int]] = None
         out["topo_process_count"] = np.asarray(1, dtype=np.int64)
         out["topo_granule_shards"] = np.full(1, man["n_shards"], dtype=np.int64)
     return out
+
+
+#: State keys a multi-process ``DistSampler.state_dict`` saves as
+#: per-process blocks; every other entry is replicated in every file.
+BLOCK_KEYS = ("particles", "previous", "w2_g")
+
+
+def split_state_for_processes(state: Dict[str, Any],
+                              process_count: int) -> List[Dict[str, Any]]:
+    """The ``process_count`` per-process block dicts a W-process federation
+    would have saved of a FULL single-process state (JAX's
+    ``split_state_for_processes``): each :data:`BLOCK_KEYS` array cut along
+    axis 0 at the layout's shard boundaries (each process an equal
+    contiguous run of shards) with its ``<key>_start`` offset; every other
+    entry, the manifest restamped with the process layout among them,
+    replicated in every block — what :func:`assemble_full_state` takes
+    back.  A block (``particles_start`` != 0), a state without a manifest
+    and a process count that does not divide the shards raise
+    ``ValueError``."""
+    W = int(process_count)
+    if W < 1:
+        raise ValueError(f"process_count must be >= 1, got {W}")
+    if int(np.asarray(state.get("particles_start", 0))) != 0:
+        raise ValueError(
+            "split_state_for_processes needs the FULL global state, but this dict is "
+            "already a per-process block (particles_start != 0)")
+    man = read_manifest(state)
+    if man is None:
+        raise ValueError("split_state_for_processes needs a manifest-stamped state "
+                         "(topo_* entries) to know the shard layout")
+    S, n, d = man["n_shards"], man["n_particles"], man["d"]
+    if S % W:
+        raise ValueError(f"process_count {W} must divide n_shards {S}")
+    shards_per = S // W
+    stamp = topology_manifest(S, n, d, man["data_rows_per_shard"], process_count=W,
+                              granule_shards=(shards_per,) * W)
+    blocks: List[Dict[str, Any]] = []
+    for p in range(W):
+        blk: Dict[str, Any] = {}
+        for key, value in state.items():
+            if key in stamp or key.endswith("_start"):
+                continue
+            arr = None if value is None else np.asarray(value)
+            if key in BLOCK_KEYS and arr is not None and arr.ndim >= 1:
+                if arr.shape[0] % S:
+                    raise ValueError(
+                        f"state entry {key!r} has leading dim {arr.shape[0]} not divisible "
+                        f"by n_shards {S} — not a sharded array?")
+                per_shard = arr.shape[0] // S
+                lo, hi = p * shards_per * per_shard, (p + 1) * shards_per * per_shard
+                blk[key] = arr[lo:hi]
+                blk[key + "_start"] = np.asarray(lo, dtype=np.int64)
+            else:
+                blk[key] = value
+        blk.update(stamp)
+        blocks.append(blk)
+    return blocks
 
 
 class CheckpointManager:

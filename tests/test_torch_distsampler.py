@@ -215,22 +215,24 @@ def test_device_rules():
     ({"kernel_approx": "rff", "phi_impl": "cuda"}, "no kernel tier"),
     ({"kernel": lambda a, b: (a - b).abs().sum(), "phi_impl": "cuda"}, "requires an RBF kernel"),
     ({"phi_impl": "pallas_bf16"}, "the port's is 'cuda_bf16'"),
-    ({"mesh": object()}, "A10"),
+    ({"mesh": object()}, "mesh must be a ParticleMesh"),
 ])
 def test_out_of_slice_options_raise(kw, item):
     """Options outside the port raise NotImplementedError naming their
     ROADMAP item; the ported minibatch, prior, shard_data and bf16 options
     raise JAX's ValueErrors on bad values (48 rows / 4 shards = 12 a
     shard), and so do JAX's constraints on the Gauss–Seidel sweep and on a
-    kernel that is not an RBF."""
+    kernel that is not an RBF; a mesh that is no ParticleMesh raises
+    TypeError."""
     particles, x, t = problem(3)
     args = dict(exchange_particles=True, exchange_scores=False,
                 include_wasserstein=False, device="cpu")
     args.update(kw)
     kernel = args.pop("kernel", None)
     roadmap = item[0] in "AB" and item[1:2].isdigit()
-    with pytest.raises(NotImplementedError if roadmap else ValueError,
-                       match=f"ROADMAP {item}" if roadmap else item):
+    error = (NotImplementedError if roadmap else TypeError if item.startswith("mesh")
+             else ValueError)
+    with pytest.raises(error, match=f"ROADMAP {item}" if roadmap else item):
         tdt.DistSampler(4, logreg_logp, kernel, particles, data=(x, t), **args)
 
 

@@ -50,7 +50,8 @@ def test_no_jax_or_reference_imports():
                    "streaming/source.py", "streaming/pipeline.py",
                    "experiments/streaming_covertype.py", "tools/freshness_drill.py",
                    "serving/fleet.py", "tools/fleet_drill.py", "tools/fleet_status.py",
-                   "tools/trace_report.py"):
+                   "tools/trace_report.py", "parallel/multihost.py",
+                   "tools/multihost_worker.py", "tools/multihost_train.py"):
         assert PORT / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "dist_svgd_tpu", "tools")]
@@ -71,6 +72,31 @@ def test_port_runs_with_jax_blocked():
         "                        exchange_particles=ep, exchange_scores=es,\n"
         "                        include_wasserstein=False, device='cpu')\n"
         "    assert bool(ds.make_step(1e-2).isfinite().all())\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    _run_with_jax_blocked(code)
+
+
+def test_multihost_runs_with_jax_blocked(tmp_path):
+    """The process mesh, the drill's worker (one rank of a one-process gloo
+    group on loopback) and the fake drill import and run where ``import
+    jax`` fails."""
+    code = (
+        "import sys, json, socket; sys.modules['jax'] = None; "
+        "sys.modules['dist_svgd_tpu'] = None\n"
+        "from dist_svgd_torch.parallel import multihost\n"
+        "from dist_svgd_torch.tools import multihost_train, multihost_worker\n"
+        "s = socket.socket(); s.bind(('127.0.0.1', 0)); port = s.getsockname()[1]; s.close()\n"
+        f"root = {str(tmp_path)!r}\n"
+        "assert multihost_worker.main(['--rank', '0', '--nprocs', '1', '--coordinator',\n"
+        "    f'127.0.0.1:{port}', '--root', root, '--n', '16', '--steps', '4',\n"
+        "    '--checkpoint-every', '2', '--device', 'cpu']) == 0\n"
+        "done = json.load(open(root + '/done_rank0.json'))\n"
+        "assert done['t'] == 4 and done['backend'] == 'gloo'\n"
+        "row = multihost_train.run_drill(mode='fake', processes=2, devcount=2, n=16,\n"
+        "    num_steps=6, checkpoint_every=2, device='cpu', root=root + '/fake')\n"
+        "assert multihost_train.row_ok(row)[0], row\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )
