@@ -86,11 +86,14 @@ through a fleet — and last the process mesh: ``DistSampler(mesh=...)``
 across worker processes of this script joined by ``torch.distributed`` on
 the one card (the north star at W = 1 on NCCL and W = 2 and 4 on gloo,
 splice, the ring and the W2 north star at W = 2, a W = 4 save resumed at
-W = 2, each against the single-process run, with the kernels held at the
-per-rank lanes) and ``dist_svgd_torch/tools/multihost_train.py``'s real
-kill-one drill; it checks that each path went through its kernels, and
-prints one JSON object per phase.  A
-phase that fails raises, so the script exits non-zero; the last line,
+W = 2, and at W = 2 the Gauss–Seidel sweep at full width in both
+gathered modes, ``kernel_approx`` under ``'auto'`` and Nyström, and the
+chunked ring and split Sinkhorn solve, each against the single-process
+or the unchunked run, with the kernels held at the per-rank lanes), the
+one-card degradation of ``make_plan(2)``, and
+``dist_svgd_torch/tools/multihost_train.py``'s real kill-one drill; it
+checks that each path went through its kernels, and prints one JSON object
+per phase.  A phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -608,7 +611,28 @@ FLEET = dict(replicas=3, clients=16, requests=320, rows=128, tenants=8, status_i
 # - restore_save / restore_resume: the w2 leg saved per rank at
 #   MULTIHOST["save_at"] at W = 4 and run on MULTIHOST["after_save"] steps;
 #   a W = 2 federation assembles the four blocks, resumes, and runs the same
-#   steps: within TRAJ_RTOL of the uninterrupted W = 4 run.
+#   steps: within TRAJ_RTOL of the uninterrupted W = 4 run;
+# - gs: the north star with update_rule='gauss_seidel', MULTIHOST["gs_steps"]
+#   full-width steps at LOGREG_GS's step size and no warm step, W = 2:
+#   phi_small_d once a row (n/8 a step) on every rank and no other φ kernel,
+#   one collective (the gather) a step a rank, and the same deviation gate
+#   against the single-process step — section 14's banana
+#   logreg_gs_full_width step, the same run, reused;
+# - gs_splice: d = 61 in all_scores, the same, phi_big_d once a row, two
+#   collectives (the gather and the frozen scores' psum) a step a rank;
+# - approx: the north star with kernel_approx='rff' at R = 2048 under
+#   'auto', which pins the exact side at n = 10,000: phi_small_d once a step
+#   a rank, the pin exact on every rank, approx_residual (every rank
+#   gathers the ensemble) equal on both ranks, and the deviation gate;
+# - nystrom: one step with kernel_approx='nystrom' (1,024 landmarks) and
+#   phi_impl='torch': no kernel, the deviation gate alone;
+# - ring_chunked / w2_chunked: the ring and w2 legs with hops_per_dispatch
+#   = MULTIHOST["hops"] and max_passes_per_dispatch = MULTIHOST["w2_passes"]
+#   (intra_step on every rank): within TRAJ_RTOL of the unchunked W = 2
+#   legs, with their launch and ring-send gates.
+# Then plan_degradation: make_plan(2) on the one card is the single-device
+# plan, and an engine on it answers a batch bitwise equal to one on
+# make_plan(1) (ROADMAP C6).
 # Each multi-process leg also holds its kernels at the per-rank lanes
 # (MH_LANES, L = 8/W lanes, W ranks timing at once on the card) against
 # their plain versions, as section 3 does.  Then multihost_drill:
@@ -616,9 +640,12 @@ FLEET = dict(replicas=3, clients=16, requests=320, rows=128, tenants=8, status_i
 # --backend gloo on the card: one SIGKILL, one restart at W = 3, row_ok.
 MULTIHOST = dict(n=10_000, shards=8, warm_steps=5, steps=100, leg_steps=20, save_at=10,
                  after_save=10, w2_iters=50, w2_h=10.0, step_size=3e-3, timeout_s=300,
-                 drill_deadline_s=300)
+                 drill_deadline_s=300, gs_steps=1, nystrom_steps=1, hops=3, w2_passes=25,
+                 residual_points=512)
 MULTIHOST_ARMS = [(4, "gloo", ("north_star", "restore_save")),
-                  (2, "gloo", ("north_star", "splice", "ring", "w2", "restore_resume")),
+                  (2, "gloo", ("north_star", "splice", "ring", "w2", "restore_resume", "gs",
+                               "gs_splice", "approx", "nystrom", "ring_chunked",
+                               "w2_chunked")),
                   (1, "nccl", ("north_star",))]
 MH_LEGS = {
     "north_star": dict(dataset="banana", fold=42, steps="steps"),
@@ -628,6 +655,16 @@ MH_LEGS = {
     "w2": dict(dataset="banana", fold=42, steps="leg_steps", w2=True),
     "restore_save": dict(dataset="banana", fold=42, steps="after_save", w2=True),
     "restore_resume": dict(dataset="banana", fold=42, steps="after_save", w2=True),
+    "gs": dict(dataset="banana", fold=42, steps="gs_steps", warm=False, gs=True),
+    "gs_splice": dict(dataset="splice", fold=1, steps="gs_steps", warm=False, gs=True,
+                      exchange_scores=True),
+    "approx": dict(dataset="banana", fold=42, steps="leg_steps", approx="rff"),
+    "nystrom": dict(dataset="banana", fold=42, steps="nystrom_steps", warm=False,
+                    approx="nystrom"),
+    "ring_chunked": dict(dataset="banana", fold=42, steps="leg_steps", exchange_scores=True,
+                         exchange_impl="ring", run=dict(hops_per_dispatch="hops")),
+    "w2_chunked": dict(dataset="banana", fold=42, steps="leg_steps", w2=True,
+                       run=dict(max_passes_per_dispatch="w2_passes")),
 }
 # (kernel, lanes' shape at L = 1, bandwidth, shared x) a leg's path gives.
 MH_LANES = {
@@ -636,6 +673,9 @@ MH_LANES = {
     "ring": [("phi_small_d", (1, 1250, 1250, 3), 1.0, False)],
     "w2": [("ot_ctransform", (1, 1250, 10_000, 3), None, None),
            ("ot_kexp", (1, 1250, 10_000, 3), None, None)],
+    # the GS probe: one row a lane against each lane's own view
+    "gs": [("phi_small_d", (1, 1, 10_000, 3), 1.0, False)],
+    "gs_splice": [("phi_big_d", (1, 1, 10_000, 61), 122.0, False)],
 }
 MH_SEED = 1200
 
@@ -1992,7 +2032,9 @@ def logreg_phases():
     config 1 (``logreg_driver``), the reference's ``grid.sh`` sweep shape
     (``logreg_grid``), the full-width recorded run (``logreg_north_star
     _record``) and one full-width Gauss–Seidel step (``logreg_gs_full
-    _width``).  Raises on a failed phase."""
+    _width``).  Raises on a failed phase.  Returns the single-process runs
+    section 24 reuses as references, ``leg → (final particles, ms a step,
+    steps)``: the banana Gauss–Seidel step is its gs leg's."""
     import torch
 
     from dist_svgd_torch import DistSampler
@@ -2101,6 +2143,7 @@ def logreg_phases():
     # ---- one Gauss–Seidel step at full width ------------------------------
     gs = LOGREG_GS
     S, n = gs["shards"], gs["n"]
+    references = {}
     for dataset, fold_id, kernel in (("banana", 42, "phi_small_d"), ("splice", 1, "phi_big_d")):
         t_phase = time.perf_counter()
         f = load_benchmark(dataset, fold_id)
@@ -2119,6 +2162,8 @@ def logreg_phases():
         # against 6914.1 ms unprofiled, measured on one H100)
         prof, _, launched = timed(lambda: device_profile(lambda: ds.make_step(gs["step_size"])))
         got = ds.particles.clone()
+        if dataset == "banana":  # section 24's gs leg: the same sampler and step
+            references["gs"] = (got.cpu().numpy(), prof["profiled_wall_ms"], 1)
         ref = gs_sampler("torch").make_step(gs["step_size"])
         scale = float(ref.abs().max())
         rel = float((got - ref).abs().max()) / scale
@@ -2137,6 +2182,7 @@ def logreg_phases():
         emit(row)
         if not ok:
             raise AssertionError(f"logreg GS {dataset}: launches={launched} rel={rel}")
+    return references
 
 
 def gmm_phase():
@@ -4076,6 +4122,7 @@ def _mh_sampler(leg, mesh, device):
 
     from dist_svgd_torch import DistSampler
     from dist_svgd_torch.models.logreg import logreg_logp
+    from dist_svgd_torch.ops.approx import KernelApprox
     from dist_svgd_torch.utils.datasets import load_benchmark
     from dist_svgd_torch.utils.rng import init_particles_per_shard
 
@@ -4094,12 +4141,29 @@ def _mh_sampler(leg, mesh, device):
     if cfg.get("w2"):
         kw = dict(include_wasserstein=True, wasserstein_solver="sinkhorn", sinkhorn_tol=None,
                   sinkhorn_iters=mh["w2_iters"])
+    if cfg.get("gs"):
+        kw["update_rule"] = "gauss_seidel"
+    if cfg.get("approx") == "rff":  # 'auto': the pin decides (exact at n = 10,000)
+        kw["kernel_approx"] = KernelApprox("rff", num_features=2048)
+    elif cfg.get("approx") == "nystrom":
+        kw.update(kernel_approx=KernelApprox("nystrom", num_landmarks=1024), phi_impl="torch")
     if mesh is not None:
         kw["mesh"] = mesh
     ds = DistSampler(mh["shards"], logreg_logp, None, particles, data=data,
                      exchange_particles=True, exchange_scores=cfg.get("exchange_scores", False),
                      exchange_impl=cfg.get("exchange_impl", "gather"), device=device, **kw)
     return ds, mh[cfg["steps"]], (mh["w2_h"] if cfg.get("w2") else 1.0)
+
+
+def _mh_schedule(leg):
+    """``(warm_steps, step_size, run_steps kwargs)`` of a section-24 leg: the
+    Gauss–Seidel legs take LOGREG_GS's step size and no warm step (section
+    14's full-width step is their reference), the chunked legs their
+    dispatch knobs."""
+    cfg, mh = MH_LEGS[leg], MULTIHOST
+    warm = mh["warm_steps"] if cfg.get("warm", True) else 0
+    step_size = LOGREG_GS["step_size"] if cfg.get("gs") else mh["step_size"]
+    return warm, step_size, {k: mh[v] for k, v in cfg.get("run", {}).items()}
 
 
 def _mh_lane_rows(leg, mesh, dist):
@@ -4169,14 +4233,15 @@ def multihost_worker(spec):
         legs = {}
         for leg in spec["legs"]:
             ds, steps, h = _mh_sampler(leg, mesh, device)
+            warm, step_size, run_kw = _mh_schedule(leg)
             if leg == "restore_resume":
                 ds.load_state_dict(ckpt.assemble_full_state(
                     sorted(str(p) for p in restore_dir.glob("rank_*"))))
             elif leg == "restore_save":
-                ds.run_steps(MULTIHOST["save_at"], MULTIHOST["step_size"], h=h)
+                ds.run_steps(MULTIHOST["save_at"], step_size, h=h)
                 ckpt.save_state(str(restore_dir / f"rank_{rank}"), ds.state_dict())
-            else:
-                ds.run_steps(MULTIHOST["warm_steps"], MULTIHOST["step_size"], h=h)
+            elif warm:
+                ds.run_steps(warm, step_size, h=h)
             if on_card:
                 torch.cuda.synchronize()
             dist.barrier()
@@ -4184,7 +4249,7 @@ def multihost_worker(spec):
             cuda_ot.reset_launch_counts()
             mesh.reset_counts()
             t0 = time.perf_counter()
-            ds.run_steps(steps, MULTIHOST["step_size"], h=h)
+            ds.run_steps(steps, step_size, h=h, **run_kw)
             if on_card:
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -4196,8 +4261,14 @@ def multihost_worker(spec):
             legs[leg] = {"steps": steps, "t": ds.t, "ms_per_step": 1e3 * wall / steps,
                          "launches": launches, "mesh": counts, "row_start": start,
                          "finite": bool(np.isfinite(rows).all()),
+                         "execution": ds.last_run_stats["execution"],
+                         "dispatches_per_step": ds.last_run_stats["dispatches_per_step"],
                          "lanes": (_mh_lane_rows(leg, mesh, dist)
                                    if on_card and mesh.multiprocess else [])}
+            if ds.kernel_approx is not None:  # a collective: every rank gathers
+                legs[leg]["approx_active"] = ds.kernel_approx_active
+                legs[leg]["residual"] = ds.approx_residual(
+                    max_points=MULTIHOST["residual_points"])
             del ds
         with open(out / f"rank{rank}.json", "w") as fh:
             json.dump({"rank": rank, "backend": mesh.backend, "device": str(mesh.device),
@@ -4288,17 +4359,23 @@ def _mh_arm(W, backend, reports, leg, out, ref):
     return arm
 
 
-def _mh_reference(leg, device):
+def _mh_reference(leg, device, earlier=None):
     """The leg's single-process run on the card (all 8 shards in one lane
-    stack): final particles after its warm and timed steps, and ms a step."""
+    stack): final particles after its warm and timed steps, and ms a step
+    — ``earlier``'s (``leg → (particles, ms, steps)``) where an earlier
+    section ran the same steps."""
     import torch
 
     ds, steps, h = _mh_sampler(leg, None, device)
-    ds.run_steps(MULTIHOST["warm_steps"], MULTIHOST["step_size"], h=h)
+    if earlier and leg in earlier and earlier[leg][2] == steps:
+        return earlier[leg][:2]
+    warm, step_size, run_kw = _mh_schedule(leg)
+    if warm:
+        ds.run_steps(warm, step_size, h=h)
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ds.run_steps(steps, MULTIHOST["step_size"], h=h)
+    ds.run_steps(steps, step_size, h=h, **run_kw)
     if device == "cuda":
         torch.cuda.synchronize()
     return ds.particles.cpu().numpy(), 1e3 * (time.perf_counter() - t0) / steps
@@ -4345,12 +4422,42 @@ def multihost_drill_phase(card, device="cuda"):
                              f"stderr={proc.stderr[-2000:]}")
 
 
-def multihost_phases(card, device="cuda"):
+def plan_degradation_phase(card):
+    """ROADMAP C6 on the card: make_plan(2) with one card visible is the
+    single-device plan, and an engine on it answers a batch bitwise equal
+    to an engine on make_plan(1).  Prints its row; returns ok."""
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch.parallel.plan import make_plan, visible_devices
+    from dist_svgd_torch.serving import PredictiveEngine
+
+    rng = np.random.default_rng(SERVING_SEED + 1)
+    parts = rng.normal(size=(SERVING["n"], SERVING["features"] + 1)).astype(np.float32)
+    x = rng.normal(size=(16, SERVING["features"])).astype(np.float32)
+    two, one = make_plan(2), make_plan(1)
+    outs = [PredictiveEngine("logreg", parts, plan=p, max_bucket=16).predict(x)
+            for p in (two, one)]
+    same = all(np.array_equal(outs[0][k], outs[1][k]) for k in outs[1])
+    ok = bool(two.num_shards == 1 and two.describe() == one.describe()
+              and two.device == one.device and same
+              and visible_devices("cuda") == torch.cuda.device_count() == 1)
+    emit({"phase": "plan_degradation", "card": card, "asked_shards": 2,
+          "visible_devices": visible_devices("cuda"), "plan": two.describe(),
+          "device": str(two.device), "rows": x.shape[0], "bitwise_equal": same, "ok": ok})
+    return ok
+
+
+def multihost_phases(card, device="cuda", references=None):
     """Section 24, the process mesh (the constants above MULTIHOST): the
     federations of MULTIHOST_ARMS, the single-process references on the
-    same card, the rows multihost_north_star, multihost_splice,
-    multihost_ring, multihost_w2, multihost_restore and multihost_lanes,
-    then multihost_drill.  Each prints its row and raises when it fails."""
+    same card (``references``: logreg_phases' runs, reused where a leg
+    runs the same steps), the rows multihost_north_star, multihost_splice,
+    multihost_ring, multihost_w2, multihost_gs, multihost_gs_splice,
+    multihost_approx, multihost_nystrom, multihost_ring_chunked,
+    multihost_w2_chunked, multihost_restore and multihost_lanes,
+    plan_degradation, then multihost_drill.  Each prints its row and
+    raises when it fails."""
     import shutil
 
     from dist_svgd_torch.parallel import multihost
@@ -4369,7 +4476,9 @@ def multihost_phases(card, device="cuda"):
         feds[W] = (backend, out, _mh_federation(W, backend, legs, out, restore_dir, device))
         emit({"phase": "multihost_federation", "processes": W, "backend": backend,
               "legs": list(legs), "seconds": time.perf_counter() - t0})
-    refs = {leg: _mh_reference(leg, device) for leg in ("north_star", "splice", "ring", "w2")}
+    refs = {leg: _mh_reference(leg, device, references)
+            for leg in ("north_star", "splice", "ring", "w2", "gs", "gs_splice", "approx",
+                        "nystrom")}
     on_card = device == "cuda"
     steps = {leg: MULTIHOST[MH_LEGS[leg]["steps"]] for leg in MH_LEGS}
 
@@ -4422,8 +4531,64 @@ def multihost_phases(card, device="cuda"):
           "sinkhorn_iters": MULTIHOST["w2_iters"], "emulated_ms_per_step": refs["w2"][1], **a})
     failed += ["w2"] if not a["ok"] else []
 
-    _, out4, reports4 = feds[4]
+    # the Gauss–Seidel sweep: one φ launch a row, one gather (and in
+    # all_scores the frozen scores' psum) a step a rank
+    rows_per_step = MULTIHOST["n"] // MULTIHOST["shards"]
+    for leg, kernel, dataset, mode, collectives in (
+            ("gs", "phi_small_d", "banana", "all_particles", 1),
+            ("gs_splice", "phi_big_d", "splice", "all_scores", 2)):
+        a = arm(2, leg)
+        a["ok"] = bool(a["dev_ok"] and all(c == collectives for c in a["collectives_per_step"])
+                       and (not on_card or _mh_launch_gate(
+                           a, {kernel: rows_per_step * steps[leg]})))
+        emit({"phase": f"multihost_{leg}", "card": card, "dataset": dataset, "mode": mode,
+              "update_rule": "gauss_seidel", "rows_per_step": rows_per_step,
+              "expected_collectives_per_step": collectives,
+              "emulated_ms_per_step": refs[leg][1], **a})
+        failed += [leg] if not a["ok"] else []
+
+    # kernel_approx: the 'auto' pin (exact at n = 10,000) and the residual
+    # every rank measures on the gathered ensemble; Nyström on the plain φ
     _, out2, reports2 = feds[2]
+    a = arm(2, "approx")
+    legs = [rep["legs"]["approx"] for rep in reports2]
+    a["approx_active"] = [lg["approx_active"] for lg in legs]
+    a["residual_rel_err_ranks"] = [lg["residual"]["phi_approx_rel_err"] for lg in legs]
+    a["residual_n_eval"] = legs[0]["residual"]["n_eval"]
+    a["ok"] = bool(a["dev_ok"] and not any(a["approx_active"])
+                   and all(lg["residual"] == legs[0]["residual"] for lg in legs)
+                   and (not on_card or _mh_launch_gate(a, {"phi_small_d": steps["approx"]})))
+    emit({"phase": "multihost_approx", "card": card, "kernel_approx": "rff",
+          "num_features": 2048, "phi_impl": "auto",
+          "emulated_ms_per_step": refs["approx"][1], **a})
+    failed += ["approx"] if not a["ok"] else []
+    a = arm(2, "nystrom")
+    a["ok"] = bool(a["dev_ok"] and all(not lg for lg in a["launches_per_rank"]))
+    emit({"phase": "multihost_nystrom", "card": card, "kernel_approx": "nystrom",
+          "num_landmarks": 1024, "phi_impl": "torch",
+          "emulated_ms_per_step": refs["nystrom"][1], **a})
+    failed += ["nystrom"] if not a["ok"] else []
+
+    # the chunked run_steps: each against its unchunked W = 2 leg
+    for leg, base in (("ring_chunked", "ring"), ("w2_chunked", "w2")):
+        a = _mh_arm(2, "gloo", reports2, leg, out2, _mh_gathered(out2, reports2, base))
+        a["execution"] = sorted({rep["legs"][leg]["execution"] for rep in reports2})
+        a["dispatches_per_step"] = reports2[0]["legs"][leg]["dispatches_per_step"]
+        n_leg = steps[leg]
+        if base == "ring":
+            gate = {"phi_small_d": MULTIHOST["shards"] * n_leg}
+            sends_ok = a["sends_per_step"] == want_sends
+        else:
+            gate = {"phi_small_d": n_leg, "ot_ctransform": lambda c: c >= 2 * n_leg,
+                    "ot_kexp": lambda c: c >= n_leg, "ot_kmat_vec": 0, "ot_plan_grad": 0}
+            sends_ok = True
+        a["ok"] = bool(a["dev_ok"] and sends_ok and a["execution"] == ["intra_step"]
+                       and (not on_card or _mh_launch_gate(a, gate)))
+        emit({"phase": f"multihost_{leg}", "card": card, "against": f"the W = 2 {base} leg",
+              **_mh_schedule(leg)[2], **a})
+        failed += [leg] if not a["ok"] else []
+
+    _, out4, reports4 = feds[4]
     want = _mh_gathered(out4, reports4, "restore_save")
     got = _mh_gathered(out2, reports2, "restore_resume")
     t_got = {rep["legs"]["restore_resume"]["t"] for rep in reports2}
@@ -4450,6 +4615,8 @@ def multihost_phases(card, device="cuda"):
                       "tolerance": lane["tolerance"], "bound_ms": lane["bound_ms"],
                       "bound_by": lane["bound_by"], "ok": lane_ok})
                 failed += [f"lanes {leg} {lane['kernel']} W={W}"] if not lane_ok else []
+    if device == "cuda":
+        failed += [] if plan_degradation_phase(card) else ["plan_degradation"]
     if failed:
         raise AssertionError(f"multihost phases failed: {failed}")
     multihost_drill_phase(card, device)
@@ -5400,7 +5567,7 @@ def main():
     auto_gates_phase()
 
     # ---- 14. the reference's entry points (BASELINE configs 1-2) -----------
-    logreg_phases()
+    logreg_references = logreg_phases()
     gmm_phase()
 
     # ---- 15. resumable, budgeted runs --------------------------------------
@@ -5434,7 +5601,7 @@ def main():
     fleet_phases(str(Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"), card)
 
     # ---- 24. the process mesh: DistSampler across processes, the drill --------
-    multihost_phases(card)
+    multihost_phases(card, references=logreg_references)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

@@ -39,9 +39,13 @@ its residual probe (:meth:`DistSampler.approx_residual`).
 Under a mesh over several processes the particles come in and go out as
 this process's rows (:class:`~dist_svgd_torch.parallel.mesh.GlobalRows`),
 ``state_dict`` saves this process's block with ``<key>_start`` offsets and
-the process layout stamped in the manifest, and the Gauss–Seidel sweep,
-``kernel_approx`` and the chunked ``run_steps`` raise
-``NotImplementedError`` naming ROADMAP A10.
+the process layout stamped in the manifest.  Every option runs there as on
+one process: the Gauss–Seidel sweep gathers once a step and sweeps its
+local view, ``kernel_approx`` pins its crossover and draws its bank from
+the global shape and the run seed (every rank the same), and the chunked
+``run_steps`` plans from the global shape, so every rank walks the same
+chain of dispatches and collectives; :meth:`DistSampler.approx_residual` is
+a collective (every rank calls it and reads the same report).
 
 A "dispatch" of the chunked executor is one host-driven segment of JAX's
 plan (a chunk of steps, a chunk of ring hops, a dual-advance chunk of a
@@ -79,7 +83,6 @@ from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth
 from dist_svgd_torch.parallel.exchange import (
     ALL_PARTICLES,
     ALL_SCORES,
-    MULTIPROCESS_GS,
     PARTITIONS,
     make_chunked_ring_step_fns,
     make_shard_step,
@@ -126,10 +129,6 @@ def _chunk_sizes(total: int, per: int):
     if total % per:
         sizes.append(total % per)
     return sizes
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP {item})")
 
 
 def _data_rows(data) -> int:
@@ -333,11 +332,6 @@ class DistSampler:
         else:
             raise TypeError("mesh must be a ParticleMesh (parallel.multihost."
                             f"make_particle_mesh), None or 'auto', got {type(mesh).__name__}")
-        if mesh.multiprocess:
-            if update_rule == "gauss_seidel":
-                raise NotImplementedError(MULTIPROCESS_GS)
-            if kernel_approx is not None:
-                raise _not_ported("kernel_approx under a mesh over several processes", "A10")
         if device is None and mesh.device is not None:
             device = mesh.device
         elif (device is not None and mesh.device is not None
@@ -599,7 +593,9 @@ class DistSampler:
         subsample), published as ``svgd_diag_phi_approx_*`` gauges.  Probe
         scores are the full-data (unscaled) ``∇log p`` on the whole data
         plus the prior, as in JAX.  O(max_points²); run it at diagnostics
-        cadence, not every step."""
+        cadence, not every step.  Under a mesh over several processes it
+        gathers the global ensemble first (a collective: every rank calls
+        it), so every rank measures, and publishes, the same residual."""
         from dist_svgd_torch.ops.approx import phi_residual_report, record_phi_residual
         from dist_svgd_torch.ops.kernels import median_bandwidth_approx
 
@@ -607,6 +603,8 @@ class DistSampler:
             raise ValueError("approx_residual needs kernel_approx (exact runs have no "
                              "approximation residual to measure)")
         particles = self._particles
+        if self._mesh.multiprocess:
+            particles = self._mesh.all_gather(split(particles, self._mesh.shards_per_process))
         n = particles.shape[0]
         if n > max_points:
             particles = particles[::-(-n // max_points)]
@@ -1031,8 +1029,13 @@ class DistSampler:
 
         Under an explicit mesh the final particles are :attr:`particles`
         (this process's rows) and the history this process's rows of each
-        snapshot; over several processes the chunked execution raises
-        ``NotImplementedError`` (ROADMAP A10)."""
+        snapshot.  Over several processes the plan is a function of the
+        global shape and the arguments alone, so every rank reaches the same
+        dispatch boundaries and collectives; no dispatch boundary reads a
+        rank's data (a Sinkhorn ``tol`` exit freezes lanes inside a
+        dispatch, which holds no collective).  :attr:`last_run_stats` reads
+        the same on every rank but ``max_dispatch_wall_s``, the rank's
+        own."""
         if self._include_wasserstein:
             if self._wasserstein_solver != "sinkhorn" or (
                     self._exchange_impl == "ring" and self._mode != PARTITIONS
@@ -1055,10 +1058,6 @@ class DistSampler:
             raise ValueError(
                 "pass either dispatch_budget (auto-chunking) or explicit "
                 "hops_per_dispatch / max_passes_per_dispatch, not both")
-        if self._mesh.multiprocess and (dispatch_budget is not None or explicit):
-            raise _not_ported("run_steps' chunked execution (dispatch_budget, "
-                              "hops_per_dispatch, max_passes_per_dispatch) under a mesh "
-                              "over several processes", "A10")
         if dispatch_budget is None and not explicit:
             with _trace.span("train.step_chunk",
                              {"steps": num_steps, "execution": "monolithic"}
@@ -1264,7 +1263,7 @@ class DistSampler:
         from dist_svgd_torch.ops.ot import sinkhorn_dual_advance, wasserstein_grad_sinkhorn
 
         sk = self._sinkhorn
-        prev_for = torch.roll(self._previous, -1, dims=0) if self._block_w2 else self._previous
+        prev_for = self._mesh.roll(self._previous, -1) if self._block_w2 else self._previous
         g = self._w2_g if self._w2_g is not None else blocks.new_zeros(self._g_shape())
         total = sk["sinkhorn_iters"]
         splits = _chunk_sizes(total, max_passes) if max_passes is not None else [total]
@@ -1285,7 +1284,7 @@ class DistSampler:
         if self._chunk_builders is None:
             self._chunk_builders = make_chunked_ring_step_fns(
                 self._logp, self._kernel, self._mode, self._num_shards, self._score_scale,
-                **self._phi_kwargs(), **self._data_kwargs())
+                mesh=self._mesh, **self._phi_kwargs(), **self._data_kwargs())
         b = self._chunk_builders
         data = self._data_stacked
         sizes = _chunk_sizes(self._num_shards, hops_per_dispatch)
@@ -1343,7 +1342,7 @@ class DistSampler:
             idx = self._batch_indices(t)
             if record:
                 history.append(self._particles.cpu().numpy())
-            blocks = split(self._particles, self._num_shards)
+            blocks = split(self._particles, self._mesh.shards_per_process)
             with torch.no_grad():
                 w_grad = None
                 if self._include_wasserstein and self._previous is not None:
@@ -1357,7 +1356,7 @@ class DistSampler:
                     new = run(self._step, blocks, self._data_stacked, t, step_size, idx,
                               w_grad, h)
                 if self._include_wasserstein:
-                    self._previous = w2_snapshot(blocks, new, self._block_w2)
+                    self._previous = w2_snapshot(blocks, new, self._block_w2, self._mesh)
             self._particles = merge(new)
         self.last_run_stats = self._stats(
             "intra_step", num_steps, rec["count"], rec["max_wall"],

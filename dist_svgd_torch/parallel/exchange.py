@@ -58,8 +58,9 @@ rotation (:func:`_ring_rotate`), the ring's median-bandwidth subsample, the
 lagged gather and the W2 snapshot's gather and block-pairing roll.  The
 data slices and the ``partitions`` rotation ``(r + t) mod S`` are keyed by
 the global shard index ``r``, so a lane takes its own shard's slice
-whichever process holds it.  The Gauss–Seidel sweep and the chunked ring
-pieces run on a single process only.
+whichever process holds it.  The Gauss–Seidel sweep gathers once a step
+(and psums once in ``all_scores``) and sweeps its local view; the chunked
+ring pieces rotate through the mesh as the monolithic ring does.
 """
 
 from __future__ import annotations
@@ -72,17 +73,13 @@ from dist_svgd_torch.ops.approx import bind_phi_step
 from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth_approx_masked
 from dist_svgd_torch.ops.ot import wasserstein_grad_lp, wasserstein_grad_sinkhorn
-from dist_svgd_torch.parallel.mesh import ParticleMesh, all_gather, psum, split
+from dist_svgd_torch.parallel.mesh import ParticleMesh, split
 
 ALL_PARTICLES = "all_particles"
 ALL_SCORES = "all_scores"
 PARTITIONS = "partitions"
 
 MODES = (ALL_PARTICLES, ALL_SCORES, PARTITIONS)
-
-#: The refusal of the Gauss–Seidel sweep under a multi-process mesh.
-MULTIPROCESS_GS = ("update_rule='gauss_seidel' under a mesh over several processes is not "
-                   "ported to PyTorch yet (ROADMAP A10): the sweep runs on one process")
 
 
 def tree_map(fn: Callable, data):
@@ -405,11 +402,15 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
 def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_scale: float,
                                phi_impl: str = "auto", shard_data: bool = False,
                                batch_size: Optional[int] = None, log_prior=None,
-                               n_local_data: int = 0, kernel_approx=None) -> dict:
+                               n_local_data: int = 0, kernel_approx=None,
+                               mesh: Optional[ParticleMesh] = None) -> dict:
     """The pieces of a ring step for a host-driven chain of bounded
     dispatches (JAX ``make_chunked_ring_step_fns``): each piece resumes the
     hop loop from an explicit carry, so the chain replays the monolithic
-    pass's accumulation order exactly.  A dict of:
+    pass's accumulation order exactly.  The carries are this process's
+    ``(L, s, d)`` lanes of ``mesh`` (``None``: all S, one process), and each
+    hop's rotation goes through the mesh, so every rank runs the same
+    chain of hops.  A dict of:
 
     - ``'local_hops'``: ``factory(num_hops, rotate_last) -> fn(blocks,
       visiting, acc, data, t, idx) -> (visiting, acc)`` (``all_particles``);
@@ -435,9 +436,9 @@ def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_s
             "kernel='median_step' resolves per step from a gathered subsample the "
             "bounded-dispatch chain does not carry — use kernel='median' (resolved "
             "once at construction) instead")
-    mesh = ParticleMesh(num_shards)  # a single process's pieces
+    mesh = _local_mesh(mesh, num_shards)
     phi_fn, _, own_scores, prior_scores = _builder_prelude(
-        logp, kernel, phi_impl, num_shards, log_prior, batch_size, n_local_data,
+        logp, kernel, phi_impl, mesh.shards_per_process, log_prior, batch_size, n_local_data,
         kernel_approx)
     if getattr(phi_fn, "needs_step", False) and mode == ALL_SCORES:
         raise ValueError(
@@ -445,7 +446,7 @@ def make_chunked_ring_step_fns(logp, kernel, mode: str, num_shards: int, score_s
             "its φ-pass chunks (exact_phi_hops carries only the rotating (block, score, "
             "acc) state), which rff_redraw='step' needs for its per-step bank — use "
             "rff_redraw='run', kernel_approx='nystrom', or the all_particles mode")
-    local, lik = _step_data(mode, num_shards, shard_data, batch_size, n_local_data)
+    local, lik = _step_data(mode, num_shards, shard_data, batch_size, n_local_data, mesh)
 
     def local_hops(num_hops: int, rotate_last: bool):
         def fn(blocks, visiting, acc, data, t, idx=None):
@@ -541,8 +542,8 @@ def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
                    phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
                    log_prior=None, n_local_data: int = 0, ring: bool = False,
                    kernel_approx=None, mesh: Optional[ParticleMesh] = None):
-    """The reference's literal Gauss–Seidel step, all shards at once (JAX
-    ``parallel/exchange.py:_build_gs_step``; reference
+    """The reference's literal Gauss–Seidel step, all local shards at once
+    (JAX ``parallel/exchange.py:_build_gs_step``; reference
     dsvgd/distsampler.py:194-200, ``tests/_oracle.py``).
 
     Each shard holds a private view — the gathered set in the exchanged
@@ -552,21 +553,23 @@ def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
     (importance-scaled, prior added once), except in ``all_scores``, whose
     exchanged scores are frozen at their pre-update psum for the whole step.
     Only the shard's own block is committed: the other rows of a view stay
-    at their pre-exchange values.  The S shards are independent, so row
-    ``i`` of every shard moves in one φ call, ``phi_fn(y (S, 1, d), view
-    (S, m, d), scores)``: one φ launch a row and step, not S.  A
-    ``w_grad`` ``(S, s, d)`` (the W2 gradient, solved once from the
-    pre-sweep blocks) is applied row by row, ``δ_i = φ + h·w_grad_i``.
+    at their pre-exchange values.  The shards are independent, so row ``i``
+    of every local shard moves in one φ call, ``phi_fn(y (L, 1, d), view
+    (L, m, d), scores)``: one φ launch a row and step, not L.  A ``w_grad``
+    ``(L, s, d)`` (the W2 gradient, solved once from the pre-sweep blocks)
+    is applied row by row, ``δ_i = φ + h·w_grad_i``.
+
+    Under a mesh over several processes the view is built from one
+    ``mesh.all_gather`` of the local blocks and each lane's rows sit at its
+    global shard index; ``all_scores`` freezes its scores with one
+    ``mesh.psum``.  The sweep itself is local: one gather (and in
+    ``all_scores`` one psum) a step, never a collective a row.
 
     Minibatches, the ring and ``kernel_approx`` are refused (``ValueError``),
-    as in JAX; so is a mesh over several processes (``NotImplementedError``,
-    ROADMAP A10: the sweep runs on the single-process emulation).
-    Returns ``gs(blocks, data, t, step_size, w_grad=None, h=1.0) ->
-    new_blocks``."""
+    as in JAX.  Returns ``gs(blocks, data, t, step_size, w_grad=None,
+    h=1.0) -> new_blocks``."""
     if mode not in MODES:
         raise ValueError(f"unknown exchange mode {mode!r}")
-    if mesh is not None and mesh.multiprocess:
-        raise NotImplementedError(MULTIPROCESS_GS)
     if ring:
         raise ValueError("update_rule='gauss_seidel' requires exchange_impl='gather' "
                          "(the sweep mutates a materialised local view)")
@@ -576,21 +579,22 @@ def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
         raise ValueError(
             "kernel_approx requires update_rule='jacobi' (the GS sweep exists for "
             "literal reference parity, which an approximate kernel cannot provide)")
+    mesh = _local_mesh(mesh, num_shards)
     phi_fn, shared_scores, own_scores, prior_scores = _builder_prelude(
-        logp, kernel, phi_impl, num_shards, log_prior, None, n_local_data)
-    resolve_data = _shard_data_resolver(mode, num_shards, shard_data)
+        logp, kernel, phi_impl, mesh.shards_per_process, log_prior, None, n_local_data)
+    resolve_data = _shard_data_resolver(mode, num_shards, shard_data, mesh)
 
     def gs(blocks, data, t: int, step_size: float, w_grad=None, h: float = 1.0):
-        S, s, d = blocks.shape
+        L, s, d = blocks.shape
         data_local = resolve_data(data, t)
-        lanes = torch.arange(S, device=blocks.device)
+        local = torch.arange(L, device=blocks.device)
         if mode == PARTITIONS:
-            view, lo = blocks.clone(), torch.zeros_like(lanes)
+            view, lo = blocks.clone(), torch.zeros_like(local)
         else:
-            view, lo = all_gather(blocks).repeat(S, 1, 1), lanes * s  # (S, n, d)
+            gathered = mesh.all_gather(blocks)  # the step's one gather
+            view, lo = gathered.repeat(L, 1, 1), mesh.lanes(blocks.device) * s  # (L, n, d)
         if mode == ALL_SCORES:
-            gathered = view[0]
-            frozen = _with_prior(prior_scores, psum(shared_scores(gathered, data_local)),
+            frozen = _with_prior(prior_scores, mesh.psum(shared_scores(gathered, data_local)),
                                  gathered).expand_as(view)
         for i in range(s):
             if mode == ALL_SCORES:
@@ -599,14 +603,15 @@ def _build_gs_step(logp, kernel, mode: str, num_shards: int, score_scale: float,
                 scores = _with_prior(prior_scores, score_scale * own_scores(view, data_local),
                                      view)
             rows = lo + i
-            y = view[lanes, rows]  # (S, d), pre-update
+            y = view[local, rows]  # (L, d), pre-update
             delta = phi_fn(y[:, None], view, scores)[:, 0]
             if w_grad is not None:
                 delta = delta + h * w_grad[:, i]
-            view[lanes, rows] = y + step_size * delta
+            view[local, rows] = y + step_size * delta
         if mode == PARTITIONS:
             return view
-        return view.view(S, S, s, d)[lanes, lanes]  # each shard's own block
+        # each lane's own block, at its global shard index
+        return view.view(L, num_shards, s, d)[local, mesh.lanes(blocks.device)]
 
     return gs
 

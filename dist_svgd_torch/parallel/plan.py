@@ -5,8 +5,10 @@ profiler reads.
 Counterpart of ``dist_svgd_tpu/parallel/plan.py`` (``Plan``, ``make_plan``)
 in its single-device half, and of the part of
 ``dist_svgd_tpu/analysis/registry.py`` that ``telemetry/profile.py`` reads
-(:class:`ProgramEntry`, :class:`ProgramRegistry`).  The mesh half — a plan
-over more than one device, ``make_plan(n > 1)``, particle-sharded
+(:class:`ProgramEntry`, :class:`ProgramRegistry`).  ``make_plan(n)`` on a
+host with fewer than n visible devices degrades to the single-device plan,
+as JAX's does through ``make_mesh``.  The mesh half — a plan over more than
+one device where that many exist, ``Plan(mesh)``, particle-sharded
 placement — is not ported and raises ``NotImplementedError`` naming ROADMAP
 A10.2; the port's samplers keep their own dispatch.
 
@@ -55,7 +57,7 @@ from dist_svgd_torch.telemetry import profile as _profile
 from dist_svgd_torch.utils.platform import resolve_device
 
 __all__ = ["Plan", "Program", "ProgramEntry", "ProgramRegistry", "capture_sentry",
-           "default_registry", "make_plan", "use_registry"]
+           "default_registry", "make_plan", "use_registry", "visible_devices"]
 
 #: Warm-up calls on the capture stream before a graph is captured (first
 #: calls allocate library workspaces, which a capture must not do).
@@ -425,13 +427,23 @@ class Plan:
         return prog
 
 
+def visible_devices(device) -> int:
+    """Devices a plan on ``device``'s type could span: the cards
+    ``torch.cuda.device_count()`` sees, or 1 for the CPU."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+
+
 def make_plan(num_shards: Optional[int] = None, *, device=None) -> Plan:
-    """A single-device :class:`Plan` on ``device`` (``num_shards`` ``None``
-    or 1).  More shards raise ``NotImplementedError`` naming ROADMAP A10.2."""
+    """A single-device :class:`Plan` on ``device``.  ``num_shards`` ``None``
+    or 1, or more than the visible devices (:func:`visible_devices`), gives
+    it: JAX's graceful degradation (``make_mesh`` returns ``None`` when the
+    host has fewer devices than asked).  More shards where that many
+    devices exist raise ``NotImplementedError`` naming ROADMAP A10.2."""
     if num_shards is not None and num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
-    if num_shards is not None and num_shards > 1:
+    plan = Plan(device=device)
+    if num_shards is not None and 1 < num_shards <= visible_devices(plan.device):
         raise NotImplementedError(
             f"make_plan(num_shards={num_shards}): a plan over more than one device is not "
             f"ported to PyTorch yet ({_A10})")
-    return Plan(device=device)
+    return plan

@@ -47,7 +47,6 @@ from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
-import torch
 
 from dist_svgd_torch.serving.autoscale import AutoscaleController, AutoscalePolicy
 from dist_svgd_torch.serving.batcher import MicroBatcher, Overloaded
@@ -563,8 +562,10 @@ def main(argv=None):
                          "queue (N frontend lanes, one engine)")
     ap.add_argument("--shards", type=int, default=1,
                     help="devices to shard the served ensemble across (0 = "
-                         "every visible device); more than one is not "
-                         "ported (ROADMAP A10.2)")
+                         "every visible device; 1 = single-device).  Falls "
+                         "back to one device when the host has fewer; more "
+                         "than one where they exist is not ported (ROADMAP "
+                         "A10.2)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: the card (fails without CUDA)")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
@@ -605,18 +606,11 @@ def main(argv=None):
                          "federated svgd_usage_* series fleet-wide")
     args = ap.parse_args(argv)
 
-    from dist_svgd_torch.parallel.plan import make_plan
+    from dist_svgd_torch.parallel.plan import make_plan, visible_devices
     from dist_svgd_torch.utils.metrics import JsonlLogger
 
     if (args.checkpoint is None) == (args.tenants_config is None):
         ap.error("pass exactly one of --checkpoint or --tenants-config")
-    shards = args.shards
-    if shards == 0:
-        shards = torch.cuda.device_count() if args.device != "cpu" else 1
-    if shards > 1:
-        raise NotImplementedError(
-            f"--shards {shards}: serving across more than one device is not ported "
-            "to PyTorch yet (ROADMAP A10.2)")
     logger = JsonlLogger(path=args.request_log) if args.request_log else None
     if args.tenants_config:
         with open(args.tenants_config) as fh:
@@ -641,7 +635,10 @@ def main(argv=None):
     else:
         source = (args.checkpoint[0] if len(args.checkpoint) == 1
                   else args.checkpoint)
-        plan = make_plan(1, device=args.device)
+        # 0 = every visible device; more than the host has degrades to one
+        # device (make_plan), as in JAX
+        plan = make_plan(args.shards or visible_devices(args.device or "cuda"),
+                         device=args.device)
         engine = PredictiveEngine.from_checkpoint(
             source, args.model, n_features=args.n_features,
             n_hidden=args.n_hidden, kde_bandwidth=args.kde_bandwidth,

@@ -27,7 +27,9 @@ points the closed loop at a live ``serving.server`` instead.
 ``--lanes N`` runs N batcher worker lanes over the shared engine;
 ``--dtype bfloat16`` serves the low-precision programs and stamps the
 same-session ``dtype_speedup`` against an f32 reference loop.
-``--devices N`` (N > 1) shards across devices: ROADMAP A10.2, not ported
+``--devices N`` (N > 1) on a host with fewer devices serves from one device
+(``make_plan``'s degradation, as in JAX) and the row's ``devices`` says 1;
+where N devices exist it is ROADMAP A10.2, not ported
 (``NotImplementedError``).
 
 Multi-tenant registry: ``--tenants N`` hosts N heterogeneous tenants (mixed
@@ -63,7 +65,7 @@ import numpy as np
 
 from dist_svgd_torch import telemetry
 from dist_svgd_torch.models.bnn import num_params
-from dist_svgd_torch.parallel.plan import capture_sentry
+from dist_svgd_torch.parallel.plan import capture_sentry, make_plan
 from dist_svgd_torch.serving import MicroBatcher, ModelRegistry, PredictiveEngine
 from dist_svgd_torch.serving.batcher import Overloaded, _percentile
 from dist_svgd_torch.serving.engine import bucket_for
@@ -78,22 +80,17 @@ def _platform(engine) -> str:
     return "gpu" if engine.device.type == "cuda" else "cpu"
 
 
-def _check_devices(devices):
-    if devices and devices > 1:
-        raise NotImplementedError(
-            f"--devices {devices}: serving across more than one device is not "
-            "ported to PyTorch yet (ROADMAP A10.2)")
-
-
 def build_engine(model="logreg", n_particles=10_000, n_features=54,
                  checkpoint=None, seed=0, max_bucket=256, registry=None,
                  devices=1, dtype=None, device=None):
     """Checkpointed ensemble when given, else a seeded synthetic one —
     serving throughput depends on shapes, not on convergence.  ``dtype``
-    opts into the low-precision serve programs; ``devices > 1`` raises
-    (ROADMAP A10.2)."""
-    _check_devices(devices)
+    opts into the low-precision serve programs; ``devices > 1`` goes
+    through ``make_plan`` (one device when the host has fewer; ROADMAP
+    A10.2 where that many exist)."""
     kw = dict(max_bucket=max_bucket, registry=registry, dtype=dtype, device=device)
+    if devices and devices > 1:
+        kw.update(plan=make_plan(devices, device=device), device=None)
     if checkpoint:
         source = checkpoint if len(checkpoint) > 1 else checkpoint[0]
         return PredictiveEngine.from_checkpoint(
@@ -267,7 +264,6 @@ def run_bench(model="logreg", n_particles=10_000, n_features=54,
     ``diagnostics_overhead`` the health evaluation's wall as a fraction of
     the window.
     """
-    _check_devices(devices)
     if url:
         # url mode measures a REMOTE server: the local engine only supplies
         # feature_dim/request shapes, so local topology flags must not
@@ -798,8 +794,9 @@ def main(argv=None):
                     help="serve a real ensemble (repeatable for one "
                          "multi-host save); default is a seeded synthetic one")
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard the served ensemble across this many devices: "
-                         "more than one is not ported (ROADMAP A10.2)")
+                    help="shard the served ensemble across this many devices "
+                         "(one device when the host has fewer; more than one "
+                         "where they exist is not ported, ROADMAP A10.2)")
     ap.add_argument("--tenants", type=int, default=0,
                     help="host this many mixed-shape tenants behind one "
                          "ModelRegistry and emit the serve_multitenant "
@@ -844,7 +841,6 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: the card (fails without CUDA)")
     args = ap.parse_args(argv)
-    _check_devices(args.devices)
 
     rows = tuple(int(r) for r in args.rows.split(","))
     kw = dict(

@@ -122,6 +122,14 @@ WORKER = textwrap.dedent("""
                          wasserstein_solver="sinkhorn", sinkhorn_iters=30,
                          w2_pairing="block", kernel="median_step")
             save(leg, ds.run_steps(4, 0.1, h=0.5))
+        elif leg == "gs":
+            save(leg, sampler(update_rule="gauss_seidel").run_steps(3, 0.1))
+        elif leg == "approx":
+            from dist_svgd_torch.ops.approx import KernelApprox
+            save(leg, sampler(phi_impl="torch", kernel_approx=KernelApprox(
+                "nystrom", num_landmarks=4)).run_steps(3, 0.1))
+        elif leg == "chunked":
+            save(leg, sampler(exchange_impl="ring").run_steps(4, 0.1, hops_per_dispatch=2))
         elif leg == "ckpt":
             # one sampler plays both roles: 3 steps, save this rank's block,
             # 2 more — its end IS the uninterrupted run
@@ -163,18 +171,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_federation(outdir, nprocs: int, legs: str):
-    """Spawn ``nprocs`` WORKER ranks on a fresh loopback port; every rank
-    must exit 0 within FED_TIMEOUT_S, and none outlives this call."""
+def run_federation(outdir, nprocs: int, legs: str, worker: str = WORKER,
+                   timeout_s: float = FED_TIMEOUT_S):
+    """Spawn ``nprocs`` ``worker`` ranks (default :data:`WORKER`) on a fresh
+    loopback port; every rank must exit 0 within ``timeout_s``, and none
+    outlives this call."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
     coord = f"127.0.0.1:{_free_port()}"
-    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r), str(nprocs), coord,
+    procs = [subprocess.Popen([sys.executable, "-c", worker, str(r), str(nprocs), coord,
                                str(outdir), legs], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(nprocs)]
     try:
-        logs = [p.communicate(timeout=FED_TIMEOUT_S)[0].decode() for p in procs]
+        logs = [p.communicate(timeout=timeout_s)[0].decode() for p in procs]
     finally:
         for p in procs:  # a rank that died leaves its peers blocked
             if p.poll() is None:
@@ -422,31 +432,39 @@ def test_single_process_mesh_takes_global_rows_and_restores():
         tdt.DistSampler(8, lambda th, _: gmm_logp(th), None, parts, mesh=mesh, **kw)
 
 
-def test_multiprocess_mesh_refusals():
+def test_multiprocess_mesh_refusals(two_process_run):
     """Under a mesh over several processes the Gauss–Seidel sweep,
-    kernel_approx and the chunked run_steps raise naming ROADMAP A10 (no
-    collective runs before the refusal); a block at another process's rows
-    raises."""
+    kernel_approx and the chunked run_steps construct (no collective runs
+    before the first step) and step: the two-process federation's runs of
+    the three equal the one-process ones.  A block at another process's
+    rows still raises."""
+    from dist_svgd_torch.ops.approx import KernelApprox
+
     mesh = ParticleMesh(8, world_size=2, rank=1, device="cpu", backend="gloo",
                         distributed=True)
     parts = np.random.default_rng(3).normal(size=(N, D))
     gmm = lambda th, _: gmm_logp(th)  # noqa: E731
     base = dict(include_wasserstein=False, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tdt.DistSampler(8, gmm, None, parts, update_rule="gauss_seidel", **base)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tdt.DistSampler(8, gmm, None, parts, kernel_approx="rff", **base)
-    ds = tdt.DistSampler(8, gmm, None, parts, exchange_impl="ring", **base)
-    assert ds.particles.start == 16 and torch.equal(ds.particles.rows,
-                                                     torch.as_tensor(parts[16:]))
-    for kw in ({"dispatch_budget": 1.0}, {"hops_per_dispatch": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            ds.run_steps(2, 0.1, **kw)
+    nystrom = dict(phi_impl="torch", kernel_approx=KernelApprox("nystrom", num_landmarks=4))
+    for kw in (dict(update_rule="gauss_seidel"), nystrom, dict(exchange_impl="ring")):
+        ds = tdt.DistSampler(8, gmm, None, parts, **kw, **base)
+        assert ds.particles.start == 16 and torch.equal(ds.particles.rows,
+                                                         torch.as_tensor(parts[16:]))
+    assert mesh.counts()["collectives"] == 0
+    exchange.make_shard_step(gmm, tdt.RBF(1.0), "all_scores", 8, 1.0,
+                             update_rule="gauss_seidel", mesh=mesh)
     with pytest.raises(ValueError, match="this process's shards own rows 16"):
         tdt.DistSampler(8, gmm, None, GlobalRows(torch.zeros(16, D), 0, N), **base)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        exchange.make_shard_step(gmm, tdt.RBF(1.0), "all_scores", 8, 1.0,
-                                 update_rule="gauss_seidel", mesh=mesh)
+    one = lambda **kw: tdt.DistSampler(8, gmm, None, full_init(), device="cpu",  # noqa: E731
+                                       include_wasserstein=False, **kw)
+    tol = dict(rtol=2e-6, atol=2e-7)
+    np.testing.assert_allclose(assemble(two_process_run, 2, "gs"),
+                               one(update_rule="gauss_seidel").run_steps(3, 0.1).numpy(), **tol)
+    np.testing.assert_allclose(assemble(two_process_run, 2, "approx"),
+                               one(**nystrom).run_steps(3, 0.1).numpy(), **tol)
+    np.testing.assert_allclose(
+        assemble(two_process_run, 2, "chunked"),
+        one(exchange_impl="ring").run_steps(4, 0.1, hops_per_dispatch=2).numpy(), **tol)
 
 
 # ---- federations ------------------------------------------------------- #
@@ -454,10 +472,12 @@ def test_multiprocess_mesh_refusals():
 
 @pytest.fixture(scope="module")
 def two_process_run(tmp_path_factory):
-    """One 2-process federation (4 shards each) running every leg."""
+    """One 2-process federation (4 shards each) running every leg (the
+    Gauss–Seidel, Nyström and chunked ring legs for
+    :func:`test_multiprocess_mesh_refusals`)."""
     out = tmp_path_factory.mktemp("mh2")
     run_federation(out, 2, "gather,ring,lagged,partitions,minibatch,w2,ring_w2_block,"
-                           "partitions_w2_data")
+                           "partitions_w2_data,gs,approx,chunked")
     return out
 
 

@@ -4,9 +4,11 @@ single-device cases of ``tests/test_plan.py``, on the CPU: construction,
 placement, ``compile`` against JAX's ``Plan(None).compile`` at float64, the
 program tracking the profiler reads (``ProgramEntry``) and the capture
 sentry, the engine's dtype and donation surfaces, and the multi-lane
-``MicroBatcher``.  A plan over more than one device raises, naming ROADMAP
-A10.  (On the card a program captures one CUDA graph per input shape;
-``chip_smoke.py`` holds that path.)"""
+``MicroBatcher``.  ``make_plan(n)`` with fewer than n visible devices
+degrades to the single-device plan, as JAX's does; a plan over more than
+one device where they exist raises, naming ROADMAP A10.2.  (On the card a
+program captures one CUDA graph per input shape; ``chip_smoke.py`` holds
+that path.)"""
 
 import json
 import threading
@@ -40,8 +42,13 @@ def _engine(parts, **kw):
 # Plan: construction, placement, compile
 
 
-def test_make_plan_single_device_and_multi_raises():
+def test_make_plan_single_device_and_multi_raises(monkeypatch):
+    """One device, or more shards than the host has devices (the CPU is
+    one): the single-device plan, JAX's ``make_mesh`` → ``None``
+    degradation (``tests/test_plan.py::test_make_plan_degrades_gracefully``).
+    More shards where that many devices exist raise, naming ROADMAP A10.2."""
     from dist_svgd_tpu.parallel.plan import Plan as JPlan
+    from dist_svgd_tpu.parallel.plan import make_plan as jmake_plan
 
     assert make_plan(1, device="cpu").num_shards == 1
     assert not make_plan(1, device="cpu").is_sharded
@@ -50,9 +57,17 @@ def test_make_plan_single_device_and_multi_raises():
     assert make_plan(device="cpu").describe() == JPlan(None).describe()
     with pytest.raises(ValueError, match="num_shards"):
         make_plan(0, device="cpu")
+    assert tplan.visible_devices("cpu") == 1
     for n in (2, 10_000):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        plan = make_plan(n, device="cpu")
+        assert plan.num_shards == 1 and not plan.is_sharded
+        assert plan.device == torch.device("cpu")
+        assert plan.describe() == jmake_plan(10_000).describe()
+    monkeypatch.setattr(tplan, "visible_devices", lambda device: 4)
+    for n in (2, 4):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
             make_plan(n, device="cpu")
+    assert make_plan(5, device="cpu").num_shards == 1
 
 
 def test_plan_rejects_a_mesh_naming_a10():
@@ -379,5 +394,6 @@ def test_serve_bench_lanes_row_and_devices_a10():
     assert sum(fairness["requests"].values()) >= 30
     assert set(fairness["inflight_rows_last"]) == {"l0", "l1"}
     json.dumps(row)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        serve_bench.run_bench(n_particles=64, n_features=4, devices=8, device="cpu")
+    eight = serve_bench.build_engine(n_particles=64, n_features=4, max_bucket=8, devices=8,
+                                     device="cpu")  # degrades: one device on the CPU
+    assert eight.plan.num_shards == 1 and eight.device == torch.device("cpu")

@@ -10,7 +10,9 @@ bitwise-invisible on the CPU: a served row equals a direct
 ``posterior_predictive_prob`` call on the same rows.  The batcher's edge
 cases run through its injectable clock; the HTTP server, the hot reloader,
 the candidate generation and the ``NotImplementedError`` sites (ROADMAP
-A10) are checked too."""
+A10.2, where the devices exist) are checked too, and ``serving.server
+--shards 2`` and ``serve_bench --devices 2`` on a one-device host serve from
+the single-device plan."""
 
 import json
 import math
@@ -803,8 +805,46 @@ def test_serve_bench_cli(capsys):
                              "--requests", "12", "--clients", "2"]) == 0
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["metric"] == "serve_throughput" and row["recompiles"] == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        serve_bench.main(["--device", "cpu", "--devices", "2"])
+    # --devices 2 on a host with one device serves from it (make_plan's
+    # degradation, as in JAX), and the row says so
+    assert serve_bench.main(["--device", "cpu", "--devices", "2", "--n-particles", "32",
+                             "--n-features", "3", "--requests", "12", "--clients", "2"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["devices"] == 1 and row["recompiles"] == 0
+
+
+def test_server_shards_beyond_the_host_serve_from_one_device(tmp_path, rng, monkeypatch):
+    """``serving.server --shards 2`` on a one-device host serves from the
+    single-device plan (JAX: "falls back gracefully"): a request through
+    the HTTP server equals a direct engine on make_plan(1), bit for bit."""
+    from dist_svgd_torch.parallel.plan import make_plan
+    from dist_svgd_torch.serving import server
+
+    parts = rng.normal(size=(16, 4)).astype(np.float32)
+    save_state(str(tmp_path / "c"), {"particles": parts, "t": 1})
+    x = rng.normal(size=(3, 3)).astype(np.float32)
+    got = {}
+
+    def serve(self):  # one request instead of the blocking loop
+        self.start()
+        try:
+            got["plan"] = self.engine.plan.describe()
+            got["health"] = _get(self.url, "/healthz")
+            got["out"] = _post(self.url, "/predict", {"inputs": x.tolist()})["outputs"]
+        finally:
+            self.shutdown()
+
+    monkeypatch.setattr(server.PredictionServer, "serve_forever", serve)
+    server.main(["--checkpoint", str(tmp_path / "c"), "--device", "cpu", "--shards", "2",
+                 "--port", "0", "--max-batch", "8", "--no-usage-metering"])
+    direct = PredictiveEngine.from_checkpoint(str(tmp_path / "c"), "logreg", max_bucket=8,
+                                              plan=make_plan(1, device="cpu"))
+    assert got["plan"] == direct.plan.describe() == {"sharded": False, "num_shards": 1,
+                                                     "devices": None}
+    assert got["health"]["devices"] == 1
+    want = direct.predict(x)
+    for k in ("mean", "var"):
+        np.testing.assert_array_equal(np.asarray(got["out"][k], np.float32), want[k])
 
 
 # --------------------------------------------------------------------- #
@@ -1023,8 +1063,9 @@ def test_hot_reloader_baseline_is_engine_loaded_step(tmp_path, rng):
 # what is not ported raises, naming its label
 
 
-def test_unported_options_raise_naming_their_label(rng):
+def test_unported_options_raise_naming_their_label(rng, monkeypatch):
     import dist_svgd_torch.serving as tserving
+    from dist_svgd_torch.parallel import plan as tplan
     from dist_svgd_torch.parallel.plan import Plan, make_plan
     from dist_svgd_torch.serving import server
 
@@ -1033,8 +1074,9 @@ def test_unported_options_raise_naming_their_label(rng):
         PredictiveEngine("logreg", parts, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         Plan(object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        make_plan(2, device="cpu")
+    monkeypatch.setattr(tplan, "visible_devices", lambda device: 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
+        make_plan(2, device="cpu")  # where 2 devices exist
     # the serving fleet is ported: its six names resolve to the port's classes
     from dist_svgd_torch.serving import fleet as tfleet
 
@@ -1058,7 +1100,7 @@ def test_unported_options_raise_naming_their_label(rng):
         assert srv.autoscale.batcher is srv.batcher
     finally:
         srv.shutdown()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
         server.main(["--checkpoint", "x", "--device", "cpu", "--shards", "2"])
 
 
