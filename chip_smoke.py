@@ -91,9 +91,15 @@ gathered modes, ``kernel_approx`` under ``'auto'`` and Nyström, and the
 chunked ring and split Sinkhorn solve, each against the single-process
 or the unchunked run, with the kernels held at the per-rank lanes), the
 one-card degradation of ``make_plan(2)``, and
-``dist_svgd_torch/tools/multihost_train.py``'s real kill-one drill; it
-checks that each path went through its kernels, and prints one JSON object
-per phase.  A phase that fails raises, so the script exits non-zero; the last line,
+``dist_svgd_torch/tools/multihost_train.py``'s real kill-one drill — and
+last the step anatomy: ``dist_svgd_torch/tools/profile_step_floor.py`` at
+config 1's width with its donation A/B, ``profile_emulation.py``'s
+variants of the 8-lane north-star step against float64 reference steps,
+``record_overhead.py`` at 100,000 particles (the recorded stack against the
+plain run) and ``w2_bench.py`` (the W2 table at 10,000 and 100,000, the
+fidelity band), with ``phi_small_d``, ``ot_ctransform`` and ``ot_kexp`` held
+at their new lanes in ``kernel_parity``; it checks that each path went
+through its kernels, and prints one JSON object per phase.  A phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -678,6 +684,39 @@ MH_LANES = {
     "gs_splice": [("phi_big_d", (1, 1, 10_000, 61), 122.0, False)],
 }
 MH_SEED = 1200
+# Section 25, the step anatomy: the four tools of dist_svgd_torch/tools/
+# called on the card through their functions — profile_step_floor at config
+# 1's full width (banana, n = 100) with shortened dispatch and chain lists
+# and the donate_carries A/B; profile_emulation at the north star's 10,000
+# particles over 8 lanes, a few dozen steps a dispatch; record_overhead at
+# 100,000 particles, one history chunk (500 steps), one round; w2_bench at
+# 10,000 (5 steps a dispatch, one sample), its --fidelity over 3 steps of
+# the partitions pairing, and --n 100000 --no-fixed at 2 steps a dispatch.
+# The launch counts are set to 0 just before each tool and read just after.
+ANATOMY_FLOOR = dict(n=100, dispatch_lengths=(10, 100), chains=(1, 8), reps=2, samples=2,
+                     chain_dispatch=100, donate_chain=4)
+ANATOMY_EMULATION = dict(n=10_000, shards=8, iters=30, reps=2)
+ANATOMY_RECORD = dict(n=100_000, chunks=1, rounds=1)
+ANATOMY_W2 = dict(n=10_000, shards=8, iters_per_dispatch=5, samples=1)
+ANATOMY_FIDELITY = dict(n=10_000, shards=8, steps=3, exchange="partitions")
+ANATOMY_W2_STREAMING = dict(n=100_000, shards=8, iters_per_dispatch=2, samples=1)
+# The lanes section 25 gives the kernels that no earlier kernel_parity row
+# holds: phi_small_d at config 1's one lane (y = x), the emulation's
+# unsharded lane (y = x) and one unrolled lane, and the 8 north-star lanes at
+# profile_emulation's pinned split (F, blocks_per_sm = 4); ot_ctransform and
+# ot_kexp at the --fidelity partitions pairing (8 lanes of 1,250 against
+# 1,250).  (kernel, (S, k, m, d), role, y = x, blocks_per_sm or None.)
+ANATOMY_LANES = [("phi_small_d", (1, 100, 100, 3), "config-1 lane y=x", True, None),
+                 ("phi_small_d", (1, 10_000, 10_000, 3), "emulation unsharded y=x", True, None),
+                 ("phi_small_d", (1, 1250, 10_000, 3), "emulation unrolled lane", False, None),
+                 ("phi_small_d", (8, 1250, 10_000, 3), "emulation F split", False, 4)]
+ANATOMY_OT = [("ot_ctransform", (8, 1250, 1250, 3), "w2_bench partitions block pairing"),
+              ("ot_kexp", (8, 1250, 1250, 3), "w2_bench partitions block pairing")]
+ANATOMY_SEED = 1300
+# A variant's one step against its reference step: max|Δ| ≤ ANATOMY_STEP_RTOL
+# · max|ref − start|, the error on the update the step makes (float32 on the
+# card against the float64 plain φ's step; the φ kernel's ~1e-6 of max|φ|).
+ANATOMY_STEP_RTOL = 1e-4
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -3891,7 +3930,6 @@ def fleet_covertype_phase(root, card, device="cuda"):
     replicas down gracefully and stitch the four exports."""
     import os
     import signal
-    import socket
     import threading
 
     import numpy as np
@@ -3901,6 +3939,7 @@ def fleet_covertype_phase(root, card, device="cuda"):
     from dist_svgd_torch.serving import PredictiveEngine, fleet
     from dist_svgd_torch.tools import fleet_status, trace_report
     from dist_svgd_torch.utils.datasets import load_covertype
+    from dist_svgd_torch.utils.ports import listen_port
 
     reset, read = _serving_counts()
     ckpt = os.path.join(root, "covertype-10k-ckpt")
@@ -3918,9 +3957,7 @@ def fleet_covertype_phase(root, card, device="cuda"):
     names = [f"r{i}" for i in range(FLEET["replicas"])]
     addresses, procs, logs, spawn_s = {}, {}, {}, {}
     for rid in names:
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            addresses[rid] = ("127.0.0.1", sock.getsockname()[1])
+        addresses[rid] = ("127.0.0.1", listen_port(exclude=[p for _, p in addresses.values()]))
     transport = fleet.HttpTransport(addresses)
     router = None
     own_tracer = telemetry.get_tracer() is None
@@ -4283,12 +4320,11 @@ def _mh_federation(W, backend, legs, out, restore_dir, device):
     """Run one federation of W worker ranks to its end (killing any rank
     left when it fails or times out); returns the ranks' reports."""
     import os
-    import socket
+
+    from dist_svgd_torch.utils.ports import listen_port
 
     out.mkdir(parents=True)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = listen_port()
     here = Path(__file__).resolve()
     env = dict(os.environ)
     if device == "cpu":
@@ -4621,6 +4657,317 @@ def multihost_phases(card, device="cuda", references=None):
         raise AssertionError(f"multihost phases failed: {failed}")
     multihost_drill_phase(card, device)
     emit({"phase": "multihost_section", "seconds": time.perf_counter() - t_section})
+
+
+def anatomy_lane_rows():
+    """The kernels at the lanes section 25's tools give them that no
+    earlier row holds (ANATOMY_LANES, ANATOMY_OT).  The φ rows go through
+    ``cuda_svgd.launch`` at the lane's split (the kernel's own, or
+    profile_emulation's pinned F_BLOCKS_PER_SM), held against the plain
+    version at the full shape and against the float64 φ on the first
+    LANE_ROWS rows of every lane, both within KERNEL_RTOL of their largest
+    value; the Sinkhorn rows against the float32 plain version at the full
+    shape (the soft c-transform within SOFT_CT_TOL, the Gibbs kernel
+    elementwise within KEXP_RTOL), their float64 distance printed.  Each
+    timed beside its bound; raises on a failed row."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_ot, cuda_svgd
+    from dist_svgd_torch.ops.kernels import RBF
+    from dist_svgd_torch.ops.svgd import phi
+    from dist_svgd_torch.tools import profile_emulation
+
+    h = 1.0
+    for seed, (name, (S, k, m, d), role, y_is_x, bps) in enumerate(ANATOMY_LANES,
+                                                                   start=ANATOMY_SEED):
+        assert bps in (None, profile_emulation.F_BLOCKS_PER_SM), bps
+        y, x, s = phi_inputs(S, k, m, d, seed)
+        if y_is_x:
+            y = x[None].contiguous()
+        kern = lambda: cuda_svgd.launch(name, y, x, s, h, blocks_per_sm=bps)  # noqa: E731
+        plain = lambda: cuda_svgd.phi_small_d_plain(y, x, s, h)  # noqa: E731
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        ys = y[:, :LANE_ROWS].contiguous()
+        exact = phi(ys.double(), x.double(), s.double(), RBF(h))
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        vs_f64, f64_scale = (float((got[:, :LANE_ROWS].double() - exact).abs().max()),
+                             float(exact.abs().max()))
+        ok = (bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+              and vs_f64 <= KERNEL_RTOL * f64_scale)
+        b_ms, b_by = bound_ms(*phi_work(name, S, k, m, d, x.numel()))
+        row = {"phase": "kernel_parity", "kernel": name, "role": role,
+               "shape": [S, k, m, d], "bandwidth": h, "reference": "plain and phi f64",
+               "blocks_per_sm": bps or cuda_svgd.blocks_per_sm(name),
+               "m_splits": cuda_svgd.split_count(name, S, k, m, x.device, bps),
+               "max_abs_err": err, "max_abs_plain": scale, "tolerance": KERNEL_RTOL * scale,
+               "rows": min(k, LANE_ROWS), "max_abs_err_vs_f64": vs_f64,
+               "f64_tolerance": KERNEL_RTOL * f64_scale,
+               "plain_max_abs_err_vs_f64": float(
+                   (want[:, :LANE_ROWS].double() - exact).abs().max()),
+               "ok": ok, "ms": cuda_ms(kern, TIMED_LAUNCHES),
+               "plain_ms": cuda_ms(plain, OTHER_LAUNCHES), "bound_us": 1e3 * b_ms,
+               "bound_by": b_by}
+        row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
+        emit(row)
+        del got, want, exact, y, x, s, ys
+        if not ok:
+            raise AssertionError(f"{name} {role}: max|Δ| {err} vs plain, {vs_f64} vs "
+                                 f"the f64 φ, beyond {KERNEL_RTOL} of {scale} / {f64_scale}")
+
+    for seed, (name, (S, k, m, d), role) in enumerate(ANATOMY_OT,
+                                                      start=ANATOMY_SEED + len(ANATOMY_LANES)):
+        rows, cols, f, gpot, _, _ = ot_inputs(S, k, m, d, seed)
+        if name == "ot_ctransform":
+            kern = lambda: cuda_ot.ctransform_reduce_cuda(rows, cols, gpot, soft=True)  # noqa: E731
+            plain = lambda: cuda_ot.ctransform_reduce_plain(rows, cols, gpot, soft=True)  # noqa: E731
+            exact = cuda_ot.ctransform_reduce_plain(rows.double(), cols.double(),
+                                                    gpot.double(), soft=True)
+            opts = {"soft": True}
+        else:
+            kern = lambda: cuda_ot.kexp_cuda(rows, cols, f, gpot)  # noqa: E731
+            plain = lambda: cuda_ot.kexp_plain(rows, cols, f, gpot)  # noqa: E731
+            exact = cuda_ot.kexp_plain(rows.double(), cols.double(), f.double(), gpot.double())
+            opts = {}
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        ok, err, tol, scale = ot_check(name, got, want, **opts)
+        b_ms, b_by = bound_ms(*ot_work(name, S, k, m, d, **opts))
+        row = {"phase": "kernel_parity", "kernel": name, "role": role, "shape": [S, k, m, d],
+               **opts, "reference": "plain", "max_abs_err": err, "max_abs_plain": scale,
+               "tolerance": tol, "ok": ok,
+               "max_abs_err_vs_f64": float((got.double() - exact).abs().max()),
+               "plain_max_abs_err_vs_f64": float((want.double() - exact).abs().max()),
+               "ms": cuda_ms(kern, TIMED_LAUNCHES), "plain_ms": cuda_ms(plain, OTHER_LAUNCHES),
+               "bound_us": 1e3 * b_ms, "bound_by": b_by}
+        row["exp_floor_ms"], row["clocks_sm_mhz"] = exp_floor_ms(S * k * m)
+        emit(row)
+        del got, want, exact, rows, cols, f, gpot
+        if not ok:
+            raise AssertionError(f"{name} {role}: max|Δ| {err} > {tol}")
+
+
+def _step_rel_dev(got, want, start):
+    """A step's error on the update it makes: max|got − want| over
+    max|want − start| (ANATOMY_STEP_RTOL), in float64 on the host."""
+    got, want, start = (t.detach().double().cpu() for t in (got, want, start))
+    return float((got - want).abs().max() / (want - start).abs().max())
+
+
+def _anatomy_counts():
+    """The φ and Sinkhorn kernels' launch counts, merged."""
+    from dist_svgd_torch.ops import cuda_ot, cuda_svgd
+
+    return {**cuda_svgd.launch_counts, **cuda_ot.launch_counts}
+
+
+def _anatomy_reset():
+    import torch
+
+    from dist_svgd_torch.ops import cuda_ot, cuda_svgd
+
+    torch.cuda.synchronize()
+    cuda_svgd.reset_launch_counts()
+    cuda_ot.reset_launch_counts()
+
+
+def anatomy_floor_phase(card, device="cuda"):
+    """profile_step_floor at config 1 (ANATOMY_FLOOR): each body's one step
+    from the start finite, the full step within ANATOMY_STEP_RTOL of the
+    same body in float64 on the CPU (the plain φ), then floor_rows with the
+    counts set to 0 — phi_small_d once a φ body's step, and nothing else —
+    and the donate_carries A/B (bitwise).  Prints anatomy_floor and
+    anatomy_donate_ab; returns the failed checks."""
+    import torch
+
+    from dist_svgd_torch.tools import profile_step_floor as psf
+
+    fl = ANATOMY_FLOOR
+    p0, data = psf.config1(fl["n"], torch.device(device))
+    bodies = psf.floor_bodies(data)
+    with torch.no_grad():
+        outs = {name: body(p0, 0) for name, body in bodies.items()}
+        p64, data64 = psf.config1(fl["n"], torch.device("cpu"), p0.cpu().double())
+        ref = psf.floor_bodies(data64)[psf.FULL](p64, 0)
+    finite = all(bool(torch.isfinite(o).all()) for o in outs.values())
+    dev = _step_rel_dev(outs[psf.FULL], ref, p64)
+    _anatomy_reset()
+    rows = psf.floor_rows(fl["n"], fl["reps"], fl["dispatch_lengths"], fl["chains"],
+                          fl["samples"], device=device, chain_dispatch=fl["chain_dispatch"])
+    torch.cuda.synchronize()
+    launches = _anatomy_counts()
+    per_body = sum(L * (1 + fl["samples"] * fl["reps"]) for L in fl["dispatch_lengths"])
+    want = {**{k: 0 for k in launches},
+            "phi_small_d": 2 * per_body + fl["chain_dispatch"] * (1 + fl["samples"]
+                                                                   * sum(fl["chains"]))}
+    ok = finite and dev <= ANATOMY_STEP_RTOL and launches == want
+    emit({"phase": "anatomy_floor", "card": card, **rows, "full_step_rel_dev_vs_f64": dev,
+          "bound": ANATOMY_STEP_RTOL, "bodies_finite": finite, "launches": launches,
+          "launches_want": want["phi_small_d"], "ok": ok})
+    failed = [] if ok else ["floor"]
+
+    _anatomy_reset()
+    ab = psf.donate_ab(fl["n"], fl["chain_dispatch"], fl["donate_chain"], fl["samples"],
+                       device=device)
+    torch.cuda.synchronize()
+    launches = _anatomy_counts()
+    want_ab = 2 * fl["chain_dispatch"] * (1 + fl["samples"] * fl["donate_chain"])
+    ok = ab["bitwise_equal"] and launches["phi_small_d"] == want_ab
+    emit({"phase": "anatomy_donate_ab", "card": card, **ab, "launches": launches,
+          "launches_want": want_ab, "ok": ok})
+    return failed + ([] if ok else ["donate_ab"])
+
+
+def anatomy_emulation_phase(card, device="cuda"):
+    """profile_emulation at ANATOMY_EMULATION: each variant's one step from
+    the start against its reference step in float64 on the card (the plain
+    φ): B, B2, C, D and F against ``DistSampler``'s ``all_particles`` step
+    (``phi_impl='torch'``), A against the single-device ``Sampler``'s step,
+    E against the ``Sampler`` step with the prior counted once a lane (its
+    lane-sliced scores summed: ∇log p + (S − 1)·∇log prior); then
+    emulation_rows with the counts set to 0 — phi_small_d as
+    ``phi_launches`` says.  Prints anatomy_emulation; returns the failed
+    checks."""
+    import torch
+
+    from dist_svgd_torch import DistSampler, Sampler
+    from dist_svgd_torch.models.logreg import logreg_logp, logreg_prior
+    from dist_svgd_torch.tools import profile_emulation as pe
+    from dist_svgd_torch.utils.datasets import load_benchmark
+
+    em = ANATOMY_EMULATION
+    S, eps = em["shards"], pe.STEP_SIZE
+    p0, variants = pe.build_variants(em["n"], S, device)
+    with torch.no_grad():
+        outs = {name: step(p0, 0) for name, step in variants.items()}
+    fold = load_benchmark("banana", 42)
+    rows = (fold.x_train.shape[0] // S) * S
+    data = (fold.x_train[:rows], fold.t_train.reshape(-1)[:rows])
+    p64 = p0.double()
+    refs = {"lanes": DistSampler(S, logreg_logp, None, p64, data=data,
+                                 exchange_particles=True, exchange_scores=False,
+                                 include_wasserstein=False, phi_impl="torch",
+                                 device=device).make_step(eps)}
+    for label, prior in (("A", None), ("E", lambda th: (S - 1) * logreg_prior(th))):
+        sampler = Sampler(p64.shape[1], logreg_logp, data=data, log_prior=prior,
+                          phi_impl="torch", device=device)
+        refs[label] = sampler.run(em["n"], 1, eps, record=False, initial_particles=p64)[0]
+    devs, finite = {}, {}
+    for name, out in outs.items():
+        ref = refs[name[0]] if name[0] in "AE" else refs["lanes"]
+        devs[name] = _step_rel_dev(out, ref, p64)
+        finite[name] = bool(torch.isfinite(out).all())
+    del outs, refs
+    _anatomy_reset()
+    timed = pe.emulation_rows(em["n"], S, em["iters"], em["reps"], device)
+    torch.cuda.synchronize()
+    launches = _anatomy_counts()
+    want = sum(pe.phi_launches(S).values()) * em["iters"] * (1 + em["reps"])
+    ok = (all(finite.values()) and max(devs.values()) <= ANATOMY_STEP_RTOL
+          and launches == {**{k: 0 for k in launches}, "phi_small_d": want})
+    emit({"phase": "anatomy_emulation", "card": card, **timed, "step_rel_dev": devs,
+          "bound": ANATOMY_STEP_RTOL, "finite": finite, "launches": launches,
+          "launches_want": want,
+          "b_over_a_wall": (timed["variants"][pe.VARIANTS[1]]["wall_s"]
+                            / timed["variants"][pe.VARIANTS[0]]["wall_s"]), "ok": ok})
+    return [] if ok else ["emulation"]
+
+
+def anatomy_record_phase(card, device="cuda"):
+    """record_overhead at ANATOMY_RECORD with the counts set to 0: the
+    recorded stack (niter + 1, n, d), its last snapshot the plain arm's
+    final particles bitwise, phi_small_d once a step of each run (both
+    arms, the untimed run and each round).  The 10% flag is recorded, not
+    gated.  Prints anatomy_record_overhead; returns the failed checks."""
+    import torch
+
+    from dist_svgd_torch.tools import record_overhead as ro
+
+    rc = ANATOMY_RECORD
+    _anatomy_reset()
+    out = ro.overhead_rows(rc["n"], rc["chunks"], rc["rounds"], device=device)
+    torch.cuda.synchronize()
+    launches = _anatomy_counts()
+    want = out["niter"] * 2 * (1 + rc["rounds"])
+    ok = (out["stack_shape"] == [out["niter"] + 1, rc["n"], out["d"]]
+          and out["last_equals_plain"]
+          and launches == {**{k: 0 for k in launches}, "phi_small_d": want})
+    emit({"phase": "anatomy_record_overhead", "card": card, **out, "launches": launches,
+          "launches_want": want, "ok": ok})
+    return [] if ok else ["record_overhead"]
+
+
+def anatomy_w2_phases(card, device="cuda"):
+    """w2_bench on the card with the counts set to 0 before each call: the
+    timing rows at 10,000 (ANATOMY_W2; the fused route: ot_ctransform and
+    ot_kexp, no streaming kernel), the --fidelity band (ANATOMY_FIDELITY,
+    the partitions pairing) and --n 100000 --no-fixed (ANATOMY_W2_STREAMING;
+    the streaming route: ot_kmat_vec, ot_plan_grad and ot_ctransform, no
+    ot_kexp); phi_small_d once a step throughout, finite particles.  Prints
+    anatomy_w2_bench, anatomy_w2_fidelity and anatomy_w2_streaming; returns
+    the failed checks."""
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch.tools import w2_bench as wb
+
+    failed = []
+    for phase, cfg, streaming in (("anatomy_w2_bench", ANATOMY_W2, False),
+                                  ("anatomy_w2_streaming", ANATOMY_W2_STREAMING, True)):
+        _anatomy_reset()
+        out = wb.bench_rows(cfg["n"], cfg["shards"], cfg["iters_per_dispatch"],
+                            samples=cfg["samples"], no_fixed=streaming, device=device)
+        torch.cuda.synchronize()
+        launches = _anatomy_counts()
+        steps = len(out["rows"]) * cfg["iters_per_dispatch"] * (1 + cfg["samples"])
+        finite = all(bool(np.isfinite(r["final"]).all()) for r in out["rows"].values())
+        route_ok = (launches["ot_ctransform"] > 0 and (
+            launches["ot_kmat_vec"] > 0 and launches["ot_plan_grad"] > 0
+            and launches["ot_kexp"] == 0 if streaming else
+            launches["ot_kexp"] > 0 and launches["ot_kmat_vec"] == launches["ot_plan_grad"] == 0))
+        ok = finite and route_ok and launches["phi_small_d"] == steps
+        emit({"phase": phase, "card": card, **{k: v for k, v in out.items() if k != "rows"},
+              "ms_per_step": {k: r["ms_per_step"] for k, r in out["rows"].items()},
+              "finite": finite, "launches": launches, "phi_launches_want": steps, "ok": ok})
+        failed += [] if ok else [phase]
+
+    fi = ANATOMY_FIDELITY
+    _anatomy_reset()
+    out = wb.fidelity_rows(fi["n"], fi["shards"], fi["steps"], exchange=fi["exchange"],
+                           device=device)
+    torch.cuda.synchronize()
+    launches = _anatomy_counts()
+    finite = all(bool(np.isfinite(t).all()) for t in out["budget_traj"] + out["ref_traj"])
+    ok = (finite and np.isfinite(out["max_rel"]) and launches["phi_small_d"] == 2 * fi["steps"]
+          and launches["ot_ctransform"] > 0 and launches["ot_kexp"] > 0
+          and launches["ot_kmat_vec"] == launches["ot_plan_grad"] == 0)
+    emit({"phase": "anatomy_w2_fidelity", "card": card,
+          **{k: v for k, v in out.items() if k not in ("budget_traj", "ref_traj")},
+          "finite": finite, "launches": launches, "ok": ok})
+    return failed + ([] if ok else ["w2_fidelity"])
+
+
+def step_anatomy_phases(card, device="cuda"):
+    """Section 25, the step anatomy (the constants above ANATOMY_LANES):
+    the four tools of dist_svgd_torch/tools/ on the card through their
+    functions — anatomy_floor, anatomy_donate_ab, anatomy_emulation,
+    anatomy_record_overhead, anatomy_w2_bench, anatomy_w2_streaming and
+    anatomy_w2_fidelity.  Gated: every body's and variant's one step finite
+    and within ANATOMY_STEP_RTOL of its reference step, the donation A/B
+    bitwise, the recorded stack's shape and last snapshot, each tool's
+    launches.  Recorded, not gated: the timings and the 10% record-overhead
+    flag.  Raises when a row failed."""
+    t_section = time.perf_counter()
+    failed = anatomy_floor_phase(card, device)
+    failed += anatomy_emulation_phase(card, device)
+    failed += anatomy_record_phase(card, device)
+    failed += anatomy_w2_phases(card, device)
+    emit({"phase": "step_anatomy_section", "seconds": time.perf_counter() - t_section,
+          "failed": failed})
+    if failed:
+        raise AssertionError(f"step anatomy phases failed: {failed}")
 
 
 def supervised_phases(init, data, card, ct_ms_per_step):
@@ -5289,6 +5636,7 @@ def main():
     reshard_lane_rows()
     serving_lane_rows()
     stream_lane_rows()
+    anatomy_lane_rows()
 
     # ---- 4. north star ---------------------------------------------------
     ns = NORTH_STAR
@@ -5602,6 +5950,10 @@ def main():
 
     # ---- 24. the process mesh: DistSampler across processes, the drill --------
     multihost_phases(card, references=logreg_references)
+
+    # ---- 25. the step anatomy: profile_step_floor, profile_emulation, -------
+    # ---- record_overhead and w2_bench on the card ----------------------------
+    step_anatomy_phases(card)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

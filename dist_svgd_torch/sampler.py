@@ -95,6 +95,13 @@ class Sampler:
             ``'median_step'`` + ``'rff'`` is refused unless
             ``KernelApprox('rff', rff_redraw='step')`` (a fresh bank every
             step).  Jacobi only.
+        donate_carries: accepted for JAX's signature
+            (``dist_svgd_tpu/sampler.py``) and without effect: JAX donates
+            a run's carried buffers to XLA, and torch has no buffer
+            donation — an eager step allocates its output whatever the
+            flag.  Runs with it on and off are bitwise equal
+            (``python -m dist_svgd_torch.tools.profile_step_floor
+            --donate-ab`` pins that).
     """
 
     def __init__(
@@ -110,6 +117,7 @@ class Sampler:
         kernel_approx=None,
         device=None,
         seed: int = 0,
+        donate_carries: bool = True,
     ):
         if update_rule not in ("jacobi", "gauss_seidel"):
             raise ValueError(f"unknown update_rule {update_rule!r}")

@@ -258,12 +258,12 @@ class _RealFleet:
 
     def __init__(self, tmpdir: str, max_batch: int = 16,
                  device: Optional[str] = None):
-        import socket
         import subprocess
 
         import numpy as np
 
         from dist_svgd_torch.utils.checkpoint import save_state
+        from dist_svgd_torch.utils.ports import listen_port
 
         self._subprocess = subprocess
         ckpt = os.path.join(tmpdir, "ckpt")
@@ -280,9 +280,10 @@ class _RealFleet:
         self.addresses: Dict[str, Tuple[str, int]] = {}
         self._procs: Dict[str, Any] = {}
         for rid in REPLICAS:
-            with socket.socket() as s:  # grab a free port per replica
-                s.bind(("127.0.0.1", 0))
-                self.addresses[rid] = ("127.0.0.1", s.getsockname()[1])
+            # below the ephemeral range: the router's client sockets cannot
+            # take a killed replica's port before its restart rebinds it
+            self.addresses[rid] = ("127.0.0.1", listen_port(
+                exclude=[port for _, port in self.addresses.values()]))
         self.transport = fleet_mod.HttpTransport(self.addresses)
         for rid in REPLICAS:
             self._spawn(rid)

@@ -46,7 +46,6 @@ it under ``--backend gloo``)::
 import argparse
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -295,10 +294,6 @@ def _run_fake(*, processes, devcount, n, num_steps, checkpoint_every, kill_step,
     }
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def worker_command(rank, width, coordinator, root, *, devcount, n, num_steps,
@@ -380,6 +375,7 @@ def _run_real(*, processes, devcount, n, num_steps, checkpoint_every, step_size,
     from dist_svgd_torch.resilience import FederationSupervisor, SubprocessWorker
     from dist_svgd_torch.telemetry import MetricsRegistry
     from dist_svgd_torch.tools.multihost_worker import drill_init
+    from dist_svgd_torch.utils.ports import listen_port
 
     if root is None:
         import tempfile
@@ -394,7 +390,7 @@ def _run_real(*, processes, devcount, n, num_steps, checkpoint_every, step_size,
     logs, popens = [], []
 
     def launcher(width, attempt):
-        coord = f"127.0.0.1:{_free_port()}"
+        coord = f"127.0.0.1:{listen_port()}"
         handles = []
         for r in range(width):
             cmd = worker_command(r, width, coord, root, devcount=devcount, n=n,
