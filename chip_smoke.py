@@ -98,7 +98,13 @@ variants of the 8-lane north-star step against float64 reference steps,
 ``record_overhead.py`` at 100,000 particles (the recorded stack against the
 plain run) and ``w2_bench.py`` (the W2 table at 10,000 and 100,000, the
 fidelity band), with ``phi_small_d``, ``ot_ctransform`` and ``ot_kexp`` held
-at their new lanes in ``kernel_parity``; it checks that each path went
+at their new lanes in ``kernel_parity`` — and last the program audit:
+``dist_svgd_torch/tools/program_audit.py``'s builders on the card against
+the port's CPU baseline, the north star, splice, Covertype and the 100,000-
+particle streaming W2 step audited at full width with XP001 armed (no n×n
+buffer), the 10,000 × 55 serving programs, each audited call bitwise equal
+outside the recorder, and a W = 2 gloo rank's ``dist.scan`` card (one
+gather and one psum a step); it checks that each path went
 through its kernels, and prints one JSON object per phase.  A phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
 
@@ -647,7 +653,7 @@ FLEET = dict(replicas=3, clients=16, requests=320, rows=128, tenants=8, status_i
 MULTIHOST = dict(n=10_000, shards=8, warm_steps=5, steps=100, leg_steps=20, save_at=10,
                  after_save=10, w2_iters=50, w2_h=10.0, step_size=3e-3, timeout_s=300,
                  drill_deadline_s=300, gs_steps=1, nystrom_steps=1, hops=3, w2_passes=25,
-                 residual_points=512)
+                 residual_points=512, audit_steps=1)
 MULTIHOST_ARMS = [(4, "gloo", ("north_star", "restore_save")),
                   (2, "gloo", ("north_star", "splice", "ring", "w2", "restore_resume", "gs",
                                "gs_splice", "approx", "nystrom", "ring_chunked",
@@ -667,6 +673,9 @@ MH_LEGS = {
     "approx": dict(dataset="banana", fold=42, steps="leg_steps", approx="rff"),
     "nystrom": dict(dataset="banana", fold=42, steps="nystrom_steps", warm=False,
                     approx="nystrom"),
+    # section 26's: one step registers dist.scan, then every rank audits it
+    "audit": dict(dataset="banana", fold=42, steps="audit_steps", warm=False,
+                  exchange_scores=True),
     "ring_chunked": dict(dataset="banana", fold=42, steps="leg_steps", exchange_scores=True,
                          exchange_impl="ring", run=dict(hops_per_dispatch="hops")),
     "w2_chunked": dict(dataset="banana", fold=42, steps="leg_steps", w2=True,
@@ -717,6 +726,36 @@ ANATOMY_SEED = 1300
 # · max|ref − start|, the error on the update the step makes (float32 on the
 # card against the float64 plain φ's step; the φ kernel's ~1e-6 of max|φ|).
 ANATOMY_STEP_RTOL = 1e-4
+# Section 26, the program audit (dist_svgd_torch/analysis, ROADMAP A11):
+# (a) dist_svgd_torch/tools/program_audit.py's seven builders on the card,
+#     gated against the port's CPU baseline (dist_svgd_torch/tools/
+#     program_cards.json): every row PASS, zero findings;
+# (b) full-width programs with XP001 armed (phi_impl naming the hand
+#     kernel): the north star (AUDIT_FULL["north_star"], phi_small_d), splice
+#     (phi_big_d), Covertype's driver sampler in the bf16x3 tier
+#     (phi_big_d_bf16x3), and the 100,000-particle streaming W2 step (its
+#     kernels ot_kmat_vec, ot_plan_grad, ot_ctransform and phi_small_d;
+#     JAX declares W2 sites not gram-free, so n×n = 0 is held directly).
+#     Each program runs one step to register, then one audited call; each
+#     card prints its largest buffer and the allocator's peak; gated: zero
+#     findings, n×n = 0, the φ kernel launched by the audited call, no data
+#     axis equal to n (a false n×n), and for the north star and splice the
+#     allocator's peak under AUDIT_FULL["peak_share"] of n²·4 bytes (400 MB
+#     at n = 10,000).  Covertype's peak is its minibatch scores' (8, 10,000,
+#     256) intermediates, 82 MB each, and the streaming step's its (8, n, 50)
+#     scores: recorded, not gated;
+# (c) each audited call's outputs bitwise equal to the same call outside
+#     the recorder;
+# (d) the serve.logreg programs at serve_covertype's 10,000-particle
+#     ensemble (d = 55), f32 (XP005 armed) and bf16, and the dist.scan card
+#     of section 24's W = 2 gloo federation (MH_LEGS["audit"]: the north
+#     star in all_scores, one step) on each rank: JAX's all_gather 1, psum 1.
+# AUDIT_LANES are the suite's φ lanes on the card that no earlier row holds.
+AUDIT_FULL = dict(n=10_000, shards=8, step_size=3e-3, serve_batch=16, peak_share=0.5)
+AUDIT_PEAK_GATED = ("north_star", "splice")
+AUDIT_LANES = [("phi_small_d", (1, 24, 24, 2), "audit sampler_exact lane y=x", True, None),
+               ("phi_small_d", (2, 8, 16, 2), "audit dist builders' lanes", False, None)]
+AUDIT_SEED = 1400
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -4307,13 +4346,32 @@ def multihost_worker(spec):
                 legs[leg]["residual"] = ds.approx_residual(
                     max_points=MULTIHOST["residual_points"])
             del ds
+        audit = _mh_audit(mesh, device) if spec.get("audit") else None
         with open(out / f"rank{rank}.json", "w") as fh:
             json.dump({"rank": rank, "backend": mesh.backend, "device": str(mesh.device),
                        "shards_per_process": mesh.shards_per_process,
-                       "stages_through_host": mesh.stages_through_host, "legs": legs}, fh)
+                       "stages_through_host": mesh.stages_through_host, "legs": legs,
+                       "audit": audit}, fh)
     finally:
         multihost.shutdown()
     return 0
+
+
+def _mh_audit(mesh, device):
+    """Section 26's leg on this rank (MH_LEGS["audit"]): one step registers
+    ``dist.scan``, then every rank audits it at once (the audited call
+    issues the mesh's collectives); returns the card, its findings and the
+    c10d ops the recording mode saw."""
+    from dist_svgd_torch.analysis import use_registry
+    from dist_svgd_torch.analysis.audit import audit_entry, xp_findings
+
+    with use_registry() as reg:
+        ds, steps, h = _mh_sampler("audit", mesh, device)
+        ds.run_steps(steps, MULTIHOST["step_size"], h=h)
+        (entry,) = reg.entries(captured_only=True, label_prefix="dist.scan")
+        card = audit_entry(entry, keep_output=True)
+    return {"card": card.as_dict(), "findings": [f.format() for f in xp_findings(card)],
+            "c10d_ops": sorted({n for n in card.record.op_names() if n.startswith("c10d")})}
 
 
 def _mh_federation(W, backend, legs, out, restore_dir, device):
@@ -4334,7 +4392,8 @@ def _mh_federation(W, backend, legs, out, restore_dir, device):
         for r in range(W):
             spec = {"rank": r, "processes": W, "backend": backend, "device": device,
                     "coordinator": f"127.0.0.1:{port}", "legs": list(legs), "out": str(out),
-                    "restore_dir": str(restore_dir), "config": MULTIHOST}
+                    "restore_dir": str(restore_dir), "config": MULTIHOST,
+                    "audit": W == 2 and backend == "gloo"}
             log = open(out / f"rank{r}.log", "w")
             logs.append(log)
             procs.append(subprocess.Popen(
@@ -4657,30 +4716,25 @@ def multihost_phases(card, device="cuda", references=None):
         raise AssertionError(f"multihost phases failed: {failed}")
     multihost_drill_phase(card, device)
     emit({"phase": "multihost_section", "seconds": time.perf_counter() - t_section})
+    # section 26 reads the W = 2 gloo federation's audit of dist.scan
+    return [rep["audit"] for rep in reports2]
 
 
-def anatomy_lane_rows():
-    """The kernels at the lanes section 25's tools give them that no
-    earlier row holds (ANATOMY_LANES, ANATOMY_OT).  The φ rows go through
-    ``cuda_svgd.launch`` at the lane's split (the kernel's own, or
-    profile_emulation's pinned F_BLOCKS_PER_SM), held against the plain
-    version at the full shape and against the float64 φ on the first
+def phi_lane_rows(lanes, seed0):
+    """``kernel_parity`` rows of the small-d φ at ``lanes`` ((kernel, (S, k,
+    m, d), role, y = x, blocks_per_sm or None), seeds from ``seed0``), each
+    through ``cuda_svgd.launch`` at the lane's split, held against the
+    plain version at the full shape and against the float64 φ on the first
     LANE_ROWS rows of every lane, both within KERNEL_RTOL of their largest
-    value; the Sinkhorn rows against the float32 plain version at the full
-    shape (the soft c-transform within SOFT_CT_TOL, the Gibbs kernel
-    elementwise within KEXP_RTOL), their float64 distance printed.  Each
-    timed beside its bound; raises on a failed row."""
+    value, and timed beside its bound; raises on a failed row."""
     import torch
 
-    from dist_svgd_torch.ops import cuda_ot, cuda_svgd
+    from dist_svgd_torch.ops import cuda_svgd
     from dist_svgd_torch.ops.kernels import RBF
     from dist_svgd_torch.ops.svgd import phi
-    from dist_svgd_torch.tools import profile_emulation
 
     h = 1.0
-    for seed, (name, (S, k, m, d), role, y_is_x, bps) in enumerate(ANATOMY_LANES,
-                                                                   start=ANATOMY_SEED):
-        assert bps in (None, profile_emulation.F_BLOCKS_PER_SM), bps
+    for seed, (name, (S, k, m, d), role, y_is_x, bps) in enumerate(lanes, start=seed0):
         y, x, s = phi_inputs(S, k, m, d, seed)
         if y_is_x:
             y = x[None].contiguous()
@@ -4715,6 +4769,28 @@ def anatomy_lane_rows():
         if not ok:
             raise AssertionError(f"{name} {role}: max|Δ| {err} vs plain, {vs_f64} vs "
                                  f"the f64 φ, beyond {KERNEL_RTOL} of {scale} / {f64_scale}")
+
+
+
+def anatomy_lane_rows():
+    """The kernels at the lanes section 25's tools give them that no
+    earlier row holds (ANATOMY_LANES, ANATOMY_OT).  The φ rows go through
+    ``cuda_svgd.launch`` at the lane's split (the kernel's own, or
+    profile_emulation's pinned F_BLOCKS_PER_SM), held against the plain
+    version at the full shape and against the float64 φ on the first
+    LANE_ROWS rows of every lane, both within KERNEL_RTOL of their largest
+    value; the Sinkhorn rows against the float32 plain version at the full
+    shape (the soft c-transform within SOFT_CT_TOL, the Gibbs kernel
+    elementwise within KEXP_RTOL), their float64 distance printed.  Each
+    timed beside its bound; raises on a failed row."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_ot
+    from dist_svgd_torch.tools import profile_emulation
+
+    for _, _, _, _, bps in ANATOMY_LANES:
+        assert bps in (None, profile_emulation.F_BLOCKS_PER_SM), bps
+    phi_lane_rows(ANATOMY_LANES, ANATOMY_SEED)
 
     for seed, (name, (S, k, m, d), role) in enumerate(ANATOMY_OT,
                                                       start=ANATOMY_SEED + len(ANATOMY_LANES)):
@@ -4968,6 +5044,220 @@ def step_anatomy_phases(card, device="cuda"):
           "failed": failed})
     if failed:
         raise AssertionError(f"step anatomy phases failed: {failed}")
+
+
+def _same_bits(a, b):
+    """Outputs equal bit for bit (every tensor leaf, same dtype and shape)."""
+    import torch
+
+    from dist_svgd_torch.analysis.oprecord import flat_tensors
+
+    a, b = flat_tensors(a), flat_tensors(b)
+    return len(a) == len(b) > 0 and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.detach().contiguous().reshape(-1).view(torch.uint8),
+            y.detach().contiguous().reshape(-1).view(torch.uint8)) for x, y in zip(a, b))
+
+
+def _card_fields(c):
+    """A card's row fields: the gated ones, its buffers and declarations."""
+    return {"key": c.key, "n_particles": c.n_particles, "nxn_buffers": c.nxn_buffers,
+            "collectives": c.collectives, "collective_payload_bytes": c.collective_payload_bytes,
+            "donation": [c.donated_leaves, c.aliasable_leaves, c.donation_markers],
+            "donation_ok": c.donation_ok,
+            "largest_intermediate_bytes": c.largest_intermediate_bytes,
+            "peak_live_bytes_est": c.peak_live_bytes_est,
+            "peak_allocated_bytes": c.peak_allocated_bytes,
+            "internal_dtypes": c.internal_dtypes, "meta": c.meta}
+
+
+def audit_suite_phase(card):
+    """Section 26 (a) and (c): the audit tool's seven builders on the card
+    against the port's CPU baseline — every row PASS, zero findings — and
+    each builder's audited call bitwise equal to the same call outside the
+    recorder.  Prints its row; returns ok."""
+    from dist_svgd_torch.analysis.audit import run_entry
+    from dist_svgd_torch.tools import program_audit as pa
+
+    t0 = time.perf_counter()
+    cards, findings = pa.run_suite(device="cuda", keep_output=True)
+    rows, kept, gate_ok = pa.gate(cards, findings, pa.load_baseline())
+    bitwise = {pa.baseline_key(c): _same_bits(c.output, run_entry(c.entry, record=False)[1])
+               for c in cards}
+    ok = bool(gate_ok and not findings and all(bitwise.values()))
+    emit({"phase": "program_audit_suite", "card": card, "device": "cuda",
+          "baseline": "dist_svgd_torch/tools/program_cards.json (CPU)",
+          "cards": {pa.baseline_key(c): _card_fields(c) for c in cards},
+          "rows": rows, "findings": [f.format() for f in findings],
+          "bitwise_equal": bitwise, "seconds": time.perf_counter() - t0, "ok": ok})
+    return ok
+
+
+def _audit_one(label, build, run_steps, kernels):
+    """Build a program's sampler in a scoped registry, run it one step,
+    audit ``label``: ``(card, findings, launches of the audited call,
+    bitwise, data dims)``."""
+    import torch
+
+    from dist_svgd_torch.analysis import use_registry
+    from dist_svgd_torch.analysis.audit import audit_entry, run_entry, xp_findings
+    from dist_svgd_torch.analysis.oprecord import flat_tensors
+    from dist_svgd_torch.ops import cuda_ot, cuda_svgd
+
+    with use_registry() as reg:
+        owner = build()
+        run_steps(owner)
+        (entry,) = reg.entries(captured_only=True, label_prefix=label)
+        torch.cuda.synchronize()
+        cuda_svgd.reset_launch_counts()
+        cuda_ot.reset_launch_counts()
+        c = audit_entry(entry, keep_output=True)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in {**cuda_svgd.launch_counts,
+                                      **cuda_ot.launch_counts}.items() if k in kernels}
+        same = _same_bits(c.output, run_entry(entry, record=False)[1])
+        dims = sorted({int(n) for t in flat_tensors(getattr(owner, "_data", None))
+                       for n in t.shape})
+        c.output = c.record = None
+        del owner
+    return c, xp_findings(c), launched, same, dims
+
+
+def audit_full_width_phase(card):
+    """Section 26 (b) and (c): the north star (phi_small_d), splice
+    (phi_big_d), Covertype's driver sampler in the bf16x3 tier
+    (phi_big_d_bf16x3) — each with phi_impl naming the kernel, so XP001 is
+    armed — and the 100,000-particle streaming W2 step, one row each.
+    Returns the failed rows' names."""
+    import torch
+
+    from dist_svgd_torch import DistSampler
+    from dist_svgd_torch.experiments import covertype as cov
+    from dist_svgd_torch.models.logreg import logreg_logp
+    from dist_svgd_torch.utils.datasets import load_benchmark
+    from dist_svgd_torch.utils.rng import init_particles_per_shard
+
+    fa = AUDIT_FULL
+
+    def logreg(dataset, fold, n=fa["n"], **kw):
+        def build():
+            f = load_benchmark(dataset, fold)
+            data = (torch.as_tensor(f.x_train), torch.as_tensor(f.t_train.reshape(-1)))
+            d = 1 + f.x_train.shape[1]
+            return DistSampler(fa["shards"], logreg_logp, None,
+                               init_particles_per_shard(0, n, d, fa["shards"]), data=data,
+                               exchange_particles=True, exchange_scores=False, **kw)
+        return build
+
+    def step(step_size, h=1.0):
+        return lambda ds: ds.run_steps(1, step_size, h=h)
+
+    st = W2_STREAMING
+    programs = [
+        ("north_star", "dist.scan", ("phi_small_d",),
+         logreg("banana", 42, include_wasserstein=False, phi_impl="cuda"),
+         step(fa["step_size"])),
+        ("splice", "dist.scan", ("phi_big_d",),
+         logreg("splice", 1, include_wasserstein=False, phi_impl="cuda"),
+         step(fa["step_size"])),
+        ("covertype", "dist.scan", ("phi_big_d_bf16x3",),
+         lambda: cov.make_sampler(phi_impl="cuda_bf16")[0], step(COVERTYPE["step_size"])),
+        # the first step has no snapshot yet; the audited call's rebuilt w0
+        # is nonzero, so it solves the W2 term on the streaming route
+        ("w2_streaming", "dist.w2_scan",
+         ("phi_small_d", "ot_kmat_vec", "ot_plan_grad", "ot_ctransform"),
+         logreg("banana", 42, n=st["n"], include_wasserstein=True,
+                wasserstein_solver="sinkhorn"),
+         step(fa["step_size"], st["h"])),
+    ]
+    failed = []
+    for name, label, kernels, build, run_steps in programs:
+        t0 = time.perf_counter()
+        c, findings, launched, same, dims = _audit_one(label, build, run_steps, kernels)
+        n = c.n_particles
+        armed = label == "dist.w2_scan" or c.meta.get("gram_free") is True
+        if label == "dist.w2_scan":
+            launch_ok = all(launched.get(k, 0) > 0 for k in kernels)
+        else:
+            launch_ok = launched == {kernels[0]: 1}
+        peak_bound = fa["peak_share"] * 4 * n * n if name in AUDIT_PEAK_GATED else None
+        ok = bool(not findings and c.nxn_buffers == 0 and armed and launch_ok and same
+                  and n not in dims and c.peak_allocated_bytes is not None
+                  and (peak_bound is None or c.peak_allocated_bytes < peak_bound))
+        emit({"phase": "program_audit_full_width", "card": card, "program": name,
+              "label": label, "kernels": list(kernels), "audited_call_launches": launched,
+              "gram_free_declared": c.meta.get("gram_free"), "xp001_armed": armed,
+              "nxn_bytes": 4 * n * n, "peak_bound_bytes": peak_bound, "data_dims": dims,
+              "n_is_a_data_dim": n in dims,
+              **_card_fields(c), "findings": [f.format() for f in findings],
+              "bitwise_equal": same, "seconds": time.perf_counter() - t0, "ok": ok})
+        failed += [f"full_width {name}"] if not ok else []
+    return failed
+
+
+def audit_serving_phase(card, fed_audits):
+    """Section 26 (d): the serve.logreg programs at serve_covertype's
+    10,000-particle ensemble (d = 55), f32 (pinned_f32: XP005 armed) and
+    bf16, and section 24's W = 2 gloo federation's dist.scan cards, one a
+    rank: JAX's all_gather 1, psum 1 a step.  Returns the failed rows'
+    names."""
+    import numpy as np
+
+    from dist_svgd_torch.serving import PredictiveEngine
+
+    rng = np.random.default_rng(AUDIT_SEED)
+    parts = rng.normal(size=(SERVING["n"], SERVING["features"] + 1)).astype(np.float32)
+    x = rng.normal(size=(AUDIT_FULL["serve_batch"], SERVING["features"])).astype(np.float32)
+    failed = []
+    for dtype in (None, "bfloat16"):
+        t0 = time.perf_counter()
+        bucket = AUDIT_FULL["serve_batch"]
+
+        def build(dtype=dtype):
+            eng = PredictiveEngine("logreg", parts, min_bucket=bucket, max_bucket=bucket,
+                                   dtype=dtype)
+            return eng
+
+        c, findings, _, same, _ = _audit_one("serve.logreg", build,
+                                             lambda eng: eng.predict(x), ())
+        pinned = dtype is None
+        ok = bool(not findings and c.meta.get("pinned_f32") is pinned and same
+                  and c.nxn_buffers == 0
+                  and (("bf16" in c.internal_dtypes) is not pinned))
+        emit({"phase": "program_audit_serving", "card": card, "model": "logreg",
+              "ensemble": list(parts.shape), "dtype": dtype or "float32",
+              "xp005_armed": pinned, **_card_fields(c),
+              "findings": [f.format() for f in findings], "bitwise_equal": same,
+              "seconds": time.perf_counter() - t0, "ok": ok})
+        failed += [f"serving {dtype or 'float32'}"] if not ok else []
+    want = {"all_gather": 1, "psum": 1}
+    ranks = [{"rank": r, "collectives": a["card"]["collectives"],
+              "collective_payload_bytes": a["card"]["collective_payload_bytes"],
+              "num_shards": a["card"]["num_shards"], "key": a["card"]["key"],
+              "findings": a["findings"], "c10d_ops": a["c10d_ops"]}
+             for r, a in enumerate(fed_audits)]
+    ok = bool(len(ranks) == 2 and all(r["collectives"] == want and not r["findings"]
+                                      for r in ranks))
+    emit({"phase": "program_audit_federation", "card": card, "processes": 2,
+          "backend": "gloo", "leg": "north star, all_scores, one step",
+          "want_per_step": want, "ranks": ranks, "ok": ok})
+    failed += ["federation"] if not ok else []
+    return failed
+
+
+def program_audit_phases(card, fed_audits):
+    """Section 26, the program audit (the constants above AUDIT_FULL):
+    program_audit_suite, program_audit_full_width (four rows),
+    program_audit_serving (two rows) and program_audit_federation.  Raises
+    when a row failed."""
+    t_section = time.perf_counter()
+    failed = [] if audit_suite_phase(card) else ["suite"]
+    failed += audit_full_width_phase(card)
+    failed += audit_serving_phase(card, fed_audits)
+    emit({"phase": "program_audit_section", "seconds": time.perf_counter() - t_section,
+          "failed": failed})
+    if failed:
+        raise AssertionError(f"program audit phases failed: {failed}")
 
 
 def supervised_phases(init, data, card, ct_ms_per_step):
@@ -5637,6 +5927,7 @@ def main():
     serving_lane_rows()
     stream_lane_rows()
     anatomy_lane_rows()
+    phi_lane_rows(AUDIT_LANES, AUDIT_SEED)
 
     # ---- 4. north star ---------------------------------------------------
     ns = NORTH_STAR
@@ -5949,11 +6240,14 @@ def main():
     fleet_phases(str(Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"), card)
 
     # ---- 24. the process mesh: DistSampler across processes, the drill --------
-    multihost_phases(card, references=logreg_references)
+    fed_audits = multihost_phases(card, references=logreg_references)
 
     # ---- 25. the step anatomy: profile_step_floor, profile_emulation, -------
     # ---- record_overhead and w2_bench on the card ----------------------------
     step_anatomy_phases(card)
+
+    # ---- 26. the program audit: the suite, full-width cards, the federation --
+    program_audit_phases(card, fed_audits)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

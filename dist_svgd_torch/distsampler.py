@@ -55,6 +55,20 @@ the telemetry tracer is enabled each is a span — ``train.step_chunk`` for a
 chunk of whole steps (and the whole run when it is one), ``train.dispatch``
 for an intra-step piece — tagged with whether it fenced.
 
+Every step is a tracked program (``analysis/registry.py``) under JAX's
+labels and audit declarations: ``dist.scan`` (a ``run_steps`` step — the
+body of JAX's scan, ``step(particles, data, t0, seed, eps, h)``),
+``dist.w2_scan`` (the same with the W2 carries: ``step(particles, prev,
+g_dual, w0, data, t0, seed, eps, h)``), ``dist.step`` (the plain step of
+``make_step`` and of the chunked executor), ``dist.sinkhorn`` (the W2
+step's Sinkhorn solve, which ``make_step`` calls on its own too),
+``dist.chunk.*`` and ``dist.w2_chunk.*`` (the chunked executor's pieces).
+With ``donate_carries`` (the default) and the Jacobi rule the scanned
+steps write their updates into the carries they were given — the
+particles and the W2 snapshots, which a run copies once before its first
+step — as JAX donates them to XLA.  The other sites allocate their
+results and declare no donation (ROADMAP C).
+
 The W2 snapshot semantics are the reference's (warty) ones: in exchanged
 modes each shard's ``previous`` is the pre-update gathered set with only its
 own block post-update; under block pairing (``partitions``, or
@@ -71,11 +85,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from dist_svgd_torch.analysis.registry import default_registry
 from dist_svgd_torch.ops.approx import (
     APPROX_METHOD_CODES,
     RFF_REDRAW_MODES,
     approx_preferred,
     as_kernel_approx,
+    is_gram_free,
     nystrom_landmark_indices,
 )
 from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
@@ -243,9 +259,13 @@ class DistSampler:
             same form.
         device: ``None`` → the mesh's device, else the card (raises without
             CUDA); ``'cpu'`` for the plain path.
-        donate_carries: accepted for signature parity; it has no effect
-            without a compiled scan.  Every other option outside the port
-            raises ``NotImplementedError``.
+        donate_carries: the Jacobi ``run_steps`` steps write into their
+            carries (the particles and the W2 snapshots) in place of new
+            tensors, as JAX donates them; a run copies those carries once
+            before its first step, so tensors handed out earlier
+            (:attr:`particles`, :meth:`make_step`'s result,
+            :meth:`state_dict`) never change.  Every other option outside
+            the port raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -348,6 +368,7 @@ class DistSampler:
         self._batch_size = None if batch_size is None else int(batch_size)
         self._log_prior = log_prior
         self._seed = int(seed)
+        self._donate = bool(donate_carries)
         self._exchange_impl = exchange_impl
         self._exchange_every = int(exchange_every)
         #: Private seam: ``fn(t) -> (S, B)`` minibatch indices for step
@@ -455,6 +476,11 @@ class DistSampler:
         # the first solve, as in the reference (dsvgd/distsampler.py:50).
         self._previous = None
         self._w2_g = None
+        # the W2 scan step's w0 flags, by "has a snapshot": JAX's traced
+        # f64[] w0, so one program serves the first step and the later ones
+        # (and an audit's rebuilt call, whose w0 is drawn nonzero, solves)
+        self._w0 = {flag: torch.tensor(float(flag), dtype=self._particles.dtype)
+                    for flag in (False, True)}
 
     def _phi_kwargs(self) -> dict:
         """The ``(phi_impl, kernel_approx)`` pair every step builder gets:
@@ -465,11 +491,42 @@ class DistSampler:
             return {"phi_impl": "torch", "kernel_approx": self._approx}
         return {"phi_impl": self._phi_impl, "kernel_approx": None}
 
+    def _audit_meta(self, *, expect_donation=False, particles_arg=0,
+                    gram_free=None) -> dict:
+        """A tracked program's declarations (JAX's ``_audit_meta``): φ-free
+        sites pass ``gram_free=True``, W2 and Sinkhorn sites ``False``,
+        φ-bearing sites the unresolved backend's contract
+        (``ops.approx.is_gram_free`` of ``phi_impl`` — ``'auto'`` declares
+        nothing, as in JAX)."""
+        if gram_free is None:
+            gram_free = is_gram_free(self._phi_impl,
+                                     self._approx is not None and self._approx_active)
+        return dict(gram_free=gram_free, expect_donation=expect_donation,
+                    particles_arg=particles_arg)
+
+    def _track(self, fn, label: str, donate_argnums=(), key_argnums=(), **meta):
+        """Register ``fn`` in the program registry under ``label`` (a
+        sharded program of S shards; ``key_argnums`` its seed arguments)
+        and return its tracked wrapper."""
+        return default_registry().track(
+            fn, label=label, kind="compile_sharded", num_shards=self._num_shards,
+            donate_argnums=donate_argnums, key_argnums=key_argnums,
+            meta=self._audit_meta(**meta))
+
+    def _program(self, key, build):
+        """The tracked program cached under ``key``, built by ``build()``
+        at first use."""
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = build()
+        return prog
+
     def _build_step_programs(self) -> None:
         """(Re)build the step from the current kernel and approximation
         state, and drop the steps built at first use (the lagged macro-step,
         the ring's hop pieces, the W2 step) — at construction, and when a
         restored checkpoint's bank or crossover pin wins."""
+        self._programs = {}  # tracked programs, built at first use
         self._step = make_shard_step(
             logp=self._logp,
             kernel=self._kernel,
@@ -482,7 +539,6 @@ class DistSampler:
             **self._phi_kwargs(),
             **self._data_kwargs(),
         )
-        self._lagged = {}  # record flag -> the lagged macro-step, built at first use
         self._chunk_builders = None  # the ring's hop pieces, built at first use
         self._w2_step = None  # built at the first W2 step
 
@@ -492,18 +548,19 @@ class DistSampler:
         return dict(shard_data=self._shard_data, batch_size=self._batch_size,
                     log_prior=self._log_prior, n_local_data=self._rows_per_shard)
 
-    def _batch_indices(self, t: int):
+    def _batch_indices(self, t: int, seed: Optional[int] = None):
         """Step ``t``'s ``(L, B)`` minibatch indices of the local lanes, or
         ``None`` for a full-batch run: the draw of all S shards, keyed by
-        ``(seed, t)`` and the global shard, never by the process layout."""
+        ``(seed, t)`` (``seed`` default this sampler's) and the global
+        shard, never by the process layout."""
         if self._batch_size is None:
             return None
         if self._batch_index_seam is not None:
             idx = torch.as_tensor(self._batch_index_seam(t), dtype=torch.int64,
                                   device=self._device)
         else:
-            idx = minibatch_indices(self._seed, t, self._num_shards, self._rows_per_shard,
-                                    self._batch_size, self._device)
+            idx = minibatch_indices(self._seed if seed is None else seed, t, self._num_shards,
+                                    self._rows_per_shard, self._batch_size, self._device)
         return self._mesh.local_lanes(idx)
 
     def _resolve_w2_pairing(self, w2_pairing: str) -> str:
@@ -920,6 +977,121 @@ class DistSampler:
     # ------------------------------------------------------------------ #
     # Stepping
 
+    # -- tracked programs (JAX's compile sites) ------------------------- #
+
+    @property
+    def _scan_donates(self) -> bool:
+        """Whether the ``run_steps`` steps write into their carries: under
+        ``donate_carries``, the Jacobi rule and the per-step exchange (the
+        Gauss–Seidel sweep and the lagged macro-step allocate their
+        results)."""
+        return self._donate and self._update_rule == "jacobi" and self._exchange_every == 1
+
+    def _scan_program(self):
+        """``dist.scan``: one ``run_steps`` step, the body of JAX's scan —
+        ``step(particles, data, t0, seed, eps, h) -> particles`` (the step
+        after ``t0``; ``h`` is the run's W2 weight, which a step without
+        the W2 term does not read), written into ``particles`` when
+        :attr:`_scan_donates`."""
+        def build():
+            L, step, donate = self._mesh.shards_per_process, self._step, self._scan_donates
+
+            def scan_step(particles, data, t0, seed, eps, h):
+                t = t0 + 1
+                blocks = split(particles, L)
+                idx = self._batch_indices(t, seed)
+                if donate:
+                    step(blocks, data, t, eps, idx, out=blocks)
+                    return particles
+                return merge(step(blocks, data, t, eps, idx))
+
+            return self._track(scan_step, "dist.scan", (0,) if donate else (), (3,),
+                               expect_donation=donate)
+
+        return self._program("scan", build)
+
+    def _lagged_program(self, record: bool):
+        """``dist.scan`` under the lagged exchange: one macro-step of
+        ``exchange_every`` steps after ``t0`` — ``step(particles, data, t0,
+        seed, eps, h) -> particles`` (``(particles, history)`` with
+        ``record``); the macro-step allocates its result, so it declares no
+        donation."""
+        def build():
+            macro = make_shard_step_lagged(
+                self._logp, self._kernel, self._num_shards, self._score_scale,
+                self._exchange_every, record=record, mesh=self._mesh, **self._phi_kwargs(),
+                **self._data_kwargs())
+            L = self._mesh.shards_per_process
+
+            def lagged_step(particles, data, t0, seed, eps, h):
+                out = macro(split(particles, L), data, t0 + 1, eps,
+                            lambda t: self._batch_indices(t, seed))
+                if record:
+                    new, hist = out
+                    return merge(new), hist
+                return merge(out)
+
+            return self._track(lagged_step, "dist.scan", key_argnums=(3,))
+
+        return self._program(("lagged", record), build)
+
+    def _w2_scan_program(self):
+        """``dist.w2_scan``: one ``run_steps`` step with the W2 term —
+        ``step(particles, prev, g_dual, w0, data, t0, seed, eps, h) ->
+        (particles, prev, g_dual)``; ``w0 == 0`` is a first-ever step (no
+        snapshot yet: no W2 term, the dual passes through).  When
+        :attr:`_scan_donates` the update and the next snapshot are written
+        into ``particles`` and ``prev``; the dual is the solve's own new
+        tensor (not donated)."""
+        def build():
+            L, donate = self._mesh.shards_per_process, self._scan_donates
+            w2_step = self._w2_step_fn()
+
+            def w2_scan_step(particles, prev, g_dual, w0, data, t0, seed, eps, h):
+                t = t0 + 1
+                blocks = split(particles, L)
+                new, new_prev, new_g = w2_step(
+                    blocks, prev if bool(w0) else None, g_dual, data, t, eps, h,
+                    self._batch_indices(t, seed), out=(blocks, prev) if donate else None)
+                return (particles if donate else merge(new)), new_prev, new_g
+
+            return self._track(w2_scan_step, "dist.w2_scan", (0, 1) if donate else (), (6,),
+                               expect_donation=donate, gram_free=False)
+
+        return self._program("w2_scan", build)
+
+    def _step_program(self):
+        """``dist.step``: the plain step of :meth:`make_step` and of the
+        chunked executor — ``step(particles, data, t, seed, eps, w_grad, h)
+        -> particles`` (``w_grad`` a W2 gradient solved outside it, or
+        ``None``); not donated, as in JAX (the W2 bookkeeping reads the
+        pre-update particles after it)."""
+        def build():
+            L, step = self._mesh.shards_per_process, self._step
+
+            def plain_step(particles, data, t, seed, eps, w_grad, h):
+                return merge(step(split(particles, L), data, t, eps,
+                                  self._batch_indices(t, seed), w_grad, h))
+
+            return self._track(plain_step, "dist.step", key_argnums=(3,))
+
+        return self._program("step", build)
+
+    def _solve_program(self):
+        """:meth:`make_step`'s W2 solve: the W2 step's own ``solve(cur,
+        prev_for, g_dual) -> (w_grad, g_dual)``, tracked as
+        ``dist.sinkhorn`` with the Sinkhorn solver (the host LP is no
+        program).  The solve allocates the dual it returns: no donation."""
+        def build():
+            solve = self._w2_step_fn().solve
+            if self._wasserstein_solver != "sinkhorn":
+                return solve
+            return self._track(solve, "dist.sinkhorn", particles_arg=None, gram_free=False)
+
+        return self._program("sinkhorn", build)
+
+    # -- stepping ------------------------------------------------------ #
+
     def _w2_step_fn(self):
         """The step with the W2 term, built at the first W2 step (it reads
         the Sinkhorn route then)."""
@@ -935,38 +1107,55 @@ class DistSampler:
         return self._w2_step
 
     def _advance(self, step_size: float, h: float) -> None:
+        """One :meth:`make_step` step: the W2 gradient through the W2
+        step's own solve (if any), the ``dist.step`` update, the snapshot
+        bookkeeping."""
         self._t += 1
         blocks = split(self._particles, self._mesh.shards_per_process)
-        idx = self._batch_indices(self._t)
+        with torch.no_grad():
+            w_grad = None
+            if self._include_wasserstein and self._previous is not None:
+                w_grad, self._w2_g = self._w2_step_fn().w2_grad(
+                    blocks, self._previous, self._w2_g, self._solve_program())
+            new = self._step_program()(self._particles, self._data_stacked, self._t,
+                                       self._seed, step_size, w_grad, h)
+            if self._include_wasserstein:
+                self._previous = w2_snapshot(
+                    blocks, split(new, self._mesh.shards_per_process), self._block_w2,
+                    self._mesh)
+        self._particles = new
+
+    def _scan_advance(self, step_size: float, h: float) -> None:
+        """One ``run_steps`` step through ``dist.scan`` / ``dist.w2_scan``."""
         with torch.no_grad():
             if self._include_wasserstein:
-                blocks, self._previous, self._w2_g = self._w2_step_fn()(
-                    blocks, self._previous, self._w2_g, self._data_stacked, self._t,
-                    step_size, h, idx)
+                had_prev = self._previous is not None
+                prev = self._previous if had_prev else self._particles.new_zeros(
+                    self._prev_shape())
+                g = self._w2_g if self._w2_g is not None else self._particles.new_zeros(
+                    self._g_shape())
+                self._particles, self._previous, g = self._w2_scan_program()(
+                    self._particles, prev, g, self._w0[had_prev], self._data_stacked,
+                    self._t, self._seed, step_size, h)
+                # a first-ever step solves nothing: no dual exists yet
+                self._w2_g = g if had_prev or self._w2_g is not None else None
             else:
-                blocks = self._step(blocks, self._data_stacked, self._t, step_size, idx)
-        self._particles = merge(blocks)
+                self._particles = self._scan_program()(
+                    self._particles, self._data_stacked, self._t, self._seed, step_size, h)
+        self._t += 1
 
-    def _advance_lagged(self, step_size: float, record: bool):
+    def _advance_lagged(self, step_size: float, record: bool, h: float):
         """One lagged macro-step of ``exchange_every`` steps; returns the
         pre-update global particles of each sub-step (``record=True``) or
         ``None``."""
-        macro = self._lagged.get(record)
-        if macro is None:
-            macro = self._lagged[record] = make_shard_step_lagged(
-                self._logp, self._kernel, self._num_shards, self._score_scale,
-                self._exchange_every, record=record, mesh=self._mesh, **self._phi_kwargs(),
-                **self._data_kwargs())
-        blocks = split(self._particles, self._mesh.shards_per_process)
         with torch.no_grad():
-            out = macro(blocks, self._data_stacked, self._t + 1, step_size,
-                        self._batch_indices)
+            out = self._lagged_program(record)(self._particles, self._data_stacked, self._t,
+                                               self._seed, step_size, h)
         self._t += self._exchange_every
         if record:
-            blocks, hist = out
-            self._particles = merge(blocks)
+            self._particles, hist = out
             return list(hist.reshape(self._exchange_every, -1, self._d))
-        self._particles = merge(out)
+        self._particles = out
         return None
 
     def make_step(self, step_size: float, h: float = 1.0):
@@ -1116,35 +1305,40 @@ class DistSampler:
         """The run as one host loop of steps (macro-steps under the lagged
         exchange), the history moved to the host a chunk at a time."""
         chunk = self._record_chunk() if record else num_steps
-        spill = num_steps > chunk  # a history longer than one chunk goes to the host
-        held, host = [], []
+        # a history longer than one chunk goes to the host a chunk at a time
+        snaps = _history.SnapshotBuffer(num_steps, chunk if num_steps > chunk else None)
         lagged = self._exchange_every > 1
+        if self._scan_donates:
+            self._own_carries()
         done = 0
         while done < num_steps:
             if lagged:
-                snaps = self._advance_lagged(step_size, record)
+                for snap in self._advance_lagged(step_size, record, h) or ():
+                    snaps.add(snap)
                 done += self._exchange_every
             else:
-                snaps = [self._particles] if record else None
-                self._advance(step_size, h)
+                if record:  # copied before the step, which may write over it
+                    snaps.add(self._particles)
+                self._scan_advance(step_size, h)
                 done += 1
-            if record:
-                held += snaps
-                if spill and len(held) == chunk:
-                    host.append(torch.stack(held).cpu().numpy())
-                    held = []
-        if host and held:  # the last, partial chunk
-            host.append(torch.stack(held).cpu().numpy())
         self.last_run_stats = self._stats(
             "eager", num_steps, num_steps // self._exchange_every, None,
-            record_chunks_to_host=len(host))
+            record_chunks_to_host=len(snaps.host))
         if not record:
             return self._particles
-        if host:
-            return self._particles, np.concatenate(host, axis=0)
-        if not held:  # no step: an empty history
-            return self._particles, self._particles.new_empty((0, *self._particles.shape))
-        return self._particles, torch.stack(held)
+        if snaps.host:
+            return self._particles, np.concatenate(snaps.host, axis=0)
+        return self._particles, snaps.held(self._particles)
+
+    def _own_carries(self) -> None:
+        """Before a run whose steps write into their carries: copy the
+        particles and the W2 snapshots, so no tensor handed out earlier
+        (:attr:`particles`, :meth:`make_step`'s result — which a block-paired
+        snapshot shares — or :meth:`state_dict`'s arrays, which share the
+        carries' memory on the CPU) changes.  One copy each a run."""
+        self._particles = self._particles.clone()
+        if self._previous is not None:
+            self._previous = self._previous.clone()
 
     def _stats(self, execution, num_steps, num_dispatches, max_wall, **extra) -> dict:
         stats = {"execution": execution, "num_steps": num_steps,
@@ -1256,36 +1450,74 @@ class DistSampler:
             return self._particles, np.concatenate(hists, axis=0)
         return self._particles
 
+    def _w2_chunk_fn(self, kind: str, iters: int, cold: bool):
+        """``dist.w2_chunk.advance`` (``fn(cur, prev_for, g) -> g``: dual
+        passes only) or ``dist.w2_chunk.final`` (``-> (w_grad, g)``: the
+        passes and the gradient finish) of ``iters`` passes, from the hard
+        c-transform when ``cold``.  The solve allocates the dual it
+        returns: the piece declares no donation."""
+        def build():
+            from dist_svgd_torch.ops.ot import sinkhorn_dual_advance, wasserstein_grad_sinkhorn
+
+            sk = self._sinkhorn
+            kw = dict(eps=sk["sinkhorn_eps"], tol=sk["sinkhorn_tol"], iters=iters,
+                      impl=self._sinkhorn_impl)
+
+            if kind == "advance":
+                def fn(cur, prev_for, g):
+                    return sinkhorn_dual_advance(cur, prev_for, g_init=None if cold else g, **kw)
+            else:
+                def fn(cur, prev_for, g):
+                    return wasserstein_grad_sinkhorn(cur, prev_for, g_init=None if cold else g,
+                                                     return_g=True, **kw)
+
+            return self._track(fn, f"dist.w2_chunk.{kind}", particles_arg=None, gram_free=False)
+
+        return self._program(("w2_chunk", kind, iters, cold, self._sinkhorn_impl), build)
+
     def _chunked_w2_grad(self, blocks, max_passes, run):
         """The step's W2 gradient as a chain of bounded solve dispatches:
         ``ceil(iters / max_passes) − 1`` dual advances threading ``g``, then
         one that pays the gradient finish; the carried dual is updated."""
-        from dist_svgd_torch.ops.ot import sinkhorn_dual_advance, wasserstein_grad_sinkhorn
-
         sk = self._sinkhorn
         prev_for = self._mesh.roll(self._previous, -1) if self._block_w2 else self._previous
         g = self._w2_g if self._w2_g is not None else blocks.new_zeros(self._g_shape())
         total = sk["sinkhorn_iters"]
         splits = _chunk_sizes(total, max_passes) if max_passes is not None else [total]
         cold0 = not sk["sinkhorn_warm_start"]  # the first chunk starts cold
-        kw = dict(eps=sk["sinkhorn_eps"], tol=sk["sinkhorn_tol"], impl=self._sinkhorn_impl)
         for i, k in enumerate(splits[:-1]):
-            g = run(lambda g_, k_=k, cold=cold0 and i == 0: sinkhorn_dual_advance(
-                blocks, prev_for, iters=k_, g_init=None if cold else g_, **kw), g)
-        grad, g = run(lambda g_: wasserstein_grad_sinkhorn(
-            blocks, prev_for, iters=splits[-1], return_g=True,
-            g_init=None if (cold0 and len(splits) == 1) else g_, **kw), g)
+            g = run(self._w2_chunk_fn("advance", k, cold0 and i == 0), blocks, prev_for, g)
+        grad, g = run(self._w2_chunk_fn("final", splits[-1], cold0 and len(splits) == 1),
+                      blocks, prev_for, g)
         self._w2_g = g
         return grad
+
+    def _chunk_fn(self, kind: str, *args):
+        """The ring step's piece ``kind`` (``'local'``, ``'score'``,
+        ``'exact_phi'``, ``'add_prior'``, ``'finish'``; ``args`` its hop
+        count and rotation) as the tracked ``dist.chunk.<kind>``.  The
+        pieces allocate their outputs: they declare no donation."""
+        def build():
+            if self._chunk_builders is None:
+                self._chunk_builders = make_chunked_ring_step_fns(
+                    self._logp, self._kernel, self._mode, self._num_shards,
+                    self._score_scale, mesh=self._mesh, **self._phi_kwargs(),
+                    **self._data_kwargs())
+            b = self._chunk_builders
+            fn = {"local": lambda: b["local_hops"](*args),
+                  "score": lambda: b["score_hops"](*args),
+                  "exact_phi": lambda: b["exact_phi_hops"](*args),
+                  "add_prior": lambda: b["add_prior"],
+                  "finish": lambda: b["finish"]}[kind]()
+            # φ-free pieces hold whatever the backend; the exact-φ pass as JAX
+            gram_free = {"exact_phi": False, "add_prior": True, "finish": True}.get(kind)
+            return self._track(fn, f"dist.chunk.{kind}", gram_free=gram_free)
+
+        return self._program(("chunk", kind) + args, build)
 
     def _chunked_phi_step(self, run, blocks, w_grad, t, idx, step_size, h, hops_per_dispatch):
         """One ring step as a chain of hop-chunk dispatches and the finish
         (:func:`~dist_svgd_torch.parallel.exchange.make_chunked_ring_step_fns`)."""
-        if self._chunk_builders is None:
-            self._chunk_builders = make_chunked_ring_step_fns(
-                self._logp, self._kernel, self._mode, self._num_shards, self._score_scale,
-                mesh=self._mesh, **self._phi_kwargs(), **self._data_kwargs())
-        b = self._chunk_builders
         data = self._data_stacked
         sizes = _chunk_sizes(self._num_shards, hops_per_dispatch)
         last = len(sizes) - 1
@@ -1293,17 +1525,18 @@ class DistSampler:
         if self._mode == ALL_SCORES:
             visiting, vscores = blocks, torch.zeros_like(blocks)
             for k in sizes:  # the score pass: every hop rotates
-                visiting, vscores = run(b["score_hops"](k), visiting, vscores, data, t, idx)
-            vscores = run(b["add_prior"], visiting, vscores)
+                visiting, vscores = run(self._chunk_fn("score", k), visiting, vscores, data,
+                                        t, idx)
+            vscores = run(self._chunk_fn("add_prior"), visiting, vscores)
             for i, k in enumerate(sizes):
-                visiting, vscores, acc = run(b["exact_phi_hops"](k, i < last), blocks,
+                visiting, vscores, acc = run(self._chunk_fn("exact_phi", k, i < last), blocks,
                                              visiting, vscores, acc)
         else:
             visiting = blocks
             for i, k in enumerate(sizes):
-                visiting, acc = run(b["local_hops"](k, i < last), blocks, visiting, acc, data,
-                                    t, idx)
-        return run(b["finish"], blocks, acc, w_grad, step_size, h)
+                visiting, acc = run(self._chunk_fn("local", k, i < last), blocks, visiting,
+                                    acc, data, t, idx)
+        return run(self._chunk_fn("finish"), blocks, acc, w_grad, step_size, h)
 
     def _run_steps_intra(self, num_steps, step_size, record, h, hops_per_dispatch, max_passes,
                          time_dispatches, budget):
@@ -1353,8 +1586,9 @@ class DistSampler:
                         hops_per_dispatch if hops_per_dispatch is not None
                         else self._num_shards)
                 else:
-                    new = run(self._step, blocks, self._data_stacked, t, step_size, idx,
-                              w_grad, h)
+                    new = split(run(self._step_program(), self._particles,
+                                    self._data_stacked, t, self._seed, step_size, w_grad, h),
+                                self._mesh.shards_per_process)
                 if self._include_wasserstein:
                     self._previous = w2_snapshot(blocks, new, self._block_w2, self._mesh)
             self._particles = merge(new)

@@ -338,10 +338,12 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
                 phi_impl: str, shard_data: bool = False, batch_size: Optional[int] = None,
                 log_prior=None, n_local_data: int = 0, ring: bool = False,
                 kernel_approx=None, mesh: Optional[ParticleMesh] = None):
-    """``core(blocks, data, t, idx) -> delta``: exchange, scores and φ for
-    all local lanes at once (``blocks`` is ``(L, s, d)``, ``data`` the
-    :func:`stack_shards` layout of all S shards, ``idx`` the step's
-    ``(L, B)`` minibatch indices or ``None``).
+    """``core(blocks, data, t, idx, interacting=None) -> delta``: exchange,
+    scores and φ for all local lanes at once (``blocks`` is ``(L, s, d)``,
+    ``data`` the :func:`stack_shards` layout of all S shards, ``idx`` the
+    step's ``(L, B)`` minibatch indices or ``None``; ``interacting`` the
+    step's gathered set when the caller gathered it already — the W2 step,
+    whose snapshot reads it too — so a step gathers once).
 
     With a minibatch, each shard scores the rows ``idx[r]`` of its own data
     (after the ``partitions`` rotation — the draw is keyed by the shard, not
@@ -369,7 +371,7 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
     def with_prior(scores, thetas):
         return _with_prior(prior_scores, scores, thetas)
 
-    def core(blocks, data, t: int, idx: Optional[torch.Tensor] = None):
+    def core(blocks, data, t: int, idx: Optional[torch.Tensor] = None, interacting=None):
         data_local = local(data, t, idx)
         phi_fn = bind_phi_step(phi_base, t)  # a per-step bank folds t
         if mode == PARTITIONS:
@@ -388,7 +390,8 @@ def _build_core(logp, kernel, mode: str, num_shards: int, score_scale: float,
             return _ring_phi_local_scores(
                 blocks, lambda v: with_prior(score_scale * lik(own_scores(v, data_local)), v),
                 hop_phi, num_shards, mesh)
-        interacting = mesh.all_gather(blocks)
+        if interacting is None:
+            interacting = mesh.all_gather(blocks)
         local_scores = lik(shared_scores(interacting, data_local))  # (L, n, d)
         if mode == ALL_SCORES:
             scores = with_prior(mesh.psum(local_scores), interacting).expand_as(local_scores)
@@ -664,11 +667,13 @@ def make_shard_step(
             local lanes the step moves (``None``: all S, one process).
 
     Returns ``step(blocks, data, t, step_size, idx=None, w_grad=None,
-    h=1.0) -> new_blocks``: one update of the local ``(L, s, d)`` blocks; ``t`` is
-    the 1-based step counter that drives the ``partitions`` rotation;
-    ``idx`` the step's ``(L, B)`` minibatch indices; ``w_grad`` a W2
-    gradient solved outside the step (the chunked executor's), added as
-    ``δ + h·w_grad``.
+    h=1.0, out=None) -> new_blocks``: one update of the local ``(L, s, d)``
+    blocks; ``t`` is the 1-based step counter that drives the ``partitions``
+    rotation; ``idx`` the step's ``(L, B)`` minibatch indices; ``w_grad`` a
+    W2 gradient solved outside the step (the chunked executor's), added as
+    ``δ + h·w_grad``; ``out`` (Jacobi only) a tensor the update is written
+    into — the donated carry, which may be ``blocks`` itself: φ is computed
+    before the write.
     """
     if update_rule == "gauss_seidel":
         gs = _build_gs_step(logp, kernel, mode, num_shards, score_scale, phi_impl,
@@ -682,11 +687,14 @@ def make_shard_step(
                        shard_data, batch_size, log_prior, n_local_data, ring, kernel_approx,
                        mesh)
 
-    def step(blocks, data, t: int, step_size: float, idx=None, w_grad=None, h: float = 1.0):
+    def step(blocks, data, t: int, step_size: float, idx=None, w_grad=None, h: float = 1.0,
+             out=None):
         delta = core(blocks, data, t, idx)
         if w_grad is not None:
             delta = delta + h * w_grad
-        return blocks + step_size * delta
+        if out is None:
+            return blocks + step_size * delta
+        return torch.add(blocks, step_size * delta, out=out)
 
     return step
 
@@ -756,10 +764,22 @@ def make_shard_step_sinkhorn_w2(
     built from the pre-sweep gather with the swept own block patched in, the
     same rule as the Jacobi step's.
 
-    Returns ``step(blocks, prev, g_dual, data, t, step_size, h, idx=None) ->
-    (new_blocks, new_prev, new_g)``; ``prev=None`` is a first-ever step,
-    which has no W2 term (reference: the term waits for a snapshot) and
-    passes ``g_dual`` through.
+    Returns ``step(blocks, prev, g_dual, data, t, step_size, h, idx=None,
+    out=None) -> (new_blocks, new_prev, new_g)``; ``prev=None`` is a
+    first-ever step, which has no W2 term (reference: the term waits for a
+    snapshot) and passes ``g_dual`` through.  ``out`` (Jacobi only) is a
+    ``(new_blocks, new_prev)`` pair the update and the snapshot are written
+    into — the donated carries, which may be ``blocks`` and ``prev``
+    themselves: the solve reads ``prev`` and the pre-update set is copied
+    into the snapshot before the update writes over ``blocks``.  A Jacobi
+    step in an exchanged mode gathers once: φ's interaction set is the
+    snapshot's pre-update set.
+
+    ``step.solve(blocks, prev_for, g_dual) -> (w_grad, new_g)`` is the
+    step's W2 solve against the paired snapshots, and ``step.w2_grad(blocks,
+    prev, g_dual, solve=step.solve)`` pairs them and solves: ``make_step``
+    solves the term before the plain step, as JAX does, through a tracked
+    wrapper of ``step.solve`` (``dist.sinkhorn``).
     """
     if w2_pairing not in ("global", "block"):
         raise ValueError(f"unknown w2_pairing {w2_pairing!r}")
@@ -791,34 +811,60 @@ def make_shard_step_sinkhorn_w2(
             blocks, prev_for, eps=sinkhorn_eps, iters=sinkhorn_iters,
             tol=sinkhorn_tol, g_init=g_init, return_g=True, impl=sinkhorn_impl)
 
-    def step(blocks, prev, g_dual, data, t: int, step_size: float, h: float, idx=None):
+    def w2_grad(blocks, prev, g_dual, solve=solve):
+        return solve(blocks, mesh.roll(prev, -1) if block_pair else prev, g_dual)
+
+    def step(blocks, prev, g_dual, data, t: int, step_size: float, h: float, idx=None,
+             out=None):
         w_grad, g_out = None, g_dual
         if prev is not None:
-            prev_for = mesh.roll(prev, -1) if block_pair else prev
-            w_grad, g_out = solve(blocks, prev_for, g_dual)
+            w_grad, g_out = w2_grad(blocks, prev, g_dual)
         if update_rule == "gauss_seidel":
             new = gs(blocks, data, t, step_size, w_grad, h)
-        else:
-            delta = core(blocks, data, t, idx)
-            if w_grad is not None:
-                delta = delta + h * w_grad
+            return new, w2_snapshot(blocks, new, block_pair, mesh), g_out
+        # the step's one gather: the snapshot's pre-update set and, in the
+        # gathered modes, φ's interaction set
+        gathered = None if block_pair else mesh.all_gather(blocks)
+        delta = core(blocks, data, t, idx, interacting=gathered)
+        if w_grad is not None:
+            delta = delta + h * w_grad
+        if out is None:
             new = blocks + step_size * delta
-        return new, w2_snapshot(blocks, new, block_pair, mesh), g_out
+            return new, w2_snapshot(blocks, new, block_pair, mesh, gathered), g_out
+        new, new_prev = out
+        if not block_pair:  # before the update writes over blocks, which it may view
+            new_prev.copy_(gathered.expand_as(new_prev))
+        torch.add(blocks, step_size * delta, out=new)
+        if block_pair:
+            return new, new_prev.copy_(new), g_out
+        return new, _own_block_into(new_prev, new, mesh), g_out
 
+    step.solve, step.w2_grad = solve, w2_grad
     return step
 
 
 def w2_snapshot(blocks: torch.Tensor, new: torch.Tensor, block_pair: bool,
-                mesh: Optional[ParticleMesh] = None) -> torch.Tensor:
+                mesh: Optional[ParticleMesh] = None,
+                gathered: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The next W2 ``previous`` stack from a step's pre-update ``blocks``
     and post-update ``new``: the own post-update block under block pairing,
-    else each lane's mixed snapshot — the pre-update gathered set with
-    only its own block post-update, ``(L, n, d)``."""
+    else each lane's mixed snapshot — the pre-update gathered set
+    (``gathered``, or gathered here) with only its own block post-update,
+    ``(L, n, d)``."""
     if block_pair:
         return new
-    L, s, d = blocks.shape
+    L = blocks.shape[0]
     mesh = mesh if mesh is not None else ParticleMesh(L)
-    new_prev = mesh.all_gather(blocks).repeat(L, 1, 1)  # (L, n, d)
-    local = torch.arange(L, device=blocks.device)
-    new_prev.view(L, mesh.num_shards, s, d)[local, mesh.lanes(blocks.device)] = new
-    return new_prev
+    if gathered is None:
+        gathered = mesh.all_gather(blocks)
+    return _own_block_into(gathered.repeat(L, 1, 1), new, mesh)  # (L, n, d)
+
+
+def _own_block_into(snapshot: torch.Tensor, new: torch.Tensor,
+                    mesh: ParticleMesh) -> torch.Tensor:
+    """Write each lane's post-update block ``new`` (``(L, s, d)``) over its
+    own block of its ``(L, n, d)`` snapshot; returns ``snapshot``."""
+    L, s, d = new.shape
+    local = torch.arange(L, device=new.device)
+    snapshot.view(L, mesh.num_shards, s, d)[local, mesh.lanes(new.device)] = new
+    return snapshot

@@ -23,14 +23,43 @@ them over ``torch.distributed``.  Under the gloo backend with blocks on the
 card every collective copies its block to the host and back (gloo's
 send/recv takes host tensors only): the copy is written in the collective
 itself, and :attr:`ParticleMesh.staged_bytes` counts it.
+
+Every call of a collective, on one process or across several, is also
+counted by kind under JAX's primitive names (:data:`COLLECTIVE_PRIMS`:
+``all_gather``, ``psum``, ``ppermute``) with its payload — the input bytes
+of one shard, as a jaxpr's collective reads them — in
+:attr:`ParticleMesh.by_kind` and :attr:`ParticleMesh.payload_bytes`, and
+handed to the taps a program recorder installs (:func:`add_tap`,
+``analysis/oprecord.py``): the program card's collective inventory.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+
+#: The mesh's collectives → the JAX primitive each stands for, the kind it
+#: is counted under (``gather_lanes``, which ``all_gather`` calls, counts the
+#: gather).
+COLLECTIVE_PRIMS = {"ParticleMesh.all_gather": "all_gather", "ParticleMesh.psum": "psum",
+                    "ParticleMesh.roll": "ppermute"}
+COLLECTIVE_KINDS = tuple(COLLECTIVE_PRIMS.values())
+
+#: Callables ``tap(kind, payload_bytes)`` told of every collective call
+#: (the program recorder's hook; empty outside a recording).
+_TAPS: list = []
+
+
+def add_tap(tap: Callable[[str, int], None]) -> None:
+    """Tell ``tap(kind, payload_bytes)`` of every collective call from now
+    on, process-wide, until :func:`remove_tap`."""
+    _TAPS.append(tap)
+
+
+def remove_tap(tap: Callable[[str, int], None]) -> None:
+    _TAPS.remove(tap)
 
 
 def split(a: torch.Tensor, num_shards: int) -> torch.Tensor:
@@ -132,10 +161,22 @@ class ParticleMesh:
         self.collectives = 0
         self.sends = 0
         self.staged_bytes = 0
+        self.by_kind = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        self.payload_bytes = dict.fromkeys(COLLECTIVE_KINDS, 0)
 
     def counts(self) -> dict:
         return {"collectives": self.collectives, "sends": self.sends,
-                "staged_bytes": self.staged_bytes}
+                "staged_bytes": self.staged_bytes, "by_kind": dict(self.by_kind),
+                "payload_bytes": dict(self.payload_bytes)}
+
+    def _note(self, kind: str, lanes: torch.Tensor) -> None:
+        """Count one ``kind`` collective whose input is ``lanes``, the local
+        lanes along axis 0 (payload: one shard's bytes)."""
+        nbytes = lanes.numel() * lanes.element_size() // max(int(lanes.shape[0]), 1)
+        self.by_kind[kind] += 1
+        self.payload_bytes[kind] += nbytes
+        for tap in _TAPS:
+            tap(kind, nbytes)
 
     def lanes(self, device) -> torch.Tensor:
         """Global shard index of each local lane."""
@@ -169,6 +210,7 @@ class ParticleMesh:
 
     def gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
         """``(L, ...)`` local lanes → ``(S, ...)`` all lanes in global order."""
+        self._note("all_gather", x)
         if not self.distributed:
             return x
         import torch.distributed as dist
@@ -185,6 +227,7 @@ class ParticleMesh:
 
     def psum(self, per_shard: torch.Tensor) -> torch.Tensor:
         """Sum over all S shards of a ``(L, ...)`` per-lane tensor."""
+        self._note("psum", per_shard)
         local = torch.sum(per_shard, dim=0)
         if not self.distributed:
             return local
@@ -202,6 +245,7 @@ class ParticleMesh:
         enters and receives the one that enters its own."""
         if shift not in (1, -1):
             raise ValueError(f"the ring moves by ±1, got {shift}")
+        self._note("ppermute", stack)
         out = torch.roll(stack, shift, dims=0)
         if not self.multiprocess:
             return out

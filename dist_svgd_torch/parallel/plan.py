@@ -3,9 +3,10 @@ recipe for the serving programs, with the program tracking the dispatch
 profiler reads.
 
 Counterpart of ``dist_svgd_tpu/parallel/plan.py`` (``Plan``, ``make_plan``)
-in its single-device half, and of the part of
-``dist_svgd_tpu/analysis/registry.py`` that ``telemetry/profile.py`` reads
-(:class:`ProgramEntry`, :class:`ProgramRegistry`).  ``make_plan(n)`` on a
+in its single-device half.  Its programs register in
+``dist_svgd_torch/analysis/registry.py`` (:class:`ProgramEntry`,
+:class:`ProgramRegistry`, re-exported here), which the dispatch profiler
+and the program auditor read.  ``make_plan(n)`` on a
 host with fewer than n visible devices degrades to the single-device plan,
 as JAX's does through ``make_mesh``.  The mesh half — a plan over more than
 one device where that many exist, ``Plan(mesh)``, particle-sharded
@@ -45,14 +46,19 @@ with the hand-kernel builds in it: the counterpart of JAX's
 from __future__ import annotations
 
 import contextlib
-import itertools
 import threading
-import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from dist_svgd_torch.analysis.registry import (
+    ProgramEntry,
+    ProgramRegistry,
+    default_registry,
+    signature_of,
+    use_registry,
+)
 from dist_svgd_torch.telemetry import profile as _profile
 from dist_svgd_torch.utils.platform import resolve_device
 
@@ -66,53 +72,8 @@ WARMUP_CALLS = 2
 _A10 = "ROADMAP A10.2"
 
 
-def _as_tuple(x) -> tuple:
-    if x is None:
-        return ()
-    if isinstance(x, int):
-        return (x,)
-    return tuple(x)
-
-
 # --------------------------------------------------------------------- #
-# program tracking (dist_svgd_tpu/analysis/registry.py's ProgramEntry)
-
-
-class ProgramEntry:
-    """One compiled program's identity and counters.
-
-    ``avals`` is the first call's ``((shape, dtype), ...)`` per argument
-    (a non-tensor argument is kept as itself); ``shapes`` every distinct
-    argument signature seen, in order — one graph capture each on the card.
-    ``prof_cache`` is the dispatch profiler's per-entry cache."""
-
-    __slots__ = ("seq", "label", "kind", "num_shards", "donate_argnums", "meta", "_ref",
-                 "avals", "calls", "shapes", "prof_cache", "__weakref__")
-
-    def __init__(self, seq, label, kind, num_shards, donate_argnums, meta, ref):
-        self.seq = seq
-        self.label = label
-        self.kind = kind
-        self.num_shards = num_shards
-        self.donate_argnums = donate_argnums
-        self.meta = meta
-        self._ref = ref
-        self.avals: Optional[tuple] = None
-        self.calls = 0
-        self.shapes: List[tuple] = []
-        self.prof_cache = None
-
-    @property
-    def alive(self) -> bool:
-        return self._ref() is not None
-
-    @property
-    def captured(self) -> bool:
-        return self.avals is not None
-
-    def __repr__(self) -> str:
-        return (f"ProgramEntry({self.label!r}, kind={self.kind!r}, calls={self.calls}, "
-                f"shapes={len(self.shapes)})")
+# program tracking (dist_svgd_torch/analysis/registry.py)
 
 
 #: Distinct argument signatures first seen by any tracked program (graph
@@ -133,69 +94,6 @@ def captures_total() -> int:
     started (one CUDA-graph capture each on the card)."""
     with _captures_lock:
         return _captures
-
-
-class ProgramRegistry:
-    """The process's tracked programs, newest last, bounded at
-    ``capacity`` (dead programs are dropped as new ones register)."""
-
-    def __init__(self, capacity: int = 4096):
-        self._capacity = int(capacity)
-        self._lock = threading.Lock()
-        self._entries: List[ProgramEntry] = []
-        self._seq = itertools.count()
-
-    def register(self, program, *, label: str, kind: str, num_shards: int = 1,
-                 donate_argnums=(), meta=None) -> ProgramEntry:
-        entry = ProgramEntry(next(self._seq), label, kind, num_shards,
-                             _as_tuple(donate_argnums), meta, weakref.ref(program))
-        with self._lock:
-            self._entries = [e for e in self._entries if e.alive]
-            self._entries.append(entry)
-            if len(self._entries) > self._capacity:
-                del self._entries[: len(self._entries) - self._capacity]
-        return entry
-
-    def entries(self, *, captured_only: bool = False,
-                label_prefix: str = "") -> List[ProgramEntry]:
-        """Live entries in registration order (a snapshot)."""
-        with self._lock:
-            snap = list(self._entries)
-        return [e for e in snap
-                if e.alive and (not captured_only or e.captured)
-                and e.label.startswith(label_prefix)]
-
-    def clear(self) -> None:
-        with self._lock:
-            self._entries = []
-
-    def __len__(self) -> int:
-        return len(self.entries())
-
-
-_default = ProgramRegistry()
-_default_lock = threading.Lock()
-
-
-def default_registry() -> ProgramRegistry:
-    """The registry :meth:`Plan.compile` tracks through (re-read at every
-    compile)."""
-    with _default_lock:
-        return _default
-
-
-@contextlib.contextmanager
-def use_registry(registry: Optional[ProgramRegistry] = None):
-    """Swap the process default for a scope (tests); process-global."""
-    global _default
-    reg = registry if registry is not None else ProgramRegistry()
-    with _default_lock:
-        prev, _default = _default, reg
-    try:
-        yield reg
-    finally:
-        with _default_lock:
-            _default = prev
 
 
 class _Sentry:
@@ -232,11 +130,6 @@ def capture_sentry(label: str = "window"):
 
 # --------------------------------------------------------------------- #
 # programs
-
-
-def _signature(args) -> tuple:
-    return tuple((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else
-                 ("static", a) for a in args)
 
 
 def _to_device_tensor(a, device: torch.device) -> torch.Tensor:
@@ -322,11 +215,13 @@ class Program:
             if sig not in entry.shapes:
                 if entry.avals is None:
                     entry.avals = sig
+                    entry.devices = tuple(None if a[0] in ("static", "scalar") else
+                                          self._device for a in sig)
                 entry.shapes.append(sig)
                 _note_capture()
 
     def __call__(self, *args):
-        sig = _signature(args)
+        sig = signature_of(args)
         self.program_entry.calls += 1
         prof = _profile._PROFILER
         if prof is None:
@@ -349,6 +244,14 @@ class Program:
                     self._graphs[sig] = graph
                     self._note_signature(sig)
         return graph.replay(args)
+
+    def audit_target(self, *args):
+        """One eager call of the function on the program's device, outside
+        any graph: what the auditor records (``analysis/audit.py``)."""
+        with torch.no_grad():
+            return self._fn(*[_to_device_tensor(a, self._device)
+                              if isinstance(a, (np.ndarray, torch.Tensor)) else a
+                              for a in args])
 
     @property
     def graphs(self) -> int:

@@ -23,6 +23,15 @@ estimated to fit the budget (JAX's ``Sampler.run``); each chunk is a
 ``phi_impl='auto'`` each run pins the (n, R) crossover once from its n, and
 :meth:`Sampler.approx_residual` measures the approximation against the exact
 φ into the ``svgd_diag_phi_approx_*`` gauges.
+
+Each run's step is a tracked program (``analysis/registry.py``) under JAX's
+label ``sampler.scan`` and its audit declarations (``gram_free`` from the
+unresolved ``phi_impl``, ``expect_donation``): the body of JAX's scan,
+``step(particles, step_size, seed, i0)``, called once a step (the card
+spells the seed as JAX's key).  With ``donate_carries`` (the default) the
+Jacobi step writes the update into the particles it was given — the run's
+own carry, a copy of the caller's — as JAX donates the carry to XLA; the
+Gauss–Seidel sweep allocates its result and declares no donation.
 """
 
 from __future__ import annotations
@@ -33,8 +42,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from dist_svgd_torch.analysis.registry import default_registry
 from dist_svgd_torch.distsampler import _chunk_sizes
-from dist_svgd_torch.ops.approx import approx_preferred, as_kernel_approx, bind_phi_step
+from dist_svgd_torch.ops.approx import (
+    approx_preferred,
+    as_kernel_approx,
+    bind_phi_step,
+    is_gram_free,
+)
 from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
 from dist_svgd_torch.ops.kernels import RBF, AdaptiveRBF, median_bandwidth
 from dist_svgd_torch.ops.svgd import svgd_step_sequential
@@ -95,13 +110,13 @@ class Sampler:
             ``'median_step'`` + ``'rff'`` is refused unless
             ``KernelApprox('rff', rff_redraw='step')`` (a fresh bank every
             step).  Jacobi only.
-        donate_carries: accepted for JAX's signature
-            (``dist_svgd_tpu/sampler.py``) and without effect: JAX donates
-            a run's carried buffers to XLA, and torch has no buffer
-            donation — an eager step allocates its output whatever the
-            flag.  Runs with it on and off are bitwise equal
-            (``python -m dist_svgd_torch.tools.profile_step_floor
-            --donate-ab`` pins that).
+        donate_carries: the Jacobi step writes each update into the
+            run's particle carry (a copy of ``initial_particles``) in place
+            of a new tensor, as JAX donates the carry to XLA; the recorded
+            history copies each snapshot into its buffer before the step.
+            Runs with it on and off are bitwise equal (``python -m
+            dist_svgd_torch.tools.profile_step_floor --donate-ab`` pins
+            that).
     """
 
     def __init__(
@@ -150,6 +165,9 @@ class Sampler:
         self._update_rule = update_rule
         self._phi_impl = phi_impl
         self._seed = int(seed)
+        self._donate = bool(donate_carries)
+        #: The most recent run's tracked step (``sampler.scan``).
+        self._program = None
         self._median_kernel = isinstance(kernel, str) and kernel == "median"
         if self._median_kernel:
             kernel = RBF(1.0)  # placeholder until run() resolves the bandwidth
@@ -407,21 +425,7 @@ class Sampler:
             self._set_kernel(RBF(float(median_bandwidth(particles))))
         # the bandwidth is frozen by here; the RFF bank (if any) builds at it
         self._pin_approx(particles.shape[0], seed)
-        if self._update_rule == "gauss_seidel":
-            data = tree_map(lambda a: a.to(particles.dtype) if a.is_floating_point() else a,
-                            self._data)
-            score_fn = torch.func.grad(self._full_logp(data))
-            kernel = self._kernel
-            move = lambda parts, i: svgd_step_sequential(  # noqa: E731
-                parts, score_fn, step_size, kernel)
-        else:
-            scores = self._score_fns(particles.dtype)
-            phi_fn = self._phi
-            # a per-step RFF bank folds the step's absolute index, the one
-            # the minibatch stream is keyed by (ops/approx.py:bind_phi_step)
-            move = lambda parts, i: parts + step_size * bind_phi_step(  # noqa: E731
-                phi_fn, step_offset + i)(
-                parts[None], parts, scores(parts, step_offset + i, seed)[None])[0]
+        step = self._track_step(self._step_fn(particles.dtype))
         chunk = _history.record_chunk_steps(*particles.shape, particles.element_size())
         spd = num_iter
         if dispatch_budget is not None:
@@ -430,7 +434,8 @@ class Sampler:
             if record:
                 spd = min(spd, chunk)
         sizes = _chunk_sizes(num_iter, spd) if num_iter else []
-        held, host = [], []
+        # every pre-update snapshot and the final state, a chunk at a time
+        snaps = _history.SnapshotBuffer(num_iter + 1, chunk) if record else None
         parts = particles
         start = 0
         with torch.no_grad():
@@ -443,32 +448,70 @@ class Sampler:
                         tags["execution"] = "monolithic"
                 with _trace.span("train.step_chunk", tags):
                     for i in range(start, start + size):
-                        if record:
-                            held.append(parts)
-                            if len(held) == chunk:
-                                host.append(torch.stack(held).cpu().numpy())
-                                held = []
-                        parts = move(parts, i)
+                        if record:  # copied before the step, which may write over it
+                            snaps.add(parts)
+                        parts = step(parts, step_size, seed, step_offset + i)
                 start += size
+        to_host = len(snaps.host) if record else 0
         if dispatch_budget is None:
             self.last_run_stats = {"execution": "eager", "num_steps": num_iter,
                                    "num_dispatches": num_iter, "dispatches_per_step": 1.0,
                                    "steps_per_dispatch": 1,
-                                   "record_chunks_to_host": len(host)}
+                                   "record_chunks_to_host": to_host}
         else:
             chunked = spd < num_iter
             self.last_run_stats = {
                 "execution": "scan_chunks" if chunked else "monolithic",
                 "num_steps": num_iter, "num_dispatches": len(sizes),
                 "dispatches_per_step": round(len(sizes) / max(num_iter, 1), 4),
-                "steps_per_dispatch": spd, "record_chunks_to_host": len(host)}
+                "steps_per_dispatch": spd, "record_chunks_to_host": to_host}
         if not record:
             return parts, None
-        held.append(parts)
-        hist = torch.stack(held)
-        if host or (dispatch_budget is not None and spd < num_iter):
-            hist = np.concatenate(host + [hist.cpu().numpy()], axis=0)
+        snaps.add(parts, spill=False)
+        hist = snaps.held(parts)
+        if snaps.host or (dispatch_budget is not None and spd < num_iter):
+            hist = np.concatenate(snaps.host + [hist.cpu().numpy()], axis=0)
         return parts, hist
+
+    def _step_fn(self, dtype: torch.dtype):
+        """The run's step ``step(parts, step_size, seed, i0) -> parts``: one
+        Jacobi update at the absolute step index ``i0`` of the minibatch
+        stream ``seed``, written into ``parts`` under donation (or one
+        Gauss–Seidel sweep)."""
+        donate = self._donates
+        if self._update_rule == "gauss_seidel":
+            data = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, self._data)
+            score_fn = torch.func.grad(self._full_logp(data))
+            kernel = self._kernel
+            return lambda parts, step_size, seed, i0: svgd_step_sequential(
+                parts, score_fn, step_size, kernel)
+        scores = self._score_fns(dtype)
+        phi_fn = self._phi
+
+        def jacobi_step(parts, step_size, seed, i0):
+            # a per-step RFF bank folds the step's absolute index, the one
+            # the minibatch stream is keyed by (ops/approx.py:bind_phi_step)
+            delta = step_size * bind_phi_step(phi_fn, i0)(
+                parts[None], parts, scores(parts, i0, seed)[None])[0]
+            return parts.add_(delta) if donate else parts + delta
+
+        return jacobi_step
+
+    def _track_step(self, fn):
+        """Register a run's step as ``sampler.scan`` (JAX ``sampler.py``'s
+        label and declarations) and keep it alive until the next run."""
+        self._program = default_registry().track(
+            fn, label="sampler.scan", donate_argnums=(0,) if self._donates else (),
+            key_argnums=(2,),
+            meta=dict(gram_free=is_gram_free(self._phi_impl, self.kernel_approx_active),
+                      expect_donation=self._donates))
+        return self._program
+
+    @property
+    def _donates(self) -> bool:
+        """Whether a run's step writes into its carry (``donate_carries``
+        and the Jacobi rule)."""
+        return self._donate and self._update_rule == "jacobi"
 
     @staticmethod
     def _steps_per_dispatch(n: int, num_iter: int, budget: float, pairs_per_sec) -> int:

@@ -42,8 +42,9 @@ trace format, readable in Perfetto — the counterpart of JAX's
 
 ``--donate-ab`` runs two identical ``Sampler`` schedules with
 ``donate_carries`` on and off and pins their final particles bitwise.
-Torch has no buffer donation: the port's ``Sampler`` accepts the flag for
-JAX's signature and ignores it, so the A/B is a determinism pin and its
+Torch has no buffer donation: with the flag on, the port's step writes each
+update into the run's particle carry in place of a new tensor (the same
+kernel, the same bits), so the A/B is a determinism pin and its
 ``speedup`` is expected near 1.
 """
 
@@ -205,7 +206,8 @@ def donate_ab(n: int, iters: int = CHAIN_DISPATCH, chain: int = 32, samples: int
     untimed run and ``samples`` samples of ``chain`` chained runs of
     ``iters`` steps from the previous run's particles; JAX's row keys, with
     the two walls, their ratio and whether the final particles agree
-    bitwise.  The flag has no effect in the port (module docstring)."""
+    bitwise.  The flag decides only where the update is written (module
+    docstring)."""
     dev = resolve_device(device)
     p0, data = config1(n, dev, particles, seed)
     n, d = p0.shape

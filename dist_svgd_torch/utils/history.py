@@ -11,6 +11,8 @@ once, at the end.  ``pandas`` is imported inside
 
 from __future__ import annotations
 
+from typing import List, Optional
+
 import numpy as np
 
 #: Upper bound on snapshots held on the device at once, and the device
@@ -28,6 +30,41 @@ def record_chunk_steps(n: int, d: int, itemsize: int = 4) -> int:
     the TPU's 128-lane padding here), clamped to ``[1, RECORD_CHUNK_MAX]``."""
     bytes_per_step = max(1, n * d * itemsize)
     return max(1, min(RECORD_CHUNK_MAX, RECORD_HBM_BUDGET_BYTES // bytes_per_step))
+
+
+class SnapshotBuffer:
+    """A recorded run's ``total`` snapshots, each copied into a ``(k, n, d)``
+    device buffer as it is taken: one copy a snapshot, as stacking the held
+    snapshots was, and a step that writes its update into its carry
+    (``donate_carries``) cannot reach a snapshot already taken.  With
+    ``chunk``, a buffer holds at most ``chunk`` snapshots (the last one
+    what is left) and each full one moves to the host (:attr:`host`,
+    numpy); without, one buffer holds them all."""
+
+    def __init__(self, total: int, chunk: Optional[int] = None):
+        self._left, self._chunk = int(total), chunk
+        self._buf, self._k = None, 0
+        self.host: List[np.ndarray] = []
+
+    def add(self, x, spill: bool = True) -> None:
+        """Copy the snapshot ``x`` in; a full chunk moves to the host unless
+        ``spill`` is false."""
+        if self._buf is None:
+            size = self._left if self._chunk is None else min(self._chunk, self._left)
+            self._buf = x.new_empty((size, *x.shape))
+        self._buf[self._k].copy_(x)
+        self._k += 1
+        self._left -= 1
+        if spill and self._chunk is not None and self._k == len(self._buf):
+            self.host.append(self._buf.cpu().numpy())
+            self._buf, self._k = None, 0
+
+    def held(self, like):
+        """The snapshots still on the device, ``(k, n, d)`` (``like``'s
+        dtype and device when there are none)."""
+        if self._buf is None:
+            return like.new_empty((0, *like.shape))
+        return self._buf[: self._k]
 
 
 def history_to_dataframe(history: np.ndarray):
