@@ -104,7 +104,14 @@ the port's CPU baseline, the north star, splice, Covertype and the 100,000-
 particle streaming W2 step audited at full width with XP001 armed (no n×n
 buffer), the 10,000 × 55 serving programs, each audited call bitwise equal
 outside the recorder, and a W = 2 gloo rank's ``dist.scan`` card (one
-gather and one psum a step); it checks that each path went
+gather and one psum a step) — and last the bench suite and the regression
+gate: ``dist_svgd_torch/experiments/bench_suite.py``'s five BASELINE
+configs at full width (configs 4 and 5 to their committed sklearn
+targets), its three scaling tables and the chunked A/B, each row with its
+kernels launched, and ``dist_svgd_torch/tools/perf_regress.py``'s six
+chained rows in one interleaved round with no capture or build, with
+``phi_small_d``, ``ot_ctransform`` and ``ot_kexp`` held at the suite's new
+lanes in ``kernel_parity``; it checks that each path went
 through its kernels, and prints one JSON object per phase.  A phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
 
@@ -756,6 +763,68 @@ AUDIT_PEAK_GATED = ("north_star", "splice")
 AUDIT_LANES = [("phi_small_d", (1, 24, 24, 2), "audit sampler_exact lane y=x", True, None),
                ("phi_small_d", (2, 8, 16, 2), "audit dist builders' lanes", False, None)]
 AUDIT_SEED = 1400
+
+# Section 27: the bench suite (dist_svgd_torch/experiments/bench_suite.py) and
+# the regression gate (dist_svgd_torch/tools/perf_regress.py) on the card.
+# (a) The suite's five configs at the module's default widths (config 1 100
+#     particles, 2 256, 3 10,000 over 8 shards, 4 10,000 × 50,000 rows at
+#     B = 256 with its acceptance, 5 500 particles at d = 753 with its
+#     acceptance), the reference's 50-particle table at ws 1/2/4/8, the
+#     10,000-particle partitions table with and without W2 (ws 1/2/4/8) and
+#     the chunked A/B; iteration counts and the timing chain cut
+#     (BENCH_SUITE), the acceptance loops' caps as they are (Covertype 1500
+#     steps, the BNN 2000).  Each row finite with updates/s > 0, its keys
+#     JAX's plus "device" (BENCH_ROW_KEYS, read from JAX's _result and each
+#     function's extras), its expected kernels launched and every other
+#     kernel not (BENCH_KERNELS), configs 4 and 5 reaching the committed
+#     sklearn targets (dist_svgd_torch/experiments/acceptance_targets.json).
+# (b) The gate's six chained rows (build_benches on the card at JAX's sizes),
+#     a warm-up and sizing pass and one interleaved round under
+#     capture_sentry at a cut chain: every value finite and > 0, no capture
+#     or kernel build in the round, the roofline fraction at most
+#     PERF_GATE["roofline_max"] (above 1 the step would beat the bare φ: a
+#     wrong pair count or time), the rows recorded into a temporary
+#     incumbents file and judged once more through judge_row (PASS).
+# BENCH_LANES / BENCH_OT are the lanes section 27 launches that no earlier
+# row holds (the 50-particle table's all_particles lanes, the partitions
+# lanes at ws 2 and 4 — each lane's own block, y = x — and the W2 table's
+# block-pairing solves at ws 1, 2 and 4).
+BENCH_SUITE = dict(iters=20, scaling_iters=50, table_iters=10, world_sizes=(1, 2, 4, 8),
+                   chain=dict(samples=1, target_s=0.2))
+PERF_GATE = dict(rounds=1, target_s=0.25, roofline_max=1.05)
+_BENCH_BASE = ("config", "n_particles", "n_iters", "wall_s", "updates_per_sec",
+               "vs_reference_best", "platform", "device")
+_BENCH_SHARDED = ("num_shards", "emulated")
+BENCH_ROW_KEYS = {
+    "1": ("dataset",),
+    "2": (),
+    "3": _BENCH_SHARDED + ("dataset",),
+    "4": _BENCH_SHARDED + ("n_rows", "batch_size", "phi_impl", "sklearn_acc", "target_acc",
+                           "steps_to_target", "final_acc", "acceptance_kernel"),
+    "5": ("dataset", "d", "batch_size", "bayesridge_rmse", "gbr_rmse_context",
+          "steps_to_target", "final_rmse", "acceptance_kernel"),
+    "scaling": _BENCH_SHARDED,
+    "scaling10k": _BENCH_SHARDED + ("exchange",),
+    "scaling10k-w2": _BENCH_SHARDED + ("exchange", "wasserstein", "w2_pairing"),
+    "chunked-ab:monolithic": _BENCH_SHARDED + ("execution", "exchange_impl"),
+    "chunked-ab:chunked": _BENCH_SHARDED + ("execution", "exchange_impl", "dispatches_per_step",
+                                            "max_dispatch_wall_s", "hops_per_dispatch"),
+}
+BENCH_KERNELS = {"1": ("phi_small_d",), "2": ("phi_small_d",), "3": ("phi_small_d",),
+                 "4": ("phi_big_d_bf16x3",), "5": ("phi_wide_d",),
+                 "scaling": ("phi_small_d",), "scaling10k": ("phi_small_d",),
+                 "scaling10k-w2": ("phi_small_d", "ot_ctransform", "ot_kexp"),
+                 "chunked-ab": ("phi_small_d",)}
+BENCH_LANES = [("phi_small_d", (8, 6, 48, 3), "bench_suite 50-particle table ws8", False, None),
+               ("phi_small_d", (4, 12, 48, 3), "bench_suite 50-particle table ws4", False, None),
+               ("phi_small_d", (2, 25, 50, 3), "bench_suite 50-particle table ws2", False, None),
+               ("phi_small_d", (1, 50, 50, 3), "bench_suite 50-particle table ws1", False, None),
+               ("phi_small_d", (2, 5000, 5000, 3), "bench_suite partitions ws2 y=x", True, None),
+               ("phi_small_d", (4, 2500, 2500, 3), "bench_suite partitions ws4 y=x", True, None)]
+BENCH_OT = [(name, (ws, 10_000 // ws, 10_000 // ws, 3),
+             f"bench_suite W2 table ws{ws} block pairing")
+            for ws in (1, 2, 4) for name in ("ot_ctransform", "ot_kexp")]
+BENCH_SEED = 1500
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -3939,6 +4008,7 @@ def fleet_drill_phase(mode, card, device=None):
     FLEET_TRAIN); ``device`` is the real mode's replica device (None: the
     card)."""
     from dist_svgd_torch.tools import fleet_drill
+    from dist_svgd_torch.utils import ports
 
     reset, read = _serving_counts()
     reset()
@@ -3954,8 +4024,11 @@ def fleet_drill_phase(mode, card, device=None):
     else:
         ok = (ok and row["readmit_s"] is not None and row["partition_replica_alive"] is True
               and len(row["replica_spawn_s"]) == FLEET["replicas"] + 1)
+    # the replicas' ports are drawn from port_range, outside the host's
+    # ephemeral range, so the killed replica's port stays free for its restart
     emit({"phase": f"fleet_drill_{mode}", **row, "row_ok": gates_ok, "why": why,
           "launches": {k: v for k, v in launches.items() if v}, "phase_wall_s": wall,
+          "ephemeral_range": ports.ephemeral_range(), "port_range": ports.PORT_RANGE,
           "card": card, "ok": ok})
     if not ok:
         raise AssertionError(f"fleet_drill_{mode}: {why} {row}")
@@ -4735,9 +4808,10 @@ def phi_lane_rows(lanes, seed0):
 
     h = 1.0
     for seed, (name, (S, k, m, d), role, y_is_x, bps) in enumerate(lanes, start=seed0):
-        y, x, s = phi_inputs(S, k, m, d, seed)
+        # y = x: one lane moves all of x, or S > 1 lanes each their own set
+        y, x, s = phi_inputs(S, k, m, d, seed, shared_x=not (y_is_x and S > 1))
         if y_is_x:
-            y = x[None].contiguous()
+            y = (x if x.dim() == 3 else x[None]).contiguous()
         kern = lambda: cuda_svgd.launch(name, y, x, s, h, blocks_per_sm=bps)  # noqa: E731
         plain = lambda: cuda_svgd.phi_small_d_plain(y, x, s, h)  # noqa: E731
         got = kern()
@@ -4783,17 +4857,26 @@ def anatomy_lane_rows():
     shape (the soft c-transform within SOFT_CT_TOL, the Gibbs kernel
     elementwise within KEXP_RTOL), their float64 distance printed.  Each
     timed beside its bound; raises on a failed row."""
-    import torch
-
-    from dist_svgd_torch.ops import cuda_ot
     from dist_svgd_torch.tools import profile_emulation
 
     for _, _, _, _, bps in ANATOMY_LANES:
         assert bps in (None, profile_emulation.F_BLOCKS_PER_SM), bps
     phi_lane_rows(ANATOMY_LANES, ANATOMY_SEED)
+    ot_lane_rows(ANATOMY_OT, ANATOMY_SEED + len(ANATOMY_LANES))
 
-    for seed, (name, (S, k, m, d), role) in enumerate(ANATOMY_OT,
-                                                      start=ANATOMY_SEED + len(ANATOMY_LANES)):
+
+def ot_lane_rows(lanes, seed0):
+    """``kernel_parity`` rows of the soft c-transform and the Gibbs kernel
+    at ``lanes`` ((kernel, (S, k, m, d), role), seeds from ``seed0``),
+    against the float32 plain version at the full shape (the soft
+    c-transform within SOFT_CT_TOL, the Gibbs kernel elementwise within
+    KEXP_RTOL), their float64 distance printed, each timed beside its
+    bound; raises on a failed row."""
+    import torch
+
+    from dist_svgd_torch.ops import cuda_ot
+
+    for seed, (name, (S, k, m, d), role) in enumerate(lanes, start=seed0):
         rows, cols, f, gpot, _, _ = ot_inputs(S, k, m, d, seed)
         if name == "ot_ctransform":
             kern = lambda: cuda_ot.ctransform_reduce_cuda(rows, cols, gpot, soft=True)  # noqa: E731
@@ -5258,6 +5341,161 @@ def program_audit_phases(card, fed_audits):
           "failed": failed})
     if failed:
         raise AssertionError(f"program audit phases failed: {failed}")
+
+
+def bench_lane_rows():
+    """The kernels at the lanes section 27 launches that no earlier row
+    holds (BENCH_LANES through ``phi_lane_rows``, BENCH_OT through
+    ``ot_lane_rows``); raises on a failed row."""
+    phi_lane_rows(BENCH_LANES, BENCH_SEED)
+    ot_lane_rows(BENCH_OT, BENCH_SEED + len(BENCH_LANES))
+
+
+def _bench_row_kind(config):
+    """A suite row's key in BENCH_ROW_KEYS: the config number, or the
+    table's label."""
+    head = config.split(":")[0]
+    if head == "chunked-ab":
+        return config
+    return head if head in BENCH_ROW_KEYS else config
+
+
+def _bench_row_check(r, launched):
+    """The failed checks of one suite row: finite and positive, JAX's keys
+    plus ``device``, its kernels launched and no other."""
+    import math
+
+    kind = _bench_row_kind(r["config"])
+    want_keys = set(_BENCH_BASE) | set(BENCH_ROW_KEYS[kind])
+    kernels = BENCH_KERNELS[kind.split(":")[0]]
+    bad = []
+    if not (math.isfinite(r["wall_s"]) and r["wall_s"] > 0
+            and math.isfinite(r["updates_per_sec"]) and r["updates_per_sec"] > 0):
+        bad.append("not finite and positive")
+    if set(r) != want_keys:
+        bad.append(f"keys {sorted(set(r) ^ want_keys)} differ from JAX's plus device")
+    if r["platform"] != "gpu":
+        bad.append(f"platform {r['platform']}")
+    if "emulated" in r and r["emulated"] is not (r["num_shards"] > 1):
+        bad.append("emulated is not num_shards > 1")
+    if any(launched[k] <= 0 for k in kernels):
+        bad.append(f"expected kernels {kernels} not all launched")
+    if any(v for k, v in launched.items() if k not in kernels):
+        bad.append("another kernel launched")
+    if "steps_to_target" in r and r["steps_to_target"] is None:
+        bad.append("the committed target was not reached")
+    return bad
+
+
+def bench_suite_phase(card):
+    """Section 27 (a): the suite's rows at full width (BENCH_SUITE), one
+    ``bench_suite`` row each with the kernels it launched; returns the
+    failed rows."""
+    from dist_svgd_torch.experiments import bench_suite as bs
+
+    cfg = BENCH_SUITE
+    old_chain = dict(bs.CHAIN)
+    bs.CHAIN.update(cfg["chain"])
+    it, tit, ws = cfg["iters"], cfg["table_iters"], cfg["world_sizes"]
+    runs = [("1", lambda: bs.bench_logreg_single(it, device="cuda")),
+            ("2", lambda: bs.bench_gmm(it, device="cuda")),
+            ("3", lambda: bs.bench_logreg_sharded(it, device="cuda")),
+            ("4", lambda: bs.bench_covertype_minibatch(it, acceptance=True, device="cuda")),
+            ("5", lambda: bs.bench_bnn(it, acceptance=True, device="cuda"))]
+    runs += [(f"scaling:ws{w}", lambda w=w: bs.scaling_table(cfg["scaling_iters"], (w,),
+                                                                device="cuda"))
+             for w in ws]
+    runs += [(f"scaling10k:ws{w}", lambda w=w: bs.scaling_table_10k(tit, (w,), device="cuda"))
+             for w in ws]
+    runs += [(f"scaling10k-w2:ws{w}", lambda w=w: bs.scaling_table_w2(tit, (w,), device="cuda"))
+             for w in ws]
+    runs += [("chunked-ab", lambda: bs.bench_chunked_ab(tit, device="cuda"))]
+    failed, results, scaling = [], [], []
+    try:
+        for label, run in runs:
+            _anatomy_reset()
+            t0 = time.perf_counter()
+            out = run()
+            seconds = time.perf_counter() - t0
+            launched = _anatomy_counts()
+            for r in out if isinstance(out, list) else [out]:
+                bad = _bench_row_check(r, launched)
+                emit({"phase": "bench_suite", "card": card, "row": r, "launches": dict(launched),
+                      "seconds": seconds, "failed_checks": bad, "ok": not bad})
+                if bad:
+                    failed.append(r["config"])
+                (scaling if r["config"].startswith("scaling:") else results).append(r)
+    finally:
+        bs.CHAIN.clear()
+        bs.CHAIN.update(old_chain)
+    emit({"phase": "bench_suite_table", "markdown": bs._markdown(
+        [r for r in results if r["config"][0].isdigit()], scaling)})
+    return failed
+
+
+def perf_regress_phase(card):
+    """Section 27 (b): the gate's six chained rows on the card (PERF_GATE);
+    prints ``perf_regress_chained`` with every row and the launches of the
+    timed round; returns the failed checks."""
+    import argparse
+    import math
+    import tempfile
+
+    from dist_svgd_torch.tools import perf_regress as pr
+
+    t0 = time.perf_counter()
+    benches = pr.build_benches("cuda")
+    t_built = time.perf_counter() - t0
+    _anatomy_reset()
+    best, reps, sentry = pr.measure_chained(benches, PERF_GATE["rounds"], PERF_GATE["target_s"])
+    launched = _anatomy_counts()
+    args = argparse.Namespace(tol=0.35, rounds=PERF_GATE["rounds"])
+    rows, _, results = pr.chained_rows(benches, best, reps, sentry, {}, args)
+    froof, _, fres = pr.roofline_rows(results, {})
+    fraction = fres["north_star_roofline_fraction"]
+    bad = []
+    if not all(math.isfinite(v) and v > 0 for v in results.values()) or len(results) != 6:
+        bad.append("a chained value not finite and positive")
+    if sentry.compiles:
+        bad.append(f"{sentry.compiles} captures or kernel builds in the timed round")
+    if not 0 < fraction <= PERF_GATE["roofline_max"]:
+        bad.append(f"roofline fraction {fraction} outside (0, {PERF_GATE['roofline_max']}]")
+    for name in ("phi_small_d", "phi_big_d_bf16x3", "ot_ctransform", "ot_kexp",
+                 "ot_kmat_vec", "ot_plan_grad"):
+        if launched[name] <= 0:
+            bad.append(f"{name} not launched by the chained rows")
+    # record into a temporary incumbents file, read it back, judge again
+    inc = {}
+    for key, value in {**results, **fres}.items():
+        if key == "north_star_roofline_fraction":
+            inc[key] = value
+        else:
+            pr.record_result(inc, key, value, 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "perf_incumbents.json")
+        with open(path, "w") as fh:
+            json.dump(inc, fh)
+        inc = pr.load_incumbents(path)
+        rejudged = {key: pr.judge_row(results[key], pr.incumbent_history(inc, key), 0.35,
+                                      benches[key][3])[0] for key in benches}
+    if set(rejudged.values()) != {"PASS"} or pr.missing_rows(inc)[:1] != ["serve_throughput"]:
+        bad.append(f"re-judged against the recorded file: {rejudged}")
+    emit({"phase": "perf_regress_chained", "card": card, "rows": rows + froof,
+          "launches": launched, "built_s": t_built, "rejudged": rejudged,
+          "seconds": time.perf_counter() - t0, "failed_checks": bad, "ok": not bad})
+    return bad
+
+
+def bench_phases(card):
+    """Section 27, the bench suite and the regression gate (the constants
+    above BENCH_SUITE); raises when a row failed."""
+    t_section = time.perf_counter()
+    failed = bench_suite_phase(card)
+    failed += [f"perf_regress: {b}" for b in perf_regress_phase(card)]
+    emit({"phase": "bench_section", "seconds": time.perf_counter() - t_section,
+          "failed": failed})
+    if failed:
+        raise AssertionError(f"bench phases failed: {failed}")
 
 
 def supervised_phases(init, data, card, ct_ms_per_step):
@@ -5928,6 +6166,7 @@ def main():
     stream_lane_rows()
     anatomy_lane_rows()
     phi_lane_rows(AUDIT_LANES, AUDIT_SEED)
+    bench_lane_rows()
 
     # ---- 4. north star ---------------------------------------------------
     ns = NORTH_STAR
@@ -6248,6 +6487,9 @@ def main():
 
     # ---- 26. the program audit: the suite, full-width cards, the federation --
     program_audit_phases(card, fed_audits)
+
+    # ---- 27. the bench suite and the regression gate ---------------------------
+    bench_phases(card)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

@@ -90,6 +90,16 @@ APPROX_METHOD_CODES = APPROX_METHODS
 #: taken only with ``'torch'``.  (JAX's 1.0 was set from CPU walls.)
 APPROX_CROSSOVER_FACTOR = 65.0
 
+#: ``phi_rff`` builds its (rows, R) feature blocks this many elements at a
+#: time at most (4 GB in float32): a memory rule, not a timing.  Below it
+#: one block holds every row, the arithmetic of the unblocked form; above it
+#: the interaction set's summaries are summed block by block and the
+#: updated rows are mapped a block at a time.  Eager PyTorch materialises
+#: each feature block (JAX's XLA fuses them), so without blocks the
+#: ``large_n_approx`` row at n = 2,000,000, R = 4096 asks for three
+#: 32 GB blocks at once and runs the 80 GB card out of memory.
+RFF_BLOCK_ELEMS = 1 << 30
+
 
 class KernelApprox:
     """Static configuration of a sub-quadratic φ approximation.
@@ -284,23 +294,47 @@ def phi_rff(updated: torch.Tensor, interacting: torch.Tensor, scores: torch.Tens
       — the analytic feature gradient summed over the set.
 
     Leading dimensions broadcast as in ``ops.svgd.phi``.  Never builds an
-    (m, k) tensor; the largest temporaries are the (m, R)/(k, R) feature
-    blocks."""
+    (m, k) tensor; the largest temporaries are the feature blocks, at most
+    :data:`RFF_BLOCK_ELEMS` elements each (one block at most sizes: the
+    unblocked arithmetic)."""
     m = interacting.shape[-2]
     num_features = freqs.shape[0]
     w = freqs.to(torch.promote_types(updated.dtype, torch.float32))
     wt = w.T
-    xw = torch.matmul(interacting, wt)   # (..., m, R)
-    yw = torch.matmul(updated, wt)       # (..., k, R)
-    cx, sx = torch.cos(xw), torch.sin(xw)
-    cy, sy = torch.cos(yw), torch.sin(yw)
-    a_cos = torch.matmul(cx.transpose(-1, -2), scores)   # (..., R, d)
-    a_sin = torch.matmul(sx.transpose(-1, -2), scores)
-    drive = torch.matmul(cy, a_cos) + torch.matmul(sy, a_sin)
-    sum_c = torch.sum(cx, dim=-2)[..., None, :]          # (..., 1, R)
-    sum_s = torch.sum(sx, dim=-2)[..., None, :]
-    repulse = torch.matmul(sy * sum_c - cy * sum_s, w)
-    return (drive + repulse) / (num_features * m)
+    a_cos = a_sin = sum_c = sum_s = None
+    for i, j in _row_blocks(interacting, num_features):
+        xw = torch.matmul(interacting[..., i:j, :], wt)   # (..., rows, R)
+        cx, sx = torch.cos(xw), torch.sin(xw)
+        del xw
+        s = scores[..., i:j, :]
+        parts = (torch.matmul(cx.transpose(-1, -2), s),   # (..., R, d)
+                 torch.matmul(sx.transpose(-1, -2), s),
+                 torch.sum(cx, dim=-2), torch.sum(sx, dim=-2))  # (..., R)
+        del cx, sx
+        if a_cos is None:
+            a_cos, a_sin, sum_c, sum_s = parts
+        else:
+            a_cos, a_sin, sum_c, sum_s = (a + b for a, b in zip((a_cos, a_sin, sum_c, sum_s),
+                                                                parts))
+    sum_c, sum_s = sum_c[..., None, :], sum_s[..., None, :]   # (..., 1, R)
+    out = []
+    for i, j in _row_blocks(updated, num_features):
+        yw = torch.matmul(updated[..., i:j, :], wt)       # (..., rows, R)
+        cy, sy = torch.cos(yw), torch.sin(yw)
+        del yw
+        drive = torch.matmul(cy, a_cos) + torch.matmul(sy, a_sin)
+        repulse = torch.matmul(sy * sum_c - cy * sum_s, w)
+        out.append((drive + repulse) / (num_features * m))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-2)
+
+
+def _row_blocks(a: torch.Tensor, num_features: int):
+    """``(start, stop)`` row ranges of ``a`` (..., rows, d) whose (..., rows,
+    R) feature blocks hold at most :data:`RFF_BLOCK_ELEMS` elements."""
+    rows = a.shape[-2]
+    lanes = a.numel() // max(rows * a.shape[-1], 1) if a.numel() else 1
+    per_block = max(1, RFF_BLOCK_ELEMS // max(lanes * num_features, 1))
+    return [(i, min(i + per_block, rows)) for i in range(0, rows, per_block)] or [(0, 0)]
 
 
 # --------------------------------------------------------------------- #

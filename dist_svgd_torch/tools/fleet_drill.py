@@ -280,7 +280,7 @@ class _RealFleet:
         self.addresses: Dict[str, Tuple[str, int]] = {}
         self._procs: Dict[str, Any] = {}
         for rid in REPLICAS:
-            # below the ephemeral range: the router's client sockets cannot
+            # outside the ephemeral range: the router's client sockets cannot
             # take a killed replica's port before its restart rebinds it
             self.addresses[rid] = ("127.0.0.1", listen_port(
                 exclude=[port for _, port in self.addresses.values()]))

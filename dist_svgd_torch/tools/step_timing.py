@@ -20,6 +20,10 @@ package or of ``bench.py``.
 - :func:`make_sharded` — the flagship 8-shard ``DistSampler`` (banana
   logistic regression, ``all_particles``, the Sinkhorn W2 term off unless
   asked), on an explicit device.
+- :func:`make_phi_kernel_bench` — the bare ``'auto'`` φ over the
+  north-star lanes, state-chained: the same-run roofline that
+  ``tools/perf_regress.py`` divides the north-star step's pair rate by
+  (``bench.py:_make_phi_kernel_bench``).
 """
 
 from __future__ import annotations
@@ -31,12 +35,24 @@ import torch
 
 from dist_svgd_torch.distsampler import DistSampler
 from dist_svgd_torch.models.logreg import logreg_logp
+from dist_svgd_torch.ops.cuda_svgd import resolve_phi_fn
+from dist_svgd_torch.ops.kernels import RBF
 from dist_svgd_torch.utils.platform import resolve_device
 from dist_svgd_torch.utils.rng import init_particles_per_shard
 
 #: The flagship sampler's particle and shard counts (``bench.py:81-83``).
 N_PARTICLES = 10_000
 NUM_SHARDS = 8
+
+#: The reference's best published rate: 421 particle-updates/s, its
+#: PyTorch 0.4 implementation at world size 8 (50 particles, 500
+#: iterations, on CPUs; reference ``notes.md:129``, reproduced in
+#: BASELINE.md).  A CPU number of the reference, not a TPU measurement:
+#: the suite's ``vs_reference_best`` divides by it.
+REFERENCE_BEST_UPDATES_PER_SEC = 421.0
+
+#: φ calls in one :func:`make_phi_kernel_bench` run (JAX's scan length).
+PHI_BENCH_SWEEPS = 200
 
 #: :func:`timed_chain`'s floor on a call's estimated marginal cost and its
 #: cap on the chain length (``bench.py:185-186``): a call the estimate puts
@@ -167,3 +183,33 @@ def make_sharded(fold, phi_impl: str = "auto", wasserstein: bool = False,
         exchange_particles=(mode != "partitions"), exchange_scores=False,
         include_wasserstein=wasserstein, wasserstein_solver="sinkhorn",
         phi_impl=phi_impl, device=resolve_device(device))
+
+
+def make_phi_kernel_bench(d: int, device=None, n: int = N_PARTICLES,
+                          num_shards: int = NUM_SHARDS, sweeps: int = PHI_BENCH_SWEEPS):
+    """The bare ``'auto'`` φ (``resolve_phi_fn(RBF(1.0), 'auto')``: the hand
+    kernel for d on the card) over the north-star lanes — ``num_shards``
+    blocks of ``n // num_shards`` rows against all ``n`` particles at
+    dimension ``d``, ones as the scores (φ's cost does not depend on them).
+
+    Returns ``(run_one, pairs_per_call)``.  ``run_one()`` is one Python loop
+    of ``sweeps`` state-chained calls ``y ← y + 1e-6·φ(y; x, s)`` — the port
+    has no scan — whose output seeds the next call, so chained calls cannot
+    be elided; ``pairs_per_call`` is ``num_shards · (n // num_shards) · n ·
+    sweeps``."""
+    dev = resolve_device(device)
+    phi_fn = resolve_phi_fn(RBF(1.0), "auto")
+    x = init_particles_per_shard(0, n, d, num_shards, device=dev)
+    n_loc = n // num_shards
+    s = torch.ones(num_shards, n, d, device=dev)
+    state = {"y": x.reshape(num_shards, n_loc, d).clone()}
+
+    def run_one():
+        y = state["y"]
+        with torch.no_grad():
+            for _ in range(sweeps):
+                y = y + 1e-6 * phi_fn(y, x, s)
+        state["y"] = y
+        return y
+
+    return run_one, num_shards * n_loc * n * sweeps

@@ -154,6 +154,37 @@ def test_phi_rff_matches_jax_with_its_bank(n, m, d, R, h):
     close(got, want)
 
 
+@pytest.mark.parametrize("shared", [True, False], ids=["shared set", "per-lane sets"])
+def test_phi_rff_in_row_blocks_matches_one_block_and_jax(monkeypatch, shared):
+    """Past RFF_BLOCK_ELEMS the feature blocks go a few rows at a time (at
+    n = 2,000,000, R = 4096 one block is 32 GB, and the unblocked form ran
+    the 80 GB card out of memory): the blocked φ equals the one-block φ
+    and JAX's, with no block over the line."""
+    rng = np.random.default_rng(11)
+    S, n, m, d, R, h = 3, 37, 53, 3, 32, 1.5
+    y = rng.normal(size=(S, n, d))
+    x = rng.normal(size=(m, d)) if shared else rng.normal(size=(S, m, d))
+    s = rng.normal(size=(S, m, d))
+    freqs = japprox.rff_frequencies(approx_bank_key(4), R, d, h)
+    tfreqs = torch.from_numpy(np.asarray(freqs, dtype=np.float32))
+    args = [torch.from_numpy(a) for a in (y, x, s)]
+    whole = tapprox.phi_rff(*args, tfreqs)
+    line = 5 * R * (1 if shared else S)
+    monkeypatch.setattr(tapprox, "RFF_BLOCK_ELEMS", line)
+    assert len(tapprox._row_blocks(args[1], R)) == -(-m // 5)
+    sizes = []
+    real_cos = torch.cos
+    monkeypatch.setattr(torch, "cos", lambda t: sizes.append(t.numel()) or real_cos(t))
+    got = tapprox.phi_rff(*args, tfreqs)
+    blocks = len(tapprox._row_blocks(args[1], R)) + len(tapprox._row_blocks(args[0], R))
+    assert max(sizes) <= line and len(sizes) == blocks > 2
+    close(got, whole, rtol=1e-12, atol=1e-14)
+    want = jax.vmap(lambda yb, xb, sb: japprox.phi_rff(yb, xb, sb, freqs),
+                    in_axes=(0, None if shared else 0, 0))(jnp.asarray(y), jnp.asarray(x),
+                                                           jnp.asarray(s))
+    close(got, want)
+
+
 @pytest.mark.parametrize("n,m,d,L,h,ridge", [(40, 40, 3, 16, 2.0, 1e-4),
                                              (17, 33, 5, 8, 0.7, 1e-3),
                                              (20, 12, 2, 64, 1.0, 1e-4)])

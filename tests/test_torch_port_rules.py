@@ -478,3 +478,50 @@ def test_autoscale_storm_and_elastic_drill_run_with_jax_blocked():
         "print('ok')\n"
     )
     _run_with_jax_blocked(code)
+
+
+def test_bench_suite_and_perf_regress_run_with_jax_blocked():
+    """The bench suite and the regression gate import where ``import jax``
+    fails: one suite config and the gate's chained rows at a tiny size on
+    the CPU, ``--list-missing``, and the committed sklearn targets read
+    without sklearn."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dist_svgd_tpu'] = None\n"
+        "sys.modules['sklearn'] = None\n"
+        "import argparse, io, contextlib\n"
+        "from dist_svgd_torch.experiments import bench_suite as bs\n"
+        "from dist_svgd_torch.tools import perf_regress as pr\n"
+        "bs.CHAIN.update(samples=1, target_s=0.01)\n"
+        "row = bs.bench_logreg_sharded(1, num_shards=2, n_particles=8, device='cpu')\n"
+        "assert row['emulated'] and row['updates_per_sec'] > 0\n"
+        "assert bs.acceptance_targets()['covertype']['n_rows'] == 50000\n"
+        "b = pr.build_benches('cpu', n=16, w2_streaming_n=32, covertype_rows=2048,\n"
+        "                     config1_n=8, steps=dict(north_star=1, w2_warm=1, covertype=1,\n"
+        "                     w2_streaming=1, config1=1, phi_sweeps=1))\n"
+        "best, reps, sentry = pr.measure_chained(b, 1, 0.001)\n"
+        "rows, fails, res = pr.chained_rows(b, best, reps, sentry, {},\n"
+        "                                   argparse.Namespace(tol=0.35, rounds=1))\n"
+        "assert fails == 0 and len(res) == 6\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert pr.main(['--list-missing']) == 0\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    _run_with_jax_blocked(code)
+
+
+def test_package_data_ships_the_ports_data_files():
+    """Every non-Python file the port reads at run time (CUDA sources, the
+    committed incumbents, program cards and acceptance targets) matches a
+    ``package-data`` pattern of ``pyproject.toml``."""
+    import fnmatch
+    import tomllib
+
+    patterns = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"][
+        "package-data"]["dist_svgd_torch"]
+    files = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
+             if p.suffix in (".cu", ".cuh", ".json")]
+    assert {"tools/perf_incumbents.json", "tools/program_cards.json",
+            "experiments/acceptance_targets.json"} <= set(files)
+    for f in files:
+        assert any(fnmatch.fnmatch(f, pat) for pat in patterns), f

@@ -1,6 +1,7 @@
 """``utils/ports.listen_port``: the ports the drills spawn listeners on lie
-below the ephemeral range, so a killed replica's port cannot be taken by an
-outgoing connection before the replica's restart binds it again."""
+outside the host's ephemeral range, so a killed replica's port cannot be
+taken by an outgoing connection before the replica's restart binds it
+again."""
 
 import socket
 from pathlib import Path
@@ -26,6 +27,37 @@ def test_range_lies_below_the_ephemeral_range():
         pytest.skip("no Linux ephemeral port range to read")
     low = int(_EPHEMERAL.read_text().split()[0])
     assert ports.PORT_RANGE[1] <= low
+
+
+@pytest.mark.parametrize("ephemeral, expected", [
+    ((32768, 60999), (10000, 32768)),  # Linux's default
+    ((16000, 65535), (10000, 16000)),  # gVisor's
+    ((1024, 60999), (61000, 65536)),   # nothing below: above it
+    ((11000, 64000), (64001, 65536)),  # too little below: above it
+])
+def test_range_lies_outside_the_ephemeral_range(ephemeral, expected):
+    lo, hi = ports.port_range(ephemeral)
+    assert (lo, hi) == expected
+    assert hi - lo >= ports.MIN_PORTS
+    assert hi <= ephemeral[0] or lo > ephemeral[1]
+
+
+def test_no_room_outside_the_ephemeral_range_raises():
+    with pytest.raises(RuntimeError, match="outside the ephemeral range"):
+        ports.port_range((1024, 65535))
+
+
+@pytest.mark.parametrize("text, expected", [
+    ("16000\t65535\n", (16000, 65535)),
+    ("32768 60999", (32768, 60999)),
+    ("garbled", ports.DEFAULT_EPHEMERAL),
+    (None, ports.DEFAULT_EPHEMERAL),  # no file
+])
+def test_ephemeral_range_is_read_from_the_host(tmp_path, text, expected):
+    path = tmp_path / "ip_local_port_range"
+    if text is not None:
+        path.write_text(text)
+    assert ports.ephemeral_range(path) == expected
 
 
 def test_excluded_and_bound_ports_are_skipped(monkeypatch):
