@@ -111,7 +111,13 @@ targets), its three scaling tables and the chunked A/B, each row with its
 kernels launched, and ``dist_svgd_torch/tools/perf_regress.py``'s six
 chained rows in one interleaved round with no capture or build, with
 ``phi_small_d``, ``ot_ctransform`` and ``ot_kexp`` held at the suite's new
-lanes in ``kernel_parity``; it checks that each path went
+lanes in ``kernel_parity`` — and last sharded serving: the fleet's
+10,000-particle Covertype checkpoint served over meshes emulated on the one
+card (``make_plan(n, devices=[cuda:0] * n)`` at 4 and 8 shards, every
+bucket against the single-device engine in f32 and bf16, a steady-state
+window with no capture, a reload keeping the placement, 320 HTTP requests
+through four lanes, a 3-way mesh replicating with its warning, and
+``make_plan(2)``'s one-card degradation); it checks that each path went
 through its kernels, and prints one JSON object per phase.  A phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
 
@@ -825,6 +831,40 @@ BENCH_OT = [(name, (ws, 10_000 // ws, 10_000 // ws, 3),
              f"bench_suite W2 table ws{ws} block pairing")
             for ws in (1, 2, 4) for name in ("ot_ctransform", "ot_kexp")]
 BENCH_SEED = 1500
+
+# Section 28, sharded serving (sharded_serving_phases): the 10,000-particle
+# Covertype ensemble (d = 55, 54 features) that fleet_covertype trains on the
+# card (FLEET_TRAIN, phi_big_d_bf16x3), its checkpoint served over emulated
+# meshes on the one card — make_plan(n, devices=[cuda:0] * n), each mesh
+# device a contiguous row block — against the single-device card engine on
+# the same rows:
+# - at 4 and 8 shards (2,500 and 1,250 rows a shard), every bucket 1…256
+#   after warmup(): f32 within JAX's logreg pins (SHARDED_TOL), bf16 within
+#   one bf16 ulp of the single-device bf16 engine, one CUDA graph a bucket
+#   holding every shard and the combine; a steady-state window of mixed
+#   batch sizes (SHARDED["window"]) under capture_sentry reading 0;
+# - at 4 shards: a reload to a second 10,000-particle generation (the
+#   ensemble plus seeded noise of SHARDED["reload_noise"]) keeping the spec
+#   and equal to a fresh single-device engine, then a PredictionServer with
+#   SHARDED["lanes"] lanes over it serving SHARDED["requests"] requests of
+#   the held-out rows (sizes cycling SHARDED["sizes"]) from
+#   SHARDED["clients"] clients, every one served and equal to the
+#   single-device engine;
+# - a 3-way mesh, which the 10,000 rows do not divide: the replicate
+#   warning, spec (), served equal to the single-device engine;
+# - make_plan(2) with one card visible: num_shards 1;
+# - for information only (one card serving an emulated mesh, not a several-
+#   card result): serve_bench's closed loop (SHARDED["bench"]) single
+#   against 4-way — rps, p50, device p50 — and the CUDA-event ms of each
+#   bucket's graph replay, with torch.profiler's device ms a replay at
+#   SHARDED["profiled"].
+SHARDED = dict(meshes=(4, 8), uneven=3, max_bucket=256, lanes=4, clients=16, requests=320,
+               sizes=(1, 3, 16, 64, 128, 256), window=(1, 3, 7, 16, 33, 100, 200, 256, 5, 64),
+               reload_noise=1e-3, replay_reps=20, profiled=(1, 256),
+               bench=dict(clients=16, requests=600, rows=(1, 4, 16), max_batch=256,
+                          max_wait_ms=2.0, lanes=4))
+SHARDED_TOL = dict(rtol=1e-5, atol=1e-7)
+SHARDED_SEED = 1600
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -4216,6 +4256,7 @@ def fleet_covertype_phase(root, card, device="cuda"):
     emit({**row, "ok": ok})
     if not ok:
         raise AssertionError(f"fleet_covertype: {row}")
+    return ckpt, phi_launches
 
 
 def fleet_replay_phase(card):
@@ -4249,7 +4290,9 @@ def fleet_replay_phase(card):
 def fleet_phases(root, card):
     """Section 23, the serving fleet (the constants above FLEET_TRAIN):
     fleet_drill_fake, fleet_drill_real, fleet_covertype and fleet_replay,
-    under ``root``.  Each prints its row and raises when it fails."""
+    under ``root``.  Each prints its row and raises when it fails.  Returns
+    fleet_covertype's checkpoint root and its training's φ launches
+    (section 28 serves that checkpoint)."""
     import os
     import shutil
 
@@ -4258,9 +4301,10 @@ def fleet_phases(root, card):
     t0 = time.perf_counter()
     fleet_drill_phase("fake", card)
     fleet_drill_phase("real", card)
-    fleet_covertype_phase(root, card)
+    covertype_fleet = fleet_covertype_phase(root, card)
     fleet_replay_phase(card)
     emit({"phase": "fleet_section", "seconds": time.perf_counter() - t0})
+    return covertype_fleet
 
 
 def _mh_sampler(leg, mesh, device):
@@ -5498,6 +5542,202 @@ def bench_phases(card):
         raise AssertionError(f"bench phases failed: {failed}")
 
 
+def _bf16_ulps(got, want):
+    """Largest |got − want| in bf16 ulps of max(|got|, |want|)."""
+    import numpy as np
+
+    scale = np.exp2(np.floor(np.log2(np.maximum(np.maximum(np.abs(got), np.abs(want)),
+                                                1e-30))))
+    return float(np.max(np.abs(got - want) / (BF16_ULP * scale)))
+
+
+def sharded_serving_phases(card, ckpt, train_launches, device="cuda"):
+    """Section 28, sharded serving (the constants above SHARDED): the
+    fleet's 10,000 × 55 Covertype checkpoint at ``ckpt`` served over
+    emulated meshes on the one card against the single-device engine.
+    Prints its rows; raises when one failed.  ``device='cpu'`` rehearses
+    it (no graphs, no timings)."""
+    import threading
+    import urllib.request
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from dist_svgd_torch.parallel.plan import AXIS, capture_sentry, make_plan
+    from dist_svgd_torch.serving import PredictionServer, PredictiveEngine
+    from dist_svgd_torch.tools import serve_bench
+    from dist_svgd_torch.utils.checkpoint import CheckpointManager
+    from dist_svgd_torch.utils.datasets import load_covertype
+
+    t_section = time.perf_counter()
+    parts = np.asarray(CheckpointManager(ckpt).restore_latest()["particles"], np.float32)
+    nrows = FLEET_TRAIN["nrows"]
+    x_all, _ = load_covertype(nrows, seed=0)
+    x_test = x_all[-max(nrows // 10, 1):].astype(np.float32)
+    top = SHARDED["max_bucket"]
+    buckets = [1 << i for i in range(top.bit_length())]
+    kw = dict(min_bucket=1, max_bucket=top)
+    on_card = device == "cuda"
+    dev0 = torch.device("cuda", 0) if on_card else torch.device(device)
+    failed = []
+
+    def engine(particles, plan=None, **extra):
+        return PredictiveEngine("logreg", particles, plan=plan,
+                                device=None if plan is not None else device, **kw, **extra)
+
+    def engines(particles, plan=None):
+        return engine(particles, plan), engine(particles, plan, dtype=torch.bfloat16)
+
+    def dev_of(a, b):
+        return max(float(np.max(np.abs(a[k] - b[k]))) for k in b)
+
+    def close(a, b):
+        return all(np.allclose(a[k], b[k], **SHARDED_TOL) for k in b)
+
+    def replay_ms(prog, profiled):
+        if not on_card:
+            return "not measured", None
+        (graphs,) = prog._graphs.values()
+        reps = SHARDED["replay_reps"]
+        ms = cuda_ms(graphs.graph.replay, reps)
+        if not profiled:
+            return ms, None
+        prof = device_profile(lambda: [graphs.graph.replay() for _ in range(reps)])
+        dev = prof["device_ms"]
+        return ms, (dev / reps if isinstance(dev, float) else dev)
+
+    single, single16 = engines(parts)
+    single.warmup()
+    single16.warmup()
+    want = {b: single.predict(x_test[:b]) for b in buckets}
+    want16 = {b: single16.predict(x_test[:b]) for b in buckets}
+    single_ms = {b: replay_ms(single._kernels[b], b in SHARDED["profiled"]) for b in buckets}
+    sharded_4 = None
+    for shards in SHARDED["meshes"]:
+        t0 = time.perf_counter()
+        plan = make_plan(shards, devices=[dev0] * shards)
+        eng, eng16 = engines(parts, plan)
+        eng.warmup()
+        eng16.warmup()
+        spec_ok = (eng.particles.spec == eng16.particles.spec == (AXIS, None)
+                   and all(b.shape[0] == len(parts) // shards for b in eng.particles.blocks)
+                   and eng16.particles.dtype == torch.bfloat16)
+        rows, ok = [], spec_ok
+        for b in buckets:
+            got, got16 = eng.predict(x_test[:b]), eng16.predict(x_test[:b])
+            ulps = max(_bf16_ulps(got16[k], want16[b][k]) for k in want16[b])
+            graphs = eng._kernels[b].graphs
+            ms, prof_ms = replay_ms(eng._kernels[b], b in SHARDED["profiled"])
+            row = {"bucket": b, "f32_max_abs_dev": dev_of(got, want[b]),
+                   "f32_ok": close(got, want[b]), "bf16_max_ulps": ulps, "graphs": graphs,
+                   "replay_ms": ms, "single_replay_ms": single_ms[b][0]}
+            if prof_ms is not None:
+                row.update(profiler_device_ms=prof_ms, single_profiler_device_ms=single_ms[b][1])
+            ok = ok and row["f32_ok"] and ulps <= 1.0 and graphs == (1 if on_card else 0)
+            rows.append(row)
+        misses = eng.stats()["bucket_misses"]
+        with capture_sentry("sharded steady state") as sentry:
+            for i, b in enumerate(SHARDED["window"]):
+                eng.predict(x_test[i:i + b])
+                eng16.predict(x_test[i:i + b])
+        ok = ok and sentry.compiles == 0 and eng.stats()["bucket_misses"] == misses
+        emit({"phase": "sharded_serving_mesh", "shards": shards, "rows_a_shard":
+              len(parts) // shards, "n": len(parts), "d": parts.shape[1],
+              "plan": plan.describe(), "spec_ok": spec_ok, "buckets": rows,
+              "window_captures": sentry.compiles, "tol": SHARDED_TOL,
+              "warm_and_check_s": time.perf_counter() - t0, "card": card, "ok": ok})
+        if not ok:
+            failed.append(f"mesh {shards}")
+        if shards == 4:
+            sharded_4 = eng
+
+    # a reload to a second generation keeps the placement, then 4 lanes
+    rng = np.random.default_rng(SHARDED_SEED)
+    gen2 = (parts + SHARDED["reload_noise"] * rng.standard_normal(parts.shape)).astype(np.float32)
+    eng = sharded_4
+    info = eng.reload(gen2, tag="gen2")
+    fresh = engine(gen2)
+    fresh.warmup()
+    reload_ok = (eng.particles.spec == (AXIS, None) and info["n_particles"] == len(gen2)
+                 and all(close(eng.predict(x_test[:b]), fresh.predict(x_test[:b]))
+                         for b in buckets))
+    sizes = SHARDED["sizes"]
+    reqs = [x_test[(7 * i) % (len(x_test) - top):][:sizes[i % len(sizes)]]
+            for i in range(SHARDED["requests"])]
+    results = [None] * len(reqs)
+    with PredictionServer(eng, port=0, lanes=SHARDED["lanes"], max_batch=top,
+                          max_wait_ms=2.0) as srv:
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+
+        def client(ci):
+            for j in range(ci, len(reqs), SHARDED["clients"]):
+                try:
+                    req = urllib.request.Request(
+                        srv.url + "/predict", json.dumps({"inputs": reqs[j].tolist()}).encode(),
+                        {"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        doc = json.loads(r.read())
+                    results[j] = {k: np.asarray(v, np.float32)
+                                  for k, v in doc["outputs"].items()}
+                except Exception as e:  # counted as not served below
+                    results[j] = e
+
+        t_load = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(ci,))
+                   for ci in range(SHARDED["clients"])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        load_s = time.perf_counter() - t_load
+    served = [(r, fresh.predict(x)) for r, x in zip(results, reqs) if isinstance(r, dict)]
+    lanes_dev = max((dev_of(r, w) for r, w in served), default=float("inf"))
+    lanes_ok = (len(served) == len(reqs) and all(close(r, w) for r, w in served)
+                and health["devices"] == 4 and health["lanes"] == SHARDED["lanes"])
+    errors = [repr(r)[:200] for r in results if not isinstance(r, dict)][:3]
+    emit({"phase": "sharded_serving_reload_lanes", "shards": 4, "reload": info,
+          "reload_spec": list(eng.particles.spec), "reload_ok": reload_ok,
+          "requests": len(reqs), "served": len(served), "clients": SHARDED["clients"],
+          "lanes": SHARDED["lanes"], "healthz_devices": health["devices"],
+          "served_vs_single_max_abs_dev": lanes_dev, "load_s": load_s, "errors": errors,
+          "card": card, "ok": reload_ok and lanes_ok})
+    if not (reload_ok and lanes_ok):
+        failed.append("reload/lanes")
+
+    # a mesh the rows do not divide replicates, with the one warning
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        odd = engine(parts, make_plan(SHARDED["uneven"], devices=[dev0] * SHARDED["uneven"]))
+    texts = [str(w.message) for w in caught if "not divisible" in str(w.message)]
+    odd_dev = max(dev_of(odd.predict(x_test[:b]), want[b]) for b in buckets)
+    odd_ok = (len(texts) == 1 and odd.particles.spec == ()
+              and odd.stats()["plan"]["num_shards"] == SHARDED["uneven"]
+              and all(close(odd.predict(x_test[:b]), want[b]) for b in buckets))
+    two = make_plan(2, device=device)
+    emit({"phase": "sharded_serving_uneven", "shards": SHARDED["uneven"], "warning": texts,
+          "spec": list(odd.particles.spec), "max_abs_dev": odd_dev,
+          "make_plan_2": two.describe(), "card": card,
+          "ok": odd_ok and two.num_shards == 1})
+    if not (odd_ok and two.num_shards == 1):
+        failed.append("uneven/degradation")
+
+    # information only: the closed loop, single against 4-way on one card
+    bench = {}
+    for name, plan in (("single", None), ("4-way", make_plan(4, devices=[dev0] * 4))):
+        e = PredictiveEngine("logreg", parts, plan=plan, max_bucket=top,
+                             device=None if plan is not None else device)
+        r = serve_bench.run_bench(engine=e, **SHARDED["bench"])
+        bench[name] = {k: r[k] for k in ("metric", "devices", "value", "p50_ms", "p99_ms",
+                                         "device_p50_ms", "recompiles", "sentry_compiles")}
+    emit({"phase": "sharded_serving_bench", "note": "one card serving an emulated mesh",
+          "rows": bench, "train_phi_launches": train_launches,
+          "seconds": time.perf_counter() - t_section, "card": card})
+    if failed:
+        raise AssertionError(f"sharded serving failed: {failed}")
+
+
 def supervised_phases(init, data, card, ct_ms_per_step):
     """Section 18, the supervised runs (the constants above RESHARD_LANES):
     supervised_covertype, supervised_covertype_sigterm, supervised_guards,
@@ -6476,7 +6716,8 @@ def main():
     streaming_phases(card)
 
     # ---- 23. the serving fleet: router, failover, federation, stitching ------
-    fleet_phases(str(Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"), card)
+    covertype_fleet = fleet_phases(
+        str(Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"), card)
 
     # ---- 24. the process mesh: DistSampler across processes, the drill --------
     fed_audits = multihost_phases(card, references=logreg_references)
@@ -6490,6 +6731,9 @@ def main():
 
     # ---- 27. the bench suite and the regression gate ---------------------------
     bench_phases(card)
+
+    # ---- 28. sharded serving: the fleet's ensemble over emulated meshes ---------
+    sharded_serving_phases(card, *covertype_fleet)
 
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it

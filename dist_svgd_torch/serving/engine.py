@@ -33,8 +33,31 @@ CPU; on the card the padded bucket's matmul may round a row differently
 from the direct call's).
 
 The engine runs on the card unless ``device='cpu'`` (or a CPU ``plan``) is
-passed.  A ``mesh=``, or a plan over more than one device, raises
-``NotImplementedError`` naming ROADMAP A10.2.
+passed.  Over a plan with a mesh (``plan=make_plan(n)``, or the ``mesh=``
+shorthand for ``Plan(mesh)``) the ensemble is placed particle-sharded — one
+row block a mesh device — and every bucket program is a mesh program
+(``parallel/plan.py:MeshProgram``) of per-shard partials and a combine,
+the port's form of the ``psum`` XLA partitions JAX's particle-axis
+reductions into:
+
+- **logreg**: each shard's count, mean and M2 (two-pass inside the shard)
+  of the predictive probabilities, pooled by Chan's pairwise formula
+  ``M2 = Σ M2ᵢ + Σ nᵢ (meanᵢ − mean)²`` into the biased variance (never
+  ``E[p²] − E[p]²``, which cancels where the probabilities sit near 0 or
+  1).  A shard's mean travels as an f32 pair — the rounded mean and the
+  mean of the deviations from it — so ``meanᵢ − mean`` keeps the bits that
+  rounding the means to f32 drops near 1;
+- **bnn**: the same for the predictions, plus each shard's sum of
+  ``exp(−θ[:, −2])`` for the noise term;
+- **gmm**: each shard's ``logsumexp`` of the log-kernel, a ``logsumexp``
+  over the shards, minus ``log n``.
+
+The low-precision tier accumulates its partials and its combine in f32 and
+casts once at the end, the single-device engine's rounding.  An ensemble
+the mesh does not divide is replicated (with the plan's warning) and runs
+the single-device program on the mesh's first device.  Cold start,
+:meth:`~PredictiveEngine.reload` and candidates all place through the plan,
+so a hot swap never de-shards or de-casts.
 """
 
 from __future__ import annotations
@@ -50,7 +73,7 @@ import torch
 
 from dist_svgd_torch.models import bnn as bnn_model
 from dist_svgd_torch.models.logreg import posterior_predictive_prob
-from dist_svgd_torch.parallel.plan import Plan
+from dist_svgd_torch.parallel.plan import Plan, ShardedEnsemble, ensemble_tensor
 from dist_svgd_torch.telemetry import metrics as _metrics
 from dist_svgd_torch.telemetry import trace as _trace
 from dist_svgd_torch.telemetry import usage as _usage
@@ -126,8 +149,8 @@ class PredictiveEngine:
             the batcher splits oversize requests first.
         plan / mesh: the :class:`~dist_svgd_torch.parallel.plan.Plan` the
             bucket programs compile under (default: a single-device plan on
-            ``device``).  ``mesh``, or a plan over more than one device,
-            raises ``NotImplementedError`` (ROADMAP A10.2).
+            ``device``), or a :class:`~dist_svgd_torch.parallel.plan.Mesh`
+            for ``Plan(mesh)`` — one or the other.
         dtype: opt-in low-precision serve path (``torch.bfloat16`` or
             ``'bfloat16'``): the ensemble is stored and the programs
             compute in this dtype; request/response surfaces stay f32.
@@ -178,10 +201,6 @@ class PredictiveEngine:
             )
         if plan is not None and mesh is not None:
             raise ValueError("pass plan= or mesh=, not both")
-        if plan is not None and plan.num_shards > 1:
-            raise NotImplementedError(
-                "a plan over more than one device is not ported to PyTorch yet "
-                "(ROADMAP A10.2)")
         if plan is not None and device is not None and torch.device(device) != plan.device:
             raise ValueError(f"device {device} differs from the plan's {plan.device}")
         self._plan = plan if plan is not None else Plan(mesh, device=device)
@@ -342,8 +361,11 @@ class PredictiveEngine:
     # programs
 
     @property
-    def particles(self) -> torch.Tensor:
-        """The served ensemble (read-only by convention)."""
+    def particles(self) -> Union[torch.Tensor, ShardedEnsemble]:
+        """The served ensemble (read-only by convention): a tensor on the
+        plan's device, or over a mesh a
+        :class:`~dist_svgd_torch.parallel.plan.ShardedEnsemble`
+        (``ensemble_tensor`` or ``np.asarray`` give it in one piece)."""
         return self._particles
 
     @property
@@ -364,19 +386,18 @@ class PredictiveEngine:
     def device(self) -> torch.device:
         return self._plan.device
 
-    def _place_ensemble(self, particles) -> torch.Tensor:
-        """Validate, (optionally) cast to the compute dtype, and place on the
-        plan's device — cold start, :meth:`reload` and candidates alike, so
-        a hot swap can never de-cast the served ensemble."""
-        arr = self._plan.shard_ensemble(
-            np.asarray(particles) if not isinstance(particles, torch.Tensor) else particles)
+    def _place_ensemble(self, particles):
+        """Validate, (optionally) cast to the compute dtype, and place
+        through the plan — cold start, :meth:`reload` and candidates alike,
+        so a hot swap can never de-shard or de-cast the served ensemble."""
+        arr = ensemble_tensor(particles)
         if arr.dim() != 2:
             raise ValueError(
                 f"particles must be (n, d), got shape {tuple(arr.shape)}"
             )
         if self._compute_dtype is not None and arr.dtype != self._compute_dtype:
             arr = arr.to(self._compute_dtype)
-        return arr
+        return self._plan.shard_ensemble(arr)
 
     @staticmethod
     def _input_dtype(particle_dtype: torch.dtype) -> torch.dtype:
@@ -384,10 +405,16 @@ class PredictiveEngine:
         dtypes keep an f32 wire format (the program casts inside)."""
         return torch.float32 if particle_dtype.itemsize < 4 else particle_dtype
 
-    def _build_kernel(self, particles: torch.Tensor):
+    def _build_kernel(self, particles):
         """The padded-batch predictive program over ``particles`` (one
         program per bucket; the ensemble is closed over, so a hot reload
-        builds a fresh set instead of mutating served ones)."""
+        builds a fresh set instead of mutating served ones).  A sharded
+        ensemble gets the mesh program, a replicated one the single-device
+        program on the mesh's first device."""
+        if isinstance(particles, ShardedEnsemble):
+            if particles.is_sharded:
+                return self._build_mesh_kernel(particles)
+            particles = particles.blocks[0]
         low_precision = particles.dtype.itemsize < 4
         dt = particles.dtype
 
@@ -442,6 +469,91 @@ class PredictiveEngine:
 
         return self._plan.compile(
             dispatch, donate_argnums=(0,) if self._donate else (),
+            label=f"serve.{self.model}", audit=dict(pinned_f32=not low_precision))
+
+    def _build_mesh_kernel(self, ens: ShardedEnsemble):
+        """The bucket program over a particle-sharded ensemble: per-shard
+        partials and their combine (module docstring), compiled into one
+        mesh program.  Shards are equal, ``n / S`` rows each."""
+        low_precision = ens.dtype.itemsize < 4
+        dt = ens.dtype
+        n = int(ens.shape[0])
+        S = len(ens.blocks)
+        rows = n // S
+
+        def moments(v):
+            # one shard's mean as the pair (hi, lo) — hi the rounded mean,
+            # lo the mean of the deviations from it — and its M2, two-pass
+            # around hi; in f32 for a low-precision ensemble
+            if low_precision:
+                v = v.float()
+            hi = v.mean(0)
+            dev = v - hi
+            lo = dev.sum(0) / rows
+            return hi, lo, (dev * dev).sum(0) - rows * lo * lo
+
+        def pooled(parts, j):
+            # Chan's pairwise combine at equal counts of the moments at
+            # parts[i][j:j + 3]: M2 = Σ M2ᵢ + Σ nᵢ (meanᵢ − mean)², with
+            # meanᵢ − mean taken from the pairs around shard 0's hi, so it
+            # keeps the bits that rounding the means drops where the values
+            # sit near 0 or 1; returns the mean and the biased variance
+            hi, lo, m2 = (torch.stack([p[j + k] for p in parts]) for k in range(3))
+            e = (hi - hi[0]) + lo
+            e_mean = e.sum(0) / S
+            d = e - e_mean
+            return hi[0] + e_mean, (m2.sum(0) + rows * (d * d).sum(0)) / n
+
+        def cast(v):  # the one cast of the low-precision tier
+            return v.to(dt) if low_precision else v
+
+        def wire_in(x):
+            return x.to(dt) if low_precision else x
+
+        def wire_out(out):
+            return {k: v.float() for k, v in out.items()} if low_precision else out
+
+        if self.model == "logreg":
+
+            def partial(block, x):
+                return moments(posterior_predictive_prob(block, wire_in(x)))
+
+            def combine(parts):
+                mean, var = pooled(parts, 0)
+                return wire_out({"mean": cast(mean), "var": cast(var)})
+
+        elif self.model == "bnn":
+            nf, nh = self._n_features, self._n_hidden
+            y_mean, y_std = self._y_mean, self._y_std
+
+            def partial(block, x):
+                noise = torch.exp(-block[:, -2])
+                return (*moments(bnn_model._predictions(block, wire_in(x), nf, nh)),
+                        (noise.float() if low_precision else noise).sum())
+
+            def combine(parts):
+                mean, var = pooled(parts, 0)
+                noise = cast(torch.stack([p[3] for p in parts]).sum() / n) * y_std**2
+                return wire_out({"mean": cast(mean) * y_std + y_mean,
+                                 "std": torch.sqrt(cast(var) * y_std**2 + noise)})
+
+        else:  # gmm
+            h = self._kde_bandwidth
+            d = self._feature_dim
+            log_n = math.log(n)
+
+            def partial(block, x):
+                sq = torch.sum((wire_in(x)[:, None, :] - block[None, :, :]) ** 2, dim=-1)
+                logk = -0.5 * sq / (h * h) - d * math.log(h) - 0.5 * d * _LOG_2PI
+                return (torch.logsumexp(logk.float() if low_precision else logk, dim=1),)
+
+            def combine(parts):
+                lse = torch.logsumexp(torch.stack([p[0] for p in parts]), dim=0)
+                return wire_out({"log_density": cast(lse) - log_n})
+
+        return self._plan.compile(
+            partial, combine=combine, ensemble=ens,
+            donate_argnums=(0,) if self._donate else (),
             label=f"serve.{self.model}", audit=dict(pinned_f32=not low_precision))
 
     def _record_compile(self, generation: str) -> None:
@@ -612,8 +724,9 @@ class PredictiveEngine:
         return info
 
     def _check_layout(self, particles, what: str) -> torch.Tensor:
-        cand = self._plan.shard_ensemble(
-            np.asarray(particles) if not isinstance(particles, torch.Tensor) else particles)
+        """The candidate in one piece on the plan's device, its layout
+        checked against the served one (placement comes after the policy)."""
+        cand = ensemble_tensor(particles).to(self._plan.device)
         if cand.dim() != 2 or cand.shape[1] != self._particles.shape[1]:
             raise ValueError(
                 f"{what} particles {tuple(cand.shape)} incompatible with the "
@@ -651,7 +764,7 @@ class PredictiveEngine:
             new_report = self._reload_policy.evaluate(cand)
             if self._health_report is None:
                 # first policied reload: baseline the ensemble now serving
-                baseline = self._reload_policy.evaluate(self._particles)
+                baseline = self._reload_policy.evaluate(ensemble_tensor(self._particles))
                 with self._lock:
                     if self._health_report is None:
                         self._health_report = baseline

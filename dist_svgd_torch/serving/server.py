@@ -563,9 +563,7 @@ def main(argv=None):
     ap.add_argument("--shards", type=int, default=1,
                     help="devices to shard the served ensemble across (0 = "
                          "every visible device; 1 = single-device).  Falls "
-                         "back to one device when the host has fewer; more "
-                         "than one where they exist is not ported (ROADMAP "
-                         "A10.2)")
+                         "back to one device when the host has fewer"),
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: the card (fails without CUDA)")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
@@ -606,7 +604,7 @@ def main(argv=None):
                          "federated svgd_usage_* series fleet-wide")
     args = ap.parse_args(argv)
 
-    from dist_svgd_torch.parallel.plan import make_plan, visible_devices
+    from dist_svgd_torch.parallel.plan import make_plan
     from dist_svgd_torch.utils.metrics import JsonlLogger
 
     if (args.checkpoint is None) == (args.tenants_config is None):
@@ -637,8 +635,7 @@ def main(argv=None):
                   else args.checkpoint)
         # 0 = every visible device; more than the host has degrades to one
         # device (make_plan), as in JAX
-        plan = make_plan(args.shards or visible_devices(args.device or "cuda"),
-                         device=args.device)
+        plan = make_plan(args.shards or None, device=args.device)
         engine = PredictiveEngine.from_checkpoint(
             source, args.model, n_features=args.n_features,
             n_hidden=args.n_hidden, kde_bandwidth=args.kde_bandwidth,

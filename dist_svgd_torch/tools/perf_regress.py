@@ -518,9 +518,9 @@ def serve_sharded_rows(incumbents, args, serve_best, device=None):
     """serve_sharded and serve_sharded_p99: the serve load with the
     ensemble sharded across every card and :data:`SERVE_SHARDED_LANES`
     lanes.  With fewer than two cards no mesh can exist: one ``NO_MESH``
-    row.  With two or more, ``serve_bench.run_bench(devices=n)`` raises
-    ``NotImplementedError`` (a plan over several devices is ROADMAP A10.2)
-    and the gate stops there."""
+    row.  With two or more, ``serve_bench.run_bench(devices=n)`` serves
+    over ``make_plan(n)``'s mesh and the row carries ``vs_single_device``
+    against the single-device serve row."""
     from dist_svgd_torch.parallel import plan
     from dist_svgd_torch.tools import serve_bench
     from dist_svgd_torch.utils.platform import resolve_device

@@ -27,10 +27,11 @@ points the closed loop at a live ``serving.server`` instead.
 ``--lanes N`` runs N batcher worker lanes over the shared engine;
 ``--dtype bfloat16`` serves the low-precision programs and stamps the
 same-session ``dtype_speedup`` against an f32 reference loop.
-``--devices N`` (N > 1) on a host with fewer devices serves from one device
-(``make_plan``'s degradation, as in JAX) and the row's ``devices`` says 1;
-where N devices exist it is ROADMAP A10.2, not ported
-(``NotImplementedError``).
+``--devices N`` (N > 1) shards the ensemble across N devices through
+``make_plan(N)`` and emits the ``serve_sharded`` row (the same schema, its
+``devices``/``lanes``/``lane_fairness`` read off the mesh); a host with
+fewer devices serves from one (``make_plan``'s degradation, as in JAX) and
+the row stays ``serve_throughput`` with ``devices`` 1.
 
 Multi-tenant registry: ``--tenants N`` hosts N heterogeneous tenants (mixed
 logreg/BNN/GMM shapes, cycled) behind ONE ``serving.registry.
@@ -65,7 +66,7 @@ import numpy as np
 
 from dist_svgd_torch import telemetry
 from dist_svgd_torch.models.bnn import num_params
-from dist_svgd_torch.parallel.plan import capture_sentry, make_plan
+from dist_svgd_torch.parallel.plan import capture_sentry, ensemble_tensor, make_plan
 from dist_svgd_torch.serving import MicroBatcher, ModelRegistry, PredictiveEngine
 from dist_svgd_torch.serving.batcher import Overloaded, _percentile
 from dist_svgd_torch.serving.engine import bucket_for
@@ -85,9 +86,8 @@ def build_engine(model="logreg", n_particles=10_000, n_features=54,
                  devices=1, dtype=None, device=None):
     """Checkpointed ensemble when given, else a seeded synthetic one —
     serving throughput depends on shapes, not on convergence.  ``dtype``
-    opts into the low-precision serve programs; ``devices > 1`` goes
-    through ``make_plan`` (one device when the host has fewer; ROADMAP
-    A10.2 where that many exist)."""
+    opts into the low-precision serve programs; ``devices > 1`` shards the
+    ensemble through ``make_plan`` (one device when the host has fewer)."""
     kw = dict(max_bucket=max_bucket, registry=registry, dtype=dtype, device=device)
     if devices and devices > 1:
         kw.update(plan=make_plan(devices, device=device), device=None)
@@ -247,7 +247,9 @@ def run_bench(model="logreg", n_particles=10_000, n_features=54,
               open_requests=500, checkpoint=None, seed=0, url=None,
               engine=None, trace=None, slo_p99_ms=100.0,
               devices=1, lanes=1, dtype=None, device=None):
-    """Measure and return the ``serve_throughput`` JSON row (JAX's keys).
+    """Measure and return the ``serve_throughput`` JSON row (JAX's keys),
+    ``serve_sharded`` when the engine's plan is sharded (``devices > 1``
+    where that many devices exist).
 
     ``lanes`` runs that many batcher worker lanes over the shared engine.
     ``dtype='bfloat16'`` serves the low-precision programs and also
@@ -278,7 +280,9 @@ def run_bench(model="logreg", n_particles=10_000, n_features=54,
     pool = _request_pool(engine.feature_dim, list(rows))
     plan_info = engine.stats()["plan"]
     row = {
-        "metric": "serve_throughput",
+        # one metric name per serving topology: the sharded row gates
+        # against its own incumbent window, not the single-device one
+        "metric": "serve_sharded" if plan_info["sharded"] else "serve_throughput",
         "unit": "requests/sec",
         "platform": _platform(engine),
         "model": engine.model,
@@ -414,9 +418,10 @@ def run_bench(model="logreg", n_particles=10_000, n_features=54,
 
     # posterior-health + SLO stamp: score-free ensemble diagnostics, off the
     # request path; the first call is warmed untimed
-    ensemble_health(engine.particles, max_points=1024)
+    particles = ensemble_tensor(engine.particles)
+    ensemble_health(particles, max_points=1024)
     t_diag0 = time.perf_counter()
-    health = ensemble_health(engine.particles, max_points=1024)
+    health = ensemble_health(particles, max_points=1024)
     diag_wall = time.perf_counter() - t_diag0
     slo_doc = default_serving_slos(registry, p99_ms=slo_p99_ms).evaluate()
     row.update(
@@ -795,8 +800,8 @@ def main(argv=None):
                          "multi-host save); default is a seeded synthetic one")
     ap.add_argument("--devices", type=int, default=1,
                     help="shard the served ensemble across this many devices "
-                         "(one device when the host has fewer; more than one "
-                         "where they exist is not ported, ROADMAP A10.2)")
+                         "and emit the serve_sharded row (one device when the "
+                         "host has fewer)")
     ap.add_argument("--tenants", type=int, default=0,
                     help="host this many mixed-shape tenants behind one "
                          "ModelRegistry and emit the serve_multitenant "

@@ -258,10 +258,10 @@ def reshard_state(state: Dict[str, Any], n_shards_to: int) -> Dict[str, Any]:
                 f"manifest says {man['n_particles']} particles but the 'particles' "
                 f"array holds {n} rows — corrupt or mixed-up checkpoint")
         S_old = man["n_shards"]
-    if n % M:  # JAX's text for the replicate-instead-of-shard fallback
-        warnings.warn(f"ensemble of {n} particles is not divisible by {M} shards; "
-                      "replicating instead of sharding (serving stays correct, the mesh "
-                      "win is lost)", UserWarning, stacklevel=2)
+    if n % M:
+        from dist_svgd_torch.parallel.plan import nondividing_replicate_warning
+
+        warnings.warn(nondividing_replicate_warning(n, M), UserWarning, stacklevel=2)
         M = 1
     out = dict(state)
     prev = out.get("previous")

@@ -465,13 +465,24 @@ def test_serve_sharded_no_mesh_at_one_device():
 
 
 def test_serve_sharded_at_two_devices_raises_a10_2(monkeypatch):
-    """Where two devices exist, the sharded bench is A10.2: the gate lets
-    the NotImplementedError stand."""
+    """Where two devices exist the sharded bench runs over
+    ``make_plan(2)``'s mesh at :data:`SERVE_SHARDED_LANES` lanes (the load
+    shrunk for the CPU): a row with ``devices`` 2 and ``vs_single_device``
+    against the serve row.  (The test's name is from when it raised.)"""
     from dist_svgd_torch.parallel import plan
 
     monkeypatch.setattr(plan, "visible_devices", lambda device=None: 2)
-    with pytest.raises(NotImplementedError, match="A10.2"):
-        pr.serve_sharded_rows({}, ARGS, SERVE_ROW, "cpu")
+    monkeypatch.setattr(pr, "SERVE_BENCH_KW", dict(pr.SERVE_BENCH_KW, n_particles=64,
+                                                   n_features=4, clients=4, requests=40))
+    rows, _, results = pr.serve_sharded_rows({}, ARGS, SERVE_ROW, "cpu")
+    row = rows[0]
+    assert row["bench"] == "serve_sharded" and row.get("status") != "NO_MESH"
+    assert row["devices"] == 2 and row["lanes"] == pr.SERVE_SHARDED_LANES
+    assert row["recompiles"] == row["sentry_compiles"] == 0
+    assert row["vs_single_device"] == round(row["value"] / SERVE_ROW["value"], 3)
+    assert set(row["lane_fairness"]) == {f"l{i}" for i in range(pr.SERVE_SHARDED_LANES)}
+    assert results["serve_sharded"] == row["value"]
+    assert [r["bench"] for r in rows] == ["serve_sharded", "serve_sharded_p99"]
 
 
 # --------------------------------------------------------------------- #

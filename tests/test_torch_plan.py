@@ -5,10 +5,10 @@ placement, ``compile`` against JAX's ``Plan(None).compile`` at float64, the
 program tracking the profiler reads (``ProgramEntry``) and the capture
 sentry, the engine's dtype and donation surfaces, and the multi-lane
 ``MicroBatcher``.  ``make_plan(n)`` with fewer than n visible devices
-degrades to the single-device plan, as JAX's does; a plan over more than
-one device where they exist raises, naming ROADMAP A10.2.  (On the card a
-program captures one CUDA graph per input shape; ``chip_smoke.py`` holds
-that path.)"""
+degrades to the single-device plan, as JAX's does; where n exist it builds
+the mesh (``tests/test_torch_plan_mesh.py`` holds the mesh cases).  (On
+the card a program captures one CUDA graph per input shape;
+``chip_smoke.py`` holds that path.)"""
 
 import json
 import threading
@@ -46,7 +46,8 @@ def test_make_plan_single_device_and_multi_raises(monkeypatch):
     """One device, or more shards than the host has devices (the CPU is
     one): the single-device plan, JAX's ``make_mesh`` → ``None``
     degradation (``tests/test_plan.py::test_make_plan_degrades_gracefully``).
-    More shards where that many devices exist raise, naming ROADMAP A10.2."""
+    More shards where that many devices exist build the mesh (the test's
+    name is from when they raised)."""
     from dist_svgd_tpu.parallel.plan import Plan as JPlan
     from dist_svgd_tpu.parallel.plan import make_plan as jmake_plan
 
@@ -65,14 +66,22 @@ def test_make_plan_single_device_and_multi_raises(monkeypatch):
         assert plan.describe() == jmake_plan(10_000).describe()
     monkeypatch.setattr(tplan, "visible_devices", lambda device: 4)
     for n in (2, 4):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
-            make_plan(n, device="cpu")
+        plan = make_plan(n, device="cpu")
+        assert plan.is_sharded and plan.num_shards == n
+        assert plan.describe() == {"sharded": True, "num_shards": n, "devices": ["cpu"] * n}
+    assert make_plan(device="cpu").num_shards == 4
     assert make_plan(5, device="cpu").num_shards == 1
 
 
 def test_plan_rejects_a_mesh_naming_a10():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        Plan(object(), device="cpu")
+    """A mesh on another axis is refused naming the plan's axis (JAX's
+    ``test_plan_rejects_foreign_axis``); one on it makes a sharded plan."""
+    from dist_svgd_torch.parallel.plan import AXIS, Mesh
+
+    with pytest.raises(ValueError, match=AXIS):
+        Plan(Mesh(["cpu"] * 2, ("replicas",)))
+    meshed = Plan(Mesh(["cpu"] * 2))
+    assert meshed.num_shards == 2 and meshed.is_sharded and meshed.device.type == "cpu"
     plan = Plan(device="cpu")
     assert plan.num_shards == 1 and not plan.is_sharded
     assert "num_shards=1" in repr(plan)
@@ -381,7 +390,11 @@ def test_server_reports_topology(rng):
         np.testing.assert_allclose(out["mean"], ref.predict(x)["mean"], rtol=1e-7)
 
 
-def test_serve_bench_lanes_row_and_devices_a10():
+def test_serve_bench_lanes_row_and_devices_a10(monkeypatch):
+    """The lanes row; ``devices=8`` on the one CPU degrades; where 8
+    devices exist (``visible_devices`` patched) it emits JAX's
+    ``serve_sharded`` row (``tests/test_plan.py::
+    test_serve_bench_sharded_row_schema``)."""
     from dist_svgd_torch.tools import serve_bench
 
     row = serve_bench.run_bench(model="logreg", n_particles=64, n_features=4, clients=4,
@@ -397,3 +410,17 @@ def test_serve_bench_lanes_row_and_devices_a10():
     eight = serve_bench.build_engine(n_particles=64, n_features=4, max_bucket=8, devices=8,
                                      device="cpu")  # degrades: one device on the CPU
     assert eight.plan.num_shards == 1 and eight.device == torch.device("cpu")
+    monkeypatch.setattr(tplan, "visible_devices", lambda device: 8)
+    row = serve_bench.run_bench(model="logreg", n_particles=64, n_features=4, clients=4,
+                                requests=30, rows=(1, 4), max_batch=16, max_wait_ms=1.0,
+                                devices=8, lanes=2, device="cpu")
+    assert row["metric"] == "serve_sharded"
+    assert row["devices"] == 8 and row["lanes"] == 2
+    assert row["value"] > 0
+    assert row["recompiles"] == 0 and row["sentry_compiles"] == 0
+    fairness = row["lane_fairness"]
+    assert fairness["lanes"] == 2
+    assert set(fairness["requests"]) == {"l0", "l1"}
+    assert sum(fairness["requests"].values()) >= 30
+    assert set(fairness["inflight_rows_last"]) == {"l0", "l1"}
+    json.dumps(row)

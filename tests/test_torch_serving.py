@@ -9,10 +9,10 @@ port's own f32 at JAX's tolerances (``tests/test_plan.py``).  Padding is
 bitwise-invisible on the CPU: a served row equals a direct
 ``posterior_predictive_prob`` call on the same rows.  The batcher's edge
 cases run through its injectable clock; the HTTP server, the hot reloader,
-the candidate generation and the ``NotImplementedError`` sites (ROADMAP
-A10.2, where the devices exist) are checked too, and ``serving.server
---shards 2`` and ``serve_bench --devices 2`` on a one-device host serve from
-the single-device plan."""
+the candidate generation and the mesh options (``mesh=``, ``Plan(mesh)``,
+``make_plan(n)`` and ``serving.server --shards 2`` where the devices exist)
+are checked too, and ``serving.server --shards 2`` and ``serve_bench
+--devices 2`` on a one-device host serve from the single-device plan."""
 
 import json
 import math
@@ -1063,20 +1063,22 @@ def test_hot_reloader_baseline_is_engine_loaded_step(tmp_path, rng):
 # what is not ported raises, naming its label
 
 
-def test_unported_options_raise_naming_their_label(rng, monkeypatch):
+def test_unported_options_raise_naming_their_label(rng, monkeypatch, tmp_path):
+    """Every option that once raised for want of a port now runs: the
+    mesh (``mesh=``, ``Plan(mesh)``, ``make_plan(2)`` where two devices
+    exist, ``server --shards 2``), the fleet's names and the autoscale
+    controller.  (The test's name is from when they raised.)"""
     import dist_svgd_torch.serving as tserving
     from dist_svgd_torch.parallel import plan as tplan
-    from dist_svgd_torch.parallel.plan import Plan, make_plan
+    from dist_svgd_torch.parallel.plan import AXIS, Mesh, Plan, make_plan
     from dist_svgd_torch.serving import server
 
     parts = rng.normal(size=(8, 3)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        PredictiveEngine("logreg", parts, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        Plan(object(), device="cpu")
+    meshed = PredictiveEngine("logreg", parts, mesh=Mesh(["cpu"] * 2), max_bucket=8)
+    assert meshed.particles.spec == (AXIS, None)
+    assert Plan(Mesh(["cpu"] * 2)).num_shards == 2
     monkeypatch.setattr(tplan, "visible_devices", lambda device: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
-        make_plan(2, device="cpu")  # where 2 devices exist
+    assert make_plan(2, device="cpu").num_shards == 2  # where 2 devices exist
     # the serving fleet is ported: its six names resolve to the port's classes
     from dist_svgd_torch.serving import fleet as tfleet
 
@@ -1100,8 +1102,28 @@ def test_unported_options_raise_naming_their_label(rng, monkeypatch):
         assert srv.autoscale.batcher is srv.batcher
     finally:
         srv.shutdown()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
-        server.main(["--checkpoint", "x", "--device", "cpu", "--shards", "2"])
+    save_state(str(tmp_path / "c"), {"particles": parts, "t": 1})
+    x = rng.normal(size=(3, 2)).astype(np.float32)
+    got = {}
+
+    def serve(self):  # one request instead of the blocking loop
+        self.start()
+        try:
+            got["plan"] = self.engine.plan.describe()
+            got["health"] = _get(self.url, "/healthz")
+            got["out"] = _post(self.url, "/predict", {"inputs": x.tolist()})["outputs"]
+        finally:
+            self.shutdown()
+
+    monkeypatch.setattr(server.PredictionServer, "serve_forever", serve)
+    server.main(["--checkpoint", str(tmp_path / "c"), "--device", "cpu", "--shards", "2",
+                 "--port", "0", "--max-batch", "8", "--no-usage-metering"])
+    assert got["plan"] == {"sharded": True, "num_shards": 2, "devices": ["cpu", "cpu"]}
+    assert got["health"]["devices"] == 2
+    want = _engine("logreg", parts, max_bucket=8).predict(x)
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(np.asarray(got["out"][k], np.float32), want[k],
+                                   rtol=1e-5, atol=1e-7)
 
 
 # --------------------------------------------------------------------- #
