@@ -117,14 +117,23 @@ card (``make_plan(n, devices=[cuda:0] * n)`` at 4 and 8 shards, every
 bucket against the single-device engine in f32 and bf16, a steady-state
 window with no capture, a reload keeping the placement, 320 HTTP requests
 through four lanes, a 3-way mesh replicating with its warning, and
-``make_plan(2)``'s one-card degradation); it checks that each path went
-through its kernels, and prints one JSON object per phase.  A phase that fails raises, so the script exits non-zero; the last line,
+``make_plan(2)``'s one-card degradation) — and last the instruments' own
+cost: a traced batcher's compact trace against its eager construction, the
+diagnostics pass captured in a CUDA graph against the eager pass at the
+fault and freshness drills' shapes, and, for information, the tracer's µs a
+request, the diagnostics' ms a compute and the regression gate's two
+overhead rows; it checks that each path went through its kernels, and
+prints one JSON object per phase.  A phase that fails raises, so the script exits non-zero; the last line,
 printed only when every phase passed, is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
 
 Without CUDA (``torch.cuda.is_available()`` false) it exits 1 and prints no
 result.
+
+``python3 chip_smoke.py --fleet-load [--runs R] [--procs P] [--tree DIR]``
+runs section 23's fleet_covertype phase R times while P busy processes load
+the host (``fleet_load_main``).
 """
 
 import json
@@ -599,7 +608,10 @@ JAX_STREAM_CT = {"ksd_baseline": 71.026, "segments": 21, "t": 330, "refits": 4,
 #   /fleet listing every circuit closed, fleet_status's report over two
 #   /fleet scrapes rendered, and after the replicas' graceful exit (SIGINT)
 #   the stitch of the router's and the replicas' exports at coverage 1.0;
-#   the training's φ kernel launched at least once a step;
+#   the training's φ kernel launched at least once a step.  Printed beside
+#   the gates: each replica's queue-wait, dispatch, request (its p99 SLO's
+#   series) and HTTP-handler p50 / p99 from its /metrics.dump, and the
+#   router's circuit transitions with their reasons;
 # - fleet_replay: dist_svgd_torch/tools/workload_replay.py main --mode
 #   replay --fleet 3 at the replay's defaults: nothing lost, no errors,
 #   every request served or shed.
@@ -865,6 +877,42 @@ SHARDED = dict(meshes=(4, 8), uneven=3, max_bucket=256, lanes=4, clients=16, req
                           max_wait_ms=2.0, lanes=4))
 SHARDED_TOL = dict(rtol=1e-5, atol=1e-7)
 SHARDED_SEED = 1600
+
+# Section 29, the instruments' cost (instrument_phases): the two rows that
+# keep perf_regress from recording (ROADMAP C), held for what they must
+# keep, their costs printed for information (perf_regress gates them):
+# - instrument_trace: a traced 1-lane batcher over the gate's serve engine
+#   (logreg, a seeded 10,000 × 55 ensemble, buckets to 256) serving
+#   INSTRUMENTS["requests"] requests from INSTRUMENTS["clients"] clients,
+#   through a tracer that logs every recording call; the log replayed into
+#   _EagerTracer (the port's tracer building each lane tree's and each
+#   engine span's events one locked append at a time, as it did before the
+#   compact records) must
+#   give the same Chrome events, counts and drops — at the default cap and
+#   at INSTRUMENTS["cap"], where events drop;
+# - instrument_diagnostics: PosteriorDiagnostics at the fault drill's shape
+#   (the GMM, n = 2048 in 4 shards, max_points / row_chunk 512, its
+#   InputScore) and at the freshness drill's drift check (256 particles,
+#   d = 6, the logreg corpus of 512 × 5 rows through the sampler's
+#   data_score), each captured once and replayed against the eager pass on
+#   the same particles (a plain closure over the same score): reports equal
+#   within DIAG_GRAPH_RTOL, INSTRUMENTS["diag_calls"] replays under
+#   capture_sentry reading 0, the median ms a compute of each;
+# - instrument_overheads, information only: overhead_probe's tracer µs a
+#   request (1 request a batch, INSTRUMENTS["probe_pairs"] off/on block pairs),
+#   serve_bench.measure_telemetry_overhead and
+#   fault_drill.measure_diagnostics_overhead at perf_regress's settings but
+#   INSTRUMENTS["rounds"] rounds (the gate takes 3), beside their 3%
+#   ceilings.
+# The freshness drill's excess captures (section 22), the storm's
+# sentry_compiles (section 21) and section 28's window run with the captured
+# diagnostics pass and gate 0 there.
+INSTRUMENTS = dict(requests=600, clients=16, rows=(1, 4, 16), cap=500, diag_calls=50,
+                   probe_pairs=20, probe_calls=250, rounds=1)
+# Captured and eager passes launch the same kernels on the same inputs, so
+# the reports should agree to the bit; cuBLAS may pick another algorithm
+# inside a capture, which moves a sum by an ulp or so.
+DIAG_GRAPH_RTOL = 1e-6
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -4028,9 +4076,10 @@ def streaming_phases(card):
     emit({"phase": "streaming_section", "seconds": time.perf_counter() - t0})
 
 
-def _hist_p50_ms(dump, name):
-    """The p50 (ms) of histogram ``name`` in a registry dump, every series
-    merged (a replica's batcher labels its series by lane)."""
+def _hist_ms(dump, name, q=0.5):
+    """The ``q`` quantile (ms; the p50 by default) of histogram ``name`` in
+    a registry dump, every series merged (a replica's batcher labels its
+    series by lane)."""
     from dist_svgd_torch.telemetry import MetricsRegistry
 
     entry = dump["metrics"].get(name)
@@ -4040,7 +4089,7 @@ def _hist_p50_ms(dump, name):
         **entry, "series": [{**s, "labels": {}} for s in entry["series"]]}}}
     reg = MetricsRegistry()
     reg.ingest(merged)
-    return reg.get(name).quantile(0.5) * 1e3
+    return reg.get(name).quantile(q) * 1e3
 
 
 def fleet_drill_phase(mode, card, device=None):
@@ -4197,10 +4246,22 @@ def fleet_covertype_phase(root, card, device="cuda"):
                                            usage_first=u1, usage_second=u2)
         rendered = fleet_status.render(report)
         circuits = {rid: st["state"] for rid, st in second["replicas"].items()}
-        device_p50 = {}
+        device_p50, replica_ms = {}, {}
         for rid in names:
             dump = transport.request(rid, "GET", "/metrics.dump", timeout_s=5.0).json()
-            device_p50[rid] = _hist_p50_ms(dump, "svgd_serve_device_time_seconds")
+            device_p50[rid] = _hist_ms(dump, "svgd_serve_device_time_seconds")
+            # where a replica's time goes (information): the batcher's
+            # queue wait and dispatch, its request latency (the p99 SLO's
+            # series) and the HTTP handler's wall around it
+            replica_ms[rid] = {
+                f"{short}_p{int(q * 100)}": _hist_ms(dump, name, q)
+                for short, name in (("queue_wait", "svgd_serve_queue_wait_seconds"),
+                                    ("dispatch", "svgd_serve_device_time_seconds"),
+                                    ("request", "svgd_serve_request_latency_seconds"),
+                                    ("http", "svgd_http_request_seconds"))
+                for q in (0.5, 0.99)}
+        transitions = [[round(t, 3), rid, a, b, why]
+                       for t, rid, a, b, why in list(router.replica_set.state_changes)[:12]]
     finally:
         if router is not None:
             router.shutdown()
@@ -4239,7 +4300,8 @@ def fleet_covertype_phase(root, card, device="cuda"):
            "fleet_status_healthy": report["healthy"],
            "fleet_status_lines": len(rendered.splitlines()),
            "fleet_tenants_rps": {t: v["rps"] for t, v in report["tenants"].items()},
-           "device_p50_ms": device_p50, "spawn_to_healthy_s": spawn_s,
+           "device_p50_ms": device_p50, "replica_ms": replica_ms,
+           "circuit_transitions": transitions, "spawn_to_healthy_s": spawn_s,
            "replica_exit_codes": exits, "stitch_coverage": stitch["coverage"],
            "stitch_served_routes": stitch["served_routes"],
            "stitch_orphans": stitch["orphan_replica_traces"],
@@ -4305,6 +4367,323 @@ def fleet_phases(root, card):
     fleet_replay_phase(card)
     emit({"phase": "fleet_section", "seconds": time.perf_counter() - t0})
     return covertype_fleet
+
+
+def _eager_tracer_class():
+    """The port's tracer with :meth:`lane_trees` building each tree's events
+    at once, one ``_complete`` (one locked append) an event — the eager
+    construction the compact records replace, kept as their plain
+    version."""
+    from dist_svgd_torch.telemetry import trace as ttrace
+
+    class _EagerTracer(ttrace.Tracer):
+        def lane_trees(self, expand, records, size):
+            for t0, t1, payload in records:
+                if t1 < t0:
+                    t0, t1 = t1, t0
+                with self._lock:
+                    lane = None
+                    for i, last_end in enumerate(self._lanes):
+                        if last_end <= t0:
+                            lane = i
+                            break
+                    new_lane = lane is None
+                    if new_lane:
+                        lane = len(self._lanes)
+                        self._lanes.append(0.0)
+                    self._lanes[lane] = t1
+                    n_lanes = len(self._lanes)
+                if new_lane:
+                    self._m_lanes.set(n_lanes)
+                name, tags, children = expand(*payload)
+                tid = f"lane-{lane:03d}"
+                self._complete(name, t0, t1, tags, tid)
+                for child in children:
+                    ctags = child[3] if len(child) > 3 else None
+                    self._complete(child[0], max(child[1], t0), min(child[2], t1), ctags, tid)
+
+    return _EagerTracer
+
+
+def _logging_tracer_class():
+    """The port's tracer, logging each recording call in order (the log
+    the eager construction replays)."""
+    import threading
+
+    from dist_svgd_torch.telemetry import trace as ttrace
+
+    class _LoggingTracer(ttrace.Tracer):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.log = []
+            self._log_lock = threading.Lock()
+
+        def _append(self, event):
+            with self._log_lock:
+                self.log.append(("event", event))
+                super()._append(event)
+
+        def lane_trees(self, expand, records, size):
+            with self._log_lock:
+                self.log.append(("trees", (expand, list(records), size)))
+                super().lane_trees(expand, records, size)
+
+        def spans(self, expand, payload, size):
+            with self._log_lock:
+                self.log.append(("spans", (threading.get_ident(), expand, payload)))
+                super().spans(expand, payload, size)
+
+    return _LoggingTracer
+
+
+def instrument_trace_phase(card, engine, cap=None):
+    """Section 29's traced serve run (INSTRUMENTS) at the tracer's default
+    cap or at ``cap``: the compact records' export against the eager
+    construction of the same log."""
+    import threading
+
+    import numpy as np
+
+    from dist_svgd_torch import telemetry
+    from dist_svgd_torch.serving import MicroBatcher
+    from dist_svgd_torch.telemetry import trace as ttrace
+
+    kw = {} if cap is None else {"max_events": cap}
+    reg = telemetry.MetricsRegistry()
+    logging_tracer = _logging_tracer_class()(registry=reg, **kw)
+    batcher = MicroBatcher(engine.predict, max_batch=256, max_wait_ms=2.0,
+                           registry=telemetry.MetricsRegistry())
+    rng = np.random.default_rng(SHARDED_SEED + 29)
+    pool = [rng.normal(size=(r, engine.feature_dim)).astype(np.float32)
+            for r in INSTRUMENTS["rows"]]
+    n, clients = INSTRUMENTS["requests"], INSTRUMENTS["clients"]
+
+    def client(c):
+        for j in range(c, n, clients):
+            batcher.submit(pool[j % len(pool)]).result()
+
+    ttrace._TRACER = logging_tracer
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        ttrace._TRACER = None
+        batcher.close()
+    wall = time.perf_counter() - t0
+    eager = _eager_tracer_class()(registry=telemetry.MetricsRegistry(), **kw)
+    eager._thread_names.update(logging_tracer._thread_names)
+    for kind, item in logging_tracer.log:
+        if kind == "event":
+            eager._append(item)
+        elif kind == "spans":  # the engine's spans, one append each
+            tid, expand, payload = item
+            for event in expand(tid, *payload):
+                eager._append(event)
+        else:
+            eager.lane_trees(*item)
+    got, want = logging_tracer.chrome_events(), eager.chrome_events()
+    counts = logging_tracer.counts()
+    batches = sum(1 for kind, _ in logging_tracer.log if kind == "trees")
+    row = {"phase": "instrument_trace", "cap": cap, "requests": n, "batches": batches,
+           "events": len(got), "counts": counts,
+           "dropped": logging_tracer.dropped_events,
+           "dropped_metric": reg.counter("svgd_trace_dropped_total").value(),
+           "lanes": len(logging_tracer._lanes), "wall_s": wall, "card": card}
+    ok = (got == want and counts == eager.counts()
+          and logging_tracer.dropped_events == eager.dropped_events
+          == row["dropped_metric"] and len(logging_tracer._lanes) == len(eager._lanes)
+          and (counts.get("serve.request") == n if cap is None
+               else row["dropped"] > 0 and sum(counts.values()) == cap))
+    emit({**row, "equal_to_eager": got == want, "ok": ok})
+    if not ok:
+        raise AssertionError(f"instrument_trace: {row}")
+
+
+def _diag_cases(device):
+    """(name, particles, num_shards, config kw, InputScore, plain closure)
+    at the fault drill's shape and the freshness drill's drift check."""
+    import numpy as np
+
+    from dist_svgd_torch.models.logreg import make_logreg_split
+    from dist_svgd_torch.ops.kernels import RBF
+    from dist_svgd_torch.resilience.supervisor import _SamplerHarness
+    from dist_svgd_torch.sampler import Sampler
+    from dist_svgd_torch.tools.fault_drill import gmm_score_fn
+    from dist_svgd_torch.utils.rng import init_particles, init_particles_per_shard
+
+    gmm = gmm_score_fn()
+    fault = ("fault_drill", init_particles_per_shard(0, 2048, 2, 4, device=device), 4,
+             dict(row_chunk=512, max_points=512), gmm, lambda th: gmm(th))
+    rng = np.random.default_rng(SHARDED_SEED + 30)
+    likelihood, prior = make_logreg_split()
+    sampler = Sampler(6, likelihood, kernel=RBF(1.0),
+                      data=(rng.normal(size=(512, 5)).astype(np.float32),
+                            np.where(rng.random(512) < 0.5, -1.0, 1.0)),
+                      batch_size=64, log_prior=prior, device=device)
+    score = _SamplerHarness(sampler, 256).score_fn
+    fresh = ("freshness_drill", init_particles(0, 256, 6, device=device), 1,
+             dict(row_chunk=256, max_points=256), score, lambda th: score(th))
+    return [fault, fresh]
+
+
+def instrument_diagnostics_phase(card, device="cuda"):
+    """Section 29's captured diagnostics pass against the eager pass."""
+    import statistics
+
+    import torch
+
+    from dist_svgd_torch.parallel.plan import capture_sentry
+    from dist_svgd_torch.telemetry import MetricsRegistry
+    from dist_svgd_torch.telemetry.diagnostics import DiagnosticsConfig, PosteriorDiagnostics
+
+    def timed(diag, parts, shards, walls):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = diag.compute(parts, num_shards=shards, step=16)
+        walls.append(time.perf_counter() - t0)
+        return rep
+
+    failed = []
+    for name, parts, shards, cfg, graphed_score, plain_score in _diag_cases(device):
+        graphed = PosteriorDiagnostics(DiagnosticsConfig(score_fn=graphed_score, **cfg),
+                                       registry=MetricsRegistry())
+        eager = PosteriorDiagnostics(DiagnosticsConfig(score_fn=plain_score, **cfg),
+                                     registry=MetricsRegistry())
+        with capture_sentry(f"{name} first compute") as first:
+            graphed.compute(parts, num_shards=shards, step=16)
+        eager.compute(parts, num_shards=shards, step=16)
+        errs, graphed_s, eager_s = [], [], []
+        with capture_sentry(f"{name} replays") as window:
+            for i in range(INSTRUMENTS["diag_calls"]):
+                p = parts + (i % 5) * 1e-3
+                got = timed(graphed, p, shards, graphed_s)
+                want = timed(eager, p, shards, eager_s)
+                errs.append(max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                                for k in want if k != "wall_s"))
+        row = {"phase": "instrument_diagnostics", "shape": name,
+               "n": int(parts.shape[0]), "d": int(parts.shape[1]), "num_shards": shards,
+               **cfg, "first_compute_captures": first.captures,
+               "replay_window_captures": window.compiles,
+               "graphed_ms": statistics.median(graphed_s) * 1e3,
+               "eager_ms": statistics.median(eager_s) * 1e3,
+               "max_rel_err": max(errs), "bitwise": max(errs) == 0.0,
+               "tol": DIAG_GRAPH_RTOL, "ksd": got.get("ksd"), "ess": got["ess"],
+               "card": card}
+        ok = (first.captures == 1 and window.compiles == 0 and max(errs) <= DIAG_GRAPH_RTOL
+              and len(graphed._graphs) == 1 and not eager._graphs)
+        emit({**row, "ok": ok})
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"instrument_diagnostics: {failed}")
+
+
+def instrument_phases(card, device="cuda"):
+    """Section 29 (the comment above INSTRUMENTS): the compact trace and the
+    captured diagnostics held against their eager constructions; the two
+    overhead rows and their direct costs printed for information.
+    ``device='cpu'`` rehearses it (no graphs: the diagnostics pass is eager
+    on both sides)."""
+    from dist_svgd_torch.tools import fault_drill, overhead_probe, perf_regress, serve_bench
+
+    t0 = time.perf_counter()
+    engine = serve_bench.build_engine("logreg", 10_000, 54, max_bucket=256, device=device)
+    engine.warmup()
+    instrument_trace_phase(card, engine)
+    instrument_trace_phase(card, engine, cap=INSTRUMENTS["cap"])
+    instrument_diagnostics_phase(card, device)
+    probe = overhead_probe.tracer_us_per_request(engine, pairs=INSTRUMENTS["probe_pairs"],
+                                                 calls=INSTRUMENTS["probe_calls"])
+    tel = serve_bench.measure_telemetry_overhead(rounds=INSTRUMENTS["rounds"], device=device,
+                                                 **perf_regress.SERVE_BENCH_KW)
+    diag = fault_drill.measure_diagnostics_overhead(rounds=INSTRUMENTS["rounds"],
+                                                    device=device)
+    emit({"phase": "instrument_overheads", "information_only": True,
+          "tracer_us_per_request": probe["tracer_us_per_request"],
+          "request_us_off": probe["request_us_off"], "request_us_on": probe["request_us_on"],
+          "telemetry_overhead": tel["overhead_frac"], "rps_disabled": tel["rps_disabled"],
+          "rps_enabled": tel["rps_enabled"],
+          "diagnostics_overhead": diag["overhead_frac"], "diag_wall_off_s": diag["wall_off_s"],
+          "diag_wall_on_s": diag["wall_on_s"],
+          "ceilings": {"telemetry_overhead": perf_regress.TELEMETRY_OVERHEAD_MAX,
+                       "diagnostics_overhead": perf_regress.DIAGNOSTICS_OVERHEAD_MAX},
+          "seconds": time.perf_counter() - t0, "card": card})
+
+
+#: ``--fleet-load``: the host load fleet_covertype is held under — busy
+#: processes of this script's Python, each one a spinning core (the 8-core
+#: card machine then runs the phase with twice its cores busy).
+FLEET_LOAD = dict(procs=16, runs=5)
+
+
+def fleet_load_main(argv):
+    """``python3 chip_smoke.py --fleet-load [--runs R] [--procs P] [--tree
+    DIR]``: section 23's fleet_covertype phase ``R`` times while ``P`` busy
+    processes load the host, each run's row printed, then one
+    ``fleet_load`` summary.  ``--tree DIR`` runs another checkout's phase
+    and package (DIR's ``chip_smoke.py`` and ``dist_svgd_torch``), so a
+    change and its parent are held under the same load in one call.  Exits
+    0 when every run passed."""
+    import argparse
+    import importlib.util
+    import os
+    import shutil
+    import signal
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --fleet-load")
+    ap.add_argument("--runs", type=int, default=FLEET_LOAD["runs"])
+    ap.add_argument("--procs", type=int, default=FLEET_LOAD["procs"])
+    ap.add_argument("--tree", default=None)
+    args = ap.parse_args(argv)
+    mod = sys.modules[__name__]
+    if args.tree:
+        tree = os.path.abspath(args.tree)
+        sys.path.insert(0, tree)
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_tree", os.path.join(tree, "chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from dist_svgd_torch.utils.platform import resolve_device
+
+    resolve_device(None)
+    card = smi("name,power.limit")
+    print(card, flush=True)
+    root = str(Path(mod.__file__).resolve().parent / "build" / "chip_smoke_fleet_load")
+    shutil.rmtree(root, ignore_errors=True)
+    busy = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+            for _ in range(args.procs)]
+    rows = []
+    try:
+        for i in range(args.runs):
+            run_root = os.path.join(root, f"run{i}")
+            os.makedirs(run_root)
+            t0 = time.perf_counter()
+            try:
+                mod.fleet_covertype_phase(run_root, card)
+                rows.append({"run": i, "ok": True})
+            except AssertionError as e:
+                rows.append({"run": i, "ok": False, "error": str(e)[:600]})
+            rows[-1]["seconds"] = time.perf_counter() - t0
+    finally:
+        for p in busy:
+            p.send_signal(signal.SIGKILL)
+        for p in busy:
+            p.wait()
+    passed = sum(r["ok"] for r in rows)
+    emit({"phase": "fleet_load", "tree": mod.__file__, "load_procs": args.procs,
+          "cpus": os.cpu_count(), "runs": args.runs, "passed": passed, "rows": rows,
+          "card": card})
+    return 0 if passed == args.runs else 1
 
 
 def _mh_sampler(leg, mesh, device):
@@ -6735,6 +7114,9 @@ def main():
     # ---- 28. sharded serving: the fleet's ensemble over emulated meshes ---------
     sharded_serving_phases(card, *covertype_fleet)
 
+    # ---- 29. the instruments: the compact trace, the captured diagnostics -------
+    instrument_phases(card)
+
     # each kernel's launches on the path whose shape its timed row has (the
     # c-transform's is the streaming route's; the W2 north star launches it
     # 200 times too, checked above)
@@ -6766,4 +7148,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-worker"]:  # one rank of a section-24 federation
         sys.exit(multihost_worker(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--fleet-load"]:  # section 23's fleet under a host load
+        sys.exit(fleet_load_main(sys.argv[2:]))
     sys.exit(main())

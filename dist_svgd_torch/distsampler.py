@@ -264,8 +264,7 @@ class DistSampler:
             tensors, as JAX donates them; a run copies those carries once
             before its first step, so tensors handed out earlier
             (:attr:`particles`, :meth:`make_step`'s result,
-            :meth:`state_dict`) never change.  Every other option outside
-            the port raises ``NotImplementedError``.
+            :meth:`state_dict`) never change.
     """
 
     def __init__(

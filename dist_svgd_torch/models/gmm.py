@@ -28,11 +28,17 @@ def make_gmm_logp(
     means_t, scales_t = tuple(map(float, means)), tuple(map(float, scales))
     log_w = tuple(math.log(w) for w in weights)
 
+    def column(values, like):
+        # fills, not a host copy: the same values, and no pageable copy to
+        # the card on every call (none at all inside a CUDA-graph capture,
+        # where a pageable copy is refused)
+        return torch.stack([like.new_full((), v) for v in values])[:, None]
+
     def logp(theta, data=None):
         del data  # no dataset — the target density is the model
-        mu = torch.tensor(means_t, dtype=theta.dtype, device=theta.device)[:, None]
-        sc = torch.tensor(scales_t, dtype=theta.dtype, device=theta.device)[:, None]
-        lw = torch.tensor(log_w, dtype=theta.dtype, device=theta.device)[:, None]
+        mu = column(means_t, theta)
+        sc = column(scales_t, theta)
+        lw = column(log_w, theta)
         z = (theta[None, :] - mu) / sc
         comp = lw + (-0.5 * z * z - torch.log(sc) - _LOG_SQRT_2PI)
         return torch.sum(torch.logsumexp(comp, dim=0))

@@ -65,6 +65,7 @@ contract is held to (0).
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import warnings
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -216,17 +217,28 @@ class _Graph:
                     fn(*self.static_in)
             stream.synchronize()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(stream):
-                self.graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self.static_out = fn(*self.static_in)
-                except BaseException:
-                    try:  # close the broken capture; the original error is the one raised
-                        self.graph.capture_end()
-                    except Exception:
-                        pass
-                    raise
-                self.graph.capture_end()
+            # no cyclic collection inside the capture: one that frees a
+            # dropped program's graph there resets it on the capturing
+            # thread, which the capture refuses (cudaErrorStreamCapture-
+            # Invalidated); collect first instead, as torch.cuda.graph does
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(stream):
+                    self.graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        self.static_out = fn(*self.static_in)
+                    except BaseException:
+                        try:  # close the broken capture; the original error is the one raised
+                            self.graph.capture_end()
+                        except Exception:
+                            pass
+                        raise
+                    self.graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
             stream.synchronize()
 
     def run(self, args):

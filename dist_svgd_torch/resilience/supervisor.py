@@ -300,12 +300,17 @@ class _SamplerHarness:
         dtype)."""
         s = self._s
 
-        def score(theta):
-            data = tree_map(lambda a: a.to(theta.dtype) if a.is_floating_point() else a,
-                            s._data)
-            return torch.func.grad(s._full_logp(data))(theta)
+        def score_on(data):
+            def score(theta):
+                cast = tree_map(lambda a: a.to(theta.dtype) if a.is_floating_point() else a,
+                                data)
+                return torch.func.grad(s._full_logp(cast))(theta)
 
-        return score
+            return score
+
+        # the data are the closure's inputs, so a captured diagnostics pass
+        # reads the sampler's data of each compute (set_data swaps them)
+        return _diagnostics.data_score(lambda: s._data, score_on)
 
     def run_segment(self, k: int, step_size: float) -> None:
         final, _ = self._s.run(

@@ -147,6 +147,28 @@ def _percentile(sorted_vals: List[float], q: float) -> float:
     return sorted_vals[idx]
 
 
+def _request_tree(enq, n_rows, n_chunks, trace, rows, requests, lane_label, tenant,
+                  generation, t_pop, t_disp0, t_disp1):
+    """The ``serve.request`` lane tree of one completed request, built from
+    the batcher's flat record when the trace is read
+    (``Tracer.lane_trees``)."""
+    attrs = {"rows": n_rows, "n_chunks": n_chunks, "batch_rows": rows,
+             "batch_requests": requests, "lane": lane_label}
+    if tenant is not None:
+        attrs["tenant"] = tenant
+    if generation is not None:
+        attrs["generation"] = generation
+    if trace is not None:
+        # the cross-process join key: trace_report --stitch matches this
+        # tree to the router's fleet.route on it
+        attrs["trace"] = trace
+    return "serve.request", attrs, (
+        ("serve.queue_wait", enq, t_pop, None),
+        ("serve.coalesce", t_pop, t_disp0, {"requests": requests, "rows": rows}),
+        ("serve.dispatch", t_disp0, t_disp1, {"rows": rows, "lane": lane_label}),
+    )
+
+
 class MicroBatcher:
     """Coalescing dispatch queue in front of a ``dispatch(x) -> dict`` callable
     (typically :meth:`PredictiveEngine.predict`).
@@ -869,8 +891,13 @@ class MicroBatcher:
             # one lane tree per completed request: the cross-thread
             # enqueue→reply lifetime with the queue-wait / coalesce /
             # dispatch split of its final batch (a split oversize request
-            # reports the batch that completed it; n_chunks tags that)
+            # reports the batch that completed it; n_chunks tags that).
+            # One flat record a request, one tracer lock a batch: the trees
+            # are expanded (_request_tree) only when the trace is read
             t_reply = tracer.now()
+            shared = (rows, len(batch), lane_label, tenant, generation,
+                      t_pop, t_disp0, t_disp1)
+            records = []
             for req, n_rows, _lat in latencies:
                 # only trust an enqueue stamp from THIS tracer: a request
                 # submitted under an earlier (since-disabled) tracer carries
@@ -878,27 +905,9 @@ class MicroBatcher:
                 enq = (req.trace_enq
                        if req.trace_src is tracer and req.trace_enq is not None
                        else t_pop)
-                attrs = {"rows": n_rows, "n_chunks": req.n_chunks,
-                         "batch_rows": rows, "batch_requests": len(batch),
-                         "lane": lane_label}
-                if tenant is not None:
-                    attrs["tenant"] = tenant
-                if generation is not None:
-                    attrs["generation"] = generation
-                if req.trace is not None:
-                    # the cross-process join key: trace_report --stitch
-                    # matches this tree to the router's fleet.route on it
-                    attrs["trace"] = req.trace
-                tracer.lane_tree(
-                    "serve.request", enq, t_reply, attrs,
-                    children=[
-                        ("serve.queue_wait", enq, t_pop, None),
-                        ("serve.coalesce", t_pop, t_disp0,
-                         {"requests": len(batch), "rows": rows}),
-                        ("serve.dispatch", t_disp0, t_disp1,
-                         {"rows": rows, "lane": lane_label}),
-                    ],
-                )
+                records.append(
+                    (enq, t_reply, (enq, n_rows, req.n_chunks, req.trace) + shared))
+            tracer.lane_trees(_request_tree, records, 4)
         if self._logger is not None:
             self._logger.log(
                 event="batch",

@@ -128,6 +128,28 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _engine_spans(tid, t0, t1, pad0, pad1, disp0, disp1, rows, bucket, model, trace,
+                  err, where):
+    """The events of one traced :meth:`PredictiveEngine.predict`, from its
+    compact record, in the order its spans closed: ``engine.pad`` (when
+    padded), ``engine.dispatch`` (when reached), ``engine.predict`` — each
+    an error tag where the exception passed through it."""
+    def error(inside):
+        return ("error", err) if err is not None and inside else ()
+
+    out = []
+    if pad0 is not None:
+        out.append(("X", "engine.pad", pad0, max(pad1 - pad0, 0.0), tid)
+                   + error(where == "pad"))
+    if disp0 is not None:
+        out.append(("X", "engine.dispatch", disp0, max(disp1 - disp0, 0.0), tid,
+                    "bucket", bucket) + error(where == "dispatch"))
+    out.append(("X", "engine.predict", t0, max(t1 - t0, 0.0), tid,
+                "rows", rows, "bucket", bucket, "model", model)
+               + (("trace", trace) if trace is not None else ()) + error(True))
+    return out
+
+
 class PredictiveEngine:
     """Low-latency posterior-predictive evaluation of one particle ensemble.
 
@@ -660,28 +682,74 @@ class PredictiveEngine:
                 "split it upstream (MicroBatcher max_batch does this)"
             )
         bucket = bucket_for(b, self.min_bucket)
-        traced = _trace.enabled()
-        tags = None
-        if traced:
-            tags = {"rows": b, "bucket": bucket, "model": self.model}
-            ctx = _trace.get_trace_context()
-            if ctx is not None:
-                tags["trace"] = ctx
-        with _trace.span("engine.predict", tags):
+        tracer = _trace.get_tracer()
+        if tracer is not None:
+            return self._predict_traced(tracer, x, b, bucket, generation)
+        fn, dtype = self._kernel_for(bucket, generation)
+        return self._run(fn, _NUMPY_DTYPES[dtype], x, b, bucket)
+
+    @staticmethod
+    def _pad(x, b, bucket, wire):
+        # pad on the HOST: a device-side pad would be a new program shape
+        # per (b, bucket) pair — a graph capture per request size while the
+        # bucket cache reports all hits
+        xp = np.zeros((bucket, x.shape[1]), dtype=wire)
+        xp[:b] = x
+        return xp
+
+    @staticmethod
+    def _dispatch(fn, x, b, wire):
+        out = fn(torch.from_numpy(np.ascontiguousarray(x, dtype=wire)))
+        # slice AFTER the host fetch (same reason as the pad)
+        return {k: v.numpy()[:b] for k, v in out.items()}
+
+    def _run(self, fn, wire, x, b, bucket):
+        if bucket != b:
+            x = self._pad(x, b, bucket, wire)
+        return self._dispatch(fn, x, b, wire)
+
+    def _predict_traced(self, tracer, x, b, bucket, generation):
+        """:meth:`predict` under the tracer: the ``engine.predict`` span,
+        with ``engine.pad`` (when the batch is padded) and
+        ``engine.dispatch`` inside it, recorded as one compact record a
+        batch (``Tracer.spans``, expanded by :func:`_engine_spans` when the
+        trace is read) — the events three nested spans record, tags and
+        error tags included, without a span object, a tag dict and a locked
+        append each on the serving path.  The stack mark keeps what an
+        instant inside sees (``kernel_build`` during a capture lands in
+        ``engine.dispatch``)."""
+        ctx = _trace.get_trace_context()
+        mark = tracer.push_mark("engine.predict")
+        t0 = tracer.now()
+        pad = dispatch = (None, None)
+        err = where = None
+        try:
             fn, dtype = self._kernel_for(bucket, generation)
             wire = _NUMPY_DTYPES[dtype]
             if bucket != b:
-                # pad on the HOST: a device-side pad would be a new program
-                # shape per (b, bucket) pair — a graph capture per request
-                # size while the bucket cache reports all hits
-                with _trace.span("engine.pad"):
-                    xp = np.zeros((bucket, x.shape[1]), dtype=wire)
-                    xp[:b] = x
-                    x = xp
-            with _trace.span("engine.dispatch", {"bucket": bucket} if traced else None):
-                out = fn(torch.from_numpy(np.ascontiguousarray(x, dtype=wire)))
-                # slice AFTER the host fetch (same reason as the pad)
-                return {k: v.numpy()[:b] for k, v in out.items()}
+                mark.name, where = "engine.pad", "pad"
+                pad = (tracer.now(), None)
+                x = self._pad(x, b, bucket, wire)
+                pad = (pad[0], tracer.now())
+            mark.name, where = "engine.dispatch", "dispatch"
+            dispatch = (tracer.now(), None)
+            out = self._dispatch(fn, x, b, wire)
+            dispatch = (dispatch[0], tracer.now())
+            where = None
+            return out
+        except BaseException as e:
+            err = type(e).__name__
+            if where == "pad":
+                pad = (pad[0], tracer.now())
+            elif where == "dispatch":
+                dispatch = (dispatch[0], tracer.now())
+            raise
+        finally:
+            t1 = tracer.now()
+            tracer.pop_mark(mark)
+            tracer.spans(_engine_spans,
+                         (t0, t1) + pad + dispatch + (b, bucket, self.model, ctx, err, where),
+                         1 + (pad[0] is not None) + (dispatch[0] is not None))
 
     def warmup(self, batch_sizes: Optional[List[int]] = None) -> List[int]:
         """Build every bucket's program (a graph capture each on the card)

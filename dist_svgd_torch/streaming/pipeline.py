@@ -204,14 +204,24 @@ class StreamingSupervisor(RunSupervisor):
         only a full ring (ROADMAP C)."""
         pinned = []
 
-        def score(theta):
+        def reference():
             data = pinned[0] if pinned else self.sampler._data
             if not pinned and self._ring.written >= self._ring.capacity:
                 pinned.append(data)
-            data = tree_map(lambda a: a.to(theta.dtype) if a.is_floating_point() else a, data)
-            return torch.func.grad(self.sampler._full_logp(data))(theta)
+            return data
 
-        return score
+        def score_on(data):
+            def score(theta):
+                cast = tree_map(lambda a: a.to(theta.dtype) if a.is_floating_point() else a,
+                                data)
+                return torch.func.grad(self.sampler._full_logp(cast))(theta)
+
+            return score
+
+        # the reference corpus is the closure's input: a captured drift
+        # check copies the corpus of each check into its graph, so the
+        # graph never bakes in the first check's (the JAX fault above)
+        return _diagnostics.data_score(reference, score_on)
 
     # ------------------------------------------------------------------ #
     # checkpoint seam: stream cursor + corpus ride every save

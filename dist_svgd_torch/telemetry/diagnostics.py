@@ -41,9 +41,10 @@ no allocation, no clock read.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -56,6 +57,8 @@ __all__ = [
     "DiagnosticsConfig",
     "PosteriorDiagnostics",
     "ReloadPolicy",
+    "InputScore",
+    "data_score",
     "DISABLED",
     "ensemble_health",
 ]
@@ -100,7 +103,8 @@ def _scan_pair_blocks(particles: torch.Tensor, scores: Optional[torch.Tensor], h
 def _resolve_bandwidth(particles: torch.Tensor, bandwidth: float, median_bw: bool):
     if median_bw:
         return median_bandwidth_approx(particles)
-    return particles.new_tensor(float(bandwidth))
+    # a fill, not a host copy: the pass may run inside a graph capture
+    return particles.new_full((), float(bandwidth))
 
 
 #: Row cap for the median-distance bracket inside the pairwise pass — the
@@ -196,8 +200,57 @@ def _host_floats(block: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """Every 0-dim tensor of ``block`` as a Python float, in one device →
     host transfer (it is the compute's fence)."""
     keys = list(block)
-    vals = torch.stack([block[k].to(torch.float64) for k in keys]).tolist()
-    return dict(zip(keys, vals))
+    return dict(zip(keys, _stacked(block).tolist()))
+
+
+def _stacked(block: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``block``'s 0-dim tensors as one float64 vector, in its key order."""
+    return torch.stack([v.to(torch.float64) for v in block.values()])
+
+
+class InputScore:
+    """A score closure ``θ ↦ ∇log p(θ)`` that names the tensors it reads.
+
+    ``fn(theta, *tensors)`` is the score on explicit tensors and
+    ``inputs()`` returns the tensors the closure reads now (none by
+    default); calling the closure is ``fn(theta, *inputs())``.  On the card
+    :class:`PosteriorDiagnostics` replays one captured CUDA graph for such
+    a closure and copies what ``inputs()`` returns into the graph's inputs
+    at every compute, so data the closure swaps between computes (a
+    streaming corpus, a sampler's ``set_data``) is read fresh, never from
+    the address the capture saw.  Any other closure runs eagerly."""
+
+    __slots__ = ("fn", "inputs")
+
+    def __init__(self, fn: Callable, inputs: Callable[[], tuple] = tuple):
+        self.fn = fn
+        self.inputs = inputs
+
+    def __call__(self, theta):
+        return self.fn(theta, *self.inputs())
+
+
+def data_score(data: Callable[[], object],
+               score_on: Callable[[object], Callable]) -> InputScore:
+    """An :class:`InputScore` over a data tree: ``data()`` returns the tree
+    the closure reads now (``None``, a tensor, or a tuple / list / dict of
+    them) and ``score_on(tree)`` the score ``θ ↦ ∇log p(θ)`` on it.  The
+    tree's tensors are the closure's inputs."""
+    from dist_svgd_torch.parallel.exchange import tree_map
+
+    latest = [None]  # the tree of the newest data() call: its structure
+
+    def inputs():
+        tree = latest[0] = data()
+        leaves = []
+        tree_map(leaves.append, tree)
+        return tuple(leaves)
+
+    def fn(theta, *leaves):
+        it = iter(leaves)
+        return score_on(tree_map(lambda _: next(it), latest[0]))(theta)
+
+    return InputScore(fn, inputs)
 
 
 @dataclass
@@ -237,6 +290,18 @@ class DiagnosticsConfig:
             raise ValueError(f"row_chunk must be >= 1, got {self.row_chunk}")
         if self.max_points < 2:
             raise ValueError(f"max_points must be >= 2, got {self.max_points}")
+
+
+def _capture(fn: Callable, args: list):
+    """The pass's program for one key: a captured CUDA graph on the card
+    (``parallel/plan.py:_Graph``, as the serving programs), ``None`` on the
+    CPU, where the pass runs eagerly."""
+    device = args[0].device
+    if device.type != "cuda":
+        return None
+    from dist_svgd_torch.parallel import plan
+
+    return plan._Graph(fn, args, device, plan.WARMUP_CALLS)
 
 
 class _NoopDiagnostics:
@@ -291,7 +356,10 @@ class PosteriorDiagnostics:
         # instance-held score closure: ensure_score_fn adopts a sampler's
         # closure here, never into the caller-owned (possibly shared) config
         self._score_fn = self.config.score_fn
-        self._scores_vmap = None  # built lazily from _score_fn
+        # the pass's programs by key (_pass_key): a captured graph on the
+        # card, None on the CPU (the key's first compute is still counted)
+        self._graphs: Dict[tuple, object] = {}
+        self._graph_lock = threading.Lock()
         self._gauges = {
             name: reg.gauge(f"svgd_diag_{name}", help)
             for name, help in (
@@ -327,15 +395,7 @@ class PosteriorDiagnostics:
         the shared config object is never mutated."""
         if self._score_fn is None and score_fn is not None:
             self._score_fn = score_fn
-            self._scores_vmap = None
         return self
-
-    def _score_array(self, particles: torch.Tensor) -> Optional[torch.Tensor]:
-        if self._score_fn is None:
-            return None
-        if self._scores_vmap is None:
-            self._scores_vmap = torch.func.vmap(self._score_fn)
-        return self._scores_vmap(particles)
 
     def compute(self, particles, scores=None, num_shards: Optional[int] = None,
                 step: Optional[int] = None) -> Dict:
@@ -345,7 +405,17 @@ class PosteriorDiagnostics:
         ``scores`` overrides the config's ``score_fn`` (pass the score
         tensor a training step already computed); ``num_shards`` > 1 adds
         the inter-shard divergence block.  Returns the report dict of
-        plain floats (also kept as :attr:`last_report`)."""
+        plain floats (also kept as :attr:`last_report`).
+
+        On the card the pass is one CUDA graph a key — the shapes, the
+        shard count, the config's ``max_points`` / ``row_chunk`` /
+        ``bandwidth`` and the score closure — captured at the key's first
+        compute (``parallel/plan.py:capture_sentry`` counts it) and
+        replayed after, with one host transfer; JAX compiles its pass once
+        the same way.  That holds when the pass reads nothing a graph could
+        bake in: passed ``scores``, no score, or an :class:`InputScore`,
+        whose tensors are graph inputs.  Any other score closure runs the
+        pass eagerly, as on the CPU."""
         cfg = self.config
         particles = torch.as_tensor(particles)
         n, d = particles.shape
@@ -358,27 +428,25 @@ class PosteriorDiagnostics:
         # torch.func.grad in the score closure ignores an outer no_grad
         with _trace.span("train.diagnostics", {"step": step, "n": n} if traced else None), \
                 torch.no_grad():
-            median_bw = cfg.bandwidth == "median"
-            bw = 1.0 if median_bw else float(cfg.bandwidth)
-            # all O(rows²) statistics run on the capped subsample
-            sub = _subsample(particles, cfg.max_points)
-            n_eval = sub.shape[0]
+            shards = (num_shards if num_shards and num_shards > 1 and n % num_shards == 0
+                      else 1)
+            score = None if scores is not None else self._score_fn
+            args = [particles]
             if scores is not None:
-                sub_scores = _subsample(torch.as_tensor(scores, device=particles.device),
-                                        cfg.max_points)
+                args.append(torch.as_tensor(scores, device=particles.device))
+            elif isinstance(score, InputScore):
+                args.extend(score.inputs())
+            keys = []
+            fn = self._pass_fn(cfg, score, scores is not None, shards, keys)
+            if score is None or isinstance(score, InputScore):
+                vec, keys = self._graphed(fn, args, keys,
+                                          self._pass_key(cfg, score, shards, args))
             else:
-                sub_scores = self._score_array(sub)
-            if sub_scores is not None:
-                pair = _ksd_stats(sub, sub_scores, bw, cfg.row_chunk, median_bw)
-            else:
-                pair = _kernel_stats(sub, bw, cfg.row_chunk, median_bw)
-            if num_shards and num_shards > 1 and n % num_shards == 0:
-                extra = _shard_stats(particles, num_shards)
-            else:
-                extra = {"min_dim_var": _dim_var_stats(particles)}
+                vec = fn(*args)
             # the one host transfer is the fence: the span's wall covers the
             # device's execution
-            report = _host_floats({**pair, **extra})
+            report = dict(zip(keys, vec.tolist()))
+        n_eval = _subsample(particles, cfg.max_points).shape[0]
         report["ess_frac"] = report["ess"] / n_eval
         report["n"] = n
         report["n_eval"] = n_eval
@@ -389,6 +457,66 @@ class PosteriorDiagnostics:
         report["wall_s"] = round(wall, 6)
         self._record(report, wall)
         return report
+
+    @staticmethod
+    def _pass_key(cfg: DiagnosticsConfig, score, shards: int, args) -> tuple:
+        return (tuple((tuple(a.shape), a.dtype, a.device) for a in args), shards,
+                cfg.max_points, cfg.row_chunk, cfg.bandwidth, score)
+
+    @staticmethod
+    def _pass_fn(cfg: DiagnosticsConfig, score, with_scores: bool, shards: int,
+                 keys: list) -> Callable:
+        """The pass as a function of its tensors — ``(particles[, scores |
+        the score's inputs])`` → the report's float64 vector, whose names
+        it writes into ``keys``.  Every shape and setting it branches on
+        is in the pass's key, so a captured graph of it stays valid."""
+        median_bw = cfg.bandwidth == "median"
+        bw = 1.0 if median_bw else float(cfg.bandwidth)
+
+        def run(particles, *rest):
+            # all O(rows²) statistics run on the capped subsample
+            sub = _subsample(particles, cfg.max_points)
+            if with_scores:
+                sub_scores = _subsample(rest[0], cfg.max_points)
+            elif isinstance(score, InputScore):
+                sub_scores = torch.func.vmap(lambda th: score.fn(th, *rest))(sub)
+            elif score is not None:
+                sub_scores = torch.func.vmap(score)(sub)
+            else:
+                sub_scores = None
+            if sub_scores is not None:
+                pair = _ksd_stats(sub, sub_scores, bw, cfg.row_chunk, median_bw)
+            else:
+                pair = _kernel_stats(sub, bw, cfg.row_chunk, median_bw)
+            if shards > 1:
+                extra = _shard_stats(particles, shards)
+            else:
+                extra = {"min_dim_var": _dim_var_stats(particles)}
+            block = {**pair, **extra}
+            keys[:] = list(block)
+            return _stacked(block)
+
+        return run
+
+    def _graphed(self, fn: Callable, args: list, keys: list,
+                 key: tuple) -> Tuple[torch.Tensor, list]:
+        """``fn(*args)`` and its report names through the key's program: a
+        CUDA graph on the card (captured by the key's first compute,
+        replayed after: the arguments are copied into its static inputs and
+        its vector fetched to the host); eagerly on the CPU.  A key's first
+        compute counts as one capture on either device, as a new program
+        shape does."""
+        from dist_svgd_torch.parallel import plan
+
+        with self._graph_lock:
+            if key not in self._graphs:
+                # the capture's warm-up calls name the vector's entries
+                self._graphs[key] = (_capture(fn, args), keys)
+                plan._note_capture()
+            graph, graph_keys = self._graphs[key]
+        if graph is None:
+            return fn(*args), keys
+        return graph.replay(args), graph_keys
 
     def _record(self, report: Dict, wall: float) -> None:
         for name, gauge in self._gauges.items():

@@ -86,14 +86,16 @@ __all__ = [
 TRACE_HEADER = "X-Fleet-Trace"
 
 _MINT_PREFIX = os.urandom(4).hex()  # 32 random bits per process
+_MINT_BASE = int(_MINT_PREFIX, 16) << 32
 _MINT_SEQ = itertools.count(1)
 
 
 def mint_trace_id() -> str:
     """A fresh 16-hex-char trace id: a per-process random 32-bit prefix +
     a process-local sequence.  Unique within a process by construction,
-    collision-safe across a fleet via the prefix, and no syscall per id."""
-    return f"{_MINT_PREFIX}{next(_MINT_SEQ) & 0xFFFFFFFF:08x}"
+    collision-safe across a fleet via the prefix, and no syscall per id
+    (one format a request: it runs on every traced submit)."""
+    return "%016x" % (_MINT_BASE | (next(_MINT_SEQ) & 0xFFFFFFFF))
 
 
 _TRACE_CTX = threading.local()
@@ -164,10 +166,106 @@ def fence(value) -> bool:
     return bool(devices)
 
 
+# Events are kept compact until the trace is read, and out of the garbage
+# collector's way: CPython's collector stops tracking a tuple that holds only
+# numbers, strings and None the first time it sees it, so a long trace adds
+# nothing to the collections a serving process runs (a dict, or a tuple of
+# tuples, would stay tracked and be scanned again by every full
+# collection).  So every record is one flat tuple:
+# - an event: ``(ph, name, ts, dur, tid, k1, v1, k2, v2, ...)``, its tags
+#   flattened after the five fixed fields (:func:`_flat`);
+# - a lane tree of :meth:`Tracer.lane_trees`: ``("T", expander id, keep, t0,
+#   t1, lane, *payload)``, expanded into its events when the trace is read;
+# - spans of one thread recorded together by :meth:`Tracer.spans`: ``("S",
+#   expander id, keep, tid, *payload)``, expanded the same way.
+
+
+def _flat(tags: Optional[dict]) -> tuple:
+    """A span's tags as the event keeps them: keys and values alternating."""
+    if not tags:
+        return ()
+    out = []
+    for kv in tags.items():
+        out += kv
+    return tuple(out)
+
+
+def _tags(event: tuple) -> Optional[dict]:
+    """The tags an event tuple keeps, as a dict (``None`` when it has none)."""
+    return dict(zip(event[5::2], event[6::2])) if len(event) > 5 else None
+
+
+def _event_dict(event: tuple) -> dict:
+    """An event tuple as the event dict JAX's tracer keeps (an instant has
+    no ``dur`` key)."""
+    ph, name, ts, dur, tid = event[:5]
+    if ph == "X":
+        return {"ph": ph, "name": name, "ts": ts, "dur": dur, "tid": tid,
+                "args": _tags(event)}
+    return {"ph": ph, "name": name, "ts": ts, "tid": tid, "args": _tags(event)}
+
+
+def _as_tree(name, tags, children):
+    """:meth:`Tracer.lane_tree`'s expansion: its payload is the tree."""
+    return name, tags, children
+
+
+#: Compact records' expansions by id (a ``("T", id, ...)`` or ``("S", id,
+#: ...)`` record names its own by id, so it holds no function object and
+#: the collector can untrack it).
+_EXPANDERS: List[Callable] = []
+_EXPANDER_IDS: Dict[Callable, int] = {}
+_EXPANDER_LOCK = threading.Lock()
+
+
+def _expander_id(expand: Callable) -> int:
+    eid = _EXPANDER_IDS.get(expand)
+    if eid is None:
+        with _EXPANDER_LOCK:
+            eid = _EXPANDER_IDS.get(expand)
+            if eid is None:
+                eid = _EXPANDER_IDS[expand] = len(_EXPANDERS)
+                _EXPANDERS.append(expand)
+    return eid
+
+
+def _record_events(record: tuple) -> List[tuple]:
+    """Every event of a compact record: a lane tree's (``"T"``) or a
+    thread's spans (``"S"``, :meth:`Tracer.spans`)."""
+    if record[0] == "S":
+        return _EXPANDERS[record[1]](record[3], *record[4:])
+    return _tree_events(record)
+
+
+def _tree_events(record: tuple) -> List[tuple]:
+    """Every event of a ``("T", ...)`` record, in :meth:`Tracer.lane_tree`'s
+    order: the parent, then its children clamped inside it."""
+    t0, t1, lane = record[3:6]
+    name, tags, children = _EXPANDERS[record[1]](*record[6:])
+    tid = f"lane-{lane:03d}"
+    out = [("X", name, t0, max(t1 - t0, 0.0), tid) + _flat(tags)]
+    for child in children:
+        c0, c1 = max(child[1], t0), min(child[2], t1)
+        out.append(("X", child[0], c0, max(c1 - c0, 0.0), tid)
+                   + _flat(child[3] if len(child) > 3 else None))
+    return out
+
+
+class _Mark:
+    """A span on its thread's stack whose event the caller records itself,
+    with its siblings, in one compact record (:meth:`Tracer.push_mark`,
+    :meth:`Tracer.spans`); an instant inside it reads its ``name``."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+
 class SpanHandle:
     """One live span (enabled path).  Created by :meth:`Tracer.span`."""
 
-    __slots__ = ("_tracer", "name", "tags", "_t0", "_fence")
+    __slots__ = ("_tracer", "name", "tags", "_t0", "_fence", "_stack")
 
     def __init__(self, tracer: "Tracer", name: str, tags: Optional[dict]):
         self._tracer = tracer
@@ -175,6 +273,7 @@ class SpanHandle:
         self.tags = tags
         self._t0 = 0.0
         self._fence = None
+        self._stack = None
 
     def tag(self, **tags) -> "SpanHandle":
         if self.tags is None:
@@ -195,30 +294,37 @@ class SpanHandle:
 
     def __enter__(self) -> "SpanHandle":
         tr = self._tracer
-        tr._stack().append(self)
-        self._t0 = tr.now()
+        self._stack = stack = tr._stack()
+        stack.append(self)
+        self._t0 = tr._clock() - tr._t0
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        tr = self._tracer
-        try:
-            if self._fence is not None:
-                value, self._fence = self._fence, None
+        if self._fence is not None:
+            value, self._fence = self._fence, None
+            try:
                 fence(value)
-        finally:
-            # record + pop even when the fence raises (a failed async
-            # dispatch surfaces at the fence): the span must not leak on
-            # the thread stack, and the trace should show the span that
-            # died
-            t1 = tr.now()
-            stack = tr._stack()
-            if stack and stack[-1] is self:
-                stack.pop()
-            if exc_type is not None:
-                self.tag(error=exc_type.__name__)
-            tr._complete(self.name, self._t0, t1, self.tags,
-                         threading.get_ident())
+            finally:
+                # record + pop even when the fence raises (a failed async
+                # dispatch surfaces at the fence): the span must not leak
+                # on the thread stack, and the trace should show the span
+                # that died
+                self._close(exc_type)
+        else:
+            self._close(exc_type)
         return False
+
+    def _close(self, exc_type) -> None:
+        tr = self._tracer
+        t1 = tr._clock() - tr._t0
+        stack = self._stack
+        if stack and stack[-1] is self:
+            stack.pop()
+        if exc_type is not None:
+            self.tag(error=exc_type.__name__)
+        t0 = self._t0
+        tr._append(("X", self.name, t0, max(t1 - t0, 0.0), threading.get_ident())
+                   + _flat(self.tags))
 
 
 class Tracer:
@@ -261,7 +367,11 @@ class Tracer:
         self._max_events = int(max_events)
         self._jsonl = jsonl
         self._lock = threading.Lock()
-        self._events: List[dict] = []
+        # kept records in recording order: event tuples and ("T", ...) /
+        # ("S", ...) compact records, expanded when read (the comment
+        # above _flat)
+        self._events: List[Any] = []
+        self._n_events = 0  # events kept (a compact record counts its events)
         self._dropped = 0
         self._lanes: List[float] = []  # per-lane last span end time
         self._thread_names: Dict[int, str] = {}
@@ -346,10 +456,8 @@ class Tracer:
         if parent is not None:
             tags = dict(tags) if tags else {}
             tags["in_span"] = parent.name
-        self._append({
-            "ph": "i", "name": name, "ts": self.now(),
-            "tid": threading.get_ident(), "args": tags or None,
-        })
+        self._append(("i", name, self.now(), None, threading.get_ident())
+                     + _flat(tags))
 
     def complete(self, name: str, t0: float, t1: float,
                  tags: Optional[dict] = None, tid=None) -> None:
@@ -360,12 +468,9 @@ class Tracer:
 
     def _complete(self, name: str, t0: float, t1: float,
                   tags: Optional[dict], tid) -> None:
-        self._append({
-            "ph": "X", "name": name, "ts": t0, "dur": max(t1 - t0, 0.0),
-            "tid": tid, "args": tags or None,
-        })
+        self._append(("X", name, t0, max(t1 - t0, 0.0), tid) + _flat(tags))
 
-    def _append(self, event: dict) -> None:
+    def _append(self, event: tuple) -> None:
         rec = _RECORDER
         if rec is not None:
             # the flight recorder's ring keeps the NEWEST events (deque
@@ -373,27 +478,33 @@ class Tracer:
             # drop cap — a crash postmortem wants what happened just
             # before the end, so feed the ring even past the tracer's cap
             rec._record_trace_event(event)
-        tid = event["tid"]
+        tid = event[4]
         dropped = False
         with self._lock:
             if isinstance(tid, int) and tid not in self._thread_names:
-                cur = threading.current_thread()
-                self._thread_names[tid] = (
-                    cur.name if cur.ident == tid else f"thread-{tid}"
-                )
-            if len(self._events) >= self._max_events:
+                self._name_thread_locked(tid)
+            if self._n_events >= self._max_events:
                 self._dropped += 1
                 dropped = True
             else:
                 self._events.append(event)
+                self._n_events += 1
         if dropped:
             # metric write OUTSIDE the tracer lock (registry has its own);
             # a drop is now a scrapeable counter, not a silent property
             self._m_dropped.inc()
             return
         if self._jsonl is not None:
-            rec = {k: v for k, v in event.items() if v is not None}
-            rec["kind"] = "span" if event["ph"] == "X" else "instant"
+            self._log_jsonl((event,))
+
+    def _name_thread_locked(self, tid: int) -> None:
+        cur = threading.current_thread()
+        self._thread_names[tid] = cur.name if cur.ident == tid else f"thread-{tid}"
+
+    def _log_jsonl(self, events) -> None:
+        for event in events:
+            rec = {k: v for k, v in _event_dict(event).items() if v is not None}
+            rec["kind"] = "span" if event[0] == "X" else "instant"
             try:
                 self._jsonl.log(**rec)
             except ValueError:
@@ -412,30 +523,108 @@ class Tracer:
         ``children``: ``(name, t0, t1)`` or ``(name, t0, t1, tags)`` tuples,
         each clamped inside the parent interval.
         """
-        if t1 < t0:
-            t0, t1 = t1, t0
+        self.lane_trees(_as_tree, ((t0, t1, (name, tags, children)),),
+                        1 + len(children))
+
+    def lane_trees(self, expand: Callable, records: Sequence[Tuple],
+                   size: int) -> None:
+        """Record many lane trees under one lock, as compact records.
+
+        ``records`` holds ``(t0, t1, payload)`` tuples, each ``payload`` a
+        tuple; ``expand(*payload)`` returns the tree's ``(name, tags,
+        children)`` as :meth:`lane_tree` takes them, and is called only
+        when the trace is read (the Chrome
+        export, :meth:`counts`, a flight-recorder dump) — or at once when a
+        JSONL sink is attached.  Every tree has ``size`` events (the parent
+        and its children).  Lanes, drops past ``max_events`` and the
+        tracer's metrics are settled here, as :meth:`lane_tree` settles
+        them one tree at a time, so the trace read later is the one the
+        eager calls would have built, event for event.  A payload of
+        numbers, strings and None keeps the record out of the garbage
+        collector's way.  This is the serving batcher's per-request path:
+        one flat tuple a request instead of an attrs dict, four event dicts
+        and four locked appends."""
+        eid = _expander_id(expand)
+        trees = []
+        grew = False
+        events = self._events
         with self._lock:
-            lane = None
-            for i, last_end in enumerate(self._lanes):
-                if last_end <= t0:
-                    lane = i
-                    break
-            new_lane = lane is None
-            if new_lane:
-                lane = len(self._lanes)
-                self._lanes.append(0.0)
-            self._lanes[lane] = t1
-            n_lanes = len(self._lanes)
-        if new_lane:
+            lanes = self._lanes
+            room = self._max_events - self._n_events
+            for t0, t1, payload in records:
+                if t1 < t0:
+                    t0, t1 = t1, t0
+                for lane, last_end in enumerate(lanes):
+                    if last_end <= t0:
+                        break
+                else:
+                    lane = len(lanes)
+                    lanes.append(0.0)
+                    grew = True
+                lanes[lane] = t1
+                keep = size if room >= size else max(room, 0)
+                room -= keep
+                tree = ("T", eid, keep, t0, t1, lane) + payload
+                trees.append(tree)
+                if keep:
+                    events.append(tree)
+            n_lanes = len(lanes)
+            kept = self._max_events - self._n_events - room
+            self._n_events += kept
+            dropped = size * len(trees) - kept
+            self._dropped += dropped
+        if grew:
             # gauge write only when lane pressure actually grows — this
             # sits on every traced request's completion path
             self._m_lanes.set(n_lanes)
-        tid = f"lane-{lane:03d}"
-        self._complete(name, t0, t1, tags, tid)
-        for child in children:
-            cname, c0, c1 = child[0], child[1], child[2]
-            ctags = child[3] if len(child) > 3 else None
-            self._complete(cname, max(c0, t0), min(c1, t1), ctags, tid)
+        rec = _RECORDER
+        if rec is not None:
+            rec._record_trace_trees(trees, size)
+        if dropped:
+            self._m_dropped.inc(dropped)
+        if kept and self._jsonl is not None:
+            for tree in trees:
+                self._log_jsonl(_tree_events(tree)[:tree[2]])
+
+    def push_mark(self, name: str) -> _Mark:
+        """Push a span that :meth:`spans` will record onto the calling
+        thread's stack; instants inside it see ``name`` (which the caller
+        may change as its work moves into a child span)."""
+        mark = _Mark(name)
+        self._stack().append(mark)
+        return mark
+
+    def pop_mark(self, mark: _Mark) -> None:
+        stack = self._stack()
+        if stack and stack[-1] is mark:
+            stack.pop()
+
+    def spans(self, expand: Callable, payload: tuple, size: int) -> None:
+        """Record ``size`` already-timed spans of the calling thread as one
+        compact record: ``expand(tid, *payload)`` returns their event
+        tuples, in the order their spans closed, when the trace is read.
+        Drops past ``max_events``, the thread's name, the flight recorder
+        and a JSONL sink are settled as ``size`` appends would settle them.
+        The serving engine's ``engine.predict`` / ``engine.pad`` /
+        ``engine.dispatch`` spans go this way: one record a batch."""
+        eid = _expander_id(expand)
+        tid = threading.get_ident()
+        with self._lock:
+            if tid not in self._thread_names:
+                self._name_thread_locked(tid)
+            keep = min(size, max(self._max_events - self._n_events, 0))
+            record = ("S", eid, keep, tid) + payload
+            if keep:
+                self._events.append(record)
+                self._n_events += keep
+            self._dropped += size - keep
+        rec = _RECORDER
+        if rec is not None:
+            rec._record_trace_trees((record,), size)
+        if keep < size:
+            self._m_dropped.inc(size - keep)
+        if keep and self._jsonl is not None:
+            self._log_jsonl(_record_events(record)[:keep])
 
     @property
     def dropped_events(self) -> int:
@@ -445,14 +634,26 @@ class Tracer:
     # ------------------------------------------------------------------ #
     # export
 
+    def _snapshot(self) -> Tuple[List[tuple], Dict[int, str]]:
+        """Every kept event in recording order (compact lane trees
+        expanded), with the thread-name table."""
+        with self._lock:
+            entries = list(self._events)
+            thread_names = dict(self._thread_names)
+        events = []
+        for e in entries:
+            if e[0] in ("T", "S"):
+                events.extend(_record_events(e)[:e[2]])
+            else:
+                events.append(e)
+        return events, thread_names
+
     def chrome_events(self) -> List[dict]:
         """Chrome trace-event dicts (µs timestamps), ts-sorted, with
         thread/lane name metadata events first."""
-        with self._lock:
-            events = list(self._events)
-            thread_names = dict(self._thread_names)
+        events, thread_names = self._snapshot()
         out = []
-        lanes = sorted({e["tid"] for e in events if isinstance(e["tid"], str)})
+        lanes = sorted({e[4] for e in events if isinstance(e[4], str)})
         names = dict(thread_names)
         names.update({lane: f"request {lane}" for lane in lanes})
         # stable int tids for chrome: lanes first (they read top-down as
@@ -460,26 +661,27 @@ class Tracer:
         tid_map = {lane: i + 1 for i, lane in enumerate(lanes)}
         base = len(lanes) + 1
         for e in events:
-            if e["tid"] not in tid_map:
-                tid_map[e["tid"]] = base
+            if e[4] not in tid_map:
+                tid_map[e[4]] = base
                 base += 1
         for raw_tid, tid in sorted(tid_map.items(), key=lambda kv: kv[1]):
             out.append({
                 "ph": "M", "name": "thread_name", "pid": 1, "tid": tid,
                 "args": {"name": str(names.get(raw_tid, raw_tid))},
             })
-        for e in sorted(events, key=lambda e: e["ts"]):
+        for e in sorted(events, key=lambda e: e[2]):
+            ph, name, ts, dur, raw_tid = e[:5]
             ev = {
-                "ph": e["ph"], "name": e["name"], "pid": 1,
-                "tid": tid_map[e["tid"]],
-                "ts": round(e["ts"] * 1e6, 3),
+                "ph": ph, "name": name, "pid": 1,
+                "tid": tid_map[raw_tid],
+                "ts": round(ts * 1e6, 3),
             }
-            if e["ph"] == "X":
-                ev["dur"] = round(e["dur"] * 1e6, 3)
+            if ph == "X":
+                ev["dur"] = round(dur * 1e6, 3)
             else:
                 ev["s"] = "t"
-            if e.get("args"):
-                ev["args"] = e["args"]
+            if len(e) > 5:
+                ev["args"] = _tags(e)
             out.append(ev)
         return out
 
@@ -499,11 +701,10 @@ class Tracer:
 
     def counts(self) -> Dict[str, int]:
         """Event counts by name (diagnostics and tests)."""
-        with self._lock:
-            out: Dict[str, int] = {}
-            for e in self._events:
-                out[e["name"]] = out.get(e["name"], 0) + 1
-            return out
+        out: Dict[str, int] = {}
+        for e in self._snapshot()[0]:
+            out[e[1]] = out.get(e[1], 0) + 1
+        return out
 
 
 # --------------------------------------------------------------------- #
@@ -563,17 +764,44 @@ class FlightRecorder:
             if kind == "diagnostics":
                 self._last_diagnostics = entry
 
-    def _record_trace_event(self, event: dict) -> None:
+    def _record_trace_event(self, event: tuple) -> None:
         """Tracer feed: one completed span/instant (tracer-relative
-        timestamps, like the trace exports)."""
-        entry = {"kind": "span" if event["ph"] == "X" else "instant",
-                 "name": event["name"], "ts": event["ts"]}
-        if event["ph"] == "X":
-            entry["dur"] = event["dur"]
-        if event.get("args"):
-            entry["args"] = event["args"]
+        timestamps, like the trace exports), kept as the tracer's tuple
+        until the ring is read."""
         with self._lock:
-            self._ring.append(entry)
+            self._ring.append(event)
+
+    def _record_trace_trees(self, records, size: int) -> None:
+        """Tracer feed: the ``size`` events of each compact record of one
+        :meth:`Tracer.lane_trees` or :meth:`Tracer.spans` call, each a
+        ``(record, index)`` slot of the ring until it is read."""
+        with self._lock:
+            self._ring.extend([(r, i) for r in records for i in range(size)])
+
+    def _entries(self, ring) -> List[dict]:
+        """The ring's slots as the bundle's records: structured records as
+        they are, trace events expanded into their span/instant records."""
+        out = []
+        expanded: Dict[int, List[tuple]] = {}
+        for slot in ring:
+            if type(slot) is dict:
+                out.append(slot)
+                continue
+            if len(slot) == 2:
+                record, i = slot
+                events = expanded.get(id(record))
+                if events is None:
+                    events = expanded[id(record)] = _record_events(record)
+                slot = events[i]
+            ph, name, ts, dur = slot[:4]
+            entry = {"kind": "span" if ph == "X" else "instant",
+                     "name": name, "ts": ts}
+            if ph == "X":
+                entry["dur"] = dur
+            if len(slot) > 5:
+                entry["args"] = _tags(slot)
+            out.append(entry)
+        return out
 
     @property
     def last_diagnostics(self) -> Optional[dict]:
@@ -583,7 +811,8 @@ class FlightRecorder:
     def events(self) -> List[dict]:
         """Ring contents oldest→newest (a copy)."""
         with self._lock:
-            return list(self._ring)
+            ring = list(self._ring)
+        return self._entries(ring)
 
     @property
     def dumps(self) -> int:
@@ -606,8 +835,9 @@ class FlightRecorder:
         with self._lock:
             self._dumps += 1
             seq = self._dumps
-            events = list(self._ring)
+            ring = list(self._ring)
             last_diag = self._last_diagnostics
+        events = self._entries(ring)
         if path is None:
             slug = re.sub(r"[^a-zA-Z0-9_.-]+", "_", reason)[:48] or "unknown"
             os.makedirs(self._dump_dir, exist_ok=True)

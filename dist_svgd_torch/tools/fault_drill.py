@@ -50,7 +50,11 @@ from dist_svgd_torch.resilience import (
     SimulatedHardKill,
 )
 from dist_svgd_torch.telemetry import MetricsRegistry
-from dist_svgd_torch.telemetry.diagnostics import DiagnosticsConfig, PosteriorDiagnostics
+from dist_svgd_torch.telemetry.diagnostics import (
+    DiagnosticsConfig,
+    InputScore,
+    PosteriorDiagnostics,
+)
 from dist_svgd_torch.telemetry.slo import default_training_slos
 from dist_svgd_torch.utils.platform import resolve_device
 from dist_svgd_torch.utils.rng import init_particles_per_shard
@@ -70,8 +74,10 @@ def build_sampler(n, num_shards, seed=0, device=None):
 def gmm_score_fn():
     """Per-θ score ``∇log p(θ)`` of the drill's GMM posterior — what the
     KSD diagnostic needs (the DistSampler's own score is sharded with its
-    data, so the drill supplies the closure explicitly)."""
-    return torch.func.grad(gmm_logp)
+    data, so the drill supplies the closure explicitly).  It reads no
+    tensor, so on the card the diagnostics pass over it is one captured
+    graph (``InputScore`` with no inputs)."""
+    return InputScore(torch.func.grad(gmm_logp))
 
 
 def measure_diagnostics_overhead(n=2048, num_shards=4, num_steps=48,
