@@ -131,14 +131,17 @@ printed only when every phase passed, is
 Without CUDA (``torch.cuda.is_available()`` false) it exits 1 and prints no
 result.
 
-``python3 chip_smoke.py --fleet-load [--runs R] [--procs P] [--tree DIR]``
-runs section 23's fleet_covertype phase R times while P busy processes load
-the host (``fleet_load_main``).
+``python3 chip_smoke.py --fleet-load [--runs R] [--procs P] [--tree DIR]
+[--drill]`` runs section 23's fleet_covertype phase R times while P busy
+processes load the host, each run metered by ``_HopMeter``
+(``fleet_load_main``).
 """
 
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -608,7 +611,10 @@ JAX_STREAM_CT = {"ksd_baseline": 71.026, "segments": 21, "t": 330, "refits": 4,
 #   /fleet listing every circuit closed, fleet_status's report over two
 #   /fleet scrapes rendered, and after the replicas' graceful exit (SIGINT)
 #   the stitch of the router's and the replicas' exports at coverage 1.0;
-#   the training's φ kernel launched at least once a step.  Printed beside
+#   the router's HttpTransport read more responses (forwards, probes,
+#   scrapes) than it opened connections (its keep-alive pool in use:
+#   connections_opened, requests_per_connection); the training's φ kernel
+#   launched at least once a step.  Printed beside
 #   the gates: each replica's queue-wait, dispatch, request (its p99 SLO's
 #   series) and HTTP-handler p50 / p99 from its /metrics.dump, and the
 #   router's circuit transitions with their reasons;
@@ -4262,6 +4268,10 @@ def fleet_covertype_phase(root, card, device="cuda"):
                 for q in (0.5, 0.99)}
         transitions = [[round(t, 3), rid, a, b, why]
                        for t, rid, a, b, why in list(router.replica_set.state_changes)[:12]]
+        # the router's pool: every response read over the run (forwards,
+        # probes, scrapes, the spawn's polls, the dumps above) against the
+        # connections they rode
+        connections, answered = transport.connections_opened, transport.requests
     finally:
         if router is not None:
             router.shutdown()
@@ -4306,6 +4316,8 @@ def fleet_covertype_phase(root, card, device="cuda"):
            "stitch_served_routes": stitch["served_routes"],
            "stitch_orphans": stitch["orphan_replica_traces"],
            "wire_p50_ms": stitch["hops"].get("fleet.wire", {}).get("p50_ms"),
+           "connections_opened": connections, "transport_requests": answered,
+           "requests_per_connection": answered / max(connections, 1),
            "train": {k: train[k] for k in ("phi_impl", "niter", "nparticles", "nproc",
                                            "test_acc", "wall_s")},
            "train_launches": phi_launches, "train_phase_wall_s": train_wall,
@@ -4313,7 +4325,7 @@ def fleet_covertype_phase(root, card, device="cuda"):
     ok = (len(served) == n and dev <= SERVED_TOL and len(by_replica) > 1
           and sorted(circuits.values()) == ["closed"] * FLEET["replicas"]
           and row["fleet_status_lines"] > 0 and stitch["coverage"] == 1.0
-          and stitch["served_routes"] == n
+          and stitch["served_routes"] == n and connections < answered
           and sum(phi_launches.values()) >= FLEET_TRAIN["niter"])
     emit({**row, "ok": ok})
     if not ok:
@@ -4619,19 +4631,123 @@ def instrument_phases(card, device="cuda"):
 #: processes of this script's Python, each one a spinning core (the 8-core
 #: card machine then runs the phase with twice its cores busy).
 FLEET_LOAD = dict(procs=16, runs=5)
+#: ``--fleet-load``'s CPU sampler period, seconds.
+HOP_SAMPLE_S = 0.01
+
+
+class _HopMeter:
+    """What one fleet_covertype run costs the host, read from outside the
+    phase so any tree's phase can be metered: every replica server this
+    process spawns (``subprocess.Popen`` wrapped), the load window (the
+    first ``FleetRouter.route`` call to the last return), the CPU seconds
+    over that window of this process (router and clients) and of each
+    replica (``/proc/<pid>/stat``, read only), and the connections this
+    process tries to open to each replica, over the run (the spawn's
+    health polls to a replica not yet listening included) and over the
+    window (the ``http.client.connect`` audit event, whatever transport
+    opens them)."""
+
+    _active = None  # the meter the process-wide audit hook counts into
+    _hooked = False  # the hook is added once a process (it cannot be removed)
+
+    def __init__(self, fleet_mod):
+        self._fleet = fleet_mod
+        self._tick = os.sysconf("SC_CLK_TCK")
+        self.ports, self.pids, self.connects = {}, {}, []
+        self.window = [None, None]
+        self.samples = []
+        self._stop = threading.Event()
+
+    @classmethod
+    def _audit(cls, event, args):
+        meter = cls._active
+        if meter is not None and event == "http.client.connect":
+            meter.connects.append((time.perf_counter(), int(args[2])))
+
+    def _cpu(self, pid):
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            return None
+        return (int(fields[11]) + int(fields[12])) / self._tick
+
+    def _sample(self):
+        while not self._stop.wait(HOP_SAMPLE_S):
+            self.samples.append((time.perf_counter(), time.process_time(),
+                                 {rid: self._cpu(pid) for rid, pid in list(self.pids.items())}))
+
+    def __enter__(self):
+        meter, popen, route = self, subprocess.Popen, self._fleet.FleetRouter.route
+
+        class Popen(popen):
+            def __init__(self, args, *a, **kw):
+                super().__init__(args, *a, **kw)
+                if "dist_svgd_torch.serving.server" in args and "--replica-name" in args:
+                    rid = args[args.index("--replica-name") + 1]
+                    meter.pids[rid] = self.pid
+                    meter.ports[int(args[args.index("--port") + 1])] = rid
+
+        def timed_route(router, *a, **kw):
+            if meter.window[0] is None:
+                meter.window[0] = time.perf_counter()
+            try:
+                return route(router, *a, **kw)
+            finally:
+                meter.window[1] = time.perf_counter()
+
+        self._undo = [(subprocess, "Popen", popen), (self._fleet.FleetRouter, "route", route)]
+        subprocess.Popen, self._fleet.FleetRouter.route = Popen, timed_route
+        if not _HopMeter._hooked:
+            sys.addaudithook(_HopMeter._audit)
+            _HopMeter._hooked = True
+        _HopMeter._active = self
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        _HopMeter._active = None
+        for owner, name, value in self._undo:
+            setattr(owner, name, value)
+
+    def row(self):
+        """CPU seconds by process over the load window (the samples around
+        it), and the connect attempts to each replica over the run and in
+        the window."""
+        t0, t1 = self.window
+        if t0 is None or not self.samples:
+            return {"window_s": None}
+        before = [s for s in self.samples if s[0] <= t0] or self.samples[:1]
+        after = [s for s in self.samples if s[0] >= t1] or self.samples[-1:]
+        a, b = before[-1], after[0]
+        cpu = {"router": b[1] - a[1]}
+        for rid in sorted(self.pids):
+            x, y = a[2].get(rid), b[2].get(rid)
+            cpu[rid] = None if x is None or y is None else y - x
+        run = [port for _, port in self.connects]
+        window = [port for t, port in self.connects if t0 <= t <= t1]
+        conns = {rid: run.count(port) for port, rid in sorted(self.ports.items())}
+        return {"window_s": t1 - t0, "sampled_s": b[0] - a[0], "cpu_s": cpu,
+                "connections": conns, "connections_total": sum(conns.values()),
+                "connections_in_window": sum(window.count(port) for port in self.ports)}
 
 
 def fleet_load_main(argv):
     """``python3 chip_smoke.py --fleet-load [--runs R] [--procs P] [--tree
-    DIR]``: section 23's fleet_covertype phase ``R`` times while ``P`` busy
-    processes load the host, each run's row printed, then one
-    ``fleet_load`` summary.  ``--tree DIR`` runs another checkout's phase
-    and package (DIR's ``chip_smoke.py`` and ``dist_svgd_torch``), so a
-    change and its parent are held under the same load in one call.  Exits
-    0 when every run passed."""
+    DIR] [--drill]``: section 23's fleet_covertype phase ``R`` times while
+    ``P`` busy processes load the host, each run's row printed beside a
+    ``fleet_hop`` row (``_HopMeter``: CPU seconds by process over the load
+    window, connections to each replica), then one ``fleet_load`` summary.
+    ``--tree DIR`` runs another checkout's phases and package (DIR's
+    ``chip_smoke.py`` and ``dist_svgd_torch``), so a change and its parent
+    are held under the same load in one call; ``--drill`` first runs that
+    tree's fleet_drill_real once, unloaded.  Exits 0 when every run
+    passed."""
     import argparse
     import importlib.util
-    import os
     import shutil
     import signal
 
@@ -4639,6 +4755,7 @@ def fleet_load_main(argv):
     ap.add_argument("--runs", type=int, default=FLEET_LOAD["runs"])
     ap.add_argument("--procs", type=int, default=FLEET_LOAD["procs"])
     ap.add_argument("--tree", default=None)
+    ap.add_argument("--drill", action="store_true")
     args = ap.parse_args(argv)
     mod = sys.modules[__name__]
     if args.tree:
@@ -4653,11 +4770,19 @@ def fleet_load_main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    from dist_svgd_torch.serving import fleet
     from dist_svgd_torch.utils.platform import resolve_device
 
     resolve_device(None)
     card = smi("name,power.limit")
     print(card, flush=True)
+    drill_ok = True
+    if args.drill:
+        try:
+            mod.fleet_drill_phase("real", card)
+        except AssertionError as e:
+            drill_ok = False
+            print(f"fleet_drill_real failed: {str(e)[:600]}", flush=True)
     root = str(Path(mod.__file__).resolve().parent / "build" / "chip_smoke_fleet_load")
     shutil.rmtree(root, ignore_errors=True)
     busy = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
@@ -4668,12 +4793,14 @@ def fleet_load_main(argv):
             run_root = os.path.join(root, f"run{i}")
             os.makedirs(run_root)
             t0 = time.perf_counter()
-            try:
-                mod.fleet_covertype_phase(run_root, card)
-                rows.append({"run": i, "ok": True})
-            except AssertionError as e:
-                rows.append({"run": i, "ok": False, "error": str(e)[:600]})
+            with _HopMeter(fleet) as meter:
+                try:
+                    mod.fleet_covertype_phase(run_root, card)
+                    rows.append({"run": i, "ok": True})
+                except AssertionError as e:
+                    rows.append({"run": i, "ok": False, "error": str(e)[:600]})
             rows[-1]["seconds"] = time.perf_counter() - t0
+            emit({"phase": "fleet_hop", "run": i, "load_procs": args.procs, **meter.row()})
     finally:
         for p in busy:
             p.send_signal(signal.SIGKILL)
@@ -4683,7 +4810,7 @@ def fleet_load_main(argv):
     emit({"phase": "fleet_load", "tree": mod.__file__, "load_procs": args.procs,
           "cpus": os.cpu_count(), "runs": args.runs, "passed": passed, "rows": rows,
           "card": card})
-    return 0 if passed == args.runs else 1
+    return 0 if passed == args.runs and drill_ok else 1
 
 
 def _mh_sampler(leg, mesh, device):

@@ -95,7 +95,12 @@ Cross-process observability:
 The front door and the replica server both listen with
 :data:`LISTEN_BACKLOG` pending connections (1024), defined here: the
 standard library's 5 resets connections under a burst of concurrent
-clients.
+clients.  Both keep HTTP/1.1 connections open between requests
+(:class:`_KeepAliveHandler`: one write a reply, no body left unread, an
+idle timeout, idle connections ended at shutdown), and
+:class:`HttpTransport` pools them, so a forward pays no connect and the
+replica no accept and no thread spawn.  JAX's transport opens one
+connection a request; the route outcomes are the same.
 """
 
 from __future__ import annotations
@@ -156,9 +161,138 @@ TRACE_HEADER = _trace.TRACE_HEADER  # one spelling, shared with server.py
 #: the front door here and the replica server alike.
 LISTEN_BACKLOG = 1024
 
+#: Seconds a server holds a persistent connection with no next request
+#: before its handler thread ends (the front door and the replica server
+#: alike): longer than a router's 0.25 s probe cadence, so a probed
+#: connection stays warm.
+IDLE_TIMEOUT_S = 5.0
+
+#: Idle persistent connections :class:`HttpTransport` keeps for each
+#: replica; one given back beyond that is closed.  It bounds what is kept,
+#: not how many requests run at once.
+POOL_IDLE_MAX = 16
+
+#: A request body a handler left unread is read and dropped before the
+#: reply up to this many bytes; a longer (or unsized) one closes the
+#: connection instead, so the next request on it is never parsed from it.
+_DISCARD_MAX = 1 << 20
+
 
 class _HTTPServer(ThreadingHTTPServer):
+    """The front door's and the replica server's listener: a
+    :data:`LISTEN_BACKLOG` backlog, and a register of the persistent
+    connections waiting for their next request, so :meth:`close_idle` can
+    end them at shutdown (``server_close`` joins every handler thread)."""
+
     request_queue_size = LISTEN_BACKLOG
+
+    def __init__(self, *args, **kw):
+        self._conn_lock = threading.Lock()
+        self._idle: Dict[Any, Any] = {}  # handler -> its socket, idle only
+        self.closing = False
+        super().__init__(*args, **kw)
+
+    def idle_begin(self, handler) -> bool:
+        """Register ``handler``'s connection as waiting; False once
+        :meth:`close_idle` ran (the handler then ends its connection)."""
+        with self._conn_lock:
+            if self.closing:
+                return False
+            self._idle[handler] = handler.connection
+            return True
+
+    def idle_end(self, handler) -> None:
+        with self._conn_lock:
+            self._idle.pop(handler, None)
+
+    def close_idle(self) -> None:
+        """End every connection waiting for its next request, now and from
+        now on (after ``shutdown()``: no new connection arrives)."""
+        import socket
+
+        with self._conn_lock:
+            self.closing = True
+            socks = list(self._idle.values())
+        for sock in socks:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass  # already gone
+
+
+class _KeepAliveHandler(BaseHTTPRequestHandler):
+    """HTTP/1.1 persistent connections for the front door and the replica
+    server: ``TCP_NODELAY`` on the accepted socket, an idle timeout of
+    :data:`IDLE_TIMEOUT_S`, every reply written with one ``sendall``
+    (:meth:`send_reply`), no request body left unread on a connection that
+    stays open, and a connection between requests registered with its
+    :class:`_HTTPServer`, so shutdown ends it."""
+
+    protocol_version = "HTTP/1.1"
+    timeout = IDLE_TIMEOUT_S
+    disable_nagle_algorithm = True
+
+    def log_message(self, fmt, *args):  # stderr chatter off
+        pass
+
+    def handle_one_request(self):
+        if not self.server.idle_begin(self):
+            self.close_connection = True
+            return
+        try:
+            super().handle_one_request()
+        finally:
+            self.server.idle_end(self)
+
+    def parse_request(self):
+        # a request line arrived: busy until its reply is written
+        self.server.idle_end(self)
+        self._body_read = False
+        return super().parse_request()
+
+    def read_body(self) -> bytes:
+        self._body_read = True
+        length = int(self.headers.get("Content-Length", 0))
+        return self.rfile.read(length) if length else b""
+
+    def _settle_body(self) -> None:
+        """Read and drop a body no route read, or end the connection."""
+        if self._body_read:
+            return
+        self._body_read = True
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+        except ValueError:
+            length = -1
+        if self.headers.get("Transfer-Encoding") or not 0 <= length <= _DISCARD_MAX:
+            self.close_connection = True
+        elif length:
+            self.rfile.read(length)
+
+    def closing(self) -> bool:
+        """Whether replies end their connection (the server is shutting
+        down; the replica server adds its drain)."""
+        return self.server.closing
+
+    def send_reply(self, code: int, headers: Dict[str, str],
+                   body: bytes) -> None:
+        """Status line, headers and body in one write; ``Connection:
+        close`` (and the connection closed after) when the request asked
+        for it, its body could not be settled, or :meth:`closing`."""
+        self._settle_body()
+        if self.closing():
+            self.close_connection = True
+        self.log_request(code)
+        lines = [f"{self.protocol_version} {code} "
+                 f"{self.responses.get(code, ('',))[0]}",
+                 f"Server: {self.version_string()}",
+                 f"Date: {self.date_time_string()}"]
+        lines += [f"{k}: {v}" for k, v in headers.items()]
+        lines.append(f"Content-Length: {len(body)}")
+        if self.close_connection:
+            lines.append("Connection: close")
+        head = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1", "strict")
+        self.wfile.write(head + body)
 
 
 class TransportError(RuntimeError):
@@ -212,62 +346,151 @@ class Reply:
 # transports
 
 
+class _StaleConnection(Exception):
+    """A reused connection failed before any byte of a response arrived
+    (the replica closed it while it sat idle)."""
+
+
+def _close_all(conns) -> None:
+    for conn in conns:
+        conn.close()
+
+
 class HttpTransport:
-    """Real-socket transport over stdlib ``http.client``.
+    """Real-socket transport over stdlib ``http.client``, on persistent
+    connections.
 
     ``addresses`` maps replica id → ``(host, port)``; :meth:`set_address`
     re-points a replica after a restart on a new port.  The
     :meth:`partition`/:meth:`heal` deny-list simulates a network partition
     from the router's side — the replica process stays untouched, exactly
     the :class:`~dist_svgd_torch.resilience.faults.PartitionAt` semantics,
-    usable against real subprocesses (``dist_svgd_torch/tools/fleet_drill.py``)."""
+    usable against real subprocesses (``dist_svgd_torch/tools/fleet_drill.py``).
+
+    Each replica has a pool of idle keep-alive connections.  A request
+    takes one (or opens one) for itself alone and gives it back once the
+    whole response body is read; at most :data:`POOL_IDLE_MAX` stay idle a
+    replica.  A timeout, an error or a ``Connection: close`` reply closes
+    the connection instead.  A reused connection that fails before any
+    byte of a response arrived is retried once on a fresh one, so only a
+    fresh connection's failure raises :class:`ConnectError` and one call
+    still yields one outcome.  :meth:`partition`, :meth:`set_address` and
+    :meth:`close` close the idle connections they concern.
+    ``connections_opened`` counts the connections made and ``requests``
+    the responses read over them."""
 
     def __init__(self, addresses: Dict[str, Tuple[str, int]]):
         self._lock = threading.Lock()
         self._addresses = {str(k): (str(h), int(p))
                            for k, (h, p) in addresses.items()}
         self._partitioned: set = set()
+        self._idle: Dict[str, List[Any]] = {}
+        self.connections_opened = 0
+        self.requests = 0
 
     def set_address(self, replica: str, host: str, port: int) -> None:
         with self._lock:
             self._addresses[replica] = (host, int(port))
+            stale = self._idle.pop(replica, [])
+        _close_all(stale)
 
     def partition(self, replica: str) -> None:
         with self._lock:
             self._partitioned.add(replica)
+            stale = self._idle.pop(replica, [])
+        _close_all(stale)
 
     def heal(self, replica: str) -> None:
         with self._lock:
             self._partitioned.discard(replica)
+
+    def close(self) -> None:
+        """Close every idle connection (a later request opens anew)."""
+        with self._lock:
+            stale = [c for conns in self._idle.values() for c in conns]
+            self._idle.clear()
+        _close_all(stale)
+
+    def idle_connections(self) -> Dict[str, int]:
+        """Idle pooled connections by replica (replicas with none left out)."""
+        with self._lock:
+            return {rid: len(conns) for rid, conns in self._idle.items() if conns}
 
     def request(self, replica: str, method: str, path: str,
                 body: Optional[bytes] = None,
                 headers: Optional[Dict[str, str]] = None,
                 timeout_s: float = 5.0) -> Reply:
         import http.client
-        import socket
 
         with self._lock:
             if replica in self._partitioned:
                 raise ConnectError(
                     f"replica {replica!r} unreachable (partitioned)")
             try:
-                host, port = self._addresses[replica]
+                address = self._addresses[replica]
             except KeyError:
                 raise ConnectError(f"unknown replica {replica!r}") from None
-        conn = http.client.HTTPConnection(host, port, timeout=timeout_s)
+            idle = self._idle.get(replica)
+            conn = idle.pop() if idle else None
+        args = (replica, address, method, path, body, headers or {},
+                timeout_s)
+        if conn is not None:
+            try:
+                return self._exchange(conn, True, *args)
+            except _StaleConnection:
+                pass
+        return self._exchange(
+            http.client.HTTPConnection(*address, timeout=timeout_s), False,
+            *args)
+
+    def _exchange(self, conn, reused, replica, address, method, path, body,
+                  headers, timeout_s) -> Reply:
+        """One request and its whole response on ``conn``, which goes back
+        to the pool after it or is closed."""
+        import socket
+
         try:
-            conn.request(method, path, body=body, headers=headers or {})
-            resp = conn.getresponse()
+            if reused:
+                conn.sock.settimeout(timeout_s)
+            else:
+                conn.connect()
+                with self._lock:
+                    self.connections_opened += 1
+            try:
+                conn.request(method, path, body=body, headers=headers)
+                resp = conn.getresponse()
+            except (BrokenPipeError, ConnectionResetError,
+                    ConnectionAbortedError) as e:
+                # RemoteDisconnected (no status line) is a reset as well
+                if reused:
+                    raise _StaleConnection() from e
+                raise
             data = resp.read()
-            return Reply(resp.status, dict(resp.getheaders()), data)
         except socket.timeout as e:
+            conn.close()
             raise RequestTimeout(
                 f"replica {replica!r} timed out after {timeout_s}s") from e
         except (ConnectionError, OSError) as e:
-            raise ConnectError(f"replica {replica!r}: {e}") from e
-        finally:
             conn.close()
+            raise ConnectError(f"replica {replica!r}: {e}") from e
+        except BaseException:  # _StaleConnection among them
+            conn.close()
+            raise
+        with self._lock:
+            self.requests += 1
+        reply = Reply(resp.status, dict(resp.getheaders()), data)
+        if conn.sock is None:  # the reply closed it (Connection: close)
+            return reply
+        with self._lock:
+            idle = self._idle.setdefault(replica, [])
+            keep = (self._addresses.get(replica) == address
+                    and replica not in self._partitioned
+                    and len(idle) < POOL_IDLE_MAX)
+            if keep:
+                idle.append(conn)
+        if not keep:
+            conn.close()
+        return reply
 
 
 class Shed(RuntimeError):
@@ -1719,23 +1942,10 @@ class FleetRouter:
     def _make_handler(self):
         router = self
 
-        class Handler(BaseHTTPRequestHandler):
-            protocol_version = "HTTP/1.1"
-
-            def log_message(self, fmt, *args):
-                pass
-
-            def _write(self, status, headers, body):
-                self.send_response(status)
-                for k, v in headers.items():
-                    self.send_header(k, v)
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-
+        class Handler(_KeepAliveHandler):
             def _write_json(self, status, payload):
-                self._write(status, {"Content-Type": "application/json"},
-                            json.dumps(payload).encode())
+                self.send_reply(status, {"Content-Type": "application/json"},
+                                json.dumps(payload).encode())
 
             def do_GET(self):
                 path = self.path.split("?", 1)[0]
@@ -1752,7 +1962,7 @@ class FleetRouter:
                     # replica-labelled + rollup federated view in ONE
                     # document (names dedup toward the router's)
                     router.federation.scrape_once()
-                    self._write(
+                    self.send_reply(
                         200,
                         {"Content-Type":
                          "text/plain; version=0.0.4; charset=utf-8"},
@@ -1785,8 +1995,7 @@ class FleetRouter:
                 if self.path.split("?", 1)[0] != "/predict":
                     self._write_json(404, {"error": f"no route {self.path}"})
                     return
-                length = int(self.headers.get("Content-Length", 0))
-                body = self.rfile.read(length) if length else b""
+                body = self.read_body()
                 try:
                     doc = json.loads(body or b"null")
                     tenant = (doc.get("tenant") or ""
@@ -1802,7 +2011,7 @@ class FleetRouter:
                         pass
                 res = router.route(tenant, body, deadline_s=deadline_s,
                                    trace=self.headers.get(TRACE_HEADER))
-                self._write(res.status, res.headers, res.body)
+                self.send_reply(res.status, res.headers, res.body)
 
         return Handler
 
@@ -1833,12 +2042,16 @@ class FleetRouter:
         self.replica_set.close()
         if self._httpd is not None:
             self._httpd.shutdown()
+            self._httpd.close_idle()
             self._httpd.server_close()
             if self._serve_thread is not None:
                 self._serve_thread.join(timeout=10)
                 self._serve_thread = None
         if self._pool is not None:
             self._pool.shutdown(wait=False)
+        close = getattr(self.transport, "close", None)
+        if close is not None:
+            close()  # the transport's idle keep-alive connections
 
     def __enter__(self):
         return self.start()

@@ -25,13 +25,18 @@ and ``main``), with every route:
   (``serving/autoscale.py``: live lanes / coalescing window / quota
   scale, bounds, streaks, the recent decision log); 404 without one.
 
-``ThreadingHTTPServer`` runs one thread per in-flight request, parked on
-the batcher's future — the concurrency the micro-batcher coalesces across.
+``ThreadingHTTPServer`` runs one thread per connection, parked on the
+batcher's future while a request is in flight — the concurrency the
+micro-batcher coalesces across.  Connections persist (HTTP/1.1
+keep-alive, ``fleet._KeepAliveHandler``): a fleet router's pooled
+connections each keep one handler thread, which ends after
+:data:`~dist_svgd_torch.serving.fleet.IDLE_TIMEOUT_S` without a request.
 Its listen backlog is :data:`LISTEN_BACKLOG`, not the standard library's 5:
 with 5, a burst of a few dozen concurrent connections (the Covertype
 self-test's 64) overflows the accept queue and clients see connection
 resets.
-Graceful drain on shutdown: advertise draining, stop accepting, finish
+Graceful drain on shutdown: advertise draining (every reply from then on
+closes its connection), stop accepting, end the idle connections, finish
 in-flight handlers, flush the batcher queue.
 
 Run it with ``python -m dist_svgd_torch.serving.server --checkpoint DIR``
@@ -43,7 +48,6 @@ from __future__ import annotations
 import json
 import threading
 import time
-from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -54,6 +58,7 @@ from dist_svgd_torch.serving.engine import PredictiveEngine
 from dist_svgd_torch.serving.fleet import (  # noqa: F401 (LISTEN_BACKLOG re-exported)
     LISTEN_BACKLOG,
     _HTTPServer,
+    _KeepAliveHandler,
     format_retry_after,
 )
 from dist_svgd_torch.serving.registry import ModelRegistry
@@ -158,31 +163,21 @@ class PredictionServer:
 
         server = self  # close over for the handler class
 
-        class Handler(BaseHTTPRequestHandler):
-            protocol_version = "HTTP/1.1"
-
-            def log_message(self, fmt, *args):  # stderr chatter off
-                pass
+        class Handler(_KeepAliveHandler):
+            def closing(self) -> bool:
+                # a draining server ends every connection after its reply
+                return server._draining or super().closing()
 
             def _reply(self, code: int, payload: Dict[str, Any],
                        headers: Optional[Dict[str, str]] = None) -> None:
-                body = json.dumps(payload).encode()
-                self.send_response(code)
-                self.send_header("Content-Type", "application/json")
-                for k, v in (headers or {}).items():
-                    self.send_header(k, v)
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+                self.send_reply(code, {"Content-Type": "application/json",
+                                       **(headers or {})},
+                                json.dumps(payload).encode())
 
             def _reply_text(self, code: int, text: str,
                             content_type: str) -> None:
-                body = text.encode()
-                self.send_response(code)
-                self.send_header("Content-Type", content_type)
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+                self.send_reply(code, {"Content-Type": content_type},
+                                text.encode())
 
             def do_GET(self):
                 path = self.path.split("?", 1)[0]
@@ -257,7 +252,7 @@ class PredictionServer:
                 with _trace.span("http.predict",
                                  {"trace": trace_id} if trace_id else None):
                     code, payload, rows, tenant, extra = server._predict(
-                        self._read_body(), timeout_s=deadline_s,
+                        self.read_body(), timeout_s=deadline_s,
                         trace=trace_id)
                 wall = time.perf_counter() - t0
                 payload.setdefault("latency_ms", round(wall * 1e3, 3))
@@ -273,10 +268,6 @@ class PredictionServer:
                         latency_ms=payload["latency_ms"],
                         **tl,
                     )
-
-            def _read_body(self) -> bytes:
-                length = int(self.headers.get("Content-Length", 0))
-                return self.rfile.read(length) if length else b""
 
         self._httpd = _HTTPServer((host, port), Handler)
         # ThreadingMixIn reads daemon_threads off the SERVER instance (a
@@ -511,6 +502,9 @@ class PredictionServer:
             # batcher would race the close below
             self.autoscale.stop()
         self._httpd.shutdown()
+        # the idle keep-alive connections end now, the busy ones after
+        # their reply (Connection: close while draining)
+        self._httpd.close_idle()
         self._httpd.server_close()  # joins non-daemon handler threads
         if self._serve_thread is not None:
             self._serve_thread.join(timeout=10)

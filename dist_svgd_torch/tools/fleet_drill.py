@@ -360,6 +360,8 @@ class _RealFleet:
         except fleet_mod.TransportError:
             return {"alive": False, "flight_trips": None,
                     "served_during_partition": None}
+        finally:
+            direct.close()
 
 
 # --------------------------------------------------------------------- #

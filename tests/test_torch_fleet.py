@@ -12,9 +12,20 @@ reset, and the keys of ``/fleet`` and ``/usage``.  A ``LoopbackReplica``
 over a CPU ``PredictiveEngine`` serves through the router bitwise equal to
 the engine, and within the serving tests' tolerance of JAX's engine;
 ``HttpTransport`` routes over in-process port ``PredictionServer``s on
-real sockets, with a partition and its heal."""
+real sockets, with a partition and its heal.  Its keep-alive pool (a
+deviation from JAX's connection a request; the route outcomes above stay
+equal) is held on real sockets too: sequential requests ride one accepted
+connection, 32 concurrent ones keep at most ``POOL_IDLE_MAX`` idle, a
+connection the replica's idle timeout ended is retried once with no
+breaker failure, a replica shut down or killed under the pool gives one
+``ConnectError`` and one recorded failure a forward, partitions, restarts
+on a new port and timeouts close what they concern; the replica server
+and the front door read a body they do not route, write each reply once
+on a ``TCP_NODELAY`` socket and end idle connections at shutdown, the
+drain's 503 first."""
 
 import json
+import sys
 import threading
 import time
 import types
@@ -1107,3 +1118,440 @@ def test_front_door_holds_a_burst_of_concurrent_connections():
         for t in threads:
             t.join(timeout=30)
     assert statuses == [200] * 64
+
+
+# --------------------------------------------------------------------- #
+# persistent connections: HttpTransport's pool over port PredictionServers
+# (and the front door), on real sockets
+
+#: A keep-alive stdlib server in a process of its own, killed under the
+#: pool (stdlib only, so it starts in milliseconds): prints its port.
+_KILLABLE_SERVER = """
+import http.server
+class H(http.server.BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    def do_GET(self):
+        body = b'{"status": "ok"}'
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+    def log_message(self, *args):
+        pass
+srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+print(srv.server_address[1], flush=True)
+srv.serve_forever()
+"""
+
+
+def _port_engine(seed=14):
+    rng = np.random.default_rng(seed)
+    parts = rng.normal(size=(32, 5)).astype(np.float32)
+    x = rng.normal(size=(5, 4)).astype(np.float32)
+    engine = PredictiveEngine("logreg", parts, device="cpu", min_bucket=4, max_bucket=256)
+    return engine, x, json.dumps({"inputs": x.tolist()}).encode()
+
+
+def _address(srv):
+    host, port = srv.address[:2]
+    return host, int(port)
+
+
+def _count_accepts(httpd):
+    """One entry for each connection ``httpd`` accepts from now on."""
+    accepted = []
+    inner = httpd.process_request
+
+    def process_request(request, client_address):
+        accepted.append(client_address)
+        inner(request, client_address)
+
+    httpd.process_request = process_request
+    return accepted
+
+
+@pytest.fixture
+def replicas():
+    """``start(engine, gate=None)`` serves ``engine`` from a port
+    ``PredictionServer`` (``gate()`` called first in every POST handler);
+    returns it and its accepted-connection list.  Whatever a test left
+    running is shut down after it."""
+    made = []
+
+    def start(engine, gate=None):
+        srv = PredictionServer(engine, port=0, max_wait_ms=0.5)
+        accepted = _count_accepts(srv._httpd)
+        if gate is not None:
+            base = srv._httpd.RequestHandlerClass
+
+            class Gated(base):
+                def do_POST(self):
+                    gate()
+                    super().do_POST()
+
+            srv._httpd.RequestHandlerClass = Gated
+        made.append(srv)
+        return srv.start(), accepted
+
+    yield start
+    for srv in made:
+        if srv._serve_thread is not None:
+            srv.shutdown()
+
+
+@pytest.fixture
+def transports():
+    """``make(addresses)`` builds an ``HttpTransport``; each is closed
+    after the test."""
+    made = []
+
+    def make(addresses):
+        made.append(tfleet.HttpTransport(addresses))
+        return made[-1]
+
+    yield make
+    for tr in made:
+        tr.close()
+
+
+def _run_threads(target, n, timeout=30):
+    threads = [threading.Thread(target=target, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    assert not any(t.is_alive() for t in threads)
+
+
+def _mean(reply):
+    return np.asarray(reply.json()["outputs"]["mean"], dtype=np.float32)
+
+
+def test_http_transport_sequential_requests_ride_one_connection(replicas, transports):
+    engine, x, body = _port_engine()
+    srv, accepted = replicas(engine)
+    tr = transports({"r0": _address(srv)})
+    for _ in range(8):
+        reply = tr.request("r0", "POST", "/predict", body=body)
+        assert reply.status == 200
+        np.testing.assert_array_equal(_mean(reply), engine.predict(x)["mean"])
+    assert tr.request("r0", "GET", "/healthz").status == 200
+    assert len(accepted) == 1
+    assert tr.connections_opened == 1 and tr.requests == 9
+    assert tr.idle_connections() == {"r0": 1}
+    tr.close()
+    assert tr.idle_connections() == {}
+
+
+def test_http_transport_32_concurrent_requests_keep_at_most_the_idle_cap(replicas, transports):
+    """All 32 sit in a server handler at once (a barrier), so each rides a
+    connection of its own; the pool then keeps POOL_IDLE_MAX of them and
+    the next requests reuse those.  The transport's counters and pool stay
+    exact under a short switch interval."""
+    engine, x, body = _port_engine()
+    barrier = threading.Barrier(32)
+    srv, accepted = replicas(engine, gate=lambda: barrier.wait(timeout=20))
+    tr = transports({"r0": _address(srv)})
+    means = [None] * 32
+
+    def client(i):
+        reply = tr.request("r0", "POST", "/predict", body=body, timeout_s=30)
+        means[i] = _mean(reply) if reply.status == 200 else None
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)  # threads switch often: a lost pool update would show
+    try:
+        _run_threads(client, 32)
+    finally:
+        sys.setswitchinterval(interval)
+    for m in means:
+        np.testing.assert_array_equal(m, engine.predict(x)["mean"])
+    assert tr.connections_opened == len(accepted) == 32
+    assert tr.idle_connections() == {"r0": tfleet.POOL_IDLE_MAX}
+    barrier = threading.Barrier(1)  # noqa: F841 (the gate's closure reads it)
+    for _ in range(4):
+        assert tr.request("r0", "POST", "/predict", body=body).status == 200
+    assert tr.connections_opened == len(accepted) == 32
+
+
+def test_pooled_connection_ended_by_the_idle_timeout_is_retried_once(replicas, monkeypatch, transports):
+    """The replica ends an idle connection after its handler's timeout; the
+    next forward finds it dead before any response byte, retries once on a
+    fresh connection inside the transport and serves: the breaker (opened
+    by one failure here) records none."""
+    monkeypatch.setattr(tfleet._KeepAliveHandler, "timeout", 0.2)
+    engine, x, body = _port_engine()
+    srv, accepted = replicas(engine)
+    tr = transports({"r0": _address(srv)})
+    rs = tfleet.ReplicaSet(["r0"], tr, passive_fail_threshold=1,
+                           registry=tmetrics.MetricsRegistry())
+    router = tfleet.FleetRouter(["r0"], transport=tr, replica_set=rs,
+                                registry=tmetrics.MetricsRegistry())
+    assert router.route("t", body).status == 200
+    assert tr.idle_connections() == {"r0": 1}
+    time.sleep(0.6)  # three idle timeouts: the replica has closed it
+    res = router.route("t", body)
+    assert res.status == 200 and res.attempts == 1
+    np.testing.assert_array_equal(
+        np.asarray(res.json()["outputs"]["mean"], dtype=np.float32), engine.predict(x)["mean"])
+    st = rs.stats()["r0"]
+    assert st["state"] == "closed" and st["request_failures"] == 0
+    assert tr.connections_opened == len(accepted) == 2 and tr.requests == 2
+
+
+def _one_failure_a_forward(router, rs, rid, method, path, body=None):
+    for k in (1, 2):
+        assert rs.begin_request(rid)
+        with pytest.raises(tfleet.ConnectError):
+            router._forward(rid, method, path, body, {}, 1.0)
+        st = rs.stats()[rid]
+        assert st["request_failures"] == k and st["inflight"] == 0
+
+
+def test_replica_shut_down_under_the_pool_gives_connect_error(replicas, transports):
+    engine, _, body = _port_engine()
+    srv, _ = replicas(engine)
+    tr = transports({"r0": _address(srv)})
+    rs = tfleet.ReplicaSet(["r0"], tr, passive_fail_threshold=10,
+                           registry=tmetrics.MetricsRegistry())
+    router = tfleet.FleetRouter(["r0"], transport=tr, replica_set=rs,
+                                registry=tmetrics.MetricsRegistry())
+    assert router.route("t", body).status == 200
+    assert tr.idle_connections() == {"r0": 1}
+    srv.shutdown()
+    _one_failure_a_forward(router, rs, "r0", "POST", "/predict", body)
+
+
+def test_replica_killed_under_the_pool_gives_connect_error(transports):
+    import subprocess
+
+    proc = subprocess.Popen([sys.executable, "-I", "-S", "-c", _KILLABLE_SERVER],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        port = int(proc.stdout.readline())
+        tr = transports({"r0": ("127.0.0.1", port)})
+        rs = tfleet.ReplicaSet(["r0"], tr, passive_fail_threshold=10,
+                               registry=tmetrics.MetricsRegistry())
+        router = tfleet.FleetRouter(["r0"], transport=tr, replica_set=rs,
+                                    registry=tmetrics.MetricsRegistry())
+        for _ in range(3):
+            assert tr.request("r0", "GET", "/healthz").status == 200
+        assert tr.connections_opened == 1 and tr.idle_connections() == {"r0": 1}
+    finally:
+        proc.kill()
+        proc.wait(timeout=10)
+        proc.stdout.close()
+    _one_failure_a_forward(router, rs, "r0", "GET", "/healthz")
+
+
+def test_partition_and_heal_with_pooled_connections_open(replicas, transports):
+    """A partition closes the replica's idle connections and bars it before
+    the pool; a connection in flight across the cut is closed after its
+    reply, not pooled; the heal reconnects."""
+    engine, _, body = _port_engine()
+    held = {"on": False}
+    entered, release = threading.Event(), threading.Event()
+
+    def gate():
+        if held["on"]:
+            entered.set()
+            release.wait(timeout=10)
+
+    srv, accepted = replicas(engine, gate=gate)
+    tr = transports({"r0": _address(srv)})
+    for _ in range(2):
+        assert tr.request("r0", "POST", "/predict", body=body).status == 200
+    assert tr.idle_connections() == {"r0": 1}
+    tr.partition("r0")
+    assert tr.idle_connections() == {}
+    with pytest.raises(tfleet.ConnectError, match="partitioned"):
+        tr.request("r0", "POST", "/predict", body=body)
+    tr.heal("r0")
+    held["on"] = True
+    statuses = []
+    t = threading.Thread(target=lambda: statuses.append(
+        tr.request("r0", "POST", "/predict", body=body, timeout_s=20).status))
+    t.start()
+    assert entered.wait(timeout=10)
+    tr.partition("r0")
+    release.set()
+    t.join(timeout=20)
+    assert statuses == [200] and tr.idle_connections() == {}
+    held["on"] = False
+    tr.heal("r0")
+    assert tr.request("r0", "POST", "/predict", body=body).status == 200
+    assert tr.connections_opened == len(accepted) == 3
+
+
+def test_set_address_after_a_restart_never_reaches_the_old_process(replicas, transports):
+    """A replica restarted on a new port: the old address's pool is dropped,
+    and a request in flight to the old process when the address moves
+    closes its connection after the reply."""
+    engine, x, body = _port_engine()
+    held = {"on": False}
+    entered, release = threading.Event(), threading.Event()
+
+    def gate():
+        if held["on"]:
+            entered.set()
+            release.wait(timeout=10)
+
+    old, old_accepted = replicas(engine, gate=gate)
+    new, new_accepted = replicas(engine)
+    tr = transports({"r0": _address(old)})
+    assert tr.request("r0", "POST", "/predict", body=body).status == 200
+    held["on"] = True
+    replies = []
+    t = threading.Thread(target=lambda: replies.append(
+        tr.request("r0", "POST", "/predict", body=body, timeout_s=20)))
+    t.start()
+    assert entered.wait(timeout=10)
+    tr.set_address("r0", *_address(new))
+    release.set()
+    t.join(timeout=20)
+    assert replies[0].status == 200 and tr.idle_connections() == {}
+    for _ in range(5):
+        reply = tr.request("r0", "POST", "/predict", body=body)
+        assert reply.status == 200
+        np.testing.assert_array_equal(_mean(reply), engine.predict(x)["mean"])
+    assert old.metrics()["http_requests"] == 2 and len(old_accepted) == 1
+    assert new.metrics()["http_requests"] == 5 and len(new_accepted) == 1
+
+
+def test_request_timeout_on_a_reused_connection_closes_it(replicas, transports):
+    engine, _, body = _port_engine()
+    slow = {"on": False}
+    srv, accepted = replicas(engine, gate=lambda: time.sleep(1.0) if slow["on"] else None)
+    tr = transports({"r0": _address(srv)})
+    assert tr.request("r0", "POST", "/predict", body=body).status == 200
+    slow["on"] = True
+    with pytest.raises(tfleet.RequestTimeout):
+        tr.request("r0", "POST", "/predict", body=body, timeout_s=0.2)
+    assert tr.idle_connections() == {}
+    slow["on"] = False
+    assert tr.request("r0", "POST", "/predict", body=body).status == 200
+    assert tr.connections_opened == len(accepted) == 2
+
+
+def _front_door(door, replicas):
+    """``(host, port, accepted, want_mean, close)`` of a replica server or
+    a router front door over loopback replicas."""
+    if door == "replica":
+        engine, x, body = _port_engine()
+        srv, accepted = replicas(engine)
+        return (*_address(srv), accepted, body, engine.predict(x)["mean"], srv.shutdown)
+    reps = {f"r{i}": tfleet.LoopbackReplica(f"r{i}") for i in range(2)}
+    tr = tfleet.FakeTransport(reps)
+    reg = tmetrics.MetricsRegistry()
+    router = tfleet.FleetRouter(list(reps), transport=tr,
+                                replica_set=tfleet.ReplicaSet(list(reps), tr, registry=reg),
+                                registry=reg, port=0)
+    accepted = _count_accepts(router._httpd)
+    router.start()
+    host, port = router._httpd.server_address[:2]
+    return host, port, accepted, _body("web", rows=3), np.zeros(3, np.float32), router.shutdown
+
+
+@pytest.mark.parametrize("door", ["replica", "router"])
+def test_unknown_path_post_then_predict_on_one_connection(door, replicas):
+    """The 404 for another path reads the body it does not use, so the
+    next request on the connection parses from its own first byte."""
+    import http.client
+
+    host, port, accepted, body, want, close = _front_door(door, replicas)
+    try:
+        conn = http.client.HTTPConnection(host, port, timeout=10)
+        headers = {"Content-Type": "application/json"}
+        conn.request("POST", "/nope", body=body, headers=headers)
+        resp = conn.getresponse()
+        assert resp.status == 404 and "no route" in json.loads(resp.read())["error"]
+        conn.request("POST", "/predict", body=body, headers=headers)
+        resp = conn.getresponse()
+        assert resp.status == 200
+        mean = np.asarray(json.loads(resp.read())["outputs"]["mean"], dtype=np.float32)
+        np.testing.assert_array_equal(mean, want)
+        conn.close()
+        assert len(accepted) == 1
+    finally:
+        close()
+
+
+@pytest.mark.parametrize("door", ["replica", "router"])
+def test_each_reply_is_one_write_on_a_nodelay_socket(door, replicas, monkeypatch):
+    import http.client
+    import socket
+    import socketserver
+
+    writes = []
+    write = socketserver._SocketWriter.write
+
+    def counted(self, data):
+        writes.append(self._sock.getsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY))
+        return write(self, data)
+
+    monkeypatch.setattr(socketserver._SocketWriter, "write", counted)
+    host, port, accepted, body, _, close = _front_door(door, replicas)
+    try:
+        conn = http.client.HTTPConnection(host, port, timeout=10)
+        for method, path, data in (("GET", "/healthz", None), ("POST", "/predict", body),
+                                   ("GET", "/metrics", None), ("GET", "/nope", None)):
+            conn.request(method, path, body=data)
+            resp = conn.getresponse()
+            resp.read()
+            assert not resp.will_close
+        conn.close()
+    finally:
+        close()
+    assert len(writes) == 4 and all(writes) and len(accepted) == 1
+
+
+def test_shutdown_with_idle_pooled_connections_is_bounded_and_drains_first(replicas, transports):
+    """Four idle pooled connections do not hold shutdown() to the idle
+    timeout; /healthz, asked over a pooled connection after the drain flag
+    and before the socket closes, reads 503 "draining" and closes that
+    connection."""
+    engine, _, body = _port_engine()
+    barrier = threading.Barrier(4)
+    srv, accepted = replicas(engine, gate=lambda: barrier.wait(timeout=20))
+    tr = transports({"r0": _address(srv)})
+    _run_threads(lambda i: tr.request("r0", "POST", "/predict", body=body, timeout_s=20), 4)
+    assert tr.idle_connections() == {"r0": 4} and len(accepted) == 4
+    seen = {}
+    inner = srv._httpd.shutdown
+
+    def spy():
+        seen["reply"] = tr.request("r0", "GET", "/healthz", timeout_s=10)
+        inner()
+
+    srv._httpd.shutdown = spy
+    t0 = time.monotonic()
+    srv.shutdown()
+    wall = time.monotonic() - t0
+    reply = seen["reply"]
+    assert reply.status == 503 and reply.json()["status"] == "draining"
+    assert reply.headers["connection"] == "close"
+    assert tr.idle_connections() == {"r0": 3} and len(accepted) == 4
+    assert wall < tfleet.IDLE_TIMEOUT_S / 2
+
+
+def test_router_shutdown_ends_idle_front_door_connections():
+    import http.client
+
+    reps = {f"r{i}": tfleet.LoopbackReplica(f"r{i}") for i in range(2)}
+    tr = tfleet.FakeTransport(reps)
+    reg = tmetrics.MetricsRegistry()
+    router = tfleet.FleetRouter(list(reps), transport=tr,
+                                replica_set=tfleet.ReplicaSet(list(reps), tr, registry=reg),
+                                registry=reg, port=0).start()
+    host, port = router._httpd.server_address[:2]
+    conns = [http.client.HTTPConnection(host, port, timeout=10) for _ in range(3)]
+    for conn in conns:
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        assert resp.status == 200 and not resp.will_close
+        resp.read()
+    t0 = time.monotonic()
+    router.shutdown()
+    assert time.monotonic() - t0 < tfleet.IDLE_TIMEOUT_S / 2
+    for conn in conns:
+        conn.close()

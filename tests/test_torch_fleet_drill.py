@@ -8,7 +8,8 @@ the kill's retries as sibling trees, a monotone federation.  Both
 ``row_ok`` give the same verdicts and reasons on the same doctored rows;
 ``main`` exits 0 on a clean drill.  The real mode spawns three
 ``python -m dist_svgd_torch.serving.server`` replicas with ``--device
-cpu`` and is marked slow, as JAX's real drill is."""
+cpu`` behind the router's pooled keep-alive transport and is marked slow,
+as JAX's real drill is."""
 
 import importlib.util
 import json
@@ -124,13 +125,17 @@ def test_run_drill_rejects_an_unknown_mode():
 
 
 @pytest.mark.slow
-def test_real_subprocess_drill():
+def test_real_subprocess_drill(rows, jfd):
     """Real sockets, a real SIGKILL and restart: three port
     ``PredictionServer`` subprocesses on the CPU behind the router, the
-    partition cut router-side so the replica process stays untouched."""
+    partition cut router-side so the replica process stays untouched.  The
+    router's ``HttpTransport`` pools keep-alive connections, and the row
+    keeps JAX's keys (plus the port's spawn walls) and JAX's verdict."""
     row = tfd.run_drill(mode="real", rate_hz=80.0, device="cpu")
     ok, why = tfd.row_ok(row)
     assert ok, (why, row)
+    assert tfd.row_ok(dict(row)) == jfd.row_ok(dict(row))
+    assert [k for k in row if k != "replica_spawn_s"] == list(rows[1])
     assert row["lost_requests"] == 0
     assert row["partition_replica_alive"] is True
     assert len(row["replica_spawn_s"]) == 4  # three spawns and the restart
