@@ -132,8 +132,9 @@ Without CUDA (``torch.cuda.is_available()`` false) it exits 1 and prints no
 result.
 
 ``python3 chip_smoke.py --fleet-load [--runs R] [--procs P] [--tree DIR]
-[--drill]`` runs section 23's fleet_covertype phase R times while P busy
-processes load the host, each run metered by ``_HopMeter``
+[--drill] [--profile OUT]`` runs section 23's fleet_covertype phase R times
+while P busy processes load the host, each run metered by ``_HopMeter``
+and, with ``--profile OUT``, profiled by thread and function
 (``fleet_load_main``).
 """
 
@@ -4098,6 +4099,16 @@ def _hist_ms(dump, name, q=0.5):
     return reg.get(name).quantile(q) * 1e3
 
 
+def _counter_by(dump, name, label):
+    """Counter ``name`` of a registry dump summed by the value of ``label``
+    (``{}`` when the dump has no such counter)."""
+    out = {}
+    for series in (dump["metrics"].get(name) or {}).get("series", []):
+        key = series["labels"].get(label)
+        out[key] = out.get(key, 0) + series["value"]
+    return out
+
+
 def fleet_drill_phase(mode, card, device=None):
     """fleet_drill's run_drill(mode) at JAX's defaults (the constants above
     FLEET_TRAIN); ``device`` is the real mode's replica device (None: the
@@ -4252,10 +4263,16 @@ def fleet_covertype_phase(root, card, device="cuda"):
                                            usage_first=u1, usage_second=u2)
         rendered = fleet_status.render(report)
         circuits = {rid: st["state"] for rid, st in second["replicas"].items()}
-        device_p50, replica_ms = {}, {}
+        device_p50, replica_ms, decode = {}, {}, {}
         for rid in names:
             dump = transport.request(rid, "GET", "/metrics.dump", timeout_s=5.0).json()
             device_p50[rid] = _hist_ms(dump, "svgd_serve_device_time_seconds")
+            # the /predict bodies this replica decoded, by path, beside the
+            # /predict requests it answered
+            decode[rid] = {**dict.fromkeys(("native", "json"), 0),
+                           **_counter_by(dump, "svgd_predict_decode_total", "path"),
+                           "answered": _counter_by(dump, "svgd_http_requests_total",
+                                                   "route").get("/predict", 0)}
             # where a replica's time goes (information): the batcher's
             # queue wait and dispatch, its request latency (the p99 SLO's
             # series) and the HTTP handler's wall around it
@@ -4310,7 +4327,7 @@ def fleet_covertype_phase(root, card, device="cuda"):
            "fleet_status_healthy": report["healthy"],
            "fleet_status_lines": len(rendered.splitlines()),
            "fleet_tenants_rps": {t: v["rps"] for t, v in report["tenants"].items()},
-           "device_p50_ms": device_p50, "replica_ms": replica_ms,
+           "device_p50_ms": device_p50, "replica_ms": replica_ms, "decode": decode,
            "circuit_transitions": transitions, "spawn_to_healthy_s": spawn_s,
            "replica_exit_codes": exits, "stitch_coverage": stitch["coverage"],
            "stitch_served_routes": stitch["served_routes"],
@@ -4326,7 +4343,11 @@ def fleet_covertype_phase(root, card, device="cuda"):
           and sorted(circuits.values()) == ["closed"] * FLEET["replicas"]
           and row["fleet_status_lines"] > 0 and stitch["coverage"] == 1.0
           and stitch["served_routes"] == n and connections < answered
-          and sum(phi_launches.values()) >= FLEET_TRAIN["niter"])
+          and sum(phi_launches.values()) >= FLEET_TRAIN["niter"]
+          # every body the replicas answered took the native decode
+          and sum(d["json"] for d in decode.values()) == 0
+          and sum(d["native"] for d in decode.values())
+          == sum(d["answered"] for d in decode.values()) >= len(served))
     emit({**row, "ok": ok})
     if not ok:
         raise AssertionError(f"fleet_covertype: {row}")
@@ -4633,6 +4654,23 @@ def instrument_phases(card, device="cuda"):
 FLEET_LOAD = dict(procs=16, runs=5)
 #: ``--fleet-load``'s CPU sampler period, seconds.
 HOP_SAMPLE_S = 0.01
+#: ``--fleet-load --profile``: the per-thread profiler (run by path, so it
+#: profiles whichever tree's replica it wraps).
+THREAD_PROFILE = str(Path(__file__).resolve().parent / "dist_svgd_torch" / "tools"
+                     / "thread_profile.py")
+#: ``--fleet-load --profile``: functions a process's row lists.
+PROFILE_TOP = 12
+
+
+def _thread_profile():
+    """This checkout's ``thread_profile`` module, loaded by path (a
+    ``--tree`` run puts another checkout's package first on sys.path)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_thread_profile", THREAD_PROFILE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class _HopMeter:
@@ -4650,13 +4688,20 @@ class _HopMeter:
     _active = None  # the meter the process-wide audit hook counts into
     _hooked = False  # the hook is added once a process (it cannot be removed)
 
-    def __init__(self, fleet_mod):
+    def __init__(self, fleet_mod, profile_dir=None, requests=None):
         self._fleet = fleet_mod
         self._tick = os.sysconf("SC_CLK_TCK")
         self.ports, self.pids, self.connects = {}, {}, []
         self.window = [None, None]
         self.samples = []
         self._stop = threading.Event()
+        # --profile: each replica runs under thread_profile.py, and this
+        # process under a ThreadSampler, charging from the first route
+        # call to the return of the ``requests``-th
+        self.profile_dir, self._requests, self._done = profile_dir, requests, 0
+        self.sampler = None
+        if profile_dir:
+            self.sampler = _thread_profile().ThreadSampler(active=False)
 
     @classmethod
     def _audit(cls, event, args):
@@ -4678,24 +4723,47 @@ class _HopMeter:
                                  {rid: self._cpu(pid) for rid, pid in list(self.pids.items())}))
 
     def __enter__(self):
+        import signal
+
         meter, popen, route = self, subprocess.Popen, self._fleet.FleetRouter.route
 
         class Popen(popen):
             def __init__(self, args, *a, **kw):
-                super().__init__(args, *a, **kw)
+                rid = None
                 if "dist_svgd_torch.serving.server" in args and "--replica-name" in args:
                     rid = args[args.index("--replica-name") + 1]
+                    if meter.profile_dir:
+                        args = [args[0], THREAD_PROFILE, "--wait-signal", "--out",
+                                os.path.join(meter.profile_dir, f"{rid}.json"), "--",
+                                *args[1:]]
+                super().__init__(args, *a, **kw)
+                if rid is not None:
                     meter.pids[rid] = self.pid
                     meter.ports[int(args[args.index("--port") + 1])] = rid
+
+        def toggle_profiles():
+            meter.sampler.toggle()
+            for pid in meter.pids.values():
+                os.kill(pid, signal.SIGUSR1)
 
         def timed_route(router, *a, **kw):
             if meter.window[0] is None:
                 meter.window[0] = time.perf_counter()
+                if meter.sampler is not None:
+                    toggle_profiles()
             try:
                 return route(router, *a, **kw)
             finally:
                 meter.window[1] = time.perf_counter()
+                with meter._lock:
+                    meter._done += 1
+                    last = meter._done == meter._requests
+                if last and meter.sampler is not None:
+                    toggle_profiles()
 
+        self._lock = threading.Lock()
+        if self.sampler is not None:
+            self.sampler.start()
         self._undo = [(subprocess, "Popen", popen), (self._fleet.FleetRouter, "route", route)]
         subprocess.Popen, self._fleet.FleetRouter.route = Popen, timed_route
         if not _HopMeter._hooked:
@@ -4709,6 +4777,8 @@ class _HopMeter:
     def __exit__(self, *exc):
         self._stop.set()
         self._thread.join(timeout=5)
+        if self.sampler is not None:
+            self.sampler.stop()
         _HopMeter._active = None
         for owner, name, value in self._undo:
             setattr(owner, name, value)
@@ -4735,17 +4805,49 @@ class _HopMeter:
                 "connections_in_window": sum(window.count(port) for port in self.ports)}
 
 
+def _emit_fleet_profile(run, args, meter, profile_dir, card):
+    """``--profile OUT``'s rows: the router's process and each replica, CPU
+    seconds over the load window by thread group and the PROFILE_TOP
+    functions by self and inclusive CPU seconds; the full reports go to
+    one JSON file in OUT."""
+    reports = {"router": meter.sampler.report()}
+    for rid in sorted(meter.pids):
+        try:
+            with open(os.path.join(profile_dir, f"{rid}.json")) as fh:
+                reports[rid] = json.load(fh)
+        except (OSError, ValueError) as e:
+            reports[rid] = {"error": repr(e)}
+    out = Path(args.profile)
+    out.mkdir(parents=True, exist_ok=True)
+    name = f"fleet_profile_p{args.procs}_run{run}_{os.path.basename(os.getcwd())}.json"
+    with open(out / name, "w") as fh:
+        json.dump({"card": card, "load_procs": args.procs, "reports": reports}, fh)
+    for proc, rep in reports.items():
+        if "error" in rep:
+            emit({"phase": "fleet_profile", "run": run, "process": proc, **rep})
+            continue
+        emit({"phase": "fleet_profile", "run": run, "process": proc,
+              "load_procs": args.procs, "wall_s": rep["wall_s"], "cpu_s": rep["cpu_s"],
+              "samples": rep["samples"], "sampler_cpu_s": rep["sampler_cpu_s"],
+              "by_thread": rep["by_thread"][:6], "self": rep["self"][:PROFILE_TOP],
+              "inclusive": rep["inclusive"][:PROFILE_TOP], "file": name})
+
+
 def fleet_load_main(argv):
     """``python3 chip_smoke.py --fleet-load [--runs R] [--procs P] [--tree
-    DIR] [--drill]``: section 23's fleet_covertype phase ``R`` times while
+    DIR] [--drill] [--profile OUT]``: section 23's fleet_covertype phase ``R`` times while
     ``P`` busy processes load the host, each run's row printed beside a
     ``fleet_hop`` row (``_HopMeter``: CPU seconds by process over the load
     window, connections to each replica), then one ``fleet_load`` summary.
     ``--tree DIR`` runs another checkout's phases and package (DIR's
     ``chip_smoke.py`` and ``dist_svgd_torch``), so a change and its parent
-    are held under the same load in one call; ``--drill`` first runs that
-    tree's fleet_drill_real once, unloaded.  Exits 0 when every run
-    passed."""
+    are held under the same load in one call (the replicas start in DIR,
+    so ``python -m`` finds DIR's server first); ``--drill`` first runs that
+    tree's fleet_drill_real once, unloaded; ``--profile OUT`` adds, each
+    run, a per-thread CPU profile by function of the router's process and
+    of every replica over the load window (``dist_svgd_torch/tools/
+    thread_profile.py``; ``fleet_profile`` rows, the full reports in OUT).
+    Exits 0 when every run passed."""
     import argparse
     import importlib.util
     import shutil
@@ -4756,7 +4858,10 @@ def fleet_load_main(argv):
     ap.add_argument("--procs", type=int, default=FLEET_LOAD["procs"])
     ap.add_argument("--tree", default=None)
     ap.add_argument("--drill", action="store_true")
+    ap.add_argument("--profile", metavar="OUT", default=None)
     args = ap.parse_args(argv)
+    if args.profile:
+        args.profile = os.path.abspath(args.profile)  # before the chdir below
     mod = sys.modules[__name__]
     if args.tree:
         tree = os.path.abspath(args.tree)
@@ -4765,6 +4870,9 @@ def fleet_load_main(argv):
             "chip_smoke_tree", os.path.join(tree, "chip_smoke.py"))
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
+    # the phase spawns its replicas with `python -m`, which finds the
+    # package in the working directory first: the tree's own
+    os.chdir(os.path.dirname(os.path.abspath(mod.__file__)))
     import torch
 
     if not torch.cuda.is_available():
@@ -4793,7 +4901,10 @@ def fleet_load_main(argv):
             run_root = os.path.join(root, f"run{i}")
             os.makedirs(run_root)
             t0 = time.perf_counter()
-            with _HopMeter(fleet) as meter:
+            profile_dir = os.path.join(run_root, "profile") if args.profile else None
+            if profile_dir:
+                os.makedirs(profile_dir)
+            with _HopMeter(fleet, profile_dir, mod.FLEET["requests"]) as meter:
                 try:
                     mod.fleet_covertype_phase(run_root, card)
                     rows.append({"run": i, "ok": True})
@@ -4801,6 +4912,8 @@ def fleet_load_main(argv):
                     rows.append({"run": i, "ok": False, "error": str(e)[:600]})
             rows[-1]["seconds"] = time.perf_counter() - t0
             emit({"phase": "fleet_hop", "run": i, "load_procs": args.procs, **meter.row()})
+            if profile_dir:
+                _emit_fleet_profile(i, args, meter, profile_dir, card)
     finally:
         for p in busy:
             p.send_signal(signal.SIGKILL)
@@ -6612,9 +6725,10 @@ def main():
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build()
+    # the serving decoder (host C++) compiles beside the kernels
+    built = _build.build([*_build.SOURCES, *_build.HOST_SOURCES])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "flags": " ".join(_build.NVCC_FLAGS),
+          "flags": " ".join(_build.NVCC_FLAGS), "host_flags": " ".join(_build.HOST_CXX_FLAGS),
           "sources": {name: {"path": str(r.path.name), "seconds": r.seconds,
                              "cached": r.cached,
                              "ptxas": [ln.strip() for ln in r.log.splitlines()

@@ -11,6 +11,13 @@ library is built once per source version and reused after that.  All
 requested sources compile in parallel (one ``nvcc`` each, started together).
 Nothing here runs at import time: the first call that needs a kernel builds
 it, and a missing ``nvcc`` or a failed compile raises — there is no fallback.
+
+The host sources (:data:`HOST_SOURCES`, ``csrc/<name>.cpp``: host C++, no
+GPU code) go the same way through the host compiler,
+
+    c++ -O3 -std=c++17 -shared -fPIC -o build/dist_svgd_torch/lib<name>-<hash>.so
+
+hashed over those flags and the source; a missing ``c++`` raises too.
 While the telemetry tracer is enabled, each compile records a
 ``kernel_build`` instant (tagged with the library and its ``nvcc`` seconds)
 inside whatever span was active on the building thread.
@@ -44,6 +51,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+#: Host libraries, by name: each is ``csrc/<name>.cpp``, built with ``c++``.
+HOST_SOURCES = ("predict_body",)
+
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
 
 @dataclass
 class BuildResult:
@@ -73,10 +85,33 @@ def find_nvcc() -> str:
     )
 
 
+def find_cxx() -> str:
+    """Path of the host compiler ``c++``; raises ``RuntimeError`` when there
+    is none."""
+    found = shutil.which("c++")
+    if found:
+        return found
+    raise RuntimeError(
+        "c++ not found: the port's host libraries are compiled from "
+        f"{CSRC} on first use and need a C++17 compiler"
+    )
+
+
+def _compile_command(name: str, csrc: Path, out: Path) -> list:
+    if name in HOST_SOURCES:
+        return [find_cxx(), *HOST_CXX_FLAGS, "-o", str(out), str(csrc / f"{name}.cpp")]
+    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(csrc / f"{name}.cu")]
+
+
 def source_digest(name: str, csrc: Path = CSRC) -> str:
     """Hash of what a library is built from: flags, source, headers."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
+    if name in HOST_SOURCES:
+        h = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode())
+        paths = [csrc / f"{name}.cpp"]
+    else:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        paths = [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]
+    for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -99,7 +134,8 @@ def _note_build() -> None:
 
 def builds_total() -> int:
     """Kernel libraries compiled by this process so far (each also a
-    ``kernel_build`` instant while the tracer is on)."""
+    ``kernel_build`` instant while the tracer is on); host libraries are
+    not kernels and are not counted."""
     with _builds_lock:
         return _builds
 
@@ -111,9 +147,10 @@ def build(names: Optional[Iterable[str]] = None, csrc: Path = CSRC) -> Dict[str,
     ``csrc`` is the directory of the sources (another version of them, for
     an old-against-new timing: ``tools/ot_ab.py``)."""
     names = list(SOURCES if names is None else names)
-    unknown = set(names) - set(SOURCES)
+    unknown = set(names) - set(SOURCES) - set(HOST_SOURCES)
     if unknown:
-        raise ValueError(f"unknown kernel sources {sorted(unknown)}; have {SOURCES}")
+        raise ValueError(f"unknown kernel sources {sorted(unknown)}; have "
+                         f"{SOURCES + HOST_SOURCES}")
     results: Dict[str, BuildResult] = {}
     todo = []
     for name in names:
@@ -124,29 +161,31 @@ def build(names: Optional[Iterable[str]] = None, csrc: Path = CSRC) -> Dict[str,
             todo.append((name, target))
     if not todo:
         return results
-    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for name, target in todo:
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
+        # unique per thread too: two threads of one process may build at once
+        tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = _compile_command(name, csrc, tmp)
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, target, time.perf_counter())
+        running[name] = (proc, tmp, target, time.perf_counter(), Path(cmd[0]).name)
     failures = []
-    for name, (proc, tmp, target, t0) in running.items():
+    for name, (proc, tmp, target, t0, compiler) in running.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failures.append(f"--- nvcc {name} (exit {proc.returncode}) ---\n{log}")
+            failures.append(f"--- {compiler} {name} (exit {proc.returncode}) ---\n{log}")
             continue
         os.replace(tmp, target)
         results[name] = BuildResult(name, target, seconds, False, log)
+        if name in HOST_SOURCES:
+            continue
         _note_build()
         _trace.instant("kernel_build", {"kernel": name, "seconds": round(seconds, 3)}
                        if _trace.enabled() else None)
     if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+        raise RuntimeError("library build failed:\n" + "\n".join(failures))
     return results
 
 
@@ -154,7 +193,8 @@ _LIBRARIES: Dict[str, ctypes.CDLL] = {}
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` (or ``.cpp``, a host
+    source), built on first use."""
     lib = _LIBRARIES.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name].path))

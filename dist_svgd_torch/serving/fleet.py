@@ -119,6 +119,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from dist_svgd_torch.resilience.backoff import Backoff
+from dist_svgd_torch.serving import predict_body
 from dist_svgd_torch.telemetry import metrics as _metrics
 from dist_svgd_torch.telemetry import trace as _trace
 from dist_svgd_torch.telemetry import usage as _usage
@@ -1571,6 +1572,7 @@ class FleetRouter:
         self._httpd = None
         self._serve_thread = None
         if port is not None:
+            predict_body.load()  # the front door reads tenants with it: built first
             self._httpd = _HTTPServer((host, port), self._make_handler())
             # ThreadingMixIn reads this off the SERVER instance (a class
             # attribute on the handler is a no-op): non-daemon handler
@@ -1996,12 +1998,10 @@ class FleetRouter:
                     self._write_json(404, {"error": f"no route {self.path}"})
                     return
                 body = self.read_body()
-                try:
-                    doc = json.loads(body or b"null")
-                    tenant = (doc.get("tenant") or ""
-                              if isinstance(doc, dict) else "")
-                except ValueError:
-                    tenant = ""
+                # JAX's doc.get("tenant") or "", read natively where the
+                # body allows (no Python float built); the bytes forwarded
+                # stay the client's
+                tenant = predict_body.routing_key(body)
                 deadline_s = None
                 raw = self.headers.get(DEADLINE_HEADER)
                 if raw:

@@ -8,7 +8,11 @@ and ``main``), with every route:
   output dict as lists, plus this request's latency.  Against a registry,
   the body's ``"tenant"`` field routes to that tenant's engine (404 for an
   unknown tenant; omitted, it defaults to the registry's single tenant
-  when there is exactly one, else 400);
+  when there is exactly one, else 400).  The body is decoded natively
+  with the interpreter lock released (``serving/predict_body.py``, the
+  same float32 bits as JAX's ``json.loads``), or, for a body outside the
+  native decoder's shape, by JAX's own code; ``svgd_predict_decode_total``
+  counts the requests by path;
 - ``GET  /healthz``      — liveness + ensemble identity (503 while
   draining); against a registry, the aggregate plus one row per tenant,
   and ``GET /healthz/<tenant>`` the per-tenant detail;
@@ -55,6 +59,7 @@ import numpy as np
 from dist_svgd_torch.serving.autoscale import AutoscaleController, AutoscalePolicy
 from dist_svgd_torch.serving.batcher import MicroBatcher, Overloaded
 from dist_svgd_torch.serving.engine import PredictiveEngine
+from dist_svgd_torch.serving import predict_body
 from dist_svgd_torch.serving.fleet import (  # noqa: F401 (LISTEN_BACKLOG re-exported)
     LISTEN_BACKLOG,
     _HTTPServer,
@@ -136,6 +141,10 @@ class PredictionServer:
             "svgd_http_requests_total", "HTTP requests by route and status")
         self._m_http_latency = self.registry.histogram(
             "svgd_http_request_seconds", "handler wall per /predict request")
+        self._m_decode = self.registry.counter(
+            "svgd_predict_decode_total",
+            "/predict bodies by decode path (native or json)")
+        predict_body.load()  # build the decoder before the port binds
         if slo is None:
             from dist_svgd_torch.telemetry.slo import default_serving_slos
 
@@ -300,17 +309,25 @@ class PredictionServer:
         from concurrent.futures import TimeoutError as FuturesTimeout
 
         tenant = None
-        # phase 1 — parse and validate the request (client errors → 400)
+        # phase 1 — parse and validate the request (client errors → 400).
+        # The native decode (the interpreter lock released) takes the
+        # bodies it accepts; any other body is decoded as JAX's server does
+        native = predict_body.decode(body)
+        self._m_decode.inc(path="json" if native is None else "native")
         try:
-            doc = json.loads(body or b"null")
-            inputs = doc["inputs"] if isinstance(doc, dict) else None
-            if inputs is None:
-                raise ValueError('body must be {"inputs": [[...], ...]}')
-            x = np.asarray(inputs, dtype=np.float32)
-            if x.ndim == 1:  # single row shorthand
-                x = x[None, :]
+            if native is not None:
+                x, named = native
+            else:
+                doc = json.loads(body or b"null")
+                inputs = doc["inputs"] if isinstance(doc, dict) else None
+                if inputs is None:
+                    raise ValueError('body must be {"inputs": [[...], ...]}')
+                x = np.asarray(inputs, dtype=np.float32)
+                if x.ndim == 1:  # single row shorthand
+                    x = x[None, :]
+                named = doc.get("tenant")
             if self.model_registry is not None:
-                tenant = doc.get("tenant")
+                tenant = named
                 if tenant is None:
                     names = self.model_registry.tenant_names()
                     if len(names) != 1:
@@ -319,7 +336,7 @@ class PredictionServer:
                             f"field (hosted: {names})"
                         )
                     tenant = names[0]
-            elif isinstance(doc, dict) and doc.get("tenant") is not None:
+            elif named is not None:
                 raise ValueError(
                     "single-tenant server: drop the \"tenant\" field"
                 )

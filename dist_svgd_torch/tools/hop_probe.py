@@ -14,6 +14,14 @@ arms interleaved in rounds (the order rotates a round):
 - ``two_writes_nagle``: both off (the keep-alive hazard: a small second
   write waits for the client's delayed ACK).
 
+``--decode-cost`` instead times, on this host's CPU, the two decodes of a
+``/predict`` body the port's replica has (:func:`decode_cost`): JAX's
+``json.loads`` + ``np.asarray`` and the native decoder
+(``serving/predict_body.py``), each over the fleet phase's 128-row
+Covertype bodies, in rounds that alternate the order::
+
+    python -m dist_svgd_torch.tools.hop_probe --decode-cost [--rounds 5]
+
 The replica runs with :func:`patch_server_arms` applied, which takes each
 request's arm from its :data:`ARM_HEADER`.  The client's sockets have
 ``TCP_NODELAY`` in every arm (``http.client`` sets it) and send a request
@@ -114,6 +122,53 @@ def measure(address, body, requests=200, rounds=3, warmup=10):
             for arm, w in walls.items()}
 
 
+def _json_decode(body):
+    """The JAX server's decode of a body."""
+    x = np.asarray(json.loads(body)["inputs"], dtype=np.float32)
+    return x[None, :] if x.ndim == 1 else x
+
+
+def decode_cost(bodies, rounds=5):
+    """Thread CPU and wall ms a body of each decode (``json``: JAX's;
+    ``native``: the port's), summed over every body in a round (the card
+    host's CPU clocks tick in 10 ms, so a body alone cannot be timed), the
+    order alternating a round; the two must agree bitwise."""
+    from dist_svgd_torch.serving import predict_body
+
+    arms = {"json": _json_decode, "native": lambda b: predict_body.decode(b)[0]}
+    for body in bodies:
+        a, b = (arms[k](body) for k in ("json", "native"))
+        if not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+            raise RuntimeError("the two decodes disagree")
+    cpu = {k: [] for k in arms}
+    wall = {k: [] for k in arms}
+    for i in range(rounds):
+        for arm in (("json", "native") if i % 2 == 0 else ("native", "json")):
+            fn = arms[arm]
+            c0, w0 = time.thread_time(), time.perf_counter()
+            for body in bodies:
+                fn(body)
+            cpu[arm].append((time.thread_time() - c0) / len(bodies) * 1e3)
+            wall[arm].append((time.perf_counter() - w0) / len(bodies) * 1e3)
+    return {arm: {"cpu_ms_a_body": statistics.median(cpu[arm]),
+                  "wall_ms_a_body": statistics.median(wall[arm]),
+                  "cpu_ms_rounds": cpu[arm], "wall_ms_rounds": wall[arm]}
+            for arm in arms}
+
+
+def fleet_bodies(requests=320, rows=128, nrows=20_000, seed=0):
+    """The fleet phase's request bodies: ``json.dumps({"inputs": ...})`` of
+    the Covertype test rows in ``rows``-row chunks, cycled to
+    ``requests``."""
+    from dist_svgd_torch.utils.datasets import load_covertype
+
+    x, _ = load_covertype(nrows, seed=seed)
+    x_test = x[-max(nrows // 10, 1):].astype(np.float32)
+    chunks = [json.dumps({"inputs": x_test[i:i + rows].tolist()}).encode()
+              for i in range(0, len(x_test), rows)]
+    return [chunks[j % len(chunks)] for j in range(requests)]
+
+
 def _serve(argv):
     """The replica process: the server's own ``main`` with the arms
     patched in."""
@@ -185,7 +240,14 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--rows", type=int, default=128)
+    ap.add_argument("--decode-cost", action="store_true")
     args = ap.parse_args(argv)
+    if args.decode_cost:
+        bodies = fleet_bodies(rows=args.rows)
+        print(json.dumps({"metric": "decode_cost", "bodies": len(bodies),
+                          "body_bytes": sum(map(len, bodies)) / len(bodies),
+                          "arms": decode_cost(bodies, rounds=args.rounds)}), flush=True)
+        return 0
     print(json.dumps(run(device=args.device, requests=args.requests, rounds=args.rounds,
                          rows=args.rows)), flush=True)
     return 0
