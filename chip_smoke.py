@@ -135,9 +135,13 @@ result.
 [--drill] [--profile OUT]`` runs section 23's fleet_covertype phase R times
 while P busy processes load the host, each run metered by ``_HopMeter``
 and, with ``--profile OUT``, profiled by thread and function
-(``fleet_load_main``).
+(``fleet_load_main``).  ``python3 chip_smoke.py --gate-load --phase NAME
+[--runs R] [--procs P] [--tree DIR] [--ballast N] [--inject-us U]`` does
+the same for one of the three timing-gated phases (``GATE_PHASES``), each
+run with a host-state block (``gate_load_main``).
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -434,17 +438,20 @@ RESHARD_SEED = 700
 # - profiler_overhead: serve_bench's closed loop with the dispatch profiler
 #   and the usage meter off and on, interleaved, best of SERVING["ab_rounds"],
 #   each round's rps and their spread printed; the instruments' added time a
-#   batch on the dispatch path, times the closed loop's batch rate, held to
-#   JAX's 3% gate;
+#   batch on the dispatch path (SERVING["dispatch_rounds"] rounds of 500
+#   batches an arm, the order alternating, the median over adjacent rounds),
+#   times the closed loop's batch rate, held to JAX's 3% gate; beside it
+#   each round, the collector's pauses in each arm, the instruments' time
+#   inside their hooks and the phase's host-state block (_HostState);
 # - serve_hot_reload: lanes and direct callers predicting on the 10,000 × 55
 #   engine while a CheckpointHotReloader swaps in a newer step;
 # - the φ lanes these paths give the kernels (SERVING_LANES: the
 #   serve_covertype training's bf16x3 lanes, the resilient driver's exact
 #   lanes at its defaults) in kernel_parity, seeds from SERVING_SEED (after
 #   every older row's); the exact one also against the float64 φ.
-SERVING = dict(n=10_000, features=54, ab_rounds=8, ab_requests=2000, bucket_reps=100,
-               reload_threads=4, reload_calls=40, served_sizes=(1, 2, 3, 5, 8, 13, 16, 31,
-                                                                33, 64, 100, 128, 200, 256))
+SERVING = dict(n=10_000, features=54, ab_rounds=8, ab_requests=2000, dispatch_rounds=16,
+               bucket_reps=100, reload_threads=4, reload_calls=40,
+               served_sizes=(1, 2, 3, 5, 8, 13, 16, 31, 33, 64, 100, 128, 200, 256))
 SERVING_LANES = [("phi_big_d_bf16x3", (8, 128, 1024, 55), "serve_covertype training lanes h=1"),
                  ("phi_big_d", (4, 128, 512, 55), "resilient driver lanes h=1")]
 SERVING_SEED = 800
@@ -1049,6 +1056,52 @@ KERNELS = {
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+#: This checkout's collector-pause recorder (stdlib only, loaded by path).
+COLLECTOR = Path(__file__).resolve().parent / "dist_svgd_torch" / "utils" / "collector.py"
+
+#: What this run measured that a timing-gated phase prints beside its
+#: reading (the north star's ms/step, section 4); empty under --gate-load.
+SMOKE_CONTEXT = {}
+
+
+class _HostState:
+    """The host-state block of a timing-gated phase: at its start the
+    gc-tracked objects and the live threads (by name, digits folded), over
+    its window the cyclic collector's pauses (``utils/collector.py:
+    CollectorPauses``), at its end the card's allocated and reserved
+    memory, and the run's north star where it measured one."""
+
+    def __enter__(self):
+        import collections
+        import gc
+        import importlib.util
+        import re
+
+        # by path: under --gate-load --tree the package imported is the tree's
+        spec = importlib.util.spec_from_file_location("chip_smoke_collector", COLLECTOR)
+        collector = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(collector)
+        names = collections.Counter(re.sub(r"\d+", "#", t.name) for t in threading.enumerate())
+        self.start = {"gc_objects": len(gc.get_objects()), "gc_enabled": gc.isenabled(),
+                      "threads": sum(names.values()), "thread_names": dict(sorted(names.items()))}
+        self._pauses = collector.CollectorPauses().__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.window_s = time.perf_counter() - self._t0
+        self._pauses.__exit__(*exc)
+        return False
+
+    def block(self):
+        import torch
+
+        return {**self.start, "window_s": self.window_s, "gc_pauses": self._pauses.summary(),
+                "cuda_allocated_mb": torch.cuda.memory_allocated() / 2**20,
+                "cuda_reserved_mb": torch.cuda.memory_reserved() / 2**20,
+                "north_star_ms_per_step": SMOKE_CONTEXT.get("north_star_ms_per_step")}
 
 
 def phi_counts(**launched):
@@ -3256,14 +3309,16 @@ def profiler_overhead_phase(card):
     to JAX's gate (3%; serve_bench.measure_profiler_overhead says why)."""
     from dist_svgd_torch.tools import serve_bench
 
-    row = serve_bench.measure_profiler_overhead(rounds=SERVING["ab_rounds"],
-                                                requests=SERVING["ab_requests"])
+    with _HostState() as host:
+        row = serve_bench.measure_profiler_overhead(
+            rounds=SERVING["ab_rounds"], requests=SERVING["ab_requests"],
+            dispatch_rounds=SERVING["dispatch_rounds"])
     progs = row["programs"]
     ok = (row["rps_disabled"] > 0 and row["rps_enabled"] > 0 and row["within_gate"]
           and row["batches_per_s"] > 0
           and sum(p["dispatches"] for p in progs.values()) > 0
           and row["usage_totals"]["requests"] == SERVING["ab_requests"])
-    emit({"phase": "profiler_overhead", **row, "card": card, "ok": ok})
+    emit({"phase": "profiler_overhead", **row, "host": host.block(), "card": card, "ok": ok})
     if not ok:
         raise AssertionError(f"profiler_overhead: {row}")
 
@@ -3659,22 +3714,53 @@ def _storm_registry_check(rows_out):
     return warm, checked_warm
 
 
+def _storm_burst_rates(row, arm_records):
+    """Each arm's burst window: the hog's offered rows a second and the
+    rows a second the arm served (every tenant's requests that completed
+    inside the window) — the storm's premise is the first above the
+    second."""
+    trace = row["trace"]
+    t0, t1 = trace["steady_s"], trace["steady_s"] + trace["burst_s"]
+    out = {}
+    for name, records in zip(row["arms"], arm_records):
+        offered = sum(r["rows"] for r in records if r["tenant"] == "hog" and t0 <= r["t"] < t1)
+        served = sum(r["rows"] for r in records if r["status"] == "ok"
+                     and t0 <= r["t"] + r["lat_ms"] / 1e3 < t1)
+        out[name] = {"hog_offered_rows_per_s": offered / trace["burst_s"],
+                     "served_rows_per_s": served / trace["burst_s"]}
+    return out
+
+
 def autoscale_storm_phase(card):
     """run_storm() at its defaults on the card, all three arms (the
-    constants above STORM_MIN_STEP_FRAC)."""
+    constants above STORM_MIN_STEP_FRAC).  Printed beside the gates: the
+    card's capacity probe, sample by sample (workload_replay.py:
+    _steady_rows_capacity), and each arm's burst rates
+    (_storm_burst_rates)."""
     import os
 
     from dist_svgd_torch.serving.registry import ModelRegistry
     from dist_svgd_torch.tools import workload_replay as wr
 
-    checks = []
+    checks, probes, arm_records = [], [], []
     warm, checked_warm = _storm_registry_check(checks)
-    ModelRegistry.warm = checked_warm
+    probe, replay = wr._steady_rows_capacity, wr.replay
+
+    def logged_probe(*args, **kwargs):
+        return probe(*args, log=probes, **kwargs)
+
+    def recorded_replay(*args, **kwargs):
+        arm_records.append(replay(*args, **kwargs))
+        return arm_records[-1]
+
+    ModelRegistry.warm, wr._steady_rows_capacity, wr.replay = (
+        checked_warm, logged_probe, recorded_replay)
     t0 = time.perf_counter()
     try:
-        row = wr.run_storm(interval_s=STORM_INTERVAL_S)
+        with _HostState() as host:
+            row = wr.run_storm(interval_s=STORM_INTERVAL_S)
     finally:
-        ModelRegistry.warm = warm
+        ModelRegistry.warm, wr._steady_rows_capacity, wr.replay = warm, probe, replay
     wall = time.perf_counter() - t0
     ok, why = wr.storm_ok(row)
     events = row["trace"]["events"]
@@ -3710,6 +3796,8 @@ def autoscale_storm_phase(card):
                                                   "recover_s")}
                      for name, arm in row["arms"].items()},
           "default_lanes_max": wr.default_lanes_max(), "host_cpu_count": os.cpu_count(),
+          "probe": probes, "burst": _storm_burst_rates(row, arm_records),
+          "host": host.block(),
           "phase_wall_s": wall, "why": why, "card": card, "ok": ok})
     if not ok:
         raise AssertionError(f"autoscale_storm: {why}")
@@ -4025,18 +4113,33 @@ def streaming_covertype_phase(root, card):
         raise AssertionError(f"streaming_covertype: {out}, launches {launches}")
 
 
+def _reload_parts_ms(parts):
+    """A reload's parts record (``PredictiveEngine.last_reload_parts``) in
+    milliseconds, the ``_s`` of its keys dropped."""
+    def ms(record):
+        return {k.removesuffix("_s"): 1e3 * v if isinstance(v, float) else v
+                for k, v in record.items()}
+
+    return {**ms({k: v for k, v in parts.items() if k != "captures"}),
+            "captures": ms(parts["captures"])}
+
+
 def freshness_drill_phase(root, card):
     """freshness_drill: run_drill() at JAX's defaults on the card (the
     constants above STREAM_REFS).  A StreamingSupervisor subclass in the
     drill's namespace sums the steps of every segment of both phases: the
-    phi_small_d launches the run must show."""
+    phi_small_d launches the run must show.  Every hot reload's parts
+    (``PredictiveEngine.last_reload_parts``) are kept: the slowest one's
+    and each part's largest are printed beside the reload wall."""
     import os
 
+    from dist_svgd_torch.serving.engine import PredictiveEngine
     from dist_svgd_torch.tools import freshness_drill
 
     reset, read = _serving_counts()
     supervisor = freshness_drill.StreamingSupervisor
-    steps = []
+    reload = PredictiveEngine.reload
+    steps, reloads = [], []
 
     class CountedSupervisor(supervisor):
         def run_segment_once(self, *args, **kwargs):
@@ -4044,23 +4147,35 @@ def freshness_drill_phase(root, card):
             steps.append(seg["steps"])
             return seg
 
+    def recorded_reload(engine, *args, **kwargs):
+        info = reload(engine, *args, **kwargs)
+        reloads.append(engine.last_reload_parts)
+        return info
+
     freshness_drill.StreamingSupervisor = CountedSupervisor
+    PredictiveEngine.reload = recorded_reload
     reset()
     t0 = time.perf_counter()
     try:
-        row = freshness_drill.run_drill(root=os.path.join(root, "freshness-drill"))
+        with _HostState() as host:
+            row = freshness_drill.run_drill(root=os.path.join(root, "freshness-drill"))
     finally:
         freshness_drill.StreamingSupervisor = supervisor
+        PredictiveEngine.reload = reload
     wall = time.perf_counter() - t0
     launches = read()
     gates_ok, why = freshness_drill.row_ok(row)
     only = launches == {**dict.fromkeys(launches, 0), "phi_small_d": sum(steps)}
     ok = (gates_ok and row["steady_state_recompiles"] == 0 and row["freshness_count"] >= 1
           and row["platform"] == "gpu" and only)
+    parts = [_reload_parts_ms(p) for p in reloads]
+    slowest = max(parts, key=lambda p: p["wall"], default=None)
+    largest = {k: max(p.get(k, 0.0) for p in parts) for k in (slowest or {}) if k != "captures"}
     emit({"phase": "freshness_drill", **row, "row_ok": gates_ok, "why": why,
           "launches": {"phi_small_d": launches["phi_small_d"]}, "segments_run": len(steps),
-          "steps_run": sum(steps), "only_phi_small_d": only, "phase_wall_s": wall,
-          "card": card, "ok": ok})
+          "steps_run": sum(steps), "only_phi_small_d": only,
+          "slowest_reload_parts_ms": slowest, "reload_parts_max_ms": largest,
+          "host": host.block(), "phase_wall_s": wall, "card": card, "ok": ok})
     if not ok:
         raise AssertionError(f"freshness_drill: {why}, launches {launches}, steps {sum(steps)}")
 
@@ -4833,6 +4948,43 @@ def _emit_fleet_profile(run, args, meter, profile_dir, card):
               "inclusive": rep["inclusive"][:PROFILE_TOP], "file": name})
 
 
+def _load_tree(tree):
+    """This script's module or, with ``tree``, another checkout's
+    (``tree/chip_smoke.py``, with ``tree`` first on sys.path so its
+    package is the one imported); the working directory moves to that
+    checkout, since its phases spawn ``python -m`` processes that find the
+    package there first."""
+    import importlib.util
+
+    mod = sys.modules[__name__]
+    if tree:
+        tree = os.path.abspath(tree)
+        sys.path.insert(0, tree)
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_tree", os.path.join(tree, "chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    os.chdir(os.path.dirname(os.path.abspath(mod.__file__)))
+    return mod
+
+
+@contextlib.contextmanager
+def _busy_host(procs):
+    """``procs`` processes spinning in Python while the block runs, killed
+    after it."""
+    import signal
+
+    busy = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+            for _ in range(procs)]
+    try:
+        yield
+    finally:
+        for p in busy:
+            p.send_signal(signal.SIGKILL)
+        for p in busy:
+            p.wait()
+
+
 def fleet_load_main(argv):
     """``python3 chip_smoke.py --fleet-load [--runs R] [--procs P] [--tree
     DIR] [--drill] [--profile OUT]``: section 23's fleet_covertype phase ``R`` times while
@@ -4849,9 +5001,7 @@ def fleet_load_main(argv):
     thread_profile.py``; ``fleet_profile`` rows, the full reports in OUT).
     Exits 0 when every run passed."""
     import argparse
-    import importlib.util
     import shutil
-    import signal
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py --fleet-load")
     ap.add_argument("--runs", type=int, default=FLEET_LOAD["runs"])
@@ -4862,17 +5012,7 @@ def fleet_load_main(argv):
     args = ap.parse_args(argv)
     if args.profile:
         args.profile = os.path.abspath(args.profile)  # before the chdir below
-    mod = sys.modules[__name__]
-    if args.tree:
-        tree = os.path.abspath(args.tree)
-        sys.path.insert(0, tree)
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke_tree", os.path.join(tree, "chip_smoke.py"))
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-    # the phase spawns its replicas with `python -m`, which finds the
-    # package in the working directory first: the tree's own
-    os.chdir(os.path.dirname(os.path.abspath(mod.__file__)))
+    mod = _load_tree(args.tree)
     import torch
 
     if not torch.cuda.is_available():
@@ -4893,10 +5033,8 @@ def fleet_load_main(argv):
             print(f"fleet_drill_real failed: {str(e)[:600]}", flush=True)
     root = str(Path(mod.__file__).resolve().parent / "build" / "chip_smoke_fleet_load")
     shutil.rmtree(root, ignore_errors=True)
-    busy = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
-            for _ in range(args.procs)]
     rows = []
-    try:
+    with _busy_host(args.procs):
         for i in range(args.runs):
             run_root = os.path.join(root, f"run{i}")
             os.makedirs(run_root)
@@ -4914,16 +5052,103 @@ def fleet_load_main(argv):
             emit({"phase": "fleet_hop", "run": i, "load_procs": args.procs, **meter.row()})
             if profile_dir:
                 _emit_fleet_profile(i, args, meter, profile_dir, card)
-    finally:
-        for p in busy:
-            p.send_signal(signal.SIGKILL)
-        for p in busy:
-            p.wait()
     passed = sum(r["ok"] for r in rows)
     emit({"phase": "fleet_load", "tree": mod.__file__, "load_procs": args.procs,
           "cpus": os.cpu_count(), "runs": args.runs, "passed": passed, "rows": rows,
           "card": card})
     return 0 if passed == args.runs and drill_ok else 1
+
+
+#: ``--gate-load``'s phases: the three timing-gated phases of sections 19,
+#: 21 and 22, each run as ``fn(module, scratch root, card)``.
+GATE_PHASES = {
+    "freshness_drill": lambda mod, root, card: mod.freshness_drill_phase(root, card),
+    "profiler_overhead": lambda mod, root, card: mod.profiler_overhead_phase(card),
+    "autoscale_storm": lambda mod, root, card: mod.autoscale_storm_phase(card),
+}
+GATE_LOAD = dict(procs=6, runs=5)
+
+
+def _inject_profiler_cost(seconds):
+    """Busy work of ``seconds`` in every dispatch the profiler times (a
+    patch of the imported package's ``DispatchProfiler.call``, never a
+    switch in it): a known cost the profiler gate must fail on."""
+    from dist_svgd_torch.telemetry import profile
+
+    call = profile.DispatchProfiler.call
+
+    def costly_call(self, *args, **kwargs):
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            pass
+        return call(self, *args, **kwargs)
+
+    profile.DispatchProfiler.call = costly_call
+
+
+def gate_load_main(argv):
+    """``python3 chip_smoke.py --gate-load --phase NAME [--runs R] [--procs
+    P] [--tree DIR] [--ballast N] [--inject-us U]``: one of the timing-gated
+    phases (GATE_PHASES) ``R`` times while ``P`` busy processes load the
+    host, each run's row (the phase's own, then a ``gate_run`` row with
+    ``_HostState``'s block over the run, whatever the tree) and one
+    ``gate_load`` summary; exits 0 when every run passed.  ``--tree DIR``
+    runs another checkout's phase and package, as ``--fleet-load`` does;
+    ``--ballast N`` holds N gc-tracked objects through the runs, as a long
+    smoke process's heap holds them; ``--inject-us U`` adds U µs of busy
+    work to every dispatch the profiler times (``_inject_profiler_cost``),
+    the profiler gate's sensitivity check.  The kernels are built before
+    the first run, as section 2 builds them."""
+    import argparse
+    import shutil
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --gate-load")
+    ap.add_argument("--phase", required=True, choices=sorted(GATE_PHASES))
+    ap.add_argument("--runs", type=int, default=GATE_LOAD["runs"])
+    ap.add_argument("--procs", type=int, default=GATE_LOAD["procs"])
+    ap.add_argument("--tree", default=None)
+    ap.add_argument("--ballast", type=int, default=0)
+    ap.add_argument("--inject-us", type=float, default=0.0)
+    args = ap.parse_args(argv)
+    mod = _load_tree(args.tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from dist_svgd_torch.ops import _build
+    from dist_svgd_torch.utils.platform import resolve_device
+
+    resolve_device(None)
+    card = smi("name,power.limit")
+    print(card, flush=True)
+    _build.build(_build.SOURCES)
+    if args.inject_us:
+        _inject_profiler_cost(args.inject_us * 1e-6)
+    ballast = [[] for _ in range(args.ballast)]
+    root = str(Path(mod.__file__).resolve().parent / "build" / "chip_smoke_gate_load")
+    shutil.rmtree(root, ignore_errors=True)
+    rows = []
+    with _busy_host(args.procs):
+        for i in range(args.runs):
+            run_root = os.path.join(root, f"run{i}")
+            os.makedirs(run_root)
+            t0 = time.perf_counter()
+            with _HostState() as host:
+                try:
+                    GATE_PHASES[args.phase](mod, run_root, card)
+                    rows.append({"run": i, "ok": True})
+                except AssertionError as e:
+                    rows.append({"run": i, "ok": False, "error": str(e)[:600]})
+            rows[-1]["seconds"] = time.perf_counter() - t0
+            emit({"phase": "gate_run", "gate": args.phase, "run": i, **rows[-1],
+                  "load_procs": args.procs, "host": host.block()})
+    passed = sum(r["ok"] for r in rows)
+    emit({"phase": "gate_load", "gate": args.phase, "tree": mod.__file__,
+          "load_procs": args.procs, "cpus": os.cpu_count(), "ballast": len(ballast),
+          "inject_us": args.inject_us, "runs": args.runs, "passed": passed,
+          "rows": [{k: r[k] for k in ("run", "ok", "seconds")} for r in rows], "card": card})
+    return 0 if passed == args.runs else 1
 
 
 def _mh_sampler(leg, mesh, device):
@@ -7056,6 +7281,7 @@ def main():
     host_s = time.perf_counter() - t0
     launches_small = dict(cuda_svgd.launch_counts)
     dev_ms = start.elapsed_time(end)
+    SMOKE_CONTEXT["north_star_ms_per_step"] = 1e3 * host_s / ns["steps"]
     clocks = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     finite = bool(torch.isfinite(ds.particles).all())
     acc = float(ensemble_test_accuracy(ds.particles, x_test, t_test))
@@ -7372,7 +7598,11 @@ def main():
                 "phi_wide_d": launches_bnn["phi_wide_d"],
                 "phi_wide_d_bf16x3": launches_bnn_bf16["phi_wide_d_bf16x3"],
                 "phi_small_d_noexp": launches_tool["phi_small_d_noexp"]}
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    from dist_svgd_torch.parallel.plan import captures_total
+
+    # the graph captures this process made (none runs a full collection)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "graph_captures": captures_total()})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],
          "replaces": meta["replaces"], "launches": launches[name],
@@ -7391,4 +7621,6 @@ if __name__ == "__main__":
         sys.exit(multihost_worker(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--fleet-load"]:  # section 23's fleet under a host load
         sys.exit(fleet_load_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--gate-load"]:  # a timing-gated phase under a host load
+        sys.exit(gate_load_main(sys.argv[2:]))
     sys.exit(main())

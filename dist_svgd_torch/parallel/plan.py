@@ -67,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import threading
+import time
 import warnings
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -83,8 +84,8 @@ from dist_svgd_torch.analysis.registry import (
 from dist_svgd_torch.telemetry import profile as _profile
 from dist_svgd_torch.utils.platform import resolve_device
 
-__all__ = ["AXIS", "Mesh", "MeshProgram", "Plan", "Program", "ProgramEntry",
-           "ProgramRegistry", "ShardedEnsemble", "Sharding", "capture_sentry",
+__all__ = ["AXIS", "CAPTURE_PARTS", "Mesh", "MeshProgram", "Plan", "Program", "ProgramEntry",
+           "ProgramRegistry", "ShardedEnsemble", "Sharding", "capture_parts", "capture_sentry",
            "default_registry", "ensemble_tensor", "make_plan",
            "nondividing_replicate_warning", "use_registry", "visible_devices"]
 
@@ -198,17 +199,79 @@ def _fetch(out):
 #: nothing.
 _CAPTURE_LOCK = threading.Lock()
 
+#: What a capture spends, in order: the wait for :data:`_CAPTURE_LOCK`, the
+#: warm-up calls, the capture.
+CAPTURE_PARTS = ("lock_wait_s", "warmup_s", "capture_s")
+
+#: The calling thread's open :func:`capture_parts` record (a reload captures
+#: on its own thread while lanes serve).
+_PARTS = threading.local()
+
+
+@contextlib.contextmanager
+def capture_parts():
+    """Sum, over every CUDA-graph capture this thread makes inside the
+    block, the seconds of each of :data:`CAPTURE_PARTS`, with the count of
+    captures (``captures``).  Yields the dict, filled as captures end; an
+    inner block takes the captures made inside it."""
+    parts = dict.fromkeys(CAPTURE_PARTS, 0.0)
+    parts["captures"] = 0
+    outer = getattr(_PARTS, "record", None)
+    _PARTS.record = parts
+    try:
+        yield parts
+    finally:
+        _PARTS.record = outer
+
+
+def _note_capture_parts(*stamps) -> None:
+    record = getattr(_PARTS, "record", None)
+    if record is None:
+        return
+    for name, a, b in zip(CAPTURE_PARTS, stamps, stamps[1:]):
+        record[name] += b - a
+    record["captures"] += 1
+
+
+def _capture(graph, stream, fn, args):
+    """``fn(*args)`` captured into ``graph`` on ``stream``; returns the
+    static outputs.  The cyclic collector is off for the capture and back
+    as it was after it, also when the capture fails: a collection inside it
+    that frees a dropped program's graph resets that graph on the capturing
+    thread, which the capture refuses (cudaErrorStreamCaptureInvalidated)."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = fn(*args)
+            except BaseException:
+                try:  # close the broken capture; the original error is the one raised
+                    graph.capture_end()
+                except Exception:
+                    pass
+                raise
+            graph.capture_end()
+        return out
+    finally:
+        if collecting:
+            gc.enable()
+
 
 class _Graph:
     """One captured CUDA graph: static inputs, static outputs and a private
     memory pool (the graph's own).  :meth:`run` copies in and replays; its
     caller holds the lock that covers the copy-in, the replay and the fetch
-    of the outputs."""
+    of the outputs.  Its parts' seconds go to the thread's
+    :func:`capture_parts` record."""
 
     def __init__(self, fn: Callable, args, device: torch.device, warmup: int):
         self.lock = threading.Lock()
         self.device = device
+        t0 = time.perf_counter()
         with _CAPTURE_LOCK, torch.cuda.device(device), torch.no_grad():
+            t1 = time.perf_counter()
             self.static_in = [_to_device_tensor(a, device).clone() for a in args]
             stream = torch.cuda.Stream(device)
             stream.wait_stream(torch.cuda.current_stream(device))
@@ -216,30 +279,15 @@ class _Graph:
                 for _ in range(warmup):
                     fn(*self.static_in)
             stream.synchronize()
+            t2 = time.perf_counter()
+            # no full collection first (torch.cuda.graph's is opt-in for its
+            # cost): it scans the whole heap at every capture, and only a
+            # collection inside the capture harms it
             self.graph = torch.cuda.CUDAGraph()
-            # no cyclic collection inside the capture: one that frees a
-            # dropped program's graph there resets it on the capturing
-            # thread, which the capture refuses (cudaErrorStreamCapture-
-            # Invalidated); collect first instead, as torch.cuda.graph does
-            gc.collect()
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                with torch.cuda.stream(stream):
-                    self.graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        self.static_out = fn(*self.static_in)
-                    except BaseException:
-                        try:  # close the broken capture; the original error is the one raised
-                            self.graph.capture_end()
-                        except Exception:
-                            pass
-                        raise
-                    self.graph.capture_end()
-            finally:
-                if collecting:
-                    gc.enable()
+            self.static_out = _capture(self.graph, stream, fn, self.static_in)
             stream.synchronize()
+            t3 = time.perf_counter()
+        _note_capture_parts(t0, t1, t2, t3)
 
     def run(self, args):
         """Copy ``args`` into the static inputs (a copy from another card

@@ -73,7 +73,7 @@ import torch
 
 from dist_svgd_torch.models import bnn as bnn_model
 from dist_svgd_torch.models.logreg import posterior_predictive_prob
-from dist_svgd_torch.parallel.plan import Plan, ShardedEnsemble, ensemble_tensor
+from dist_svgd_torch.parallel.plan import Plan, ShardedEnsemble, capture_parts, ensemble_tensor
 from dist_svgd_torch.telemetry import metrics as _metrics
 from dist_svgd_torch.telemetry import trace as _trace
 from dist_svgd_torch.telemetry import usage as _usage
@@ -148,6 +148,26 @@ def _engine_spans(tid, t0, t1, pad0, pad1, disp0, disp1, rows, bucket, model, tr
                 "rows", rows, "bucket", bucket, "model", model)
                + (("trace", trace) if trace is not None else ()) + error(True))
     return out
+
+
+class _Laps:
+    """Charges the time since the previous mark to a named part, so every
+    instant from the start to the last mark lands in exactly one part and
+    the parts sum to :attr:`wall`."""
+
+    def __init__(self, clock=time.perf_counter):
+        self._clock = clock
+        self.start = self._last = clock()
+        self.parts: Dict[str, float] = {}
+
+    def mark(self, part: str) -> None:
+        now = self._clock()
+        self.parts[part] = self.parts.get(part, 0.0) + (now - self._last)
+        self._last = now
+
+    @property
+    def wall(self) -> float:
+        return self._last - self.start
 
 
 class PredictiveEngine:
@@ -271,6 +291,7 @@ class PredictiveEngine:
         self._hits = 0
         self._misses = 0
         self._reloads = 0
+        self.last_reload_parts: Optional[Dict[str, Any]] = None
         self._evictions = 0
         # generation identity: the cold-start ensemble is generation 1;
         # each admitted reload / staged candidate mints the next id.  The
@@ -783,12 +804,20 @@ class PredictiveEngine:
         The particle count may change; the particle width may not.
         Returns a summary dict; ``tag`` labels the generation in
         :meth:`stats`.  Runs inside a ``reload`` span, and an admitted
-        swap's wall lands in ``svgd_engine_reload_wall_s``.
+        swap's wall lands in ``svgd_engine_reload_wall_s``, its parts in
+        :attr:`last_reload_parts`: seconds by step (``check``, ``policy``,
+        ``place``, ``build``, ``warm``, ``swap`` — the engine lock's wait
+        included —, ``teardown`` of the generation the swap dropped,
+        ``finish``), which sum to ``wall_s``, and ``captures``: what the
+        warm calls' graph captures spent (``parallel/plan.py:
+        capture_parts``).
         """
-        t0 = time.perf_counter()
-        with _trace.span("reload", {"tag": tag}):
-            info = self._reload_inner(particles, warm=warm, tag=tag)
-        self._m_reload_wall.observe(time.perf_counter() - t0)
+        laps = _Laps()
+        with _trace.span("reload", {"tag": tag}), capture_parts() as captures:
+            info = self._reload_inner(particles, warm=warm, tag=tag, laps=laps)
+        laps.mark("finish")
+        self._m_reload_wall.observe(laps.wall)
+        self.last_reload_parts = {"wall_s": laps.wall, **laps.parts, "captures": captures}
         return info
 
     def _check_layout(self, particles, what: str) -> torch.Tensor:
@@ -802,11 +831,13 @@ class PredictiveEngine:
             )
         return cand
 
-    def _stage(self, particles: torch.Tensor, warm: bool, then) -> Dict[int, Any]:
+    def _stage(self, particles: torch.Tensor, warm: bool, then,
+               laps: _Laps) -> Dict[int, Any]:
         """Build (and warm) a program per live bucket over ``particles``
         outside the lock, then call ``then(new_kernels)`` under it once the
         staged set covers the live set (a predict may build a NEW bucket
-        while we warm — swapping without it would drop it)."""
+        while we warm — swapping without it would drop it).  ``laps``
+        charges each build and warm call."""
         warm_dtype = self._input_dtype(particles.dtype)
         new_kernels: Dict[int, Any] = {}
         with self._lock:
@@ -815,8 +846,10 @@ class PredictiveEngine:
             for b in buckets:
                 if b not in new_kernels:
                     fn = self._build_kernel(particles)
+                    laps.mark("build")
                     if warm:
                         fn(torch.zeros((b, self._feature_dim), dtype=warm_dtype))
+                        laps.mark("warm")
                     new_kernels[b] = fn
             with self._lock:
                 missing = [b for b in self._kernels if b not in new_kernels]
@@ -825,8 +858,9 @@ class PredictiveEngine:
             buckets = missing
 
     def _reload_inner(self, particles, *, warm: bool,
-                      tag: Optional[str]) -> Dict[str, Any]:
+                      tag: Optional[str], laps: _Laps) -> Dict[str, Any]:
         cand = self._check_layout(particles, "reload")
+        laps.mark("check")
         new_report = None
         if self._reload_policy is not None:
             new_report = self._reload_policy.evaluate(cand)
@@ -856,11 +890,16 @@ class PredictiveEngine:
                         # the hot reloader only handles that one
                         pass
                 raise EnsembleRejected(reasons, new_report)
+            laps.mark("policy")
         particles = self._place_ensemble(cand)
+        laps.mark("place")
+        dropped = []
 
         def swap(new_kernels):
             # keep the outgoing generation RESIDENT: rollback() is then one
-            # pointer exchange, never a checkpoint re-load
+            # pointer exchange, never a checkpoint re-load; the one it
+            # replaces is freed after the lock is released
+            dropped.extend((self._prev_particles, self._prev_kernels))
             self._prev_particles = self._particles
             self._prev_kernels = self._kernels
             self._prev_tag = self._ensemble_tag
@@ -876,7 +915,10 @@ class PredictiveEngine:
                 self._health_report = new_report
             return self._generation_id, sorted(new_kernels)
 
-        gen, warmed = self._stage(particles, warm, swap)
+        gen, warmed = self._stage(particles, warm, swap, laps)
+        laps.mark("swap")
+        dropped.clear()
+        laps.mark("teardown")
         self._m_reloads.inc(generation=str(gen), **self._tlabels)
         _trace.instant("engine.reload", {"tag": tag})
         return {"n_particles": int(particles.shape[0]), "warmed_buckets": warmed,
@@ -932,7 +974,7 @@ class PredictiveEngine:
             self._next_generation += 1
             return self._cand_generation, sorted(new_kernels)
 
-        gen, warmed = self._stage(particles, warm, install)
+        gen, warmed = self._stage(particles, warm, install, _Laps())
         _trace.instant("engine.stage_candidate", {"tag": tag, "generation": gen})
         return {"generation_id": gen, "warmed_buckets": warmed, "tag": tag}
 

@@ -74,6 +74,7 @@ from dist_svgd_torch.telemetry import profile as _profile
 from dist_svgd_torch.telemetry import usage as _usage
 from dist_svgd_torch.telemetry.diagnostics import ensemble_health
 from dist_svgd_torch.telemetry.slo import default_serving_slos
+from dist_svgd_torch.utils.collector import CollectorPauses
 
 
 def _platform(engine) -> str:
@@ -486,40 +487,120 @@ def _instruments(on, reg=None):
         _usage.disable_usage()
 
 
-def _instrument_cost_s(engine, rounds, calls, rows=16, seed=0):
-    """What the two instruments add to one batch on the batcher's dispatch
-    path: one client submits ``calls`` requests of ``rows`` rows back to
-    back (no coalescing window, so each is one batch), instruments off,
-    then on; the median over ``rounds`` such pairs of the per-batch
-    difference, in seconds."""
+def _instrument_timings(engine, rounds, calls, rows=16, seed=0):
+    """The A/B behind the instruments' gate: one client submits ``calls``
+    requests of ``rows`` rows back to back (no coalescing window, so each is
+    one batch) with the instruments off and on, in ``rounds`` rounds whose
+    order alternates (off then on, on then off, ...), so a host that drifts
+    within a round charges each arm in turn.  One dict a round: its
+    ``order``, each arm's seconds a batch (``off_s``, ``on_s``) and the
+    collector's pauses inside each arm (``gc_off``, ``gc_on``:
+    :meth:`CollectorPauses.summary`)."""
     x = np.random.default_rng(seed).normal(
         size=(rows, engine.feature_dim)).astype(np.float32)
     batcher = MicroBatcher(engine.predict, max_batch=rows, max_wait_ms=0.0,
                            registry=telemetry.MetricsRegistry())
 
     def per_batch():
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            batcher.submit(x).result()
-        return (time.perf_counter() - t0) / calls
+        with CollectorPauses() as pauses:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                batcher.submit(x).result()
+            secs = (time.perf_counter() - t0) / calls
+        return secs, pauses.summary()
 
-    deltas = []
+    def arm(on):
+        if not on:
+            return per_batch()
+        _instruments(True, telemetry.MetricsRegistry())
+        try:
+            return per_batch()
+        finally:
+            _instruments(False)
+
+    timings = []
     try:
-        per_batch()  # warm the batcher's thread and the bucket
-        for _ in range(rounds):
-            off = per_batch()
-            _instruments(True, telemetry.MetricsRegistry())
-            try:
-                on = per_batch()
-            finally:
-                _instruments(False)
-            deltas.append(on - off)
+        arm(False)  # warm the batcher's thread, the bucket and both arms' code
+        arm(True)
+        for i in range(rounds):
+            order = ("off", "on") if i % 2 == 0 else ("on", "off")
+            timing = {"order": "/".join(order)}
+            for name in order:
+                timing[f"{name}_s"], timing[f"gc_{name}"] = arm(name == "on")
+            timings.append(timing)
     finally:
         batcher.close()
-    return float(np.median(deltas))
+    return timings
 
 
-def measure_profiler_overhead(rounds=3, dispatch_calls=500, **kw):
+def _instrument_estimate(timings):
+    """The instruments' added seconds a batch from
+    :func:`_instrument_timings`' rounds: each round's on − off, averaged
+    over each two adjacent rounds (run in opposite orders, so a drift
+    linear over the two cancels), and the median of those means (a single
+    spiked round moves two of them)."""
+    deltas = [t["on_s"] - t["off_s"] for t in timings]
+    return float(np.median([(a + b) / 2 for a, b in zip(deltas, deltas[1:])] or deltas))
+
+
+def _instrument_cost_s(engine, rounds, calls, rows=16, seed=0):
+    """What the two instruments add to one batch on the batcher's dispatch
+    path, in seconds: :func:`_instrument_estimate` of
+    :func:`_instrument_timings`."""
+    return _instrument_estimate(_instrument_timings(engine, rounds, calls, rows, seed))
+
+
+def _instrument_hook_s(engine, calls, rows=16, seed=0):
+    """The A/B's cross-check: the instruments' own seconds a batch, timed
+    inside their hooks (the profiler's ``call`` less the dispatch it wraps,
+    and the meter's ``record_batch``) over ``calls`` batches with both on,
+    outside the A/B's rounds."""
+    x = np.random.default_rng(seed).normal(
+        size=(rows, engine.feature_dim)).astype(np.float32)
+    spent = [0.0]
+    prof_call = _profile.DispatchProfiler.call
+    record_batch = _usage.UsageMeter.record_batch
+
+    def timed_call(self, entry, compiled, args, kwargs):
+        inner = [0.0]
+
+        def timed_compiled(*a, **k):
+            t = time.perf_counter()
+            try:
+                return compiled(*a, **k)
+            finally:
+                inner[0] += time.perf_counter() - t
+
+        t = time.perf_counter()
+        try:
+            return prof_call(self, entry, timed_compiled, args, kwargs)
+        finally:
+            spent[0] += time.perf_counter() - t - inner[0]
+
+    def timed_record(self, **kw):
+        t = time.perf_counter()
+        try:
+            return record_batch(self, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t
+
+    batcher = MicroBatcher(engine.predict, max_batch=rows, max_wait_ms=0.0,
+                           registry=telemetry.MetricsRegistry())
+    _profile.DispatchProfiler.call = timed_call
+    _usage.UsageMeter.record_batch = timed_record
+    _instruments(True, telemetry.MetricsRegistry())
+    try:
+        for _ in range(calls):
+            batcher.submit(x).result()
+    finally:
+        _instruments(False)
+        _profile.DispatchProfiler.call = prof_call
+        _usage.UsageMeter.record_batch = record_batch
+        batcher.close()
+    return spent[0] / calls
+
+
+def measure_profiler_overhead(rounds=3, dispatch_calls=500, dispatch_rounds=None, **kw):
     """A/B the dispatch profiler's and the usage meter's cost on the
     serve path over ONE warmed engine, two ways.
 
@@ -528,12 +609,17 @@ def measure_profiler_overhead(rounds=3, dispatch_calls=500, **kw):
     between rounds).  On a shared host that spread (7–18% between rounds
     of one call on an H100 machine) is wider than the 3% it should resolve, so the gate reads a second,
     direct measurement: the instruments' added seconds a batch on the
-    batcher's dispatch path (:func:`_instrument_cost_s`, ``rounds`` pairs of
-    ``dispatch_calls`` batches) times the closed loop's batches a second
-    (its best off round) — the share of the serial dispatch thread's time
-    they take (``dispatch_overhead_frac``, held to
-    :data:`PROFILER_OVERHEAD_GATE`).  Returns the ``profiler_overhead`` row
-    with the programs' attribution from the last 'on' closed-loop round."""
+    batcher's dispatch path (:func:`_instrument_estimate` over
+    :func:`_instrument_timings`' ``dispatch_rounds`` rounds, ``rounds`` by
+    default, of ``dispatch_calls`` batches an arm, the order alternating)
+    times the closed loop's batches
+    a second (its best off round) — the share of the serial dispatch
+    thread's time they take (``dispatch_overhead_frac``, held to
+    :data:`PROFILER_OVERHEAD_GATE`).  Beside it: each round's timings, the
+    collector's pauses in each arm, and the instruments' own time a batch
+    timed inside their hooks (:func:`_instrument_hook_s`), a cross-check
+    the gate does not read.  Returns the ``profiler_overhead`` row with the
+    programs' attribution from the last 'on' closed-loop round."""
     engine = _ab_engine(kw)
     laps = {"off": [], "on": []}
     batch_rate = 0.0
@@ -553,8 +639,14 @@ def measure_profiler_overhead(rounds=3, dispatch_calls=500, **kw):
     overhead = (1.0 - best["on"] / best["off"]) if best["off"] > 0 else 0.0
     spread = max(((max(v) - min(v)) / max(v) for v in laps.values() if v and max(v) > 0),
                  default=0.0)
-    cost_s = _instrument_cost_s(engine, rounds, dispatch_calls)
+    timings = _instrument_timings(engine, dispatch_rounds or rounds, dispatch_calls)
+    cost_s = _instrument_estimate(timings)
+    hook_s = _instrument_hook_s(engine, dispatch_calls)
     dispatch_overhead = cost_s * batch_rate
+    gc_arms = {arm: {"count": sum(t[f"gc_{arm}"]["count"] for t in timings),
+                     "sum_ms": round(sum(t[f"gc_{arm}"]["sum_ms"] for t in timings), 3),
+                     "max_ms": round(max(t[f"gc_{arm}"]["max_ms"] for t in timings), 3)}
+               for arm in ("off", "on")}
     return {
         "metric": "profiler_overhead",
         "rounds": rounds,
@@ -565,6 +657,10 @@ def measure_profiler_overhead(rounds=3, dispatch_calls=500, **kw):
         "rps_enabled_rounds": [round(v, 1) for v in laps["on"]],
         "round_spread_frac": round(spread, 4),
         "instrument_us_per_batch": round(1e6 * cost_s, 3),
+        "instrument_rounds": [{"order": t["order"], "off_us": round(1e6 * t["off_s"], 3),
+                               "on_us": round(1e6 * t["on_s"], 3)} for t in timings],
+        "instrument_hook_us_per_batch": round(1e6 * hook_s, 3),
+        "gc_pauses": gc_arms,
         "batches_per_s": round(batch_rate, 1),
         "dispatch_overhead_frac": round(dispatch_overhead, 4),
         "gate": PROFILER_OVERHEAD_GATE,

@@ -46,6 +46,7 @@ Usage (the card unless ``--device cpu``)::
 """
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -77,6 +78,14 @@ WARM_SETTLE_S = 4.0
 PROBE_GAP_S = 0.75
 PROBE_SETTLE_S = 2.0
 ARM_SETTLE_S = 1.0
+
+#: The card's capacity probe (:func:`_steady_rows_capacity`): each sample
+#: counts completions over this many seconds once every client runs, and a
+#: client whose request is shed waits this long before its next one (a
+#: refused closed-loop client would otherwise spin on the interpreter lock
+#: the serving threads need).
+CARD_PROBE_WINDOW_S = 1.0
+PROBE_SHED_BACKOFF_S = 0.001
 
 
 # --------------------------------------------------------------------- #
@@ -568,6 +577,12 @@ def build_fake_fleet(replicas=3, *, max_replica_rows=64, tenants=(),
 # the serve_storm row
 
 
+def _rows_of(item):
+    """Rows of a probe pool's item: an array, or a ``(tenant, array)`` pair."""
+    arr = item[1] if isinstance(item, tuple) else item
+    return arr.shape[0]
+
+
 def _saturated_rows_capacity(submit, pool, *, sustainable_frac=0.55,
                              clients=24, requests=360):
     """Throughput-anchored capacity probe: a saturated closed loop over
@@ -579,11 +594,7 @@ def _saturated_rows_capacity(submit, pool, *, sustainable_frac=0.55,
     bound has to), and a big-request-only probe over-reads the mixed
     ceiling (big batches amortise the per-REQUEST host cost that binds
     the steady mix), so the probe replays the real mix."""
-    def rows_of(item):
-        arr = item[1] if isinstance(item, tuple) else item
-        return arr.shape[0]
-
-    mean_rows = sum(rows_of(it) for it in pool) / len(pool)
+    mean_rows = sum(_rows_of(it) for it in pool) / len(pool)
     # the median of five spaced samples: a host's speed swings on a
     # seconds timescale, and one sample would anchor a whole storm to
     # whichever extreme it landed on
@@ -596,6 +607,94 @@ def _saturated_rows_capacity(submit, pool, *, sustainable_frac=0.55,
             time.sleep(PROBE_GAP_S)
     samples.sort()
     return sustainable_frac * samples[2] * mean_rows
+
+
+def _steady_window(starts, finishes, completions):
+    """A closed loop's rows a second over its steady window: from the last
+    client's start to the first client's finish, counting the rows of the
+    completions (``(time, rows)`` pairs) inside it; thread start-up and the
+    ragged end fall outside.  Returns ``(rows_per_s, window_s, rows)``."""
+    t0, t1 = max(starts), min(finishes)
+    rows = sum(r for t, r in completions if t0 <= t <= t1)
+    return (rows / (t1 - t0) if t1 > t0 else 0.0), t1 - t0, rows
+
+
+def _steady_sample(submit, pool, clients, window_s, clock=time.perf_counter):
+    """One closed-loop sample: ``clients`` threads each submit ``pool``'s
+    requests back to back (the next once the last resolved; a shed one
+    skipped after :data:`PROBE_SHED_BACKOFF_S`), all released together once
+    every one has started, until told to stop ``window_s`` later.  Returns the
+    :func:`_steady_window` reading (``rows_per_s``, ``window_s``, ``rows``)
+    with the sample's whole wall, its completions and sheds, and its rows
+    over the whole wall (``whole_rows_per_s``: start-up included, as a
+    fixed-count sample reads it)."""
+    started = threading.Barrier(clients + 1)
+    stop = threading.Event()
+    starts, finishes = [0.0] * clients, [0.0] * clients
+    done = [[] for _ in range(clients)]
+    shed = [0] * clients
+
+    def worker(k):
+        starts[k] = clock()
+        started.wait()
+        i = k
+        while not stop.is_set():
+            item = pool[i % len(pool)]
+            i += clients
+            try:
+                submit(item).result(timeout=60)
+            except Overloaded:
+                shed[k] += 1
+                time.sleep(PROBE_SHED_BACKOFF_S)
+                continue
+            done[k].append((clock(), _rows_of(item)))
+        finishes[k] = clock()
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(clients)]
+    t_start = clock()
+    for t in threads:
+        t.start()
+    started.wait()
+    time.sleep(window_s)
+    stop.set()
+    for t in threads:
+        t.join()
+    wall = clock() - t_start
+    completions = [c for d in done for c in d]
+    rate, window, rows = _steady_window(starts, finishes, completions)
+    return {"rows_per_s": rate, "window_s": window, "rows": rows, "wall_s": wall,
+            "completed": len(completions), "shed": sum(shed),
+            "whole_rows_per_s": sum(r for _, r in completions) / wall if wall > 0 else 0.0}
+
+
+def _steady_rows_capacity(submit, pool, *, sustainable_frac=0.55, clients=24,
+                          window_s=None, samples=5, log=None):
+    """The card's capacity probe: :func:`_saturated_rows_capacity`'s anchor
+    (``sustainable_frac`` of the median of five spaced samples of a
+    saturated closed loop over the mix) with each sample counted over its
+    steady window (:func:`_steady_sample`, :data:`CARD_PROBE_WINDOW_S`
+    long), where a sample of a fixed few requests a client is mostly its
+    threads' start and join on the card.  ``log``, a list, gets the
+    samples and the anchor."""
+    window_s = CARD_PROBE_WINDOW_S if window_s is None else window_s
+    readings = []
+    for i in range(samples):
+        readings.append(_steady_sample(submit, pool, clients, window_s))
+        if i < samples - 1:
+            time.sleep(PROBE_GAP_S)
+    anchor = sustainable_frac * float(np.median([r["rows_per_s"] for r in readings]))
+    if log is not None:
+        log.append({"samples": readings, "anchor_rows_per_s": anchor})
+    return anchor
+
+
+def default_capacity_probe(device, requests):
+    """The probe :func:`run_storm` anchors on: JAX's
+    :func:`_saturated_rows_capacity` (samples of ``requests // 3``
+    requests) on the CPU, :func:`_steady_rows_capacity` on the card."""
+    if device.type == "cuda":
+        return _steady_rows_capacity
+    return functools.partial(_saturated_rows_capacity, requests=requests)
 
 
 def default_lanes_max() -> int:
@@ -689,15 +788,11 @@ def run_storm(model="logreg", n_particles=4000, n_features=54, seed=0,
                    for _ in range(96)]
     steady_pool = [(names[i % len(names)], pools[r][i % len(pools[r])])
                    for i, r in enumerate(probe_sizes)]
-    probe_requests = max(min(calib_requests, 240), 120)
-    capacity_rows = _saturated_rows_capacity(
-        lambda item: reg.submit(item[0], item[1]), steady_pool,
-        requests=probe_requests)
+    probe = default_capacity_probe(dev, max(min(calib_requests, 240), 120))
+    capacity_rows = probe(lambda item: reg.submit(item[0], item[1]), steady_pool)
     big = max(flash_rows_sizes)
     hog_pool = [(hog, pools[big][i % len(pools[big])]) for i in range(48)]
-    hog_capacity_rows = _saturated_rows_capacity(
-        lambda item: reg.submit(item[0], item[1]), hog_pool,
-        requests=probe_requests)
+    hog_capacity_rows = probe(lambda item: reg.submit(item[0], item[1]), hog_pool)
     time.sleep(PROBE_SETTLE_S)
     mean_rows = sum(r * p for r, p in zip(rows_sizes, size_probs))
     capacity_rps = capacity_rows / mean_rows

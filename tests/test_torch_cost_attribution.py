@@ -360,8 +360,9 @@ def test_profiler_overhead_row_holds_each_round_and_the_gate():
 
 def test_instrument_cost_times_both_instruments_on_the_dispatch_path(monkeypatch):
     """The direct half of the A/B: each round's 'on' block runs with the
-    profiler and the meter enabled and the 'off' block with neither; the
-    result is the median of the per-batch differences."""
+    profiler and the meter enabled and the 'off' block with neither, the
+    order alternating round by round; the result is the median over
+    adjacent rounds of the per-batch differences."""
     from dist_svgd_torch.tools import serve_bench
 
     seen = []
@@ -376,8 +377,10 @@ def test_instrument_cost_times_both_instruments_on_the_dispatch_path(monkeypatch
                                       device="cpu")
     cost = serve_bench._instrument_cost_s(engine, rounds=3, calls=4, rows=8)
     assert isinstance(cost, float)
-    # a warm-up block, then three (off, on) pairs of four batches each
-    assert seen == [(False, False)] * 4 + ([(False, False)] * 4 + [(True, True)] * 4) * 3
+    # a warm-up block of each arm, then three rounds of four batches an
+    # arm: off/on, on/off, off/on
+    off, on = [(False, False)] * 4, [(True, True)] * 4
+    assert seen == off + on + off + on + on + off + off + on
     assert profile_mod._PROFILER is None and not usage_mod.usage_enabled()
 
 
